@@ -1,0 +1,56 @@
+"""Command-line entry point: the ``variants-pca`` verb, with the JAX
+package's flag grammar plus ``--device``:
+
+    python -m spark_examples_tpu_torch variants-pca --references 17:41196311:41277499
+    python -m spark_examples_tpu_torch variants-pca --num-samples 16 --device cpu
+
+The JAX package's other verbs are not ported yet; they exit with code 2.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional, Sequence
+
+from spark_examples_tpu_torch.pipeline import pca_driver
+
+#: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
+#: the port does not run yet.
+NOT_PORTED = (
+    "grm",
+    "ld-prune",
+    "assoc-scan",
+    "graftcheck",
+    "serve",
+    "submit",
+    "trace",
+    "obs",
+    "search-variants-klotho",
+    "search-variants-brca1",
+    "search-reads-example-1",
+    "search-reads-example-2",
+    "search-reads-example-3",
+    "search-reads-example-4",
+)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m spark_examples_tpu_torch variants-pca [flags]")
+        print("commands:")
+        print("  variants-pca")
+        return 0
+    command, rest = argv[0], argv[1:]
+    if command in NOT_PORTED:
+        print(f"{command}: not yet ported to PyTorch", file=sys.stderr)
+        return 2
+    if command != "variants-pca":
+        print(f"unknown command: {command}", file=sys.stderr)
+        return 2
+    pca_driver.run(rest)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
