@@ -2,9 +2,11 @@
 
 A second package beside the JAX one, which stays the reference. It runs the
 flagship ``variants-pca`` pipeline on one NVIDIA Hopper card: the synthetic
-1000 Genomes cohort is generated on the card and its Gramian accumulated by
-hand-written CUDA kernels (``csrc/devicegen.cu``), then centered and
-eigendecomposed with PyTorch. It imports neither JAX nor the JAX package.
+1000 Genomes cohort is generated on the card (``csrc/devicegen.cu``) or fed
+from the host as packed blocks or wire records (``csrc/gramian.cu``
+unpacks them), its Gramian accumulated by hand-written CUDA kernels, then
+centered and eigendecomposed with PyTorch; ``api.py`` exposes the stages.
+It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` / ``--device cpu``), where every kernel runs its plain

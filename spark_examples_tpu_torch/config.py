@@ -9,10 +9,10 @@ one argv parses identically in both packages. Two values differ:
 - ``--device {cuda,cpu}`` (default ``cuda``) is the one added flag: where
   the port's tensors live. ``cpu`` runs the kernels' plain PyTorch versions.
 
-The port runs one path so far: synthetic source, device-generation ingest,
-dense strategy, one device. A flag that belongs to any other path raises
-:class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
-is never silently ignored.
+The port runs the synthetic source's three ingest arms (device generation,
+packed, wire), dense strategy, one device. A flag that belongs to any other
+path raises :class:`NotImplementedError` naming the flag
+(:func:`check_ported`), so it is never silently ignored.
 """
 
 from __future__ import annotations
@@ -71,7 +71,10 @@ def build_pca_parser(
                    help="Genomics backend to stream from.")
     p.add_argument("--input-files", default=None)
     p.add_argument("--stream-chunk-bytes", type=int, default=None)
-    p.add_argument("--ingest-workers", type=int, default=None)
+    p.add_argument("--ingest-workers", type=int, default=None,
+                   help="Packed ingest: >= 1 builds blocks on a prefetch "
+                   "thread and keeps two flushes in flight; 0 is the serial "
+                   "path. Default: min(8, cpu_count).")
     p.add_argument("--num-samples", type=_num_samples_value, default="2504",
                    help="Synthetic-source cohort size; a comma-separated list "
                    "gives per-variant-set sizes, zipped with --variant-set-id.")
@@ -97,12 +100,16 @@ def build_pca_parser(
                    "oracle of the reference algorithm.")
     p.add_argument("--mesh-shape", default=None)
     p.add_argument("--block-size", type=int, default=1024,
-                   help="Sites per generation block (one gen_genotypes and one "
-                   "gram_accumulate launch each).")
+                   help="Sites per device block: one generation block, or one "
+                   "host-fed flush of variant rows.")
     p.add_argument("--ingest", choices=["auto", "device", "packed", "wire"],
                    default="auto",
-                   help="Genotype ingest path; 'auto' and 'device' generate the "
-                   "synthetic data plane on the device fused with the Gramian.")
+                   help="Genotype ingest path: 'device' generates the synthetic "
+                   "data plane on the device fused with the Gramian; 'packed' "
+                   "ships host-built bit-packed genotype blocks; 'wire' pages "
+                   "variant records and joins variant sets on the host; 'auto' "
+                   "is device for distinct variant sets on the gpu backend, "
+                   "wire otherwise.")
     p.add_argument("--fused-jobs", type=int, default=None, metavar="K",
                    help="Plan-time directive of the reference; a batch run "
                    "ignores it.")
@@ -118,8 +125,7 @@ def build_pca_parser(
     p.add_argument("--similarity-strategy", choices=["auto", "dense", "sharded"],
                    default="auto")
     p.add_argument("--num-workers", type=int, default=8,
-                   help="Host threads of the wire ingest; device generation "
-                   "does not use them.")
+                   help="Host threads of the wire ingest's shard pool.")
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--save-variants", default=None, metavar="PATH")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -196,6 +202,11 @@ class PcaConf:
                 f"length, got {conf.blocks_per_dispatch} (omit the flag for "
                 "the auto rule)"
             )
+        if conf.ingest_workers is not None and conf.ingest_workers < 0:
+            raise ValueError(
+                f"--ingest-workers must be >= 0 (0 = serial oracle path), "
+                f"got {conf.ingest_workers}"
+            )
         if conf.num_samples_per_set and len(set(conf.variant_set_id)) != len(
             conf.variant_set_id
         ):
@@ -233,7 +244,6 @@ _UNPORTED = (
     ("input_path", "--input-path", None),
     ("input_files", "--input-files", None),
     ("stream_chunk_bytes", "--stream-chunk-bytes", None),
-    ("ingest_workers", "--ingest-workers", None),
     ("heartbeat_seconds", "--heartbeat-seconds", 0.0),
     ("metrics_json", "--metrics-json", None),
     ("trace_dir", "--trace-dir", None),
@@ -255,30 +265,20 @@ _UNPORTED = (
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet (sources other than synthetic, host-fed ingest,
-    telemetry files, checkpointing, multi-host, meshes and rings)."""
+    does not run yet (sources other than synthetic, telemetry files,
+    checkpointing, multi-host, meshes and rings)."""
     for name, flag, unused in _UNPORTED:
         value = getattr(conf, name)
         if value != unused:
             raise NotImplementedError(
                 f"{flag} {value!r}: this path is not ported to PyTorch yet "
-                "(the port runs synthetic device-generation ingest, dense "
-                "strategy, one device)"
+                "(the port runs the synthetic source's device, packed and "
+                "wire ingest, dense strategy, one device)"
             )
-    if conf.ingest in ("packed", "wire"):
-        raise NotImplementedError(
-            f"--ingest {conf.ingest}: host-fed ingest is not ported to "
-            "PyTorch yet (use --ingest device or auto)"
-        )
     if conf.similarity_strategy == "sharded":
         raise NotImplementedError(
             "--similarity-strategy sharded: the sharded ring is not ported "
             "to PyTorch yet (use dense or auto)"
-        )
-    if len(set(conf.variant_set_id)) != len(conf.variant_set_id):
-        raise NotImplementedError(
-            "--variant-set-id with duplicate ids needs the wire ingest's "
-            "same-set join, which is not ported to PyTorch yet"
         )
 
 

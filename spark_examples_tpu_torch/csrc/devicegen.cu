@@ -24,9 +24,9 @@
 //   stores them as one 32-bit word of Xᵀ (columns × sites, int8, sites
 //   contiguous), so both operands of the product read along K. Counters:
 //   warp ballots and one atomic per warp.
-//   Bound: its u32 operations, about 14 per genotype at the integer rate of
-//   64 per SM per clock, take longer than writing Xᵀ; the u64 site work is
-//   O(sites) and amortised over every column.
+//   Bound: its u32 operations, about 14 per genotype at the SM's issue
+//   rate of 128 32-bit instructions per clock, take longer than writing
+//   Xᵀ; the u64 site work is O(sites) and amortised over every column.
 //
 // gram_accumulate_kernel — G[i, j] += Σ_s Xᵀ[i, s]·Xᵀ[j, s] into the
 //   resident int32 G. Bound: the int8 tensor-core rate (N·(N+1)·sites

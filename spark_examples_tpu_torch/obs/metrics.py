@@ -2,7 +2,7 @@
 
 The subset of ``spark_examples_tpu/obs/metrics.py`` the port's driver uses:
 one :class:`MetricsRegistry` per run, the well-known gauge names the
-device-generation arm publishes, and the I/O counters behind
+ingest arms publish, and the I/O counters behind
 ``pipeline/stats.py``. Registration is idempotent: asking for an existing
 name with the same type returns the existing metric; a mismatch raises.
 """
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import re
 import threading
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Union
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
@@ -22,6 +22,9 @@ class MetricError(ValueError):
 
 INGEST_SITES_SCANNED = "ingest_sites_scanned"
 INGEST_PARTITIONS_PLANNED = "ingest_partitions_planned"
+INGEST_PARTITIONS_DONE = "ingest_partitions_done"
+PREFETCH_QUEUE_DEPTH = "prefetch_queue_depth"
+PREFETCH_QUEUE_OCCUPANCY = "prefetch_queue_occupancy"
 DEVICEGEN_DISPATCHES = "devicegen_dispatches"
 DEVICEGEN_SITES_CAPACITY = "devicegen_sites_capacity"
 IO_PARTITIONS_TOTAL = "io_partitions_total"
@@ -29,6 +32,9 @@ IO_PARTITIONS_TOTAL = "io_partitions_total"
 _WELL_KNOWN_GAUGE_HELP = {
     INGEST_SITES_SCANNED: "Candidate sites scanned so far.",
     INGEST_PARTITIONS_PLANNED: "Shard windows this run will process.",
+    INGEST_PARTITIONS_DONE: "Shard windows fully ingested so far.",
+    PREFETCH_QUEUE_DEPTH: "Bound of the prefetch queue.",
+    PREFETCH_QUEUE_OCCUPANCY: "Parsed blocks currently waiting in the prefetch queue.",
     DEVICEGEN_DISPATCHES: "Fused generate+accumulate dispatch groups issued.",
     DEVICEGEN_SITES_CAPACITY: (
         "Site-grid capacity of every dispatch group issued (padding "
@@ -71,11 +77,30 @@ class Counter(_Metric):
 
 
 class Gauge(_Metric):
-    """Settable value."""
+    """Settable value, or a function sampled on every read."""
+
+    def __init__(self, name: str, help_text: str):
+        super().__init__(name, help_text)
+        self._fn: Optional[Callable[[], float]] = None
 
     def set(self, value: float) -> None:
         with self._lock:
+            self._fn = None
             self._value = float(value)
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        """Sample ``fn`` on every read: the gauge tracks live state without
+        its owner pushing updates."""
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+            if fn is None:
+                return self._value
+        return float(fn())
 
 
 class MetricsRegistry:
@@ -114,10 +139,13 @@ class MetricsRegistry:
 __all__ = [
     "DEVICEGEN_DISPATCHES",
     "DEVICEGEN_SITES_CAPACITY",
+    "INGEST_PARTITIONS_DONE",
     "INGEST_PARTITIONS_PLANNED",
     "INGEST_SITES_SCANNED",
     "IO_PARTITIONS_TOTAL",
     "MetricError",
     "MetricsRegistry",
+    "PREFETCH_QUEUE_DEPTH",
+    "PREFETCH_QUEUE_OCCUPANCY",
     "well_known_gauge",
 ]

@@ -3,7 +3,8 @@
 A :class:`SpanRecorder` holds a tree of named, timed spans (the subset of
 ``spark_examples_tpu/obs/spans.py`` the port's driver uses). The driver
 opens coarse stages (``ingest+similarity``, ``center+pca``); the PCA stage
-nests its ``center``/``eigh`` children under them.
+nests its ``center``/``eigh`` children under them, and host-fed ingest its
+``dispatch``, ``reduce-flush`` and ``chunk-parse`` children.
 
 Kernel launches are asynchronous, so a span's wall time is only meaningful
 when it ends in a synchronisation: ``span(..., sync=fn)`` calls ``fn``
@@ -86,6 +87,13 @@ class SpanRecorder:
                         del stack[stack.index(span):]
                     if not stack:
                         self._stacks.pop(tid, None)
+
+    def add(self, name: str, seconds: float, synced: bool = False) -> None:
+        """Attach a pre-measured duration (an aggregate timed elsewhere,
+        e.g. the total host time of the Gramian flushes) as a closed span."""
+        span = Span(name, synced=synced)
+        span.seconds = float(seconds)
+        self._attach(span)
 
     # -------------------------------------------------------------- exports
 

@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -28,28 +28,43 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("devicegen.cu",)
+SOURCES = ("devicegen.cu", "gramian.cu", "probes.cu")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 _U64 = ctypes.c_uint64
 
-#: C signatures of every launcher: name → (argtypes).
+#: C signatures of each source's functions: source → name → argtypes.
 _SIGNATURES = {
-    "gen_genotypes_launch": (
-        _P, _P, _P, _P, _P, _P, _P,  # xt, kept, rows, vs_keys, fsamp, set, pop
-        _I64, _I64, _I64,  # grid_offset, n_valid, spacing
-        _U64, _U64, _I32, _U64,  # site_key, ref_thresh, has_min_af, min_af
-        _I32, _I32, _I32, _I32, _I32,  # n_pops, n_sets, n_cols, n_cols_pad, ld
-        _P,  # stream
-    ),
-    "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _P),
-    "devicegen_site_tile": (),
-    "devicegen_col_tile": (),
-    "devicegen_max_pops": (),
-    "devicegen_max_sets": (),
+    "devicegen.cu": {
+        "gen_genotypes_launch": (
+            _P, _P, _P, _P, _P, _P, _P,  # xt, kept, rows, vs_keys, fsamp, set, pop
+            _I64, _I64, _I64,  # grid_offset, n_valid, spacing
+            _U64, _U64, _I32, _U64,  # site_key, ref_thresh, has_min_af, min_af
+            _I32, _I32, _I32, _I32, _I32,  # n_pops, n_sets, n_cols, n_cols_pad, ld
+            _P,  # stream
+        ),
+        "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _P),
+        "devicegen_site_tile": (),
+        "devicegen_col_tile": (),
+        "devicegen_max_pops": (),
+        "devicegen_max_sets": (),
+    },
+    "gramian.cu": {
+        # in, rows, in_width, n_cols, packed, xt, n_pad, ld, stream
+        "unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P),
+        "gramian_tile_sites": (),
+    },
+    "probes.cu": {
+        "probe_op_chain_launch": (_P, _P, _I64, _I32, _P),  # in, out, n, op, stream
+        "scratch_copy_launch": (_P, _P, _I32, _P, _P),  # in, out, nbytes, refused, stream
+        "max_shared_memory_optin": (_I32,),  # device
+        "probes_rounds": (),
+        "probes_tile_bytes": (),
+    },
 }
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -72,24 +87,38 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing; raises with the
-    compiler's output when a build fails. Returns source → library path."""
-    out = {source: library_path(source) for source in SOURCES}
+def build(sources: Iterable[str]) -> Dict[str, Path]:
+    """Compile each of ``sources`` whose library is missing, one ``nvcc``
+    per source, all started together; raises with the compiler's output
+    when a build fails. Returns source → library path."""
+    out = {source: library_path(source) for source in sources}
+    builds = {}
     for source, path in out.items():
         if path.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        builds[source] = (proc, tmp, path)
+    failed = []
+    for source, (proc, tmp, path) in builds.items():
+        report, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
-        path.with_suffix(".log").write_text(proc.stdout)
+            failed.append(f"nvcc failed for {source}:\n{report}")
+            continue
+        path.with_suffix(".log").write_text(report)
         os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return out
+
+
+def build_all() -> Dict[str, Path]:
+    """:func:`build` of every source in ``SOURCES``."""
+    return build(SOURCES)
 
 
 def build_log(source: str = "devicegen.cu") -> str:
@@ -98,10 +127,10 @@ def build_log(source: str = "devicegen.cu") -> str:
 
 
 def library(source: str = "devicegen.cu") -> ctypes.CDLL:
-    """Load ``source``'s library, built first when missing, with the C
-    signatures of its functions declared."""
-    lib = ctypes.CDLL(str(build_all()[source]))
-    for name, argtypes in _SIGNATURES.items():
+    """Load ``source``'s library, built first when missing (only that
+    source), with the C signatures of its functions declared."""
+    lib = ctypes.CDLL(str(build((source,))[source]))
+    for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -115,4 +144,4 @@ def check(status: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {status}")
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "build_log", "check", "library"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "build_log", "check", "library"]

@@ -469,7 +469,7 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
 
 gram_accumulate.launches = 0  # type: ignore[attr-defined]
 
-#: Every kernel wrapper of the slice, for launch accounting.
+#: Every kernel wrapper of this module, for launch accounting.
 KERNELS = (gen_genotypes, gram_accumulate)
 
 

@@ -1,32 +1,47 @@
 """The flagship PCoA pipeline on one CUDA card: ``variants-pca``.
 
-The port of ``spark_examples_tpu/pipeline/pca_driver.py``'s main path
-(``VariantsPca.scala:45-336``): synthetic source → device-generation ingest
-fused with ``G += XᵀX`` (``ops/devicegen.py``, two hand-written CUDA
-kernels) → float64 Gower centering (``ops/centering.py``) → subspace
+The port of ``spark_examples_tpu/pipeline/pca_driver.py``
+(``VariantsPca.scala:45-336``): synthetic source → ingest and
+``G += XᵀX`` → float64 Gower centering (``ops/centering.py``) → subspace
 eigensolve (``ops/pca.py``) → the TSV rows and the "Variants API stats"
 epilogue. Every printed line but the PC values is identical to the JAX
 package's on the same argv.
 
+Three ingest arms, resolved from ``--ingest`` exactly as the reference
+resolves them (:func:`resolve_ingest`):
+
+- **device** (``auto`` for distinct variant sets): the card generates the
+  genotypes and accumulates G (``ops/devicegen.py``, two CUDA kernels);
+- **packed**: the host builds dense genotype blocks, and
+  ``ops/gramian.py:GramianAccumulator`` ships them bit-packed to the card,
+  unpacks them there and accumulates G (``unpack_rows_t`` +
+  ``gram_accumulate``);
+- **wire**: the host pages variant records through the source's client
+  (``pipeline/datasets.py``), joins multiple sets (``iter_calls``) and
+  feeds per-variant column-index rows to the same accumulator — the arm of
+  ``auto`` with duplicate variant-set ids, and of the host backend.
+
 Two PCA backends, as in the reference: ``gpu`` (the device pipeline) and
-``host`` (the NumPy replication of the reference algorithm, the oracle).
-Both ingest through device generation, the one ingest path ported so far.
+``host`` (the NumPy replication of the reference algorithm, the oracle,
+which ingests through the wire arm).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from spark_examples_tpu_torch.config import PcaConf, check_ported
+from spark_examples_tpu_torch.models.variant import Variant
 from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
 from spark_examples_tpu_torch.obs.metrics import (
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
+    INGEST_PARTITIONS_DONE,
     INGEST_PARTITIONS_PLANNED,
     INGEST_SITES_SCANNED,
     well_known_gauge,
@@ -36,15 +51,45 @@ from spark_examples_tpu_torch.ops.devicegen import (
     DeviceGenGramianAccumulator,
     auto_blocks_per_dispatch,
 )
+from spark_examples_tpu_torch.ops.gramian import GramianAccumulator, accumulate_index_rows
 from spark_examples_tpu_torch.ops.pca import (
     mllib_reference_pca,
     principal_components_subspace,
 )
+from spark_examples_tpu_torch.pipeline.datasets import (
+    PrefetchIterator,
+    VariantsDataset,
+    _parallel_shards,
+)
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
+from spark_examples_tpu_torch.sources import partition_page_requests
+from spark_examples_tpu_torch.sources.files import _resolve_ingest_workers
+from spark_examples_tpu_torch.sources.stream import MergeJoinStats, merge_join
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
-from spark_examples_tpu_torch.utils.af import af_filter_micro
-from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device
+from spark_examples_tpu_torch.utils.af import af_filter_micro, af_passes
+from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
+
+#: A similarity matrix: on the device (gpu backend) or a host array (host).
+Similarity = Union[torch.Tensor, np.ndarray]
+
+
+@dataclass(frozen=True)
+class CallData:
+    """``(hasVariation, callsetIndex)`` (``VariantsPca.scala:338``)."""
+
+    has_variation: bool
+    callset_id: int
+
+
+def extract_call_info(variant: Variant, mapping: Dict[str, int]) -> List[CallData]:
+    """``VariantsPcaDriver.extractCallInfo`` (``VariantsPca.scala:65-69``)."""
+    if variant.calls is None:
+        return []
+    return [
+        CallData(call.has_variation(), mapping[call.callset_id])
+        for call in variant.calls
+    ]
 
 
 def make_source(conf: PcaConf) -> SyntheticGenomicsSource:
@@ -71,11 +116,162 @@ class VariantsPcaDriver:
         self.registry = MetricsRegistry()
         self.spans = SpanRecorder()
         self.io_stats = VariantsDatasetStats(self.registry)
+        #: The accumulator of the last similarity stage (device or host-fed).
+        self.accumulator = None
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
         callsets = self.source.search_callsets(conf.variant_set_id)
         self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
         self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
         print(f"Matrix size: {len(self.indexes)}.")
+
+    # ------------------------------------------------------------------ data
+
+    def get_data(self) -> List[VariantsDataset]:
+        """One sharded dataset per variant set (``VariantsPca.scala:111-125``);
+        all datasets share one partitioner built from the flattened contig
+        list."""
+        contigs = self.conf.get_contigs(self.source, self.conf.variant_set_id)
+        partitioner = VariantsPartitioner(contigs, self.conf.bases_per_partition)
+        return [
+            VariantsDataset(
+                self.source,
+                variant_set_id,
+                partitioner,
+                stats=self.io_stats,
+                num_workers=self.conf.num_workers,
+            )
+            for variant_set_id in self.conf.variant_set_id
+        ]
+
+    def filter_variant(self, variant: Variant) -> bool:
+        """``--min-allele-frequency`` on the AF info field
+        (``VariantsPca.scala:136-148``): strictly greater, first AF value,
+        variants without AF dropped. The synthetic source compares with the
+        canonical micro-unit rule (``utils/af.py``), so the wire arm agrees
+        bit for bit with the packed and device arms."""
+        if self.conf.min_allele_frequency is None:
+            return True
+        af = variant.info.get("AF")
+        if not af:
+            return False
+        return bool(af_passes(float(af[0]), self.conf.min_allele_frequency))
+
+    def iter_calls(self, datasets: List[VariantsDataset]) -> Iterator[List[int]]:
+        """Variant → varying callset column indices
+        (``VariantsPca.scala:193-208``): single-dataset map, two-dataset key
+        join, ≥3 merge-intersect; keep varying calls, drop empty rows."""
+        n_sets = len(self.conf.variant_set_id)
+        if self.conf.min_allele_frequency is not None:
+            print(f"Min allele frequency {self.conf.min_allele_frequency}.")
+
+        if n_sets == 1:
+            for variant in datasets[0].variants():
+                if not self.filter_variant(variant):
+                    continue
+                calls = extract_call_info(variant, self.indexes)
+                row = [c.callset_id for c in calls if c.has_variation]
+                if row:
+                    yield row
+            return
+
+        # Multi-dataset: all datasets share the same partitions, so records
+        # with equal variant keys co-locate per window; join there with the
+        # streaming k-way merge over per-set key-sorted streams, windows
+        # built ahead in the bounded pool (``_parallel_shards``).
+        partitions = datasets[0].partitions()
+        partition_lists = [dataset.partitions() for dataset in datasets]
+        debug = self.conf.debug_datasets
+
+        def window_records(index: int) -> List[List[Tuple[str, List[CallData]]]]:
+            per_set: List[List[Tuple[str, List[CallData]]]] = []
+            for dataset, parts in zip(datasets, partition_lists):
+                keyed: List[Tuple[str, List[CallData]]] = []
+                for variant in (v for _, v in dataset.compute(parts[index])):
+                    if not self.filter_variant(variant):
+                        continue
+                    keyed.append(
+                        (variant.variant_key(debug), extract_call_info(variant, self.indexes))
+                    )
+                # Per window, sort by key so merge_join's sortedness
+                # contract holds per stream.
+                keyed.sort(key=lambda kr: kr[0])
+                per_set.append(keyed)
+            return per_set
+
+        stats = MergeJoinStats()
+        for _, per_set in _parallel_shards(
+            list(range(len(partitions))), window_records, self.conf.num_workers
+        ):
+            for _key, groups in merge_join([iter(keyed) for keyed in per_set], stats=stats):
+                if n_sets == 2:
+                    # joinDatasets (``VariantsPca.scala:155-168``): inner
+                    # join, concatenate both call lists.
+                    calls_a, calls_b = groups
+                    for ca in calls_a:
+                        for cb in calls_b:
+                            row = [c.callset_id for c in ca + cb if c.has_variation]
+                            if row:
+                                yield row
+                else:
+                    # mergeDatasets (``VariantsPca.scala:176-188``): keep keys
+                    # whose total record count equals the dataset count.
+                    if sum(len(g) for g in groups) != n_sets:
+                        continue
+                    merged: List[CallData] = []
+                    for records in groups:
+                        for calls in records:
+                            merged.extend(calls)
+                    row = [c.callset_id for c in merged if c.has_variation]
+                    if row:
+                        yield row
+
+    # ------------------------------------------------------------ similarity
+
+    def _dense_accumulator(self, pipeline_depth: Optional[int] = None) -> GramianAccumulator:
+        acc = GramianAccumulator(
+            len(self.indexes),
+            device=self.device,
+            block_size=self.conf.block_size,
+            pipeline_depth=pipeline_depth,
+            registry=self.registry,
+            spans=self.spans,
+        )
+        self.accumulator = acc
+        return acc
+
+    def get_similarity_matrix(self, calls: Iterable[List[int]]) -> Similarity:
+        """Similarity counts G = XᵀX from per-variant index rows
+        (``VariantsPca.scala:210-231``, dense strategy): on the device, or
+        the host replication under ``--pca-backend host``."""
+        if self.conf.pca_backend == "host":
+            return self._host_similarity(calls)
+        acc = self._dense_accumulator()
+        # Duplicate callset indices only arise when a variant set is joined
+        # with itself; only then do rows carry counts (the reference's
+        # pair-loop multiplicity, ``VariantsPca.scala:224-229``).
+        ids = self.conf.variant_set_id
+        accumulate_index_rows(
+            acc, calls, len(self.indexes), self.conf.block_size,
+            accumulate_duplicates=len(set(ids)) != len(ids),
+        )
+        return acc.finalize_device()
+
+    def get_similarity_rows(
+        self, blocks: Iterable[np.ndarray], pipeline_depth: Optional[int] = None
+    ) -> Similarity:
+        """Packed arm: feed dense uint8 row blocks. ``pipeline_depth`` keeps
+        that many flushes in flight (``ops/gramian.py``)."""
+        n = len(self.indexes)
+        if self.conf.pca_backend == "host":
+            matrix = np.zeros((n, n), dtype=np.int64)
+            for block in blocks:
+                X = np.asarray(block, dtype=np.int64)
+                matrix += X.T @ X
+            return matrix.astype(np.float64)
+        acc = self._dense_accumulator(pipeline_depth)
+        for block in blocks:
+            acc.add_rows(block)
+        return acc.finalize_device()
 
     def get_similarity_device_gen(self, contigs) -> torch.Tensor:
         """Fused on-device ingest and similarity: per dispatch group the host
@@ -133,11 +329,27 @@ class VariantsPcaDriver:
         self.io_stats.add_variants(int(per_set.sum()))
         return acc.finalize_device()
 
-    def compute_pca(self, similarity: torch.Tensor) -> List[Tuple[str, List[float]]]:
+    def _host_similarity(self, calls: Iterable[List[int]]) -> np.ndarray:
+        """Literal host replication of ``getSimilarityMatrix``
+        (``VariantsPca.scala:222-231``)."""
+        n = len(self.indexes)
+        matrix = np.zeros((n, n), dtype=np.int64)
+        for row in calls:
+            idx = np.asarray(row, dtype=np.int64)
+            # Unbuffered: duplicate indices contribute per occurrence pair,
+            # as the reference's loop does (``VariantsPca.scala:224-229``).
+            np.add.at(matrix, np.ix_(idx, idx), 1)
+        return matrix.astype(np.float64)
+
+    # ------------------------------------------------------------------- pca
+
+    def compute_pca(self, similarity: Similarity) -> List[Tuple[str, List[float]]]:
         """Center and eigendecompose (``VariantsPca.scala:238-271``)."""
         n = len(self.indexes)
         if self.conf.pca_backend == "host":
-            S = similarity.cpu().numpy().astype(np.float64)
+            if isinstance(similarity, torch.Tensor):
+                similarity = similarity.cpu().numpy()
+            S = np.asarray(similarity, dtype=np.float64)
             nonzero = int((S.sum(axis=1) > 0).sum())
             print(f"Non zero rows in matrix: {nonzero} / {n}.")
             components, _ = mllib_reference_pca(self._host_center(S), self.conf.num_pc)
@@ -192,14 +404,6 @@ class VariantsPcaDriver:
         print(str(self.io_stats))
 
 
-def _sync(device: torch.device):
-    """The closing fetch of a stage span: a stage's wall-clock ends with its
-    work on the card."""
-    if device.type == "cuda":
-        return lambda: torch.cuda.synchronize(device)
-    return None
-
-
 @dataclass
 class PipelineResult:
     """One completed analysis: the emitted TSV lines, and the driver that
@@ -209,16 +413,116 @@ class PipelineResult:
     driver: VariantsPcaDriver
 
 
+def resolve_ingest(conf: PcaConf) -> Tuple[bool, bool]:
+    """``(use_device, use_packed)`` for ``conf`` — neither means the wire
+    arm — with the reference's rules and errors
+    (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``, its
+    synthetic-source cases): ``auto`` takes device generation on the gpu
+    backend with distinct variant sets, and the wire arm otherwise."""
+    synthetic_gpu = conf.pca_backend == "gpu"
+    # Duplicate ids collapse the column index: a same-set join that only
+    # the wire arm's count multiplicity reproduces.
+    device_ok = len(set(conf.variant_set_id)) == len(conf.variant_set_id)
+    use_device = conf.ingest == "device" or (
+        conf.ingest == "auto" and synthetic_gpu and device_ok
+    )
+    if conf.ingest == "auto" and synthetic_gpu and not device_ok:
+        print(
+            "Device ingest unavailable (duplicate variant-set ids collapse "
+            "the column index); using wire ingest."
+        )
+    use_packed = conf.ingest == "packed"
+    if use_device and not (synthetic_gpu and device_ok):
+        raise ValueError(
+            "--ingest device requires --source synthetic, --pca-backend gpu, "
+            "and distinct variant-set ids"
+        )
+    if use_packed and not synthetic_gpu:
+        raise ValueError(
+            "--ingest packed requires --pca-backend gpu and --source synthetic"
+        )
+    if use_packed and len(conf.variant_set_id) != 1:
+        raise ValueError(
+            "--ingest packed supports a single variant set; use --ingest "
+            "device (distinct sets) or --ingest wire"
+        )
+    return use_device, use_packed
+
+
+def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
+    """The packed arm: dense genotype blocks from the source, through a
+    bounded prefetch thread (with ingest workers enabled) into the
+    double-buffered accumulator (``pipeline_depth=2``), so the host builds
+    block k+1 while the card works on block k."""
+    ingest_workers = _resolve_ingest_workers(conf.ingest_workers)
+    pipeline_depth = 2 if ingest_workers > 0 else None
+    source = driver.source
+    contigs = conf.get_contigs(source, conf.variant_set_id)
+    partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(
+        conf.variant_set_id[0]
+    )
+    well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
+
+    def block_stream():
+        # Blocks flow one at a time from the per-window producer; stats
+        # account per window as it streams, in partition order.
+        done_gauge = well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
+        for index, part in enumerate(partitions):
+            driver.io_stats.add_partition(part.range)
+            driver.io_stats.add_requests(
+                partition_page_requests(
+                    source, part.variant_set_id, part.contig, conf.bases_per_partition
+                )
+            )
+            window_variants = 0
+            for block in source.genotype_blocks(
+                part.variant_set_id,
+                part.contig,
+                block_size=conf.block_size,
+                min_allele_frequency=conf.min_allele_frequency,
+            ):
+                window_variants += len(block["positions"])
+                yield block["has_variation"]
+            driver.io_stats.add_variants(window_variants)
+            done_gauge.set(index + 1)
+
+    rows = block_stream()
+    prefetch = None
+    if ingest_workers > 0:
+        rows = prefetch = PrefetchIterator(
+            rows, depth=2, registry=driver.registry, spans=driver.spans
+        )
+    try:
+        return driver.get_similarity_rows(rows, pipeline_depth=pipeline_depth)
+    finally:
+        if prefetch is not None:
+            prefetch.close()
+
+
+def _similarity_stage(
+    conf: PcaConf, driver: VariantsPcaDriver, use_device: bool, use_packed: bool
+) -> Similarity:
+    """The ingest+similarity stage of :func:`run_pipeline`, one of the
+    three arms."""
+    if use_device:
+        contigs = conf.get_contigs(driver.source, conf.variant_set_id)
+        return driver.get_similarity_device_gen(contigs)
+    if use_packed:
+        return _packed_similarity(conf, driver)
+    return driver.get_similarity_matrix(driver.iter_calls(driver.get_data()))
+
+
 def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
     """The analysis, CLI-free: config in, result out. Runs on ``device``
     (default ``conf.device``); raises when a CUDA device is asked for and
     none is present."""
     check_ported(conf)
+    use_device, use_packed = resolve_ingest(conf)
     driver = VariantsPcaDriver(conf, device=conf.device if device is None else device)
-    sync = _sync(driver.device)
+    # Every arm's stage span ends with the card synchronised.
+    sync = synchronizer(driver.device)
     with driver.spans.span("ingest+similarity", sync=sync):
-        contigs = conf.get_contigs(driver.source, conf.variant_set_id)
-        similarity = driver.get_similarity_device_gen(contigs)
+        similarity = _similarity_stage(conf, driver, use_device, use_packed)
     with driver.spans.span("center+pca", sync=sync):
         result = driver.compute_pca(similarity)
     lines = driver.emit_result(result)
@@ -232,4 +536,13 @@ def run(argv: Sequence[str], device: DeviceLike = None) -> List[str]:
     return run_pipeline(PcaConf.parse(argv), device=device).lines
 
 
-__all__ = ["PipelineResult", "VariantsPcaDriver", "make_source", "run", "run_pipeline"]
+__all__ = [
+    "CallData",
+    "PipelineResult",
+    "VariantsPcaDriver",
+    "extract_call_info",
+    "make_source",
+    "resolve_ingest",
+    "run",
+    "run_pipeline",
+]

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 from spark_examples_tpu_torch.obs.metrics import IO_PARTITIONS_TOTAL, MetricsRegistry
+from spark_examples_tpu_torch.sources.base import ClientCounters
 
 #: stat name → (metric name, help) — the registry series backing each field.
 _STAT_METRICS = {
@@ -73,9 +74,18 @@ class VariantsDatasetStats:
         self._counters["variants"].inc(int(n))
 
     def add_requests(self, n: int) -> None:
-        """Page requests, computed arithmetically by the device-generation
-        ingest (``SyntheticGenomicsSource.page_requests``)."""
+        """Page requests accounted outside a client session: the
+        device-generation and packed arms compute them arithmetically
+        (``SyntheticGenomicsSource.page_requests``)."""
         self._counters["requests"].inc(int(n))
+
+    def add_client(self, counters: ClientCounters) -> None:
+        """Flush a per-partition client's counters (the wire arm,
+        ``rdd/VariantsRDD.scala:192-196``). Retries are not in the report,
+        so the port keeps no counter of them yet."""
+        self._counters["requests"].inc(counters.initialized_requests)
+        self._counters["unsuccessful_responses"].inc(counters.unsuccessful_responses)
+        self._counters["io_exceptions"].inc(counters.io_exceptions)
 
     def __str__(self) -> str:
         return (

@@ -57,6 +57,59 @@ def test_source_has_no_jax_or_reference_imports():
     assert offenders == []
 
 
+#: Modules this test must cover, one per layer the slices added.
+EXPECTED_MODULES = (
+    "spark_examples_tpu_torch.api",
+    "spark_examples_tpu_torch.experiments.probe_ops",
+    "spark_examples_tpu_torch.experiments.vmem_capacity",
+    "spark_examples_tpu_torch.models.variant",
+    "spark_examples_tpu_torch.ops.contracts",
+    "spark_examples_tpu_torch.ops.devicegen",
+    "spark_examples_tpu_torch.ops.gramian",
+    "spark_examples_tpu_torch.pipeline.datasets",
+    "spark_examples_tpu_torch.pipeline.pca_driver",
+    "spark_examples_tpu_torch.sources.files",
+    "spark_examples_tpu_torch.sources.stream",
+)
+
+
+@pytest.mark.parametrize("module", EXPECTED_MODULES)
+def test_every_layer_is_in_the_import_check(module):
+    assert module in set(_modules())
+
+
+def test_chip_smoke_has_no_jax_or_reference_imports():
+    text = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+spark_examples_tpu\b(?!_torch)"
+        r"|from\s+spark_examples_tpu(\.|\s)(?!.*_torch))",
+        text,
+        re.MULTILINE,
+    )
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["--ingest", "packed"],
+        ["--ingest", "wire", "--ingest-workers", "3"],
+        ["--variant-set-id", "a,a"],
+    ],
+)
+def test_host_fed_flags_parse(argv):
+    from spark_examples_tpu_torch.config import PcaConf
+
+    conf = PcaConf.parse(argv + ["--device", "cpu"])
+    assert conf.ingest in ("auto", "packed", "wire")
+
+
+def test_negative_ingest_workers_raise():
+    from spark_examples_tpu_torch.config import PcaConf
+
+    with pytest.raises(ValueError, match="--ingest-workers"):
+        PcaConf.parse(["--ingest-workers", "-1"])
+
+
 def test_default_entry_point_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
@@ -101,8 +154,8 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
         (["--coordinator-address", "h:1"], "--coordinator-address"),
         (["--similarity-strategy", "sharded"], "--similarity-strategy sharded"),
         (["--mesh-shape", "1,2"], "--mesh-shape"),
-        (["--ingest", "packed"], "--ingest packed"),
-        (["--ingest", "wire"], "--ingest wire"),
+        (["--trace-dir", "t"], "--trace-dir"),
+        (["--save-variants", "v"], "--save-variants"),
         (["--source", "rest"], "--source"),
     ],
 )

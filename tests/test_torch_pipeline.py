@@ -4,9 +4,11 @@ port's ``run(argv, device="cpu")`` on the same argv.
 Every printed line is identical ("Matrix size", "Running PCA", "Variantset",
 "Non zero rows", the sorted names and dataset columns, the "Variants API
 stats" block) except the PC values, which agree within 1e-4 per entry (the
-eigensolves start from different random iterates; see test_torch_pca.py).
-With ``--pca-backend host`` both packages run the same NumPy oracle on the
-same Gramian, so the PC values are identical too."""
+eigensolves start from different random iterates; see test_torch_pca.py),
+for each ingest arm: device generation, packed, and wire with its
+same-set, two-set and three-set joins. With ``--pca-backend host`` both
+packages take the wire arm and run the same NumPy oracle on the same
+Gramian, so the PC values are identical too."""
 
 import numpy as np
 import pytest
@@ -78,19 +80,77 @@ def test_multi_set_asymmetric_cohort_matches_jax(capsys):
 
 
 def test_host_backend_matches_jax_exactly(capsys):
-    """The NumPy oracle on the port's device-generated Gramian gives the
-    JAX package's host-backend rows to the last digit. The reference's host
-    backend ingests through the wire path, whose stats count every record
-    read, so the rest of the output is held against its device path."""
+    """With ``--pca-backend host`` both packages ingest through the wire arm
+    and run the same NumPy oracle on the same Gramian: every printed line is
+    identical, the PC values and the "Variants API stats" block included."""
     argv = BASE + ["--pca-backend", "host"]
-    ref_lines, _, lines, out = _runs(capsys, argv)
+    ref_lines, ref_out, lines, out = _runs(capsys, argv)
     assert lines == ref_lines
-    ref_driver.run(BASE)
-    ref_device_out = capsys.readouterr().out.splitlines()
-    rows = set(lines)
-    assert [l for l in out if l not in rows] == [
-        l for l in ref_device_out if len(l.split("\t")) < 3
-    ]
+    assert out == ref_out
+    assert "Variants API stats:" in out
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["--ingest", "packed"],
+        ["--ingest", "packed", "--ingest-workers", "0"],
+        ["--ingest", "packed", "--ingest-workers", "2", "--block-size", "16"],
+        ["--ingest", "packed", "--min-allele-frequency", "0.2", "--block-size", "100"],
+        ["--ingest", "wire"],
+        ["--ingest", "wire", "--num-workers", "1", "--block-size", "16"],
+        ["--ingest", "wire", "--min-allele-frequency", "0.2"],
+        ["--variant-set-id", "vs-a,vs-a"],
+        ["--variant-set-id", "vs-a,vs-a", "--ingest", "wire", "--block-size", "16"],
+        ["--variant-set-id", "vs-a,vs-b", "--ingest", "wire"],
+        ["--variant-set-id", "vs-a,vs-b,vs-c", "--ingest", "wire"],
+        ["--variant-set-id", "vs-a,vs-b,vs-c", "--pca-backend", "host"],
+    ],
+)
+def test_host_fed_arms_match_jax(capsys, extra):
+    """The packed and wire arms, the same-set join (duplicate ids: counts
+    mode), and the two- and three-set wire joins print the reference's
+    lines; the PC values agree within the tolerance."""
+    ref_lines, ref_out, lines, out = _runs(capsys, BASE + extra)
+    _assert_same_output(ref_out, out, TOLERANCE)
+    assert len(lines) == len(ref_lines)
+
+
+def test_packed_arm_telemetry_on_the_cpu(capsys):
+    """The packed arm's accumulator flushed every block and its spans nest
+    under the ingest stage; on the CPU the wrappers ran their plain
+    versions, so no launch is counted."""
+    from spark_examples_tpu_torch.ops import gramian
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+    from spark_examples_tpu_torch.config import PcaConf
+
+    gramian.reset_launch_counts()
+    result = run_pipeline(PcaConf.parse(BASE + ["--ingest", "packed", "--block-size", "16"]), "cpu")
+    capsys.readouterr()
+    driver = result.driver
+    flushes = driver.registry.value("gramian_flushes_total")
+    assert flushes == -(-driver.registry.value("gramian_rows_total") // 16)
+    assert gramian.unpack_rows_t.launches == 0
+    paths = [s["path"] for s in driver.spans.flat()]
+    assert "ingest+similarity/reduce-flush" in paths
+    assert "ingest+similarity/chunk-parse" in paths
+
+
+@pytest.mark.parametrize(
+    "extra, message",
+    [
+        (["--ingest", "packed", "--pca-backend", "host"], "--ingest packed requires"),
+        (["--ingest", "packed", "--variant-set-id", "vs-a,vs-b"], "single variant set"),
+        (["--ingest", "device", "--variant-set-id", "vs-a,vs-a"], "--ingest device requires"),
+        (["--ingest", "device", "--pca-backend", "host"], "--ingest device requires"),
+    ],
+)
+def test_ingest_resolution_errors_match_jax(extra, message):
+    argv = BASE + extra
+    with pytest.raises(ValueError):
+        ref_driver.run(argv)
+    with pytest.raises(ValueError, match=message):
+        run(argv, device="cpu")
 
 
 def test_output_path_matches_jax(tmp_path, capsys):
