@@ -8,15 +8,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. card: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel built from ``spark_examples_tpu_torch/csrc`` with
    nvcc, one process per source, all started together (``-Xptxas -v``
-   report printed);
+   report printed); the build's SASS (``cuobjdump``) must show int8
+   warpgroup MMAs and TMA loads in the product's kernel and bulk copies in
+   the scratch copy's;
 3. kernels: each kernel against its plain PyTorch version at the shapes its
    path gives it, exactly equal: the device-generation pair at 2,504
-   samples × 16,384 sites; the unpack of host-fed blocks, bit-packed and
-   count-valued, at 2,504 samples × 1,024 and 16,384 rows, each followed by
-   the product; the six u32 op chains at (1024, 2560) after 21 chained
-   calls; the shared-memory scratch copy at the card's limit. Then
-   CUDA-event times of each kernel, its plain version and, where one
-   exists, the PyTorch library call computing the same function;
+   samples × 16,384 sites; the product also at the CLI's 1,024 sites, on
+   count-valued rows and at 130 and 13 samples; the unpack of host-fed
+   blocks, bit-packed and count-valued, at 2,504 samples × 1,024 and
+   16,384 rows, each followed by the product; the six u32 op chains at
+   (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
+   the card's limit. Then CUDA-event times of each kernel, its plain
+   version and, where one exists, the PyTorch library call computing the
+   same function (the product at both depths, with its launch's blocks
+   and waves);
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one) and over the
    default BRCA1 region; then the host-fed arms at 2,504 samples: packed
@@ -62,10 +67,18 @@ PACKED_ARGV = ["--references", "17:41196311:43196311", "--num-samples", "2504",
 WIRE_ARGV = ["--references", "17:41196311:41206311", "--num-samples", "2504",
              "--ingest", "wire"]
 SAME_SET_WINDOW = "17:41196311:41201311"
-#: Rows of the unpack phase: the CLI's default block and the device path's.
-UNPACK_ROWS = (1024, 16384)
 N_SAMPLES = 2504
 BLOCK = 16384
+#: The CLI's default --block-size, and the packed arm's flush.
+CLI_BLOCK = 1024
+#: Rows of the unpack phase: the CLI's default block and the device path's.
+UNPACK_ROWS = (CLI_BLOCK, BLOCK)
+#: SASS opcodes each redesigned kernel must contain, in this run's build:
+#: int8 warpgroup MMAs and TMA tensor loads; bulk copies. IMMA is mma.sync.
+HOPPER_SASS = {
+    "gram_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
+    "scratch_copy_kernel": ("probes.cu", ("UBLKCP",), ()),
+}
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
@@ -159,27 +172,14 @@ def phase_kernels(torch, devicegen):
     rows["gen_genotypes"] = {"max_abs_err": 0}
 
     n = plan.n_cols
-    g_k = torch.zeros((n, n), dtype=torch.int32, device=dev)
-    g_p = torch.zeros((n, n), dtype=torch.int32, device=dev)
-    for _ in range(2):  # twice: the second adds onto a nonzero G
-        devicegen.gram_accumulate(g_k, xt)
-        devicegen.gram_accumulate_plain(g_p, xt)
-    torch.cuda.synchronize()
-    err = int((g_k.long() - g_p.long()).abs().max())
-    if err:
-        raise AssertionError(f"gram_accumulate != plain: max err {err}")
-    log(f"kernels: gram_accumulate == plain at N={n}, {BLOCK} sites, twice: "
-        f"trace {int(g_k.diagonal().long().sum())}")
-    rows["gram_accumulate"] = {"max_abs_err": err}
+    kept, vrows = zeros()
+    xt_cli = devicegen.gen_genotypes(plan, 400_000, CLI_BLOCK, CLI_BLOCK, kept, vrows)
+    rng = np.random.default_rng(5)
+    rows["gram_accumulate"] = {"max_abs_err": check_gram(torch, devicegen, rng, xt, xt_cli)}
 
     # Times at the main path's shapes.
-    kept, vrows = zeros()
     gen_ms = cuda_ms(lambda: devicegen.gen_genotypes(plan, 400_000, BLOCK, BLOCK, kept, vrows), 50)
     gen_plain_ms = cuda_ms(lambda: devicegen.gen_genotypes_plain(plan, 400_000, BLOCK, BLOCK, kept, vrows), 5, 1)
-    gram_ms = cuda_ms(lambda: devicegen.gram_accumulate(g_k, xt), 20)
-    gram_plain_ms = cuda_ms(lambda: devicegen.gram_accumulate_plain(g_p, xt), 5, 1)
-    xt_n = xt[:n] if n % 8 == 0 else xt  # _int_mm wants widths that are multiples of 8
-    int_mm_ms = cuda_ms(lambda: torch._int_mm(xt_n, xt_n.t()), 20)
     # Bounds of what the functions need: generation writes N × B int8 and
     # draws the genotypes of the kept sites only (a dropped site's threshold
     # is 0, so its genotypes are 0 without a draw); the product is symmetric,
@@ -192,15 +192,64 @@ def phase_kernels(torch, devicegen):
         ms=gen_ms, plain_ms=gen_plain_ms, library_ms=None,
         bound=bound(n * BLOCK, n * kept_sites * GEN_OPS_PER_GENOTYPE, int32_rate),
     )
-    rows["gram_accumulate"].update(
-        ms=gram_ms, plain_ms=gram_plain_ms, library_ms=int_mm_ms,
-        bound=bound(n * BLOCK + 2 * 4 * n * n, float(n) * (n + 1) * BLOCK, PEAK_INT8_OPS_PER_S),
-    )
+    g_k = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    depths = {}
+    for sites, block in ((BLOCK, xt), (CLI_BLOCK, xt_cli)):
+        xt_n = block[:n] if n % 8 == 0 else block  # _int_mm wants widths that are multiples of 8
+        blocks, resident = devicegen.gram_accumulate_grid(block.shape[0], dev)
+        depths[sites] = dict(
+            ms=cuda_ms(lambda: devicegen.gram_accumulate(g_k, block), 20),
+            plain_ms=cuda_ms(lambda: devicegen.gram_accumulate_plain(g_k, block), 5, 1),
+            library_ms=cuda_ms(lambda: torch._int_mm(xt_n, xt_n.t()), 20),
+            bound=bound(n * sites + 2 * 4 * n * n, float(n) * (n + 1) * sites, PEAK_INT8_OPS_PER_S),
+        )
+        r = depths[sites]
+        log(f"kernels: gram_accumulate at {sites} sites: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms, torch._int_mm {r['library_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of "
+            f"it); launch: {blocks} blocks over every site, {resident} resident, "
+            f"{blocks / resident:.2f} waves")
+    rows["gram_accumulate"].update(depths[BLOCK])
     for name, r in rows.items():
         log(f"kernels: {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, "
             f"{100 * r['bound'][0] / r['ms']:.1f} % of it)")
     return rows
+
+
+def check_gram(torch, devicegen, rng, xt, xt_cli) -> int:
+    """``gram_accumulate`` exactly equal to its plain version: the
+    generated 16,384-site block twice onto a nonzero G, the CLI's 1,024-site
+    block, ragged one-tile cohorts (130 and 13 samples) and count-valued
+    rows up to the same-set join's maximum. Returns the largest error (0)."""
+    from spark_examples_tpu_torch.ops.contracts import COUNT_ROW
+
+    dev = xt.device
+    n = N_SAMPLES
+    counts = rng.integers(0, COUNT_ROW.hi + 1, (xt_cli.shape[0], CLI_BLOCK), dtype=np.int8)
+    cases = [
+        (f"N={n}, {BLOCK} sites, twice onto a nonzero G", n, xt, 2),
+        (f"N={n}, {CLI_BLOCK} sites", n, xt_cli, 1),
+        (f"N={n}, {CLI_BLOCK} sites of counts up to {COUNT_ROW.hi}", n,
+         torch.from_numpy(counts).to(dev), 1),
+    ]
+    for small in (130, 13):
+        rows = -(-small // 128) * 128
+        bits = rng.integers(0, 2, (rows, 128), dtype=np.int8)
+        cases.append((f"N={small}, 128 sites", small, torch.from_numpy(bits).to(dev), 1))
+    for label, size, block, times in cases:
+        start = torch.from_numpy(rng.integers(-1000, 1000, (size, size), dtype=np.int32)).to(dev)
+        g_k, g_p = start.clone(), start.clone()
+        for _ in range(times):
+            devicegen.gram_accumulate(g_k, block)
+            devicegen.gram_accumulate_plain(g_p, block)
+        torch.cuda.synchronize()
+        err = int((g_k.long() - g_p.long()).abs().max())
+        if err:
+            raise AssertionError(f"gram_accumulate != plain at {label}: max err {err}")
+        log(f"kernels: gram_accumulate == plain at {label}: trace "
+            f"{int((g_k - start).diagonal().long().sum())}")
+    return 0
 
 
 def reset_counts(kernels) -> None:
@@ -259,26 +308,54 @@ def phase_unpack(torch, devicegen, gramian, int32_rate):
     return row, times
 
 
+def sass_opcodes(library) -> dict:
+    """Mangled function name → the opcodes of its SASS, in order, from
+    ``cuobjdump -sass`` of this run's build."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    functions = {}
+    for function in sass.split("Function : ")[1:]:
+        name, body = function.split("\n", 1)
+        functions[name.strip()] = re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", body)
+    return functions
+
+
 def sass_instructions_per_element(probe_ops, library) -> dict:
     """op → SASS instructions ``probe_op_chain_kernel<op>`` issues per
     element per iteration, from ``cuobjdump -sass`` of this run's build:
     every instruction but NOP, BRA and EXIT, over the R iterations (one
     thread per element runs the whole function once). A diagnostic printed
     beside the bound, which counts what the function needs instead."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
     counts = {}
-    for function in sass.split("Function : ")[1:]:
-        found = re.search(r"probe_op_chain_kernelILi(\d+)E", function.split("\n", 1)[0])
+    for name, opcodes in sass_opcodes(library).items():
+        found = re.search(r"probe_op_chain_kernelILi(\d+)E", name)
         if found is None:
             continue
-        opcodes = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", function)
         issued = sum(1 for op in opcodes if op not in ("NOP", "BRA", "EXIT"))
         counts[probe_ops.OPS[int(found.group(1))]] = issued / probe_ops.R
     if sorted(counts) != sorted(probe_ops.OPS):
         raise AssertionError(f"SASS of {library} lacks some probe ops: {sorted(counts)}")
     return counts
+
+
+def check_hopper_sass(libs) -> None:
+    """Each kernel of ``HOPPER_SASS`` (every function of that name) holds
+    the opcodes it must and none it must not, in this run's build; prints
+    the tensor-core, TMA and bulk-copy opcodes found in each."""
+    for kernel, (source, wanted, banned) in HOPPER_SASS.items():
+        functions = {name: ops for name, ops in sass_opcodes(libs[source]).items()
+                     if kernel in name}
+        if not functions:
+            raise AssertionError(f"SASS of {source} has no function named {kernel}")
+        for name, opcodes in functions.items():
+            found = sorted({op for op in opcodes if re.search(r"MMA|UTMA|UBLK", op)})
+            log(f"sass: {name}: {', '.join(found) or 'no MMA, TMA or bulk-copy opcode'}")
+            missing = [op for op in wanted if op not in opcodes]
+            present = [op for op in banned if op in opcodes]
+            if missing or present:
+                raise AssertionError(f"{name}'s SASS lacks {missing} or has {present}")
 
 
 def phase_probe_kernels(torch, probe_ops, vmem_capacity, int32_rate, library):
@@ -452,8 +529,9 @@ def main() -> int:
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for source in libs:
         for line in _kernels.build_log(source).splitlines():
-            if any(key in line for key in ("Compiling entry", "Used", "spill")):
+            if any(key in line for key in ("Compiling entry", "Used", "spill", "arning")):
                 log(f"build: {source}: {line.strip()}")
+    check_hopper_sass(libs)
 
     int32_rate = int32_ops_per_s(torch)
     rows = phase_kernels(torch, devicegen)

@@ -29,19 +29,43 @@
 //   Xᵀ; the u64 site work is O(sites) and amortised over every column.
 //
 // gram_accumulate_kernel — G[i, j] += Σ_s Xᵀ[i, s]·Xᵀ[j, s] into the
-//   resident int32 G. Bound: the int8 tensor-core rate (N·(N+1)·sites
-//   operations, the symmetric product). Int8 tensor-core products (mma.sync m16n8k32, s8·s8 → s32,
-//   exact) on 128×128 output tiles, 8 warps each owning 64×32; operands
-//   double-buffered through padded shared memory (conflict-free fragment
-//   loads) by cp.async. G is symmetric, so only tiles on and above the
-//   diagonal are computed and an off-diagonal tile is written to both of
-//   its places: half the products. wgmma and TMA are the next steps.
+//   resident int32 G: the product half of pallas_gram
+//   (experiments/pallas_fused_gramian.py:151). G is symmetric, so only the
+//   128×128 tiles on and above the diagonal are computed (half the
+//   products) and an off-diagonal tile is added to both of its places.
+//   Bound: the int8 tensor-core rate (N·(N+1)·sites operations) at 16,384
+//   sites; at the CLI's 1,024 sites the read-modify-write of the int32 G
+//   (8·N² bytes) takes longer than the products.
+//   Design: Hopper's warpgroup MMA (wgmma m64n256k32 s8·s8 → s32, exact),
+//   its operands fed by TMA. A block computes 128 rows × 256 columns of G
+//   (two tiles of one tile row): 128×128 tiles read their operands from L2
+//   at about 8 TB/s on this card and starved the tensor cores, and the
+//   wider unit reads a quarter less per product. One 2-D tensor map over
+//   Xᵀ (128 sites × 128 rows a box, 128-byte swizzle) loads A's box and
+//   B's two into a ring of G_STAGES stages with full/empty mbarriers; where
+//   A's rows are one of B's boxes (the diagonal) A is not loaded and its
+//   descriptors point into B. One producer thread keeps the loads in
+//   flight; two consumer warpgroups own 64 rows each (128 int32
+//   accumulators a thread, no spills). One block per unit walks every
+//   site: at 2,504 samples the 110 units fill 110 of 132 SMs, and splitting
+//   the sites measured slower at both depths, as each split adds a whole
+//   epilogue into G. The epilogue stages
+//   the block's output in shared memory (reusing the ring) and adds it to
+//   G with red.global.add, a warp on 32 neighbouring int32 of a row of G,
+//   for each tile and for the transpose of each tile above the diagonal;
+//   the L2 does the adds, so no load waits in the SM.
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). Each launcher
-// returns cudaGetLastError() so the wrapper can raise on a refused launch.
+// returns cudaGetLastError() so the wrapper can raise on a refused launch;
+// gram_accumulate_launch returns minus the CUresult when the CUDA driver
+// refuses to encode its tensor map.
 
+#include <atomic>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,10 +94,21 @@ constexpr int GEN_THREADS = 512;
 constexpr int GEN_COL_CHUNK = GEN_THREADS;  // columns staged per chunk
 constexpr int MAX_POPS = 16;
 constexpr int MAX_SETS = 8;
-constexpr int GT = 128;           // Gramian output tile edge
-constexpr int GK = 64;            // sites (bytes) per shared-memory stage
-constexpr int G_STRIDE = GK + 16; // padded row: 20 words, conflict-free
-constexpr int GRAM_THREADS = 256;
+constexpr int GT = 128;           // Gramian tile edge: rows of Xᵀ in one TMA box
+constexpr int GK = 128;           // sites per stage: one 128-byte swizzle row
+constexpr int G_BOX_BYTES = GT * GK;                 // 16 KiB
+constexpr int G_BOXES = 2;                           // tiles (B boxes) in a block's row
+constexpr int G_BN = G_BOXES * GT;                   // a block's output: 128 × 256 of G
+constexpr int G_STAGES = 4;
+constexpr int G_STAGE_BYTES = (1 + G_BOXES) * G_BOX_BYTES;  // the A box, then B's
+constexpr int G_CONSUMERS = 256;                     // two warpgroups
+constexpr int GRAM_THREADS = G_CONSUMERS + 32;       // and one producer warp
+constexpr int G_STRIDE = G_BN + 1;  // staged int32 row: odd, so columns read conflict-free
+// Ring (1024-byte aligned for the swizzle, hence the slack), then the
+// full and empty barriers.
+constexpr int G_SMEM_BYTES = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8;
+static_assert(GT * G_STRIDE * 4 <= G_STAGES * G_STAGE_BYTES, "the staged tile reuses the ring");
+constexpr int G_MAX_DEVICES = 64;  // devices whose shared-memory attribute is cached
 
 struct GenParams {
   int64_t grid_offset;
@@ -233,116 +268,225 @@ gen_genotypes_kernel(GenParams p, const uint64_t* __restrict__ vs_keys,
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
+// A TMA load of one box (128 sites × 128 rows of Xᵀ at (k, row)), counted
+// on `bar`.
+__device__ __forceinline__ void tma_load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                             int k, int row) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row)
+      : "memory");
 }
 
-// One stage: rows [r0, r0+128) of Xᵀ, sites [k0, k0+GK), 16 bytes a copy.
-__device__ __forceinline__ void load_stage(int8_t* dst, const int8_t* __restrict__ xt,
-                                           int r0, int64_t ldx, int k0, int tid) {
-  for (int l = tid; l < GT * (GK / 16); l += GRAM_THREADS) {
-    const int r = l / (GK / 16);
-    const int c = (l % (GK / 16)) * 16;
-    cp_async16(dst + r * G_STRIDE + c, xt + static_cast<int64_t>(r0 + r) * ldx + k0 + c);
+// wgmma descriptor of a K-major operand as the tensor map's 128-byte
+// swizzle lays it out: rows of 128 bytes, 8-row atoms 1,024 bytes apart
+// (stride byte offset), leading byte offset unused (1), layout 1 = 128B.
+// A k-slice of 32 bytes starts 2 units (of 16 bytes) further on.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The accumulator operands of one wgmma: d[i .. i+3], d[i+4 ..], ...
+#define G_ACC4(i) "+r"(d[(i)]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3])
+#define G_ACC16(i) G_ACC4(i), G_ACC4((i) + 4), G_ACC4((i) + 8), G_ACC4((i) + 12)
+#define G_ACC64(i) G_ACC16(i), G_ACC16((i) + 16), G_ACC16((i) + 32), G_ACC16((i) + 48)
+
+// d (64 × 256 int32, the warpgroup's registers: 128 a thread) +=
+// A (64 × 32) · B (256 × 32)ᵀ, int8, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int32_t (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n"
+      "}\n"
+      : G_ACC64(0), G_ACC64(64)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs (it cannot see that they use the registers).
+__device__ __forceinline__ void fence_accumulators(int32_t (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// G[gi0 + i, gj0 + j] += src[i·si + j·sj] for i < rows, j < cols, both
+// inside G, with red.global.add (the L2 adds; no load waits in the SM):
+// consumer warp w takes rows w, w + 8, ..., a lane 32 neighbouring int32
+// of a row an instruction.
+__device__ __forceinline__ void red_rows(int32_t* __restrict__ g, int n, int gi0, int gj0,
+                                         const int32_t* src, int si, int sj, int rows,
+                                         int cols) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = warp; i < rows && gi0 + i < n; i += G_CONSUMERS / 32) {
+    int32_t* row = g + static_cast<int64_t>(gi0 + i) * n + gj0;
+    for (int j = lane; j < cols && gj0 + j < n; j += 32)
+      atomicAdd(row + j, src[i * si + j * sj]);  // result unused: red.global.add.s32
   }
 }
 
-__global__ void __launch_bounds__(GRAM_THREADS)
-gram_accumulate_kernel(int32_t* __restrict__ g, int n,
-                       const int8_t* __restrict__ xt, int ldx, int n_tiles) {
-  __shared__ __align__(16) int8_t As[2][GT * G_STRIDE];
-  __shared__ __align__(16) int8_t Bs[2][GT * G_STRIDE];
+// Work units, row-major: tile row bi takes the column groups (of G_BOXES
+// tiles) from the one holding its diagonal tile on. Where bi is the
+// group's second tile row, the unit also computes the tile left of the
+// diagonal and drops it.
+int gram_units(int n_tiles) {
+  const int groups = (n_tiles + G_BOXES - 1) / G_BOXES;
+  int units = 0;
+  for (int bi = 0; bi < n_tiles; ++bi) units += groups - bi / G_BOXES;
+  return units;
+}
 
-  // Upper-triangular tile (bi ≤ bj) of this block.
+// One block per work unit (tile row bi, column group), over every site.
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
+gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __restrict__ g,
+                       int n, int n_tiles, int steps) {
+  constexpr int W = G_BOXES;
+  extern __shared__ unsigned char g_smem[];
+  const uint32_t raw = smem_u32(g_smem);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t full = ring + G_STAGES * G_STAGE_BYTES;  // full[s] at full + 8·s
+  const uint32_t empty = full + G_STAGES * 8;
+
+  const int groups = (n_tiles + W - 1) / W;
   int bi = 0, idx = blockIdx.x;
-  while (idx >= n_tiles - bi) {
-    idx -= n_tiles - bi;
+  while (idx >= groups - bi / W) {
+    idx -= groups - bi / W;
     ++bi;
   }
-  const int bj = bi + idx;
-  const int i0 = bi * GT, j0 = bj * GT;
+  const int b0 = (bi / W + idx) * W;  // the group's first column tile
+  const bool a_in_b = bi >= b0;       // A's rows are one of B's boxes (the diagonal)
+  const int b_boxes = n_tiles - b0 < W ? n_tiles - b0 : W;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int grp = lane >> 2, tig = lane & 3;
-  const int wm = (warp >> 2) * 64;  // warp rows within the tile
-  const int wn = (warp & 3) * 32;   // warp columns within the tile
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0;
-
-  const int n_k = ldx / GK;
-  load_stage(As[0], xt, i0, ldx, 0, tid);
-  load_stage(Bs[0], xt, j0, ldx, 0, tid);
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_k) {
-      load_stage(As[cur ^ 1], xt, i0, ldx, (kt + 1) * GK, tid);
-      load_stage(Bs[cur ^ 1], xt, j0, ldx, (kt + 1) * GK, tid);
+  if (tid == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, G_CONSUMERS / 32);  // lane 0 of each consumer warp
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const uint32_t* a_w = reinterpret_cast<const uint32_t*>(As[cur]);
-    const uint32_t* b_w = reinterpret_cast<const uint32_t*>(Bs[cur]);
-    constexpr int W = G_STRIDE / 4;  // words per padded row
-#pragma unroll
-    for (int ks = 0; ks < GK / 32; ++ks) {
-      const int kw = ks * 8 + tig;
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm + mi * 16 + grp;
-        a[mi][0] = a_w[r * W + kw];
-        a[mi][1] = a_w[(r + 8) * W + kw];
-        a[mi][2] = a_w[r * W + kw + 4];
-        a[mi][3] = a_w[(r + 8) * W + kw + 4];
+  }
+  __syncthreads();
+
+  if (tid >= G_CONSUMERS) {
+    // Producer: one thread keeps up to G_STAGES stages in flight. B's boxes
+    // past the last tile are not loaded; their columns are never stored.
+    if (tid == G_CONSUMERS) {
+      const uint32_t bytes = (b_boxes + (a_in_b ? 0 : 1)) * G_BOX_BYTES;
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % G_STAGES;
+        const uint32_t round = t / G_STAGES;
+        if (t >= G_STAGES) mbar_wait(empty + 8 * s, (round & 1) ^ 1);
+        const uint32_t stage = ring + s * G_STAGE_BYTES;
+        const int k = t * GK;
+        mbar_expect_tx(full + 8 * s, bytes);
+        if (!a_in_b) tma_load_box(stage, &xt_map, full + 8 * s, k, bi * GT);
+        for (int w = 0; w < b_boxes; ++w)
+          tma_load_box(stage + (1 + w) * G_BOX_BYTES, &xt_map, full + 8 * s, k, (b0 + w) * GT);
       }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn + ni * 8 + grp;
-        b[ni][0] = b_w[c * W + kw];
-        b[ni][1] = b_w[c * W + kw + 4];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
     }
-    __syncthreads();
+    return;
   }
 
-  // C fragment: c0/c1 at row grp, columns 2·tig + {0, 1}; c2/c3 at row grp+8.
-  const bool mirror = bi != bj;
+  // Consumers: warpgroup wg owns rows 64·wg.. of the block's output.
+  const int wg = tid / 128;
+  int32_t d[128];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int i = 0; i < 128; ++i) d[i] = 0;
+  fence_accumulators(d);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % G_STAGES;
+    mbar_wait(full + 8 * s, (t / G_STAGES) & 1);
+    const uint32_t stage = ring + s * G_STAGE_BYTES;
+    const uint32_t a = a_in_b ? stage + (1 + bi - b0) * G_BOX_BYTES : stage;
+    const uint64_t da = sw128_desc(a + wg * 64 * GK);
+    const uint64_t db = sw128_desc(stage + G_BOX_BYTES);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int kk = 0; kk < GK / 32; ++kk) wgmma_m64n256k32_s8(d, da + 2 * kk, db + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    if (t > 0) {
+      // The previous stage's MMAs are done: hand its buffers back.
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if ((tid & 31) == 0) mbar_arrive(empty + 8 * ((t - 1) % G_STAGES));
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_accumulators(d);
+
+  // Epilogue. Both warpgroups' MMAs are done before the ring is reused.
+  asm volatile("bar.sync 1, %0;" ::"n"(G_CONSUMERS) : "memory");
+  int32_t* staged = reinterpret_cast<int32_t*>(g_smem + (ring - raw));
+  const int warp = tid / 32, lane = tid & 31;
+  // Accumulator layout: register 4j+q of lane l in warp w holds row
+  // 16·(w % 4) + l/4 + 8·(q/2), column 8j + 2·(l % 4) + q % 2.
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = i0 + wm + mi * 16 + grp + (q >> 1) * 8;
-        const int j = j0 + wn + ni * 8 + tig * 2 + (q & 1);
-        if (i < n && j < n) {
-          g[static_cast<int64_t>(i) * n + j] += acc[mi][ni][q];
-          if (mirror) g[static_cast<int64_t>(j) * n + i] += acc[mi][ni][q];
-        }
-      }
+  for (int j = 0; j < G_BN / 8; ++j) {
+    staged[r0 * G_STRIDE + 8 * j + c0] = d[4 * j];
+    staged[r0 * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 1];
+    staged[(r0 + 8) * G_STRIDE + 8 * j + c0] = d[4 * j + 2];
+    staged[(r0 + 8) * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 3];
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(G_CONSUMERS) : "memory");
+
+  // The rows of the tiles on and above the diagonal, then the columns of
+  // those above it as rows of their mirror.
+  const int i0 = bi * GT, j0 = b0 * GT;
+  const int direct = (bi > b0 ? bi - b0 : 0) * GT;          // first staged column stored
+  const int mirror = (bi + 1 > b0 ? bi + 1 - b0 : 0) * GT;  // first staged column mirrored
+  red_rows(g, n, i0, j0 + direct, staged + direct, G_STRIDE, 1, GT, G_BN - direct);
+  red_rows(g, n, j0 + mirror, i0, staged + mirror, 1, G_STRIDE, G_BN - mirror, GT);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a CUDA driver function; the runtime hands out its
+// address, so the library links no more than the runtime.
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled found = nullptr;
+  if (found == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult query;
+#if CUDART_VERSION >= 12050
+    cudaError_t status = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                          cudaEnableDefault, &query);
+#else
+    cudaError_t status =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &query);
+#endif
+    if (status != cudaSuccess) return status;
+    if (query != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
+    found = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = found;
+  return cudaSuccess;
+}
+
+// Sets gram_accumulate_kernel's dynamic shared-memory size on the current
+// device, once per device; writes the device's ordinal.
+cudaError_t gram_prepare(int* device) {
+  static std::atomic<bool> ready[G_MAX_DEVICES];
+  cudaError_t status = cudaGetDevice(device);
+  if (status != cudaSuccess || (*device < G_MAX_DEVICES && ready[*device])) return status;
+  status = cudaFuncSetAttribute(gram_accumulate_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
+  if (status == cudaSuccess && *device < G_MAX_DEVICES) ready[*device] = true;
+  return status;
 }
 
 }  // namespace
@@ -383,11 +527,46 @@ int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad,
-                           int ldx, void* stream) {
-  const int n_tiles = n_pad / GT;
-  gram_accumulate_kernel<<<n_tiles * (n_tiles + 1) / 2, GRAM_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(g, n, xt, ldx, n_tiles);
+// The launch shape of one product over Xᵀ with n_pad rows on the current
+// card: grid[0] blocks (one per unit), grid[1] blocks resident at once
+// (SMs × blocks an SM holds). A diagnostic: the launcher does not need it.
+int gram_accumulate_grid(int n_pad, int* grid) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t status = gram_prepare(&device);
+  if (status == cudaSuccess)
+    status = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (status == cudaSuccess)
+    status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gram_accumulate_kernel,
+                                                           GRAM_THREADS, G_SMEM_BYTES);
+  grid[0] = gram_units(n_pad / GT);
+  grid[1] = sms * per_sm;
+  return static_cast<int>(status);
+}
+
+// G[:n, :n] += (Xᵀ·X)[:n, :n] for the (n_pad, ldx) int8 Xᵀ at `xt`
+// (n_pad and ldx multiples of 128, `xt` 16-byte aligned).
+int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int ldx,
+                           void* stream) {
+  int device = 0;
+  const cudaError_t prepared = gram_prepare(&device);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  EncodeTiled encode = nullptr;
+  const cudaError_t found = encoder(&encode);
+  if (found != cudaSuccess) return static_cast<int>(found);
+  // Xᵀ as a 2-D tensor: sites innermost, rows ldx bytes apart. There is no
+  // signed 8-bit map type; the bytes are the same.
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ldx), static_cast<cuuint64_t>(n_pad)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldx)};
+  const cuuint32_t box[2] = {GK, GT};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult encoded = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xt), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (encoded != CUDA_SUCCESS) return -static_cast<int>(encoded);
+  gram_accumulate_kernel<<<gram_units(n_pad / GT), GRAM_THREADS, G_SMEM_BYTES,
+                           static_cast<cudaStream_t>(stream)>>>(map, g, n, n_pad / GT, ldx / GK);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,15 +18,23 @@
 //   undefined in C++, so it is PTX mad.lo.s32, whose low 32 bits wrap by
 //   definition — never an int32 multiply in C++.
 //
-// scratch_copy_kernel — replaces experiments/vmem_capacity.py:try_scratch:
-//   copy an (8, 1024) float32 tile through the last 32 KiB of a dynamic
-//   shared-memory scratch of `nbytes` bytes, so the end of the whole
-//   allocation is touched. On Hopper a block's shared memory above 48 KB
-//   needs cudaFuncSetAttribute(MaxDynamicSharedMemorySize); the launcher
-//   sets it to `nbytes`. A refused size (cudaErrorInvalidValue) is the
-//   probe's result, not a fault: the launcher clears the error with
+// scratch_copy_kernel — replaces experiments/vmem_capacity.py:5 try_scratch
+//   (its pallas_call at :11): copy an (8, 1024) float32 tile through the last
+//   32 KiB of a dynamic shared-memory scratch of `nbytes` bytes, so the end
+//   of the whole allocation is touched. On Hopper a block's shared memory
+//   above 48 KB needs cudaFuncSetAttribute(MaxDynamicSharedMemorySize); the
+//   launcher sets it to `nbytes`. A refused size (cudaErrorInvalidValue) is
+//   the probe's result, not a fault: the launcher clears the error with
 //   cudaGetLastError() and says so through an out-parameter; every other
 //   error is returned, and the Python side raises on it.
+//   Bound: 64 KiB of device memory, far under a microsecond at 3.35 TB/s,
+//   so its time is a launch and two transfers' latency. One thread moves
+//   the tile as two TMA bulk copies of one instruction each: global →
+//   shared counted on an mbarrier (complete_tx), then shared → global in a
+//   bulk group. The mbarrier lives in the scratch's first 8 bytes (a static
+//   __shared__ one would count against the opt-in limit and move the
+//   bisected size), so the tile must start past it: the smallest scratch
+//   is TILE_BYTES + 16, the tile's offset being aligned down to 16 bytes.
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). Each launcher
 // returns a cudaError_t value, 0 on success.
@@ -34,13 +42,15 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int R = 64;                     // iterations per element (probe_ops.py:9)
 constexpr int PROBE_THREADS = 256;
 constexpr int TILE_FLOATS = 8 * 1024;     // the (8, 1024) f32 tile
 constexpr int TILE_BYTES = TILE_FLOATS * 4;
-constexpr int COPY_THREADS = 256;
+constexpr int MIN_SCRATCH_BYTES = TILE_BYTES + 16;  // the mbarrier, then the tile
 
 enum Op { XOR = 0, SHIFTXOR = 1, CMP = 2, MUL = 3, MUL_I32 = 4, FMIX32 = 5 };
 
@@ -94,15 +104,27 @@ int launch_chain(const uint32_t* in, uint32_t* out, int64_t n, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void __launch_bounds__(COPY_THREADS)
-scratch_copy_kernel(const float4* __restrict__ in, float4* __restrict__ out,
-                    int nbytes) {
+// One thread: `in` and `out` 16-byte aligned, nbytes ≥ MIN_SCRATCH_BYTES.
+__global__ void __launch_bounds__(1)
+scratch_copy_kernel(const float* __restrict__ in, float* __restrict__ out, int nbytes) {
   extern __shared__ __align__(16) unsigned char scratch[];
+  const uint32_t bar = smem_u32(scratch);
   // The last TILE_BYTES of the allocation, aligned down to 16 bytes.
-  float4* tile = reinterpret_cast<float4*>(scratch + ((nbytes - TILE_BYTES) & ~15));
-  for (int i = threadIdx.x; i < TILE_FLOATS / 4; i += COPY_THREADS) tile[i] = in[i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE_FLOATS / 4; i += COPY_THREADS) out[i] = tile[i];
+  const uint32_t tile = smem_u32(scratch + ((nbytes - TILE_BYTES) & ~15));
+  mbar_init(bar, 1);
+  mbar_expect_tx(bar, TILE_BYTES);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(tile), "l"(in), "r"(TILE_BYTES), "r"(bar)
+      : "memory");
+  mbar_wait(bar, 0);
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(out), "r"(tile), "r"(TILE_BYTES)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  // Until the tile has been read out of the scratch; the writes to `out`
+  // are complete when the kernel is.
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 }  // namespace
@@ -111,6 +133,7 @@ extern "C" {
 
 int probes_rounds() { return R; }
 int probes_tile_bytes() { return TILE_BYTES; }
+int probes_min_scratch_bytes() { return MIN_SCRATCH_BYTES; }
 
 int probe_op_chain_launch(const uint32_t* in, uint32_t* out, int64_t n, int op,
                           void* stream) {
@@ -132,7 +155,7 @@ int probe_op_chain_launch(const uint32_t* in, uint32_t* out, int64_t n, int op,
 int scratch_copy_launch(const float* in, float* out, int nbytes, int* refused,
                         void* stream) {
   *refused = 0;
-  if (nbytes < TILE_BYTES) return static_cast<int>(cudaErrorInvalidValue);
+  if (nbytes < MIN_SCRATCH_BYTES) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t status = cudaFuncSetAttribute(
       scratch_copy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, nbytes);
   if (status == cudaErrorInvalidValue) {
@@ -141,8 +164,7 @@ int scratch_copy_launch(const float* in, float* out, int nbytes, int* refused,
     return 0;
   }
   if (status != cudaSuccess) return static_cast<int>(status);
-  scratch_copy_kernel<<<1, COPY_THREADS, nbytes, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(in), reinterpret_cast<float4*>(out), nbytes);
+  scratch_copy_kernel<<<1, 1, nbytes, static_cast<cudaStream_t>(stream)>>>(in, out, nbytes);
   return static_cast<int>(cudaGetLastError());
 }
 

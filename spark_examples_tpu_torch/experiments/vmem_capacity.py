@@ -5,8 +5,9 @@ kernel scratch memory (VMEM) by compiling ever larger scratch buffers. On
 Hopper the counterpart is a block's dynamic shared memory, which above 48
 KB needs ``cudaFuncSetAttribute(..., MaxDynamicSharedMemorySize, bytes)``.
 ``scratch_copy_kernel`` (``csrc/probes.cu``) copies an (8, 1024) float32
-tile through the last 32 KiB of a scratch of ``nbytes``; a size the runtime
-refuses is the probe's answer, and the bisection goes on.
+tile through the last 32 KiB of a scratch of ``nbytes`` with two TMA bulk
+copies, counted on an mbarrier in the scratch's first bytes; a size the
+runtime refuses is the probe's answer, and the bisection goes on.
 
     python -m spark_examples_tpu_torch.experiments.vmem_capacity
 
@@ -28,9 +29,12 @@ from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device
 
 TILE = (8, 1024)
 TILE_BYTES = TILE[0] * TILE[1] * 4
-#: The bisection's range in bytes: the tile itself, and 256 KiB (the SM's
-#: whole shared memory and L1; Hopper lets a block opt in to 227 KB).
-LOW = 32 << 10
+#: The smallest scratch: the kernel's mbarrier (8 bytes, padded to the
+#: tile's 16-byte alignment), then the tile.
+MIN_BYTES = TILE_BYTES + 16
+#: The bisection's range in bytes: the smallest scratch, and 256 KiB (the
+#: SM's whole shared memory and L1; Hopper lets a block opt in to 227 KB).
+LOW = MIN_BYTES
 HIGH = 256 << 10
 
 
@@ -52,7 +56,7 @@ def scratch_copy_plain(x: torch.Tensor, nbytes: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = _kernels.library("probes.cu")
-    if lib.probes_tile_bytes() != TILE_BYTES:
+    if (lib.probes_tile_bytes(), lib.probes_min_scratch_bytes()) != (TILE_BYTES, MIN_BYTES):
         raise RuntimeError("csrc/probes.cu copies a different tile than vmem_capacity.py")
     return lib
 
@@ -61,16 +65,22 @@ def scratch_copy(x: torch.Tensor, nbytes: int) -> Optional[torch.Tensor]:
     """``x`` ((8, 1024) float32) copied through the last 32 KiB of an
     ``nbytes`` shared-memory scratch; ``None`` when the card refuses a
     scratch of that size (the probe's answer, not a fault). Any other CUDA
-    error raises.
+    error raises. ``nbytes`` is at least ``MIN_BYTES`` (the kernel's
+    mbarrier and the tile), on every device.
 
     Replaces ``experiments/vmem_capacity.py:try_scratch``'s Pallas kernel.
     CPU tensors take :func:`scratch_copy_plain`; CUDA tensors launch
     ``scratch_copy_kernel`` (``csrc/probes.cu``)."""
     _require(x, "x", torch.float32, TILE)
-    if int(nbytes) < TILE_BYTES:
-        raise ValueError(f"the scratch must hold the {TILE_BYTES}-byte tile, got {nbytes}")
+    if int(nbytes) < MIN_BYTES:
+        raise ValueError(
+            f"the scratch must hold the kernel's barrier and the {TILE_BYTES}-byte tile "
+            f"({MIN_BYTES} bytes), got {nbytes}"
+        )
     if x.device.type == "cpu":
         return scratch_copy_plain(x, nbytes)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary (bulk copies need it)")
     out = torch.empty_like(x)
     refused = ctypes.c_int(0)
     with torch.cuda.device(x.device):
@@ -151,6 +161,7 @@ def main() -> int:
 __all__ = [
     "HIGH",
     "LOW",
+    "MIN_BYTES",
     "TILE",
     "find_limit",
     "main",

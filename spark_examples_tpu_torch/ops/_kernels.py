@@ -46,6 +46,7 @@ _SIGNATURES = {
             _P,  # stream
         ),
         "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _P),
+        "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (2 ints)
         "devicegen_site_tile": (),
         "devicegen_col_tile": (),
         "devicegen_max_pops": (),
@@ -62,6 +63,7 @@ _SIGNATURES = {
         "max_shared_memory_optin": (_I32,),  # device
         "probes_rounds": (),
         "probes_tile_bytes": (),
+        "probes_min_scratch_bytes": (),
     },
 }
 
@@ -79,10 +81,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source``'s library lives: ``<stem>-<content hash>.so``."""
+    """Where ``source``'s library lives: ``<stem>-<content hash>.so``, the
+    hash over the source, the shared headers (``csrc/*.cuh``) and the
+    flags."""
     src = CSRC_DIR / source
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
@@ -139,7 +144,10 @@ def library(source: str = "devicegen.cu") -> ctypes.CDLL:
 
 def check(status: int, kernel: str) -> None:
     """Raise when a launcher returned a CUDA error (a refused launch never
-    runs, and a later synchronize does not report it)."""
+    runs, and a later synchronize does not report it); a negative status is
+    a CUDA driver ``CUresult`` from encoding a TMA tensor map."""
+    if status < 0:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled failed: CUresult {-status}")
     if status != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError {status}")
 

@@ -30,6 +30,7 @@ set-local sample index and population, so one kernel covers them.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -453,6 +454,8 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
         raise ValueError(
             f"xt must be ({COL_TILE}k ≥ {n}, {SITE_TILE}m), got {tuple(xt.shape)}"
         )
+    if xt.data_ptr() % 16:
+        raise ValueError("xt must start on a 16-byte boundary (its tensor map needs it)")
     lib = _library()
     with torch.cuda.device(G.device):
         status = lib.gram_accumulate_launch(
@@ -465,6 +468,16 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
         )
     _kernels.check(status, "gram_accumulate")
     gram_accumulate.launches += 1
+
+
+def gram_accumulate_grid(rows: int, device: torch.device) -> tuple[int, int]:
+    """``gram_accumulate_kernel``'s launch on ``device`` for an Xᵀ of
+    ``rows`` rows: (blocks, blocks resident at once). One block computes
+    128 × 256 of G on or above the diagonal, over every site."""
+    grid = (ctypes.c_int * 2)()
+    with torch.cuda.device(device):
+        _kernels.check(_library().gram_accumulate_grid(rows, grid), "gram_accumulate_grid")
+    return grid[0], grid[1]
 
 
 gram_accumulate.launches = 0  # type: ignore[attr-defined]
@@ -647,6 +660,7 @@ __all__ = [
     "gen_genotypes_plain",
     "generate_has_variation",
     "gram_accumulate",
+    "gram_accumulate_grid",
     "gram_accumulate_plain",
     "load_reference_state",
     "make_gen_plan",

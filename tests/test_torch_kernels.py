@@ -50,6 +50,29 @@ def test_library_builds_only_its_own_source(monkeypatch, source):
     assert declared == set(_kernels._SIGNATURES[source])
 
 
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A library is named by its source, the ``csrc/*.cuh`` it may include
+    and the flags: editing a shared header rebuilds every library."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_kernels, "CSRC_DIR", tmp_path)
+    first = _kernels.library_path("k.cu")
+    assert _kernels.library_path("k.cu") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _kernels.library_path("k.cu") != first
+
+
+def test_scratch_copy_smallest_scratch():
+    """On every device the scratch holds the kernel's mbarrier and the
+    tile: MIN_BYTES is taken, a byte less raises."""
+    from spark_examples_tpu_torch.experiments import vmem_capacity
+
+    tile = torch.randn(vmem_capacity.TILE)
+    assert torch.equal(vmem_capacity.scratch_copy(tile, vmem_capacity.MIN_BYTES), tile)
+    with pytest.raises(ValueError, match="tile"):
+        vmem_capacity.scratch_copy(tile, vmem_capacity.MIN_BYTES - 1)
+
+
 @pytest.mark.gpu
 def test_kernels_equal_plain_versions_on_the_card():
     """Both kernels against their plain versions, exactly: two variant sets
@@ -80,6 +103,43 @@ def test_kernels_equal_plain_versions_on_the_card():
     port.gram_accumulate_plain(G_plain, got)
     assert torch.equal(G, G_plain)
     assert [k.launches for k in port.KERNELS] == [1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [False, True], ids=["bits", "counts"])
+@pytest.mark.parametrize("n,sites", [(13, 128), (130, 128), (300, 1152), (2504, 1024), (2504, 16384)])
+def test_gram_accumulate_equals_plain_and_numpy_on_the_card(n, sites, counts):
+    """The product onto a nonzero G, exactly equal to its plain version and
+    to numpy's XᵀX: ragged n (masked edges), one tile, three tile rows
+    (300 samples: the last 256-column unit holds one tile) over nine
+    stages, the depths the main path uses (the CLI's 1,024 sites and
+    chr17's 16,384), and count-valued rows up to the same-set join's
+    maximum. Xᵀ's padding rows hold junk, which must not
+    reach G."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops.contracts import COUNT_ROW
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + sites)
+    rows = -(-n // port.COL_TILE) * port.COL_TILE
+    hi = COUNT_ROW.hi if counts else 1
+    xt = rng.integers(0, hi + 1, (rows, sites), dtype=np.int8)
+    xt[n:] = -7  # padding rows: never part of G
+    g0 = rng.integers(-1000, 1000, (n, n), dtype=np.int32)
+    G = torch.from_numpy(g0).to(dev)
+    G_plain = G.clone()
+    xt_dev = torch.from_numpy(xt).to(dev)
+    port.reset_launch_counts()
+    port.gram_accumulate(G, xt_dev)
+    port.gram_accumulate_plain(G_plain, xt_dev)
+    X = xt[:n].astype(np.float64)  # exact: every sum is below 2^53
+    want = (X @ X.T).astype(np.int64) + g0
+    assert port.gram_accumulate.launches == 1
+    assert torch.equal(G, G_plain)
+    assert np.array_equal(G.cpu().numpy().astype(np.int64), want)
 
 
 @pytest.mark.gpu
@@ -117,7 +177,9 @@ def test_unpack_kernel_equals_plain_version_on_the_card(counts):
 @pytest.mark.gpu
 def test_probe_kernels_equal_plain_versions_on_the_card():
     """Every op of the u32 chain bit for bit, chained twice; the scratch
-    copy at the tile's size and at the card's limit, and a refused size."""
+    copy at its smallest size (the mbarrier and the tile), at an unaligned
+    size and at the card's limit; a size below the smallest raises, and
+    one past the limit is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     from spark_examples_tpu_torch.experiments import probe_ops, vmem_capacity
@@ -130,8 +192,11 @@ def test_probe_kernels_equal_plain_versions_on_the_card():
         assert torch.equal(got, want), op
     tile = torch.randn(vmem_capacity.TILE, device=dev)
     limit = vmem_capacity.max_shared_memory_optin()
-    for nbytes in (vmem_capacity.TILE_BYTES, limit - 3, limit):
+    assert vmem_capacity.MIN_BYTES == vmem_capacity.TILE_BYTES + 16
+    for nbytes in (vmem_capacity.MIN_BYTES, limit - 3, limit):
         assert torch.equal(vmem_capacity.scratch_copy(tile, nbytes), tile)
         assert torch.equal(vmem_capacity.scratch_copy_plain(tile, nbytes), tile)
+    with pytest.raises(ValueError, match="tile"):
+        vmem_capacity.scratch_copy(tile, vmem_capacity.MIN_BYTES - 1)
     assert vmem_capacity.scratch_copy(tile, limit + 1) is None
     assert torch.equal(vmem_capacity.scratch_copy(tile, limit), tile)  # still usable
