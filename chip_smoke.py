@@ -8,23 +8,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. card: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel built from ``spark_examples_tpu_torch/csrc`` with
    nvcc, one process per source, all started together (``-Xptxas -v``
-   report printed); the build's SASS (``cuobjdump``) must show int8
-   warpgroup MMAs and TMA loads in the product's kernel and bulk copies in
-   the scratch copy's;
+   report printed); the build's SASS (``cuobjdump``) must show TMA stores
+   in the generation kernel, int8 warpgroup MMAs and TMA loads in the
+   product's kernel and bulk copies in the scratch copy's;
 3. kernels: each kernel against its plain PyTorch version at the shapes its
-   path gives it, exactly equal: the device-generation pair at 2,504
-   samples × 16,384 sites; the product also at the CLI's 1,024 sites, on
+   path gives it, exactly equal: the generation at 2,504 samples × 16,384
+   sites (a full block and chr17's ragged tail) and × 1,024 (the CLI's
+   block, and a two-set cohort of 2,504 + 45 columns), with both
+   counters; the product at both depths, on
    count-valued rows and at 130 and 13 samples; the unpack of host-fed
    blocks, bit-packed and count-valued, at 2,504 samples × 1,024 and
    16,384 rows, each followed by the product; the six u32 op chains at
    (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
    the card's limit. Then CUDA-event times of each kernel, its plain
    version and, where one exists, the PyTorch library call computing the
-   same function (the product at both depths, with its launch's blocks
-   and waves);
+   same function (the generation and the product at both depths, with
+   their launches' blocks and waves);
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
-   over chr17 at 2,504 samples (a cold run, then a warm one) and over the
-   default BRCA1 region; then the host-fed arms at 2,504 samples: packed
+   over chr17 at 2,504 samples (a cold run, then a warm one, both with
+   blocks of 16,384 sites, then one at the CLI's default 1,024) and over
+   the default BRCA1 region; then the host-fed arms at 2,504 samples: packed
    over 2 Mb of chr17, wire over 10 kb, and the same-set join (a duplicated
    variant-set id: count-valued rows) over 5 kb. For each: launch counts,
    wall-clock, stage spans, peak device memory, and the PCs checked
@@ -56,6 +59,9 @@ import numpy as np
 #: sites), the 1000 Genomes cohort width.
 CHR17_ARGV = ["--references", "17:0:81195210", "--num-samples", "2504",
               "--ingest", "device", "--block-size", "16384"]
+#: The same at the CLI's default --block-size (1,024): 793 launches of each
+#: device-path kernel, the launch pattern of a run with default flags.
+CHR17_CLI_ARGV = CHR17_ARGV[:-2]
 BRCA1_ARGV = ["--num-samples", "2504", "--ingest", "device"]
 #: Host-fed arms at full width: packed over 2 Mb around BRCA1 (17,983
 #: variant rows, 18 flushes of 1,024), wire over 10 kb, and the same-set
@@ -74,8 +80,12 @@ CLI_BLOCK = 1024
 #: Rows of the unpack phase: the CLI's default block and the device path's.
 UNPACK_ROWS = (CLI_BLOCK, BLOCK)
 #: SASS opcodes each redesigned kernel must contain, in this run's build:
-#: int8 warpgroup MMAs and TMA tensor loads; bulk copies. IMMA is mma.sync.
+#: 16-byte stores (the generation's staged Xᵀ chunks and the unpack's
+#: rows); int8 warpgroup MMAs and TMA tensor loads; bulk copies. IMMA is
+#: mma.sync.
 HOPPER_SASS = {
+    "gen_genotypes_kernel": ("devicegen.cu", ("STG.E.128",), ()),
+    "unpack_rows_t_kernel": ("gramian.cu", ("STG.E.128",), ()),
     "gram_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
     "scratch_copy_kernel": ("probes.cu", ("UBLKCP",), ()),
 }
@@ -88,10 +98,12 @@ PEAK_INT8_OPS_PER_S = 1979e12
 #: pipe beside it, so 64 is no bound (the u32 op-chain probe ran faster).
 #: The rate is this times the SMs and the max clock.
 INT32_OPS_PER_SM_PER_CLOCK = 128
-#: u32 operations per drawn genotype: fold xor (1), fmix32 (3 shift-xors,
-#: 2 multiplies: 8), the second allele's multiply and xor (2), two
-#: compares (2), one or (1).
-GEN_OPS_PER_GENOTYPE = 14
+#: u32 operations per drawn genotype: fold xor (1), fmix32 without its
+#: first shift-xor (2 shift-xors, 2 multiplies: 6), the second allele's
+#: multiply and xor (2), two compares (2), one or (1). fmix32's first
+#: shift-xor distributes over the fold's xor, so it is done once per site
+#: and once per column, not per genotype.
+GEN_OPS_PER_GENOTYPE = 12
 #: u32 operations each probe op needs per element per iteration: xor an add
 #: and a xor; shiftxor a shift, a xor and an add; cmp a compare and an add
 #: (0x7FFFFFFF + i is the same for every element); mul and mul_i32 one
@@ -151,47 +163,70 @@ def phase_kernels(torch, devicegen):
     zeros = lambda: (torch.zeros((), dtype=torch.int64, device=dev),
                      torch.zeros((1,), dtype=torch.int64, device=dev))
     rows = {}
-    # A full block in chr17's grid and a ragged tail block.
-    xt = None
-    for offset, n_valid in ((400_000, BLOCK), (811_000, 5_000)):
-        kept_k, rows_k = zeros()
-        kept_p, rows_p = zeros()
-        got = devicegen.gen_genotypes(plan, offset, n_valid, BLOCK, kept_k, rows_k)
-        want = devicegen.gen_genotypes_plain(plan, offset, n_valid, BLOCK, kept_p, rows_p)
+    # A full block in chr17's grid, its ragged tail, the CLI's 1,024-site
+    # block, and the same block for a two-set cohort (2,504 + 45 columns:
+    # the first set spans every 64-column chunk, so every block of a
+    # cluster adds to its variant rows).
+    two_sets = devicegen.make_gen_plan(
+        [source.genotype_stream_key("chip-smoke"), source.genotype_stream_key("chip-smoke-b")],
+        [source.populations, source.populations[:45]],
+        source.site_key, source.variant_spacing, source.ref_block_fraction,
+        None, source.n_pops, dev,
+    )
+    blocks = {}
+    for label, gplan, offset, n_valid, sites in (
+        ("full block", plan, 400_000, BLOCK, BLOCK),
+        ("ragged tail", plan, 811_000, 5_000, BLOCK),
+        ("CLI block", plan, 400_000, CLI_BLOCK, CLI_BLOCK),
+        ("two sets, 2504 + 45 columns", two_sets, 400_000, CLI_BLOCK, CLI_BLOCK),
+    ):
+        kept_k, kept_p = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        rows_k, rows_p = (torch.zeros((gplan.n_sets,), dtype=torch.int64, device=dev)
+                          for _ in range(2))
+        got = devicegen.gen_genotypes(gplan, offset, n_valid, sites, kept_k, rows_k)
+        want = devicegen.gen_genotypes_plain(gplan, offset, n_valid, sites, kept_p, rows_p)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         if err or not (torch.equal(kept_k, kept_p) and torch.equal(rows_k, rows_p)):
             raise AssertionError(
-                f"gen_genotypes != plain at offset {offset}: max err {err}, "
+                f"gen_genotypes != plain ({label}): max err {err}, "
                 f"kept {int(kept_k)} vs {int(kept_p)}, rows {rows_k.tolist()} vs {rows_p.tolist()}"
             )
-        log(f"kernels: gen_genotypes == plain at offset {offset}, n_valid {n_valid}: "
-            f"kept {int(kept_k)}, variant rows {rows_k.tolist()}")
-        if xt is None:  # the full block: the one timed below
-            xt, kept_sites = got, int(kept_k)
+        log(f"kernels: gen_genotypes == plain ({label}: offset {offset}, {n_valid} of {sites} "
+            f"sites, {gplan.n_cols} columns): kept {int(kept_k)}, variant rows {rows_k.tolist()}")
+        blocks[label] = (got, int(kept_k))
     rows["gen_genotypes"] = {"max_abs_err": 0}
+    xt, kept_sites = blocks["full block"]
+    xt_cli, kept_cli = blocks["CLI block"]
 
     n = plan.n_cols
     kept, vrows = zeros()
-    xt_cli = devicegen.gen_genotypes(plan, 400_000, CLI_BLOCK, CLI_BLOCK, kept, vrows)
     rng = np.random.default_rng(5)
     rows["gram_accumulate"] = {"max_abs_err": check_gram(torch, devicegen, rng, xt, xt_cli)}
 
-    # Times at the main path's shapes.
-    gen_ms = cuda_ms(lambda: devicegen.gen_genotypes(plan, 400_000, BLOCK, BLOCK, kept, vrows), 50)
-    gen_plain_ms = cuda_ms(lambda: devicegen.gen_genotypes_plain(plan, 400_000, BLOCK, BLOCK, kept, vrows), 5, 1)
-    # Bounds of what the functions need: generation writes N × B int8 and
-    # draws the genotypes of the kept sites only (a dropped site's threshold
-    # is 0, so its genotypes are 0 without a draw); the product is symmetric,
-    # N·(N+1)/2 distinct entries of 2·B operations, reading Xᵀ once and G
-    # (int32) once each way.
+    # Times at the main path's shapes. Bounds of what the functions need:
+    # generation writes N × B int8 and draws the genotypes of the kept
+    # sites only (a dropped site's threshold is 0, so its genotypes are 0
+    # without a draw); the product is symmetric, N·(N+1)/2 distinct entries
+    # of 2·B operations, reading Xᵀ once and G (int32) once each way.
     int32_rate = int32_ops_per_s(torch)
     log(f"kernels: int32 rate {int32_rate:.4e} ops/s, int8 {PEAK_INT8_OPS_PER_S:.4e} ops/s, "
-        f"{PEAK_BYTES_PER_S:.4e} B/s; timed block: {kept_sites} kept of {BLOCK} sites")
-    rows["gen_genotypes"].update(
-        ms=gen_ms, plain_ms=gen_plain_ms, library_ms=None,
-        bound=bound(n * BLOCK, n * kept_sites * GEN_OPS_PER_GENOTYPE, int32_rate),
-    )
+        f"{PEAK_BYTES_PER_S:.4e} B/s; timed blocks: {kept_sites} kept of {BLOCK} sites, "
+        f"{kept_cli} of {CLI_BLOCK}")
+    gen = {}
+    for sites, kept_n in ((BLOCK, kept_sites), (CLI_BLOCK, kept_cli)):
+        launch, resident, sms, cluster = devicegen.gen_genotypes_grid(plan, sites, dev)
+        r = gen[sites] = dict(
+            ms=cuda_ms(lambda: devicegen.gen_genotypes(plan, 400_000, sites, sites, kept, vrows), 50),
+            plain_ms=cuda_ms(lambda: devicegen.gen_genotypes_plain(plan, 400_000, sites, sites, kept, vrows), 5, 1),
+            library_ms=None,
+            bound=bound(n * sites, n * kept_n * GEN_OPS_PER_GENOTYPE, int32_rate),
+        )
+        log(f"kernels: gen_genotypes at {sites} sites: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} "
+            f"% of it); launch: {launch} blocks in clusters of {cluster}, {resident} resident "
+            f"({resident / sms:.2f} an SM), {launch / resident:.2f} waves")
+    rows["gen_genotypes"].update(gen[BLOCK])
     g_k = torch.zeros((n, n), dtype=torch.int32, device=dev)
     depths = {}
     for sites, block in ((BLOCK, xt), (CLI_BLOCK, xt_cli)):
@@ -309,8 +344,9 @@ def phase_unpack(torch, devicegen, gramian, int32_rate):
 
 
 def sass_opcodes(library) -> dict:
-    """Mangled function name → the opcodes of its SASS, in order, from
-    ``cuobjdump -sass`` of this run's build."""
+    """Mangled function name → the opcodes of its SASS with their
+    modifiers (``STG.E.128``), in order, from ``cuobjdump -sass`` of this
+    run's build."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -318,7 +354,7 @@ def sass_opcodes(library) -> dict:
     for function in sass.split("Function : ")[1:]:
         name, body = function.split("\n", 1)
         functions[name.strip()] = re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", body)
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)
     return functions
 
 
@@ -333,7 +369,7 @@ def sass_instructions_per_element(probe_ops, library) -> dict:
         found = re.search(r"probe_op_chain_kernelILi(\d+)E", name)
         if found is None:
             continue
-        issued = sum(1 for op in opcodes if op not in ("NOP", "BRA", "EXIT"))
+        issued = sum(1 for op in opcodes if op.split(".")[0] not in ("NOP", "BRA", "EXIT"))
         counts[probe_ops.OPS[int(found.group(1))]] = issued / probe_ops.R
     if sorted(counts) != sorted(probe_ops.OPS):
         raise AssertionError(f"SASS of {library} lacks some probe ops: {sorted(counts)}")
@@ -342,18 +378,24 @@ def sass_instructions_per_element(probe_ops, library) -> dict:
 
 def check_hopper_sass(libs) -> None:
     """Each kernel of ``HOPPER_SASS`` (every function of that name) holds
-    the opcodes it must and none it must not, in this run's build; prints
-    the tensor-core, TMA and bulk-copy opcodes found in each."""
+    the opcodes it must and none it must not (an opcode names itself with
+    any modifiers: ``IMMA`` is ``IMMA.16832.S8.S8`` too), in this run's
+    build; prints the tensor-core, TMA, bulk-copy and 16-byte store
+    opcodes found in each."""
+    def has(opcodes, op):
+        return any(o == op or o.startswith(op + ".") for o in opcodes)
+
     for kernel, (source, wanted, banned) in HOPPER_SASS.items():
         functions = {name: ops for name, ops in sass_opcodes(libs[source]).items()
                      if kernel in name}
         if not functions:
             raise AssertionError(f"SASS of {source} has no function named {kernel}")
         for name, opcodes in functions.items():
-            found = sorted({op for op in opcodes if re.search(r"MMA|UTMA|UBLK", op)})
-            log(f"sass: {name}: {', '.join(found) or 'no MMA, TMA or bulk-copy opcode'}")
-            missing = [op for op in wanted if op not in opcodes]
-            present = [op for op in banned if op in opcodes]
+            found = sorted({op.split(".")[0] if "MMA" in op else op for op in opcodes
+                            if re.search(r"MMA|UTMA|UBLK|STG.*\.128", op)})
+            log(f"sass: {name}: {', '.join(found) or 'no MMA, TMA, bulk-copy or 16-byte store opcode'}")
+            missing = [op for op in wanted if not has(opcodes, op)]
+            present = [op for op in banned if has(opcodes, op)]
             if missing or present:
                 raise AssertionError(f"{name}'s SASS lacks {missing} or has {present}")
 
@@ -546,6 +588,7 @@ def main() -> int:
     host_fed = ("unpack_rows_t", "gram_accumulate")
     run_main_path(torch, path_kernels, CHR17_ARGV, "chr17 cold", device_path)
     launches = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)
+    run_main_path(torch, path_kernels, CHR17_CLI_ARGV, "chr17 default block", device_path)
     run_main_path(torch, path_kernels, BRCA1_ARGV, "brca1", device_path)
     packed = run_main_path(torch, path_kernels, PACKED_ARGV, "packed", host_fed)
     run_main_path(torch, path_kernels, WIRE_ARGV, "wire", host_fed)

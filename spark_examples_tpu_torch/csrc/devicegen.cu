@@ -9,24 +9,51 @@
 // G += XᵀX, plus the kept-site and per-set variant-row counters.
 //
 // Two kernels per block of B sites. X is materialised once per block
-// (N_pad × B bytes, within the 50 MB L2 at B = 16384) because generation
-// fused into the product's tiles is recomputed per output tile.
+// (N_pad × B bytes, within the 50 MB L2 at B = 16384). Generation fused into
+// the product's producer was rejected: each of the product's 110 units
+// (128 × 256 of G at 2,504 samples) would regenerate its 384 rows of X,
+// about 17 times the generation work.
 //
-// gen_genotypes_kernel — 128 sites per thread block. The per-site u64 work
-//   (splitmix64 streams: ref-block drop, Q32 allele frequency, the
-//   micro-unit --min-allele-frequency rule, per-population thresholds, the
-//   per-set genotype state) runs once per site into shared memory. The
-//   per-(site, column) work stays in u32 through the fold identity the
-//   Pallas kernel used: fold(h2 ^ s·P4) = fold(h2) ^ fold(s·P4), with
-//   fold(s·P4) precomputed per column on the host. Column tables are staged
-//   through shared memory in chunks, so the column loop never waits on a
-//   global load. Each thread draws four consecutive sites of one column and
-//   stores them as one 32-bit word of Xᵀ (columns × sites, int8, sites
-//   contiguous), so both operands of the product read along K. Counters:
-//   warp ballots and one atomic per warp.
-//   Bound: its u32 operations, about 14 per genotype at the SM's issue
-//   rate of 128 32-bit instructions per clock, take longer than writing
-//   Xᵀ; the u64 site work is O(sites) and amortised over every column.
+// gen_genotypes_kernel — Xᵀ (columns × sites, int8, sites contiguous, so
+//   both operands of the product read along K) and the counters.
+//   Bound: its u32 operations, 12 per genotype of a kept site (fmix32's
+//   first shift-xor distributes over the fold's xor, so it is applied once
+//   per site and once per column), take longer than writing Xᵀ.
+//   Grid: a thread block cluster of S blocks per tile of 64 sites; block r
+//   draws the tile's 64-column chunks r, r + S, ... S divides the chunks
+//   (every block draws as many) and is the least divisor that gives every
+//   SM two blocks, or the largest up to 16 (a non-portable cluster size):
+//   at 2,504 samples 160 blocks (S = 10) at the CLI's 1,024 sites and 512
+//   (S = 2) at 16,384. One block per 128 sites over every column left 8
+//   blocks for 132 SMs at 1,024 sites. 256 threads, at most 64 registers,
+//   so 4 or more blocks are resident an SM.
+//   Site metadata (the splitmix64 streams: ref-block drop, Q32 allele
+//   frequency, the micro-unit --min-allele-frequency rule, per-population
+//   thresholds, per-set genotype state) is computed in every block of the
+//   cluster, one (site, population) or (site, set) pair a thread, so no
+//   thread waits on another. Sharing it through distributed shared memory
+//   (each block computing 64/S sites, a cluster barrier, then a gather;
+//   experiments/gen_variants.py) measured 1 % faster at 16,384 sites and
+//   3 % slower at the CLI's 1,024, the block size of most launches: there
+//   the barrier and the gather cost more than the recomputation, which is
+//   O(sites) against the O(sites × columns) draws.
+//   Draws: the fold identity of the Pallas kernel keeps them in u32,
+//   fold(h2 ^ s·P4) = fold(h2) ^ fold(s·P4), with fold(s·P4) precomputed
+//   per column on the host. A thread draws 4 sites × 4 columns of a chunk
+//   as 16 independent chains, all shared-memory loads issued first; a
+//   thread whose four sites are dropped stores zeros without drawing. The
+//   next chunk's column table loads while this one is drawn. Each chunk is
+//   staged in shared memory (two buffers, one barrier a chunk) and leaves
+//   as 16-byte stores, a thread's 16 sites of one Xᵀ row; a TMA tensor
+//   store of the staged chunk measured 1–2 % slower (gen_variants.py).
+//   Counters: a site counts in rows[s] if any column of set s in any block
+//   drew a variant, so the blocks OR their per-site set bits into the
+//   leader block's shared memory (atomicOr through the cluster) before one
+//   warp ballot per set; the leader counts kept sites. A split cluster
+//   barrier (arrive at the start, wait before the ORs) orders the leader's
+//   zeroing before them at no cost, and a last cluster barrier keeps the
+//   leader alive until its peers are done. No mbarrier is used, so
+//   hopper.cuh's no-cluster assumption holds.
 //
 // gram_accumulate_kernel — G[i, j] += Σ_s Xᵀ[i, s]·Xᵀ[j, s] into the
 //   resident int32 G: the product half of pallas_gram
@@ -61,6 +88,7 @@
 // refuses to encode its tensor map.
 
 #include <atomic>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_runtime.h>
@@ -88,10 +116,14 @@ constexpr uint64_t POP_SPAN_Q17 = 98304;
 constexpr uint64_t POP_LO_Q32 = 8589935;
 constexpr uint64_t POP_HI_Q32 = 4080218931;
 
-// Tiling; ops/devicegen.py pads Xᵀ to these multiples.
-constexpr int GEN_SITES = 128;    // sites per generation block
-constexpr int GEN_THREADS = 512;
-constexpr int GEN_COL_CHUNK = GEN_THREADS;  // columns staged per chunk
+// Tiling; ops/devicegen.py pads Xᵀ to multiples of GT (rows and sites).
+constexpr int GEN_SITES = 64;     // sites per generation tile (one cluster)
+constexpr int GEN_MAX_CLUSTER = 16;  // blocks per tile: 16 needs the non-portable size
+constexpr int GEN_THREADS = 256;
+constexpr int GEN_COLS = 64;      // columns per chunk: one staged piece of Xᵀ
+constexpr int GEN_QUADS = GEN_SITES / 4;               // a thread's 4 sites ...
+constexpr int GEN_GROUPS = GEN_THREADS / GEN_QUADS;    // ... and column group
+constexpr int GEN_COLS_PER_THREAD = GEN_COLS / GEN_GROUPS;
 constexpr int MAX_POPS = 16;
 constexpr int MAX_SETS = 8;
 constexpr int GT = 128;           // Gramian tile edge: rows of Xᵀ in one TMA box
@@ -123,6 +155,7 @@ struct GenParams {
   int n_cols;
   int n_cols_pad;
   int ld;  // sites per Xᵀ row (the padded block size)
+  uint64_t vs_keys[MAX_SETS];  // per-set genotype stream keys
 };
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
@@ -141,123 +174,181 @@ __device__ __forceinline__ uint64_t u64_stream(uint64_t key, uint64_t pos_term,
   return mix64(h);
 }
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+// fmix32's first step, x ^ (x >> 16). It distributes over the fold's xor,
+// so the kernel applies it once per site and once per column.
+__device__ __forceinline__ uint32_t xorshift16(uint32_t x) { return x ^ (x >> 16); }
+
+// One genotype from x = xorshift16(fold(h2) ^ fold(s·P4)): the rest of
+// fmix32 gives the first allele draw, a multiply and xor the second; either
+// below the Q32 threshold is a variant.
+__device__ __forceinline__ bool has_variation(uint32_t x, uint32_t t) {
+  x *= 0x85EBCA6Bu;
   x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-// One genotype: the two allele draws against the Q32 threshold.
-__device__ __forceinline__ uint32_t has_variation(uint32_t x32, uint32_t t) {
-  const uint32_t d1 = fmix32(x32);
+  const uint32_t d1 = xorshift16(x);
   const uint32_t d2 = (d1 * 0x9E3779B9u) ^ 0x85EBCA6Bu;
-  return static_cast<uint32_t>(d1 < t) | static_cast<uint32_t>(d2 < t);
+  return min(d1, d2) < t;
 }
 
-__global__ void __launch_bounds__(GEN_THREADS)
-gen_genotypes_kernel(GenParams p, const uint64_t* __restrict__ vs_keys,
-                     const uint32_t* __restrict__ col_fsamp,
-                     const int32_t* __restrict__ col_set,
-                     const int32_t* __restrict__ col_pop,
-                     int8_t* __restrict__ xt,
-                     unsigned long long* __restrict__ kept,
+// The Xᵀ word of one column at four sites: their xorshift16(fold(h2)) `f`
+// and thresholds `t`, the column's xorshift16(fold(s·P4)) `s`.
+__device__ __forceinline__ uint32_t draw4(uint4 f, uint32_t s, uint4 t) {
+  return (has_variation(f.x ^ s, t.x) ? 0x1u : 0u) | (has_variation(f.y ^ s, t.y) ? 0x100u : 0u) |
+         (has_variation(f.z ^ s, t.z) ? 0x10000u : 0u) |
+         (has_variation(f.w ^ s, t.w) ? 0x1000000u : 0u);
+}
+
+// Split cluster barrier: arrive now, wait later (release / acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// One cluster of S blocks (S chosen at launch, gridDim.x) per tile of
+// GEN_SITES sites (blockIdx.y); block `rank` of it draws the chunks rank,
+// rank + S, ... of GEN_COLS columns.
+__global__ void __launch_bounds__(GEN_THREADS, 4)
+gen_genotypes_kernel(GenParams p, const uint32_t* __restrict__ col_fsamp,
+                     const int32_t* __restrict__ col_set, const int32_t* __restrict__ col_pop,
+                     int8_t* __restrict__ xt, unsigned long long* __restrict__ kept,
                      unsigned long long* __restrict__ rows) {
-  __shared__ __align__(16) uint32_t s_thr[MAX_POPS][GEN_SITES];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  // The tile's metadata: thresholds (row MAX_POPS is zero, the row of
+  // padding columns), xorshift16(fold(h2)) per set, kept flags.
+  __shared__ __align__(16) uint32_t s_thr[MAX_POPS + 1][GEN_SITES];
   __shared__ __align__(16) uint32_t s_fsite[MAX_SETS][GEN_SITES];
-  __shared__ uint32_t s_any[GEN_SITES];
   __shared__ uint32_t s_kept[GEN_SITES];
-  __shared__ uint32_t s_cfs[GEN_COL_CHUNK];  // fold(s·P4) of the chunk's columns
-  __shared__ int32_t s_cset[GEN_COL_CHUNK];
-  __shared__ int32_t s_cpop[GEN_COL_CHUNK];
+  __shared__ uint32_t s_any[GEN_SITES];  // per-site set bits: this block's, then the cluster's (leader)
+  __shared__ __align__(16) uint32_t s_out[2][GEN_COLS * GEN_QUADS];  // [column][site quad]
+  // A chunk's columns: threshold row and set row (word offsets), set, and
+  // xorshift16(fold(s·P4)).
+  __shared__ uint4 s_col[2][GEN_COLS];
 
   const int tid = threadIdx.x;
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * GEN_SITES;
-  const int local = tid % GEN_SITES;
-  const int64_t site = tile0 + local;
-  const uint64_t pos_term =
-      static_cast<uint64_t>((p.grid_offset + site) * p.spacing) * P2;
-
-  // Per-site metadata: threads 0..127 the thresholds, 128..255 the
-  // per-set genotype state, one site each.
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.y) * GEN_SITES;
+  const int chunks = p.n_cols_pad / GEN_COLS;
+  // Column c as the draws read it (s_col); padding columns read the zero
+  // threshold row.
+  auto column = [&](int c) {
+    if (c >= p.n_cols) return make_uint4(MAX_POPS * GEN_SITES, 0u, 0u, 0u);
+    const uint32_t set = __ldg(col_set + c);
+    return make_uint4(__ldg(col_pop + c) * GEN_SITES, set * GEN_SITES, set,
+                      xorshift16(__ldg(col_fsamp + c)));
+  };
+  // The first chunk's columns load while the metadata is computed.
+  uint4 next = make_uint4(MAX_POPS * GEN_SITES, 0u, 0u, 0u);
+  if (tid < GEN_COLS && rank < chunks) next = column(rank * GEN_COLS + tid);
   if (tid < GEN_SITES) {
-    const bool valid = site < p.n_valid;
-    const bool is_ref =
-        (u64_stream(p.site_key, pos_term, S_REF_BLOCK) >> 11) < p.ref_thresh;
-    const uint64_t u_af = u64_stream(p.site_key, pos_term, S_AF) >> 48;
-    const uint64_t af_q32 = AF_BASE_Q32 + ((u_af * u_af * AF_SPAN_Q16) >> 16);
-    bool keep = valid && !is_ref;
-    if (p.has_min_af) {
-      // round-half-even(af_q32 · 1e6 / 2^32) > floor(threshold · 1e6).
-      const uint64_t x = af_q32 * 1000000ull;
-      const uint64_t q = x >> 32;
-      const uint64_t frac = x & 0xFFFFFFFFull;
-      const uint64_t half = 1ull << 31;
-      const uint64_t r = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
-      keep = keep && r > p.min_af_micro;
-    }
-    uint32_t any_thr = 0;
-    for (int pop = 0; pop < p.n_pops; ++pop) {
-      const uint64_t u_p = u64_stream(p.site_key, pos_term, S_POP_BASE + pop) >> 48;
+    s_any[tid] = 0u;
+    s_thr[MAX_POPS][tid] = 0u;
+  }
+  // The leader's s_any must be zero before a peer ORs into it: arrive now,
+  // wait just before the ORs.
+  cluster_arrive();
+
+  // Site metadata, one (site, population) or (site, set) pair a thread. A
+  // population's threshold needs three independent streams (ref-block
+  // flag, AF, the population's factor), so no thread waits for another.
+  for (int i = tid; i < GEN_SITES * (p.n_pops + p.n_sets); i += GEN_THREADS) {
+    const int site = i % GEN_SITES, item = i / GEN_SITES;
+    const uint64_t pos_term =
+        static_cast<uint64_t>((p.grid_offset + tile0 + site) * p.spacing) * P2;
+    if (item < p.n_pops) {
+      const bool is_ref = (u64_stream(p.site_key, pos_term, S_REF_BLOCK) >> 11) < p.ref_thresh;
+      const uint64_t u_af = u64_stream(p.site_key, pos_term, S_AF) >> 48;
+      const uint64_t u_p = u64_stream(p.site_key, pos_term, S_POP_BASE + item) >> 48;
+      const uint64_t af_q32 = AF_BASE_Q32 + ((u_af * u_af * AF_SPAN_Q16) >> 16);
+      bool keep = tile0 + site < p.n_valid && !is_ref;
+      if (p.has_min_af) {
+        // round-half-even(af_q32 · 1e6 / 2^32) > floor(threshold · 1e6).
+        const uint64_t x = af_q32 * 1000000ull;
+        const uint64_t q = x >> 32;
+        const uint64_t frac = x & 0xFFFFFFFFull;
+        const uint64_t half = 1ull << 31;
+        const uint64_t r = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+        keep = keep && r > p.min_af_micro;
+      }
       const uint64_t factor = POP_BASE_Q16 + ((u_p * POP_SPAN_Q17) >> 16);
       uint64_t af_pop = (af_q32 * factor) >> 16;
       af_pop = af_pop < POP_LO_Q32 ? POP_LO_Q32 : af_pop;
       af_pop = af_pop > POP_HI_Q32 ? POP_HI_Q32 : af_pop;
-      const uint32_t t = keep ? static_cast<uint32_t>(af_pop) : 0u;
-      s_thr[pop][local] = t;
-      any_thr |= t;
-    }
-    s_kept[local] = any_thr != 0u;
-    s_any[local] = 0u;
-  } else if (tid < 2 * GEN_SITES) {
-    for (int s = 0; s < p.n_sets; ++s) {
-      const uint64_t h2 = mix64(mix64(vs_keys[s] ^ pos_term) ^ (S_GENOTYPE * P3));
-      s_fsite[s][local] = static_cast<uint32_t>(h2 >> 32) ^ static_cast<uint32_t>(h2);
-    }
-  }
-
-  // Genotypes: warp w draws the chunk's columns w, w+16, ...; lane l sites
-  // 4l..4l+3.
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int sl = lane * 4;
-  uint32_t any0 = 0, any1 = 0, any2 = 0, any3 = 0;
-  for (int c0 = 0; c0 < p.n_cols_pad; c0 += GEN_COL_CHUNK) {
-    __syncthreads();  // the metadata is written / the last chunk is drawn
-    const int mine = c0 + tid;
-    s_cfs[tid] = mine < p.n_cols ? col_fsamp[mine] : 0u;
-    s_cset[tid] = mine < p.n_cols ? col_set[mine] : -1;
-    s_cpop[tid] = mine < p.n_cols ? col_pop[mine] : 0;
-    __syncthreads();
-    const int chunk = min(GEN_COL_CHUNK, p.n_cols_pad - c0);
-    for (int j = warp; j < chunk; j += GEN_THREADS / 32) {
-      const int set = s_cset[j];
-      uint32_t packed = 0;
-      if (set >= 0) {
-        const uint32_t fs = s_cfs[j];
-        const uint4 t = *reinterpret_cast<const uint4*>(&s_thr[s_cpop[j]][sl]);
-        const uint4 f = *reinterpret_cast<const uint4*>(&s_fsite[set][sl]);
-        const uint32_t h0 = has_variation(f.x ^ fs, t.x);
-        const uint32_t h1 = has_variation(f.y ^ fs, t.y);
-        const uint32_t h2 = has_variation(f.z ^ fs, t.z);
-        const uint32_t h3 = has_variation(f.w ^ fs, t.w);
-        packed = h0 | (h1 << 8) | (h2 << 16) | (h3 << 24);
-        any0 |= h0 << set;
-        any1 |= h1 << set;
-        any2 |= h2 << set;
-        any3 |= h3 << set;
-      }
-      *reinterpret_cast<uint32_t*>(xt + static_cast<int64_t>(c0 + j) * p.ld + tile0 + sl) =
-          packed;
+      s_thr[item][site] = keep ? static_cast<uint32_t>(af_pop) : 0u;
+      // A kept site's thresholds are all at least POP_LO_Q32, so it is kept
+      // exactly when it is not dropped.
+      if (item == 0) s_kept[site] = keep;
+    } else {
+      const uint64_t h2 =
+          mix64(mix64(p.vs_keys[item - p.n_pops] ^ pos_term) ^ (S_GENOTYPE * P3));
+      s_fsite[item - p.n_pops][site] =
+          xorshift16(static_cast<uint32_t>(h2 >> 32) ^ static_cast<uint32_t>(h2));
     }
   }
-  if (any0) atomicOr(&s_any[sl], any0);
-  if (any1) atomicOr(&s_any[sl + 1], any1);
-  if (any2) atomicOr(&s_any[sl + 2], any2);
-  if (any3) atomicOr(&s_any[sl + 3], any3);
+  if (tid < GEN_COLS) s_col[0][tid] = next;
   __syncthreads();
 
-  // Counters: warps 0..3 hold one site per lane.
-  if (tid < GEN_SITES) {
+  // Draws: thread (quad q, group g) takes sites 4q..4q+3 of the chunk's
+  // columns g, g + 16, g + 32, g + 48 (a warp's 32 words land in 32 banks).
+  // A thread whose four sites are all dropped stores zeros without drawing.
+  // Each chunk is staged in one of two buffers and leaves as 16-byte stores,
+  // a thread's 16 sites of one Xᵀ row, after one barrier.
+  const int q = tid % GEN_QUADS;
+  const int g = tid / GEN_QUADS;
+  const int sl = 4 * q;
+  const bool live = (s_kept[sl] | s_kept[sl + 1] | s_kept[sl + 2] | s_kept[sl + 3]) != 0u;
+  uint32_t any = 0;  // byte i: the sets in which site sl + i drew a variant
+  int buf = 0;
+  for (int chunk = rank; chunk < chunks; chunk += blocks, buf ^= 1) {
+    // The next chunk's columns load while this one is drawn.
+    if (tid < GEN_COLS && chunk + blocks < chunks) next = column((chunk + blocks) * GEN_COLS + tid);
+    // All loads first, then the 16 draws as independent chains.
+    uint32_t packed[GEN_COLS_PER_THREAD] = {};
+    if (live) {
+      uint4 col[GEN_COLS_PER_THREAD], t[GEN_COLS_PER_THREAD], f[GEN_COLS_PER_THREAD];
+#pragma unroll
+      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) col[k] = s_col[buf][g + GEN_GROUPS * k];
+#pragma unroll
+      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
+        t[k] = *reinterpret_cast<const uint4*>(&s_thr[0][0] + col[k].x + sl);
+        f[k] = *reinterpret_cast<const uint4*>(&s_fsite[0][0] + col[k].y + sl);
+      }
+#pragma unroll
+      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
+        packed[k] = draw4(f[k], col[k].w, t[k]);
+        any |= packed[k] << col[k].z;  // bytes are 0 or 1, so each stays inside its byte
+      }
+    }
+    uint32_t* out = s_out[buf];
+#pragma unroll
+    for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) out[(g + GEN_GROUPS * k) * GEN_QUADS + q] = packed[k];
+    if (tid < GEN_COLS) s_col[buf ^ 1][tid] = next;
+    __syncthreads();
+    const int row = tid / (GEN_QUADS / 4), seg = tid % (GEN_QUADS / 4);
+    *reinterpret_cast<uint4*>(xt + static_cast<int64_t>(chunk * GEN_COLS + row) * p.ld + tile0 +
+                              16 * seg) = *reinterpret_cast<const uint4*>(out + row * GEN_QUADS + 4 * seg);
+  }
+
+  // Lanes l and l ^ 16 hold the same sites; then the block's bits, then the
+  // cluster's in the leader's s_any.
+  any |= __shfl_xor_sync(0xFFFFFFFFu, any, 16);
+  if ((tid & 31) < 16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if ((any >> (8 * i)) & 0xFFu) atomicOr(&s_any[sl + i], (any >> (8 * i)) & 0xFFu);
+  }
+  __syncthreads();
+  cluster_wait();
+  if (rank != 0 && tid < GEN_SITES && s_any[tid] != 0u)
+    atomicOr(cluster.map_shared_rank(&s_any[tid], 0), s_any[tid]);
+  cluster.sync();  // the leader holds the tile's bits; no block touches a peer after this
+
+  // Counters, by the leader: warps 0 and 1 hold one site a lane.
+  if (rank == 0 && tid < GEN_SITES) {
+    const int lane = tid & 31;
     const unsigned kept_mask = __ballot_sync(0xFFFFFFFFu, s_kept[tid] != 0u);
     if (lane == 0 && kept_mask) atomicAdd(kept, static_cast<unsigned long long>(__popc(kept_mask)));
     const uint32_t any = s_any[tid];
@@ -489,16 +580,54 @@ cudaError_t gram_prepare(int* device) {
   return status;
 }
 
+// The launch of one generation: one cluster of S blocks per tile of
+// GEN_SITES sites. S divides the chunks of columns, so every block draws as
+// many; it is the least such divisor that gives every SM two blocks, or the
+// largest up to GEN_MAX_CLUSTER when none does (10 at 2,504 samples and the
+// CLI's 1,024 sites: 160 blocks; 2 at 16,384 sites: 512 blocks). Allows the non-portable cluster size once per device.
+cudaError_t gen_config(int ld, int n_cols_pad, cudaStream_t stream, cudaLaunchConfig_t* config,
+                       cudaLaunchAttribute* cluster, int* sms) {
+  static std::atomic<bool> ready[G_MAX_DEVICES];
+  int device = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess && !(device < G_MAX_DEVICES && ready[device])) {
+    status = cudaFuncSetAttribute(gen_genotypes_kernel,
+                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (status == cudaSuccess && device < G_MAX_DEVICES) ready[device] = true;
+  }
+  if (status == cudaSuccess)
+    status = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  const int tiles = ld / GEN_SITES, chunks = n_cols_pad / GEN_COLS;
+  int blocks = 1;
+  for (int d = 2; d <= GEN_MAX_CLUSTER && d <= chunks && tiles * blocks < 2 * *sms; ++d)
+    if (chunks % d == 0) blocks = d;
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3(blocks, tiles);
+  config->blockDim = dim3(GEN_THREADS);
+  config->stream = stream;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = blocks;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  config->attrs = cluster;
+  config->numAttrs = 1;
+  return status;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The tile constants the Python side pads to, checked at load.
-int devicegen_site_tile() { return GEN_SITES; }
+// The tile constants the Python side pads to, checked at load: Xᵀ's sites
+// (ld) and rows are multiples of the product's 128-wide TMA box.
+int devicegen_site_tile() { return GT; }
 int devicegen_col_tile() { return GT; }
 int devicegen_max_pops() { return MAX_POPS; }
 int devicegen_max_sets() { return MAX_SETS; }
 
+// Xᵀ (n_cols_pad, ld) at `xt` (16-byte aligned, both multiples of 128) for
+// the sites at grid_offset + [0, ld), the first n_valid real; `vs_keys` is
+// a host array of the n_sets stream keys.
 int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
                          const uint64_t* vs_keys, const uint32_t* col_fsamp,
                          const int32_t* col_set, const int32_t* col_pop,
@@ -506,7 +635,10 @@ int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
                          uint64_t site_key, uint64_t ref_thresh, int has_min_af,
                          uint64_t min_af_micro, int n_pops, int n_sets, int n_cols,
                          int n_cols_pad, int ld, void* stream) {
-  GenParams p;
+  if (ld % GT || n_cols_pad % GT || ld / GEN_SITES > 65535 || n_sets > MAX_SETS ||
+      n_pops > MAX_POPS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GenParams p = {};
   p.grid_offset = grid_offset;
   p.n_valid = n_valid;
   p.spacing = spacing;
@@ -519,12 +651,38 @@ int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
   p.n_cols = n_cols;
   p.n_cols_pad = n_cols_pad;
   p.ld = ld;
-  gen_genotypes_kernel<<<ld / GEN_SITES, GEN_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      p, vs_keys, col_fsamp, col_set, col_pop, xt,
-      reinterpret_cast<unsigned long long*>(kept),
-      reinterpret_cast<unsigned long long*>(rows));
+  for (int s = 0; s < n_sets; ++s) p.vs_keys[s] = vs_keys[s];
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  int sms = 0;
+  cudaError_t status =
+      gen_config(ld, n_cols_pad, static_cast<cudaStream_t>(stream), &config, &cluster, &sms);
+  if (status == cudaSuccess)
+    status = cudaLaunchKernelEx(&config, gen_genotypes_kernel, p, col_fsamp, col_set, col_pop, xt,
+                                reinterpret_cast<unsigned long long*>(kept),
+                                reinterpret_cast<unsigned long long*>(rows));
+  if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch shape of one generation of ld sites over n_cols_pad columns on
+// the current card: grid[0] blocks, grid[1] blocks resident at once (the
+// clusters the card holds × the cluster size), grid[2] the card's SMs,
+// grid[3] the cluster size. A diagnostic: the launcher does not need it.
+int gen_genotypes_grid(int ld, int n_cols_pad, int* grid) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  int sms = 0, clusters = 0;
+  cudaError_t status = gen_config(ld, n_cols_pad, nullptr, &config, &cluster, &sms);
+  if (status == cudaSuccess)
+    status = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(gen_genotypes_kernel), &config);
+  const int blocks = static_cast<int>(config.gridDim.x);
+  grid[0] = blocks * (ld / GEN_SITES);
+  grid[1] = clusters * blocks;
+  grid[2] = sms;
+  grid[3] = blocks;
+  return static_cast<int>(status);
 }
 
 // The launch shape of one product over Xᵀ with n_pad rows on the current

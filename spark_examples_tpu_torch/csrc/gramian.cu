@@ -12,15 +12,31 @@
 // sites, both padded with zeros (n_pad a multiple of 128 ≥ N, ld a multiple
 // of 128 ≥ B), so the product needs no masking.
 //
-// unpack_rows_t_kernel — one 32×32-thread block per tile of 32 sites × 256
-//   columns. Each thread reads along the block's rows (one packed byte, or
-//   eight count bytes 32 apart), writes the values into a shared-memory
-//   tile indexed [column][site], and after the barrier stores the tile
-//   transposed: a warp writes 32 consecutive sites of one Xᵀ row, so the
-//   stores are coalesced along sites. Columns past N and sites past B come
-//   out zero, including the unused low bits of the last packed byte.
-//   Bound: bytes — it reads the block once and writes n_pad × ld int8;
-//   the shifts and masks are a few operations per output byte.
+// unpack_rows_t_kernel — one block of 256 threads per tile of 128 sites ×
+//   128 columns of Xᵀ.
+//   Bound: bytes. It reads the block once and writes n_pad × ld int8; in
+//   packed mode the write is 8/9 of them, so the stores are what matter.
+//   Stores: every lane writes 16 consecutive sites of one Xᵀ row with one
+//   16-byte store, eight lanes a row, so a warp instruction writes four
+//   rows of 128 contiguous bytes. The tile is staged in shared memory as
+//   32-bit words that already hold four consecutive sites of one row (row
+//   s in the low byte), 32 words a row, their 16-byte slots XOR-swizzled by
+//   the row so that both the word writes and the 16-byte reads spread over
+//   the banks.
+//   Packed mode: a staged word is byte j of rows s..s+3 (byte loads: packed
+//   rows are ceil(N/8) bytes apart, 313 at 2,504 samples, so neither TMA
+//   nor vector loads take them, and they are 1/9 of the traffic). Then
+//   (w >> (7 − k)) & 0x01010101 is the Xᵀ word of column 8j + k at those
+//   sites: one shift and one mask per four output bytes, no bit loop.
+//   Counts mode: a lane loads one 32-bit word (four columns) from each of
+//   four rows, byte by byte where the rows are not 4-byte aligned, and
+//   transposes the 4 × 4 bytes with eight byte permutes (PRMT) into four
+//   staged words, one a column.
+//   A tile that lies wholly inside the block (every tile at 2,504 samples
+//   but the last column tile) loads without bounds checks, so all of a
+//   thread's loads are in flight at once.
+//   Columns past N (the unused low bits of the last packed byte included)
+//   and sites past B come out zero.
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). The launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -30,50 +46,126 @@
 
 namespace {
 
-constexpr int TILE_SITES = 32;   // sites per tile (threadIdx.x on the store)
-constexpr int TILE_COLS = 256;   // columns per tile
-constexpr int TILE_STRIDE = TILE_SITES + 1;
+constexpr int TILE_SITES = 128;  // sites per tile: one row segment of 128 bytes
+constexpr int TILE_COLS = 128;   // columns per tile
+constexpr int THREADS = 256;
+constexpr int QUADS = TILE_SITES / 4;  // staged words a row
+constexpr int SEGMENTS = TILE_SITES / 16;  // 16-byte stores a row
+
+// The staged word of site quad `quad` in row `r`: 16-byte slots swizzled
+// by the row.
+__device__ __forceinline__ int staged(int r, int quad) {
+  const int slot = (quad >> 2) ^ ((r ^ (r >> 2)) & 7);
+  return r * QUADS + slot * 4 + (quad & 3);
+}
+
+// Bytes c..c+3 of a count row (little-endian), zero past n_cols.
+__device__ __forceinline__ uint32_t count_word(const uint8_t* row, int c, int n_cols, bool words) {
+  if (words && c + 3 < n_cols) return *reinterpret_cast<const uint32_t*>(row + c);
+  uint32_t w = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    if (c + b < n_cols) w |= static_cast<uint32_t>(row[c + b]) << (8 * b);
+  return w;
+}
+
+// Stage the tile's words. kInterior: every row, column and byte of the tile
+// lies inside the block (and count rows take 32-bit loads), so the loads
+// carry no bounds checks and all issue before the first is used.
+template <bool kPacked, bool kInterior>
+__device__ __forceinline__ void stage_tile(uint32_t* tile, const uint8_t* __restrict__ in, int rows,
+                                           int in_width, int n_cols, bool words, int s0, int c0) {
+  const int tid = threadIdx.x;
+  if (kPacked) {
+    // Word (j, quad): byte c0/8 + j of rows s0 + 4·quad .. + 3; a warp
+    // reads 16 neighbouring bytes of each of two rows an instruction.
+    constexpr int BYTES = TILE_COLS / 8;
+#pragma unroll
+    for (int i = 0; i < BYTES * QUADS / THREADS; ++i) {
+      const int u = tid + i * THREADS;
+      const int j = u % BYTES, quad = u / BYTES;
+      const int byte = c0 / 8 + j;
+      uint32_t w = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int s = s0 + 4 * quad + k;
+        if (kInterior || (byte < in_width && s < rows))
+          w |= static_cast<uint32_t>(in[static_cast<int64_t>(s) * in_width + byte]) << (8 * k);
+      }
+      tile[staged(j, quad)] = w;
+    }
+  } else {
+    // Unit (column quad cq, site quad): a warp's lanes read 128 neighbouring
+    // bytes of a row an instruction.
+    constexpr int CQUADS = TILE_COLS / 4;
+#pragma unroll
+    for (int i = 0; i < CQUADS * QUADS / THREADS; ++i) {
+      const int u = tid + i * THREADS;
+      const int cq = u % CQUADS, quad = u / CQUADS;
+      uint32_t a[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int s = s0 + 4 * quad + k;
+        const uint8_t* row = in + static_cast<int64_t>(s) * in_width;
+        if (kInterior)
+          a[k] = *reinterpret_cast<const uint32_t*>(row + c0 + 4 * cq);
+        else
+          a[k] = s < rows ? count_word(row, c0 + 4 * cq, n_cols, words) : 0u;
+      }
+      // 4 × 4 byte transpose: word i holds column 4·cq + i of the four rows.
+      const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
+      const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
+      tile[staged(4 * cq, quad)] = __byte_perm(t0, t2, 0x5410);
+      tile[staged(4 * cq + 1, quad)] = __byte_perm(t0, t2, 0x7632);
+      tile[staged(4 * cq + 2, quad)] = __byte_perm(t1, t3, 0x5410);
+      tile[staged(4 * cq + 3, quad)] = __byte_perm(t1, t3, 0x7632);
+    }
+  }
+}
 
 template <bool kPacked>
-__global__ void __launch_bounds__(TILE_SITES * 32)
-unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width,
-                     int n_cols, int8_t* __restrict__ xt, int n_pad, int ld) {
-  __shared__ int8_t tile[TILE_COLS * TILE_STRIDE];  // [column][site]
-  const int tx = threadIdx.x, ty = threadIdx.y;
+__global__ void __launch_bounds__(THREADS)
+unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int n_cols,
+                     int words, int8_t* __restrict__ xt, int ld) {
+  __shared__ __align__(16) uint32_t tile[TILE_COLS * QUADS];
+  const int tid = threadIdx.x;
   const int s0 = blockIdx.x * TILE_SITES;
   const int c0 = blockIdx.y * TILE_COLS;
-  const int s = s0 + ty;  // this thread's site on the load
-  const bool row_ok = s < rows;
+  const bool interior = s0 + TILE_SITES <= rows &&
+                        (kPacked ? c0 / 8 + TILE_COLS / 8 <= in_width
+                                 : words && c0 + TILE_COLS <= n_cols);
+  if (interior)
+    stage_tile<kPacked, true>(tile, in, rows, in_width, n_cols, words, s0, c0);
+  else
+    stage_tile<kPacked, false>(tile, in, rows, in_width, n_cols, words, s0, c0);
+  __syncthreads();
 
   if (kPacked) {
-    // Byte tx of the tile's row holds columns c0 + 8·tx … c0 + 8·tx + 7.
-    const int byte = c0 / 8 + tx;
-    uint32_t v = 0;
-    if (row_ok && byte < in_width) v = in[static_cast<int64_t>(s) * in_width + byte];
+    // Thread (half, j, segment): four of the eight columns of byte j at 16
+    // sites.
+    const int seg = tid % SEGMENTS, j = tid / SEGMENTS % (TILE_COLS / 8);
+    const int half = tid / (SEGMENTS * TILE_COLS / 8);
+    const uint4 w = *reinterpret_cast<const uint4*>(&tile[staged(j, 4 * seg)]);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = c0 + 8 * tx + k;
-      const uint32_t bit = (v >> (7 - k)) & 1u;
-      tile[(8 * tx + k) * TILE_STRIDE + ty] = static_cast<int8_t>(c < n_cols ? bit : 0u);
+    for (int k = 4 * half; k < 4 * half + 4; ++k) {
+      const int c = c0 + 8 * j + k;
+      const int shift = 7 - k;
+      uint4 out = make_uint4(0, 0, 0, 0);
+      if (c < n_cols) {
+        out.x = (w.x >> shift) & 0x01010101u;
+        out.y = (w.y >> shift) & 0x01010101u;
+        out.z = (w.z >> shift) & 0x01010101u;
+        out.w = (w.w >> shift) & 0x01010101u;
+      }
+      *reinterpret_cast<uint4*>(xt + static_cast<int64_t>(c) * ld + s0 + 16 * seg) = out;
     }
   } else {
 #pragma unroll
-    for (int k = 0; k < TILE_COLS / 32; ++k) {
-      const int c = c0 + tx + 32 * k;
-      uint8_t v = 0;
-      if (row_ok && c < n_cols) v = in[static_cast<int64_t>(s) * in_width + c];
-      tile[(tx + 32 * k) * TILE_STRIDE + ty] = static_cast<int8_t>(v);
-    }
-  }
-  __syncthreads();
-
-  // Store: warp ty writes columns ty, ty + 32, …; lane tx one site each.
-#pragma unroll
-  for (int k = 0; k < TILE_COLS / 32; ++k) {
-    const int r = ty + 32 * k;
-    const int c = c0 + r;
-    if (c < n_pad) {
-      xt[static_cast<int64_t>(c) * ld + s0 + tx] = tile[r * TILE_STRIDE + tx];
+    for (int i = 0; i < TILE_COLS * SEGMENTS / THREADS; ++i) {
+      const int u = tid + i * THREADS;
+      const int seg = u % SEGMENTS, c = u / SEGMENTS;
+      *reinterpret_cast<uint4*>(xt + static_cast<int64_t>(c0 + c) * ld + s0 + 16 * seg) =
+          *reinterpret_cast<const uint4*>(&tile[staged(c, 4 * seg)]);
     }
   }
 }
@@ -87,16 +179,17 @@ int gramian_tile_sites() { return TILE_SITES; }
 
 int unpack_rows_t_launch(const uint8_t* in, int rows, int in_width, int n_cols,
                          int packed, int8_t* xt, int n_pad, int ld, void* stream) {
-  if (ld % TILE_SITES != 0 || rows > ld || n_cols > n_pad) {
+  if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || rows > ld || n_cols > n_pad) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(ld / TILE_SITES, (n_pad + TILE_COLS - 1) / TILE_COLS);
-  const dim3 block(TILE_SITES, 32);
+  const dim3 grid(ld / TILE_SITES, n_pad / TILE_COLS);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (packed) {
-    unpack_rows_t_kernel<true><<<grid, block, 0, s>>>(in, rows, in_width, n_cols, xt, n_pad, ld);
+    unpack_rows_t_kernel<true><<<grid, THREADS, 0, s>>>(in, rows, in_width, n_cols, 0, xt, ld);
   } else {
-    unpack_rows_t_kernel<false><<<grid, block, 0, s>>>(in, rows, in_width, n_cols, xt, n_pad, ld);
+    // Whole 32-bit loads where every row starts on a 4-byte boundary.
+    const int words = in_width % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 4 == 0;
+    unpack_rows_t_kernel<false><<<grid, THREADS, 0, s>>>(in, rows, in_width, n_cols, words, xt, ld);
   }
   return static_cast<int>(cudaGetLastError());
 }

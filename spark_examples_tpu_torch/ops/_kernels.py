@@ -39,13 +39,14 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "devicegen.cu": {
         "gen_genotypes_launch": (
-            _P, _P, _P, _P, _P, _P, _P,  # xt, kept, rows, vs_keys, fsamp, set, pop
+            _P, _P, _P, _P, _P, _P, _P,  # xt, kept, rows, vs_keys (host), fsamp, set, pop
             _I64, _I64, _I64,  # grid_offset, n_valid, spacing
             _U64, _U64, _I32, _U64,  # site_key, ref_thresh, has_min_af, min_af
             _I32, _I32, _I32, _I32, _I32,  # n_pops, n_sets, n_cols, n_cols_pad, ld
             _P,  # stream
         ),
         "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _P),
+        "gen_genotypes_grid": (_I32, _I32, _P),  # ld, n_cols_pad, grid (4 ints)
         "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (2 ints)
         "devicegen_site_tile": (),
         "devicegen_col_tile": (),

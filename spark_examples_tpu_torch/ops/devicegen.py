@@ -67,7 +67,8 @@ _S_POP_BASE = 3
 _S_GENOTYPE = 100
 
 #: Tiling of csrc/devicegen.cu (checked against the library at load): Xᵀ is
-#: padded to SITE_TILE sites per row and COL_TILE rows.
+#: padded to SITE_TILE sites per row and COL_TILE rows, the product's
+#: 128-wide TMA box; the generation's own 64-site tiles divide both.
 SITE_TILE = 128
 COL_TILE = 128
 MAX_POPS = 16
@@ -235,6 +236,7 @@ class GenPlan:
     min_af_micro: Optional[int]
     n_pops: int
     vs_keys: torch.Tensor  # (S,) int64: u64 genotype stream keys
+    vs_keys_host: Tuple[int, ...]  # the same keys as host u64 values (the kernel's parameters)
     set_sizes: Tuple[int, ...]
     col_set: torch.Tensor  # (C,) int32
     col_pop: torch.Tensor  # (C,) int32
@@ -290,6 +292,7 @@ def make_gen_plan(
         min_af_micro=None if min_af_micro is None else int(min_af_micro),
         n_pops=int(n_pops),
         vs_keys=torch.from_numpy(keys).to(device),
+        vs_keys_host=tuple(int(k) & _MASK64 for k in vs_keys),
         set_sizes=tuple(len(p) for p in pops_per_set),
         col_set=torch.from_numpy(col_set).to(device),
         col_pop=torch.from_numpy(col_pop).to(device),
@@ -391,13 +394,14 @@ def gen_genotypes(
         )
     ld = _round_up(block_sites, SITE_TILE)
     xt = torch.empty((plan.n_cols_pad, ld), dtype=torch.int8, device=device)
+    keys = (ctypes.c_uint64 * MAX_SETS)(*plan.vs_keys_host)
     lib = _library()
     with torch.cuda.device(device):
         status = lib.gen_genotypes_launch(
             xt.data_ptr(),
             kept.data_ptr(),
             rows.data_ptr(),
-            plan.vs_keys.data_ptr(),
+            keys,
             plan.col_fsamp.data_ptr(),
             plan.col_set.data_ptr(),
             plan.col_pop.data_ptr(),
@@ -421,6 +425,23 @@ def gen_genotypes(
 
 
 gen_genotypes.launches = 0  # type: ignore[attr-defined]
+
+
+def gen_genotypes_grid(
+    plan: GenPlan, block_sites: int, device: torch.device
+) -> tuple[int, int, int, int]:
+    """``gen_genotypes_kernel``'s launch on ``device`` for ``plan``'s
+    columns and a block of ``block_sites`` sites: (blocks, blocks resident
+    at once, the card's SMs, blocks a cluster). One cluster per 64 sites."""
+    grid = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _kernels.check(
+            _library().gen_genotypes_grid(
+                _round_up(block_sites, SITE_TILE), plan.n_cols_pad, grid
+            ),
+            "gen_genotypes_grid",
+        )
+    return grid[0], grid[1], grid[2], grid[3]
 
 
 def gram_accumulate_plain(G: torch.Tensor, xt: torch.Tensor) -> None:
@@ -657,6 +678,7 @@ __all__ = [
     "auto_blocks_per_dispatch",
     "fmix32",
     "gen_genotypes",
+    "gen_genotypes_grid",
     "gen_genotypes_plain",
     "generate_has_variation",
     "gram_accumulate",

@@ -185,11 +185,13 @@ def _state(acc):
 
 @pytest.mark.parametrize(
     "blocks_per_dispatch, block_size, min_af",
-    [(1, 64, None), (4, 64, None), (4, 32, 0.15), (8, 48, None)],
+    [(1, 64, None), (4, 64, None), (4, 32, 0.15), (8, 48, None), (1, 1024, None), (2, 1100, 0.15)],
 )
 def test_accumulator_matches_jax(blocks_per_dispatch, block_size, min_af):
     """G, variant_rows, kept_sites and the dispatch counters, exactly; the
-    grid ends in tail groups (n_valid < capacity)."""
+    grid ends in tail groups (n_valid < capacity). The last two cases are
+    the CLI's default block of 1,024 sites and a block (1,100) that is not
+    a multiple of the kernel's 128-site padding."""
     source = SyntheticGenomicsSource(num_samples=24, seed=11)
     jax_acc, torch_acc = _make_pair(source, ["vs"], block_size, blocks_per_dispatch, min_af)
     for contig in (Contig("1", 0, 60_000), Contig("3", 5_000, 12_345)):
@@ -203,8 +205,12 @@ def test_accumulator_matches_jax(blocks_per_dispatch, block_size, min_af):
     assert torch_acc.G.dtype == torch.int32
 
 
-def test_accumulator_multi_set_asymmetric_matches_jax():
-    source = SyntheticGenomicsSource(num_samples=20, seed=5, cohort_sizes={"vs-b": 7})
+@pytest.mark.parametrize("first, second", [(20, 7), (130, 45)])
+def test_accumulator_multi_set_asymmetric_matches_jax(first, second):
+    """Two variant sets of different sizes; at 130 + 45 samples the second
+    set's columns cross a 128-column boundary, so its variant rows gather
+    bits from two column tiles."""
+    source = SyntheticGenomicsSource(num_samples=first, seed=5, cohort_sizes={"vs-b": second})
     jax_acc, torch_acc = _make_pair(source, ["vs-a", "vs-b"], 64, 4, asymmetric=True)
     k0, k1 = source.site_grid_range(Contig("17", 0, 30_000))
     jax_acc.add_grid(k0, k1)
@@ -212,7 +218,8 @@ def test_accumulator_multi_set_asymmetric_matches_jax():
     want, got = _state(jax_acc), _state(torch_acc)
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
-    assert got[0].shape == (27, 27)
+    assert got[0].shape == (first + second, first + second)
+    assert min(got[1]) > 0
 
 
 def test_accumulator_add_range_validation():
@@ -243,6 +250,25 @@ def test_state_carries_over_from_jax():
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
     assert (G != want[0]).any()  # the carried half alone is not the answer
+
+
+@pytest.mark.parametrize("block_sites", [1, 127, 1024, 1100, 16384])
+def test_xt_sites_pad_to_the_product_tile(block_sites):
+    """Xᵀ's width stays a multiple of 128 (the product's TMA box) for any
+    block size, whatever the generation kernel's own site tile; padding
+    sites are zero."""
+    source = SyntheticGenomicsSource(num_samples=12, seed=2)
+    plan = port.make_gen_plan(
+        [source.genotype_stream_key("vs")], [source.populations], source.site_key,
+        source.variant_spacing, source.ref_block_fraction, None, source.n_pops, CPU,
+    )
+    kept = torch.zeros((), dtype=torch.int64)
+    rows = torch.zeros(1, dtype=torch.int64)
+    xt = port.gen_genotypes(plan, 1000, block_sites, block_sites, kept, rows)
+    ld = -(-block_sites // 128) * 128
+    assert port.SITE_TILE == 128 and xt.shape == (port.COL_TILE, ld)
+    assert not xt[:, block_sites:].any() and not xt[12:].any()
+    assert 0 < int(kept) <= block_sites
 
 
 def test_auto_blocks_per_dispatch_matches_jax():

@@ -21,22 +21,23 @@ def _rows(rng, b, n, top=1, density=0.3):
     return (values * (rng.random((b, n)) < density)).astype(np.uint8)
 
 
+@pytest.mark.parametrize("rows", [37, 1, 127, 1024])
 @pytest.mark.parametrize("n", [8, 13, 130])
-def test_unpack_matches_reference_unpack_bits(n):
+def test_unpack_matches_reference_unpack_bits(n, rows):
     """Bit-packed rows, including junk in the last byte's unused low bits,
     unpack to the reference's ``_unpack_bits`` columns; the padding is
-    zero."""
-    rng = np.random.default_rng(n)
-    bits = _rows(rng, 37, n, density=0.5)
+    zero, and Xᵀ's sites are padded to a multiple of 128."""
+    rng = np.random.default_rng(n + rows)
+    bits = _rows(rng, rows, n, density=0.5)
     packed = np.packbits(bits, axis=-1)
     if n % 8:
         packed[:, -1] |= 0xFF >> (8 - (-n % 8))
     want = np.asarray(ref._unpack_bits(jnp.asarray(packed), n))
     xt = port.unpack_rows_t(torch.from_numpy(packed), n)
     assert xt.dtype == torch.int8
-    assert xt.shape == (-(-n // 128) * 128, 128)
-    np.testing.assert_array_equal(xt[:n, :37].T.numpy(), want)
-    assert not xt[n:].any() and not xt[:, 37:].any()
+    assert xt.shape == (-(-n // 128) * 128, -(-rows // 128) * 128)
+    np.testing.assert_array_equal(xt[:n, :rows].T.numpy(), want)
+    assert not xt[n:].any() and not xt[:, rows:].any()
 
 
 def test_unpack_counts_mode_and_its_checks():

@@ -73,30 +73,53 @@ def test_scratch_copy_smallest_scratch():
         vmem_capacity.scratch_copy(tile, vmem_capacity.MIN_BYTES - 1)
 
 
+#: (cohort sizes, grid offset, valid sites, block sites, min AF) of the
+#: generation cases: the CLI's 1,024-site block and chr17's 16,384 at the
+#: 1000 Genomes width, the ragged tail of chr17's grid, the min-AF filter,
+#: and two-set cohorts whose second set straddles a 64-column chunk (300 +
+#: 45: columns 300..344 cross 320, drawn by two blocks of the cluster) or
+#: follows a set that spans every chunk (2,504 + 45).
+GEN_CASES = {
+    "two-sets-300+45-min-af-ragged": ((300, 45), 12_345, 1000, 1100, 0.05),
+    "2504x1024": ((2504,), 400_000, 1024, 1024, None),
+    "2504x16384": ((2504,), 400_000, 16384, 16384, None),
+    "ragged-tail-5000-of-16384": ((2504,), 811_000, 5000, 16384, None),
+    "min-af-2504x1024": ((2504,), 400_000, 1024, 1024, 0.05),
+    "two-sets-2504+45": ((2504, 45), 400_000, 1024, 1024, None),
+}
+
+
 @pytest.mark.gpu
-def test_kernels_equal_plain_versions_on_the_card():
-    """Both kernels against their plain versions, exactly: two variant sets
-    of different sizes, the min-AF filter on, a ragged block, and a G that
-    is not zero before the product."""
+@pytest.mark.parametrize("case", sorted(GEN_CASES))
+def test_kernels_equal_plain_versions_on_the_card(case):
+    """Both kernels against their plain versions, exactly, with both
+    counters; then the product of the generated block onto a G that is not
+    zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sizes, offset, n_valid, block, min_af = GEN_CASES[case]
     dev = torch.device("cuda")
-    source = SyntheticGenomicsSource(num_samples=300, seed=4, cohort_sizes={"b": 45})
+    names = ["a", "b"][: len(sizes)]
+    source = SyntheticGenomicsSource(
+        num_samples=sizes[0], seed=4, cohort_sizes=dict(zip(names[1:], sizes[1:]))
+    )
     plan = port.make_gen_plan(
-        [source.genotype_stream_key("a"), source.genotype_stream_key("b")],
-        [source.populations_for("a"), source.populations_for("b")], source.site_key,
-        source.variant_spacing, source.ref_block_fraction, af_filter_micro(0.05),
+        [source.genotype_stream_key(v) for v in names],
+        [source.populations_for(v) for v in names], source.site_key,
+        source.variant_spacing, source.ref_block_fraction, af_filter_micro(min_af),
         source.n_pops, dev,
     )
     counters = [
-        (torch.zeros((), dtype=torch.int64, device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+        (torch.zeros((), dtype=torch.int64, device=dev),
+         torch.zeros(len(names), dtype=torch.int64, device=dev))
         for _ in range(2)
     ]
     port.reset_launch_counts()
-    got = port.gen_genotypes(plan, 12_345, 1000, 1100, *counters[0])
-    want = port.gen_genotypes_plain(plan, 12_345, 1000, 1100, *counters[1])
+    got = port.gen_genotypes(plan, offset, n_valid, block, *counters[0])
+    want = port.gen_genotypes_plain(plan, offset, n_valid, block, *counters[1])
     assert torch.equal(got, want)
     assert torch.equal(counters[0][0], counters[1][0]) and torch.equal(counters[0][1], counters[1][1])
+    assert int(counters[0][1].min()) > 0
     G = torch.full((plan.n_cols, plan.n_cols), 7, dtype=torch.int32, device=dev)
     G_plain = G.clone()
     port.gram_accumulate(G, got)
@@ -143,10 +166,13 @@ def test_gram_accumulate_equals_plain_and_numpy_on_the_card(n, sites, counts):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 100, 127, 1024, 16384])
+@pytest.mark.parametrize("n", [13, 130, 300, 2504])
 @pytest.mark.parametrize("counts", [False, True])
-def test_unpack_kernel_equals_plain_version_on_the_card(counts):
-    """Ragged widths and a block size that is not a multiple of the tiling,
-    then the product of PR 1 on the unpacked block, exactly."""
+def test_unpack_kernel_equals_plain_version_on_the_card(counts, n, rows):
+    """Ragged widths and block sizes that are not multiples of the tiling,
+    junk in the unused packed bits, then the product on the unpacked block,
+    exactly (against numpy where the product is small enough for it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import numpy as np
@@ -154,23 +180,23 @@ def test_unpack_kernel_equals_plain_version_on_the_card(counts):
     from spark_examples_tpu_torch.ops import gramian
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
-    for n, rows in ((13, 1), (300, 100), (2504, 1024)):
-        values = rng.integers(0, 5 if counts else 2, (rows, n), dtype=np.uint8)
-        host = values if counts else np.packbits(values, axis=-1)
-        if not counts:
-            host[:, -1] |= 0xFF >> (8 - (-n % 8)) if n % 8 else 0  # junk in unused bits
-        block = torch.from_numpy(host).to(dev)
-        gramian.reset_launch_counts()
-        got = gramian.unpack_rows_t(block, n, counts=counts)
-        want = gramian.unpack_rows_t_plain(block, n, counts=counts)
-        assert torch.equal(got, want) and gramian.unpack_rows_t.launches == 1
-        G = torch.full((n, n), 3, dtype=torch.int32, device=dev)
-        G_plain = G.clone()
-        port.gram_accumulate(G, got)
-        port.gram_accumulate_plain(G_plain, want)
+    rng = np.random.default_rng(3 + n + rows)
+    values = rng.integers(0, 5 if counts else 2, (rows, n), dtype=np.uint8)
+    host = values if counts else np.packbits(values, axis=-1)
+    if not counts and n % 8:
+        host[:, -1] |= 0xFF >> (8 - (-n % 8))  # junk in unused bits
+    block = torch.from_numpy(host).to(dev)
+    gramian.reset_launch_counts()
+    got = gramian.unpack_rows_t(block, n, counts=counts)
+    want = gramian.unpack_rows_t_plain(block, n, counts=counts)
+    assert torch.equal(got, want) and gramian.unpack_rows_t.launches == 1
+    G = torch.full((n, n), 3, dtype=torch.int32, device=dev)
+    G_plain = G.clone()
+    port.gram_accumulate(G, got)
+    port.gram_accumulate_plain(G_plain, want)
+    assert torch.equal(G, G_plain)
+    if rows * n <= 1024 * 2504:
         X = values.astype(np.int64)
-        assert torch.equal(G, G_plain)
         assert np.array_equal(G.cpu().numpy(), X.T @ X + 3)
 
 
