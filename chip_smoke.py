@@ -8,7 +8,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. card: the card's name and power limit (``nvidia-smi``), torch and CUDA;
 2. build: every kernel built from ``spark_examples_tpu_torch/csrc`` with
    nvcc, one process per source, all started together (``-Xptxas -v``
-   report printed); the build's SASS (``cuobjdump``) must show TMA stores
+   report printed), and the native VCF parser (``native/vcfparse.cpp``)
+   with g++; the build's SASS (``cuobjdump``) must show TMA stores
    in the generation kernel, int8 warpgroup MMAs and TMA loads in the
    product's kernel and bulk copies in the scratch copy's;
 3. kernels: each kernel against its plain PyTorch version at the shapes its
@@ -32,10 +33,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    variant-set id: count-valued rows) over 5 kb. For each: launch counts,
    wall-clock, stage spans, peak device memory, and the PCs checked
    against a full ``eigh`` of the same run's centered Gramian;
-5. probes: the entry points of the two probes, ``probe_ops.run`` for every
+5. files: the packed window's synthetic cohort written as a VCF (GT from
+   ``has_variation``, AF in INFO; about 180 MB) and a gzip copy, the wire
+   window's as a small VCF, under ``chip_smoke_data/``; then the file
+   source's arms at 2,504 samples — packed (the native parser over the
+   whole file), streamed (one bounded pass over the ``.gz``), wire, and
+   ``--save-variants`` followed by ``--input-path`` — each checked as
+   above, with its Gramian exactly equal to the synthetic run's over the
+   same records, the native parser's gauge set (packed and streamed), and
+   the resumed run's rows equal to the saving run's;
+6. telemetry: chr17 and the file packed arm once more with
+   ``--profile-dir`` and ``--metrics-json``: the manifest must pass the
+   port's validator, and the card's busy share of the ``ingest+similarity``
+   range is read from the trace's CUDA kernel events (traced wall-clock is
+   reported apart from the untraced runs');
+7. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
-6. the ``kernels`` JSON line, the card line, and last the result line.
+8. the ``kernels`` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when no CUDA card is present or the port is not beside this file.
@@ -44,14 +59,18 @@ result when no CUDA card is present or the port is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import glob
+import gzip
 import io
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -73,6 +92,10 @@ PACKED_ARGV = ["--references", "17:41196311:43196311", "--num-samples", "2504",
 WIRE_ARGV = ["--references", "17:41196311:41206311", "--num-samples", "2504",
              "--ingest", "wire"]
 SAME_SET_WINDOW = "17:41196311:41201311"
+#: Where the file phase writes its VCF inputs (git-ignored).
+DATA_DIR = Path(__file__).resolve().parent / "chip_smoke_data"
+#: The streamed arm's decompressed chunk: several chunks for the parse pool.
+STREAM_CHUNK = 8 << 20
 N_SAMPLES = 2504
 BLOCK = 16384
 #: The CLI's default --block-size, and the packed arm's flush.
@@ -487,7 +510,7 @@ def run_main_path(torch, kernels, argv, label, expect):
     """One ``variants-pca`` run through the port's entry point, every
     launch count set to zero just before; fails unless each kernel named in
     ``expect`` launched. The PCs are checked against a full eigh of the
-    run's Gramian. Returns the launch counts."""
+    run's Gramian. Returns the launch counts and the run's result."""
     from spark_examples_tpu_torch.config import PcaConf
     from spark_examples_tpu_torch.obs.metrics import (
         DEVICEGEN_DISPATCHES,
@@ -542,10 +565,174 @@ def run_main_path(torch, kernels, argv, label, expect):
         f"top |eigenvalues| {[round(float(e), 3) for e in evals.cpu()]}")
     if gap > PC_TOLERANCE:
         raise AssertionError(f"{label}: PCs differ from the full eigh by {gap}")
-    return launches
+    return launches, result
+
+
+def write_cohort_vcf(window: str, path: Path, gz_path=None) -> int:
+    """The CLI's synthetic cohort (2,504 samples, seed 42, the default
+    variant set) over ``window`` as a VCF: one line per variant row of the
+    synthetic packed arm's blocks, partition by partition (``GT`` 0|1 where
+    the sample varies, else 0|0; ``AF`` in INFO), the samples in the
+    synthetic callset order so the two Gramians index alike. With
+    ``gz_path`` also a gzip copy. Returns the rows written."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.pipeline.pca_driver import make_source
+    from spark_examples_tpu_torch.sharding.contig import parse_contigs
+    from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
+
+    conf = PcaConf.parse(["--references", window, "--num-samples", str(N_SAMPLES)])
+    source = make_source(conf)
+    set_id = conf.variant_set_id[0]
+    names = [cs["name"] for cs in source.search_callsets([set_id])]
+    partitions = VariantsPartitioner(parse_contigs(window), conf.bases_per_partition)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    rows = 0
+    with open(path, "wb") as f:
+        f.write(b"##fileformat=VCFv4.2\n")
+        f.write(("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+                 + "\t".join(names) + "\n").encode())
+        for part in partitions.get_partitions(set_id):
+            for block in source.genotype_blocks(set_id, part.contig, block_size=CLI_BLOCK):
+                hv = block["has_variation"]
+                text = np.empty((hv.shape[0], hv.shape[1], 4), dtype=np.uint8)
+                text[:] = np.frombuffer(b"0|0\t", dtype=np.uint8)
+                text[:, :, 2] += hv
+                text[:, -1, 3] = ord("\n")
+                for pos, af, line in zip(block["positions"], block["af"], text):
+                    f.write(f"17\t{int(pos) + 1}\t.\tA\tG\t.\t.\tAF={af:.6f}\tGT\t".encode())
+                    f.write(line.tobytes())
+                rows += hv.shape[0]
+    if gz_path is not None:
+        with open(path, "rb") as src, gzip.open(gz_path, "wb", compresslevel=1) as dst:
+            shutil.copyfileobj(src, dst, 16 << 20)
+    return rows
+
+
+def phase_files(torch, kernels, expect, packed_g, wire_g):
+    """The file source's arms over VCFs of the synthetic cohort: packed
+    (the native parser over the whole plain file), streamed (one bounded
+    pass over the gzip copy), wire over the wire window, and
+    ``--save-variants`` then ``--input-path``. Each run's Gramian must equal
+    the synthetic run's over the same records exactly (``packed_g``: the
+    packed window, ``wire_g``: the wire window)."""
+    from spark_examples_tpu_torch.obs.metrics import VCF_NATIVE_PARSE
+
+    big, big_gz, small = (DATA_DIR / "packed_window.vcf", DATA_DIR / "packed_window.vcf.gz",
+                          DATA_DIR / "wire_window.vcf")
+    t0 = time.perf_counter()
+    rows = write_cohort_vcf(PACKED_ARGV[1], big, big_gz)
+    wire_rows = write_cohort_vcf(WIRE_ARGV[1], small)
+    log(f"files: wrote {rows} rows to {big.name} ({big.stat().st_size} bytes; gzip "
+        f"{big_gz.stat().st_size} bytes) and {wire_rows} to {small.name} "
+        f"({small.stat().st_size} bytes) in {time.perf_counter() - t0:.1f} s")
+    save_dir = DATA_DIR / "saved_variants"
+    shutil.rmtree(save_dir, ignore_errors=True)
+    packed_window, wire_window = PACKED_ARGV[1], WIRE_ARGV[1]
+    runs = (
+        ("file packed", [str(big)], packed_window,
+         ["--ingest", "packed", "--stream-chunk-bytes", "0"], packed_g, True),
+        ("file streamed", [str(big_gz)], packed_window,
+         ["--ingest", "packed", "--stream-chunk-bytes", str(STREAM_CHUNK)], packed_g, True),
+        ("file wire", [str(small)], wire_window, ["--ingest", "wire"], wire_g, False),
+        ("file save", [str(small)], wire_window, ["--save-variants", str(save_dir)], wire_g,
+         False),
+        ("file resume", [str(small)], wire_window, ["--input-path", str(save_dir)], wire_g,
+         False),
+    )
+    results = {}
+    for label, files, window, extra, want_g, native in runs:
+        argv = ["--source", "file", "--input-files", ",".join(files),
+                "--references", window] + extra
+        _, result = run_main_path(torch, kernels, argv, label, expect)
+        got_g = result.driver.accumulator.G
+        if not torch.equal(got_g, want_g):
+            err = int((got_g.long() - want_g.long()).abs().max())
+            raise AssertionError(f"{label}: Gramian differs from the synthetic run's by {err}")
+        parser = result.driver.registry.value(VCF_NATIVE_PARSE)
+        if native and parser != 1.0:
+            raise AssertionError(f"{label}: the native VCF parser did not run ({parser})")
+        log(f"files: {label}: Gramian == the synthetic run's over the same records "
+            f"(trace {int(got_g.diagonal().long().sum())}); native parser gauge {parser}")
+        results[label] = result
+    if results["file resume"].lines != results["file save"].lines:
+        raise AssertionError("the resumed run's rows differ from the saving run's")
+    log(f"files: the resumed run printed the saving run's {len(results['file save'].lines)} "
+        "rows exactly")
+
+
+def busy_share(trace_path: str, span: str = "ingest+similarity"):
+    """(kernel-busy share, kernel + copy busy share, window ms, kernel
+    count) of the ``span`` range in a ``torch.profiler`` Chrome trace: the
+    union of the CUDA kernel (and memcpy/memset) intervals inside the range
+    over its length. ``None`` when the trace has no such range or no
+    kernel event."""
+    events = json.load(open(trace_path))["traceEvents"]
+    ranges = [e for e in events if e.get("ph") == "X" and e.get("name") == span
+              and e.get("cat") == "user_annotation"]
+    if not ranges:
+        return None
+    lo = ranges[0]["ts"]
+    hi = lo + ranges[0]["dur"]
+
+    def union(cats):
+        spans = sorted((max(lo, e["ts"]), min(hi, e["ts"] + e["dur"])) for e in events
+                       if e.get("ph") == "X" and e.get("cat") in cats
+                       and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+        total, end = 0.0, lo
+        for a, b in spans:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total, len(spans)
+
+    kernels, count = union(("kernel",))
+    if count == 0:
+        return None
+    with_copies, _ = union(("kernel", "gpu_memcpy", "gpu_memset"))
+    return kernels / (hi - lo), with_copies / (hi - lo), (hi - lo) / 1e3, count
+
+
+def phase_telemetry(torch, kernels):
+    """chr17 (16,384-site blocks) and the file packed arm once more, traced
+    (``--profile-dir``) with a manifest (``--metrics-json``): the manifest
+    must pass the port's validator; the card's busy share of the
+    ``ingest+similarity`` range comes from the trace's kernel events."""
+    from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
+
+    shares = {}
+    for label, argv, expect in (
+        ("chr17 traced", CHR17_ARGV, ("gen_genotypes", "gram_accumulate")),
+        ("file packed traced", ["--source", "file", "--input-files",
+                                str(DATA_DIR / "packed_window.vcf"), "--references",
+                                PACKED_ARGV[1], "--ingest", "packed",
+                                "--stream-chunk-bytes", "0"],
+         ("unpack_rows_t", "gram_accumulate")),
+    ):
+        tag = label.split()[0] + ("_file" if "file" in label else "")
+        profile, metrics_json = DATA_DIR / f"trace_{tag}", DATA_DIR / f"manifest_{tag}.json"
+        shutil.rmtree(profile, ignore_errors=True)
+        run_main_path(torch, kernels, argv + ["--profile-dir", str(profile),
+                                              "--metrics-json", str(metrics_json)], label, expect)
+        problems = validate_manifest(read_manifest(str(metrics_json)))
+        if problems:
+            raise AssertionError(f"{label}: the manifest is invalid: {problems}")
+        traces = glob.glob(str(profile / "torch_trace_*.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"{label}: expected one trace in {profile}, found {traces}")
+        share = busy_share(traces[0])
+        if share is None:
+            log(f"telemetry {label}: manifest valid; busy share not measured (the trace "
+                f"holds no CUDA kernel event in the ingest+similarity range)")
+        else:
+            log(f"telemetry {label}: manifest valid; trace {os.path.getsize(traces[0])} bytes; "
+                f"card busy {100 * share[0]:.2f} % of ingest+similarity ({share[1] * 100:.2f} % "
+                f"with copies) over {share[2]:.3f} ms, {share[3]} kernel events")
+        shares[label] = share
+    return shares
 
 
 def main() -> int:
+    started = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -558,6 +745,7 @@ def main() -> int:
         from spark_examples_tpu_torch.constants import GoogleGenomicsPublicData
         from spark_examples_tpu_torch.experiments import probe_ops, vmem_capacity
         from spark_examples_tpu_torch.ops import _kernels, devicegen, gramian
+        from spark_examples_tpu_torch.utils import native
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
         return 1
@@ -569,6 +757,12 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _kernels.build_all()
     log(f"build: {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    parser = native.vcf_library()
+    if parser is None:
+        raise AssertionError(f"the native VCF parser did not build: "
+                             f"{native.native_unavailable_reason()}")
+    log(f"build: native VCF parser {parser._name} in {time.perf_counter() - t0:.1f} s")
     for source in libs:
         for line in _kernels.build_log(source).splitlines():
             if any(key in line for key in ("Compiling entry", "Used", "spill", "arning")):
@@ -587,16 +781,19 @@ def main() -> int:
     device_path = ("gen_genotypes", "gram_accumulate")
     host_fed = ("unpack_rows_t", "gram_accumulate")
     run_main_path(torch, path_kernels, CHR17_ARGV, "chr17 cold", device_path)
-    launches = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)
+    launches, _ = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)
     run_main_path(torch, path_kernels, CHR17_CLI_ARGV, "chr17 default block", device_path)
     run_main_path(torch, path_kernels, BRCA1_ARGV, "brca1", device_path)
-    packed = run_main_path(torch, path_kernels, PACKED_ARGV, "packed", host_fed)
-    run_main_path(torch, path_kernels, WIRE_ARGV, "wire", host_fed)
+    packed, packed_run = run_main_path(torch, path_kernels, PACKED_ARGV, "packed", host_fed)
+    _, wire_run = run_main_path(torch, path_kernels, WIRE_ARGV, "wire", host_fed)
     set_id = GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1
     same_set_argv = ["--references", SAME_SET_WINDOW, "--num-samples", str(N_SAMPLES),
                      "--variant-set-id", f"{set_id},{set_id}"]
     run_main_path(torch, path_kernels, same_set_argv, "same-set wire", host_fed)
     launches["unpack_rows_t"] = packed["unpack_rows_t"]
+    phase_files(torch, path_kernels, host_fed, packed_run.driver.accumulator.G,
+                wire_run.driver.accumulator.G)
+    phase_telemetry(torch, path_kernels)
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
     # probe_op_chain's row is the six-op suite, one call of each op: times
     # summed over the ops, the bound from the suite's bytes and operations.
@@ -633,6 +830,7 @@ def main() -> int:
         })
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("a kernel time is not finite")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, which stays the reference. It runs the
 flagship ``variants-pca`` pipeline on one NVIDIA Hopper card: the synthetic
-1000 Genomes cohort is generated on the card (``csrc/devicegen.cu``) or fed
-from the host as packed blocks or wire records (``csrc/gramian.cu``
-unpacks them), its Gramian accumulated by hand-written CUDA kernels, then
-centered and eigendecomposed with PyTorch; ``api.py`` exposes the stages.
+1000 Genomes cohort is generated on the card (``csrc/devicegen.cu``), or
+the synthetic cohort or VCF/JSONL files are fed from the host as packed
+blocks or wire records (``csrc/gramian.cu`` unpacks them), the Gramian
+accumulated by hand-written CUDA kernels, then centered and
+eigendecomposed with PyTorch; ``api.py`` exposes the stages.
 It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
@@ -19,6 +20,30 @@ PyTorch version:
 
 __version__ = "0.1.0"
 
-from spark_examples_tpu_torch.pipeline.pca_driver import run, run_pipeline  # noqa: E402
+from spark_examples_tpu_torch.models.variant import (  # noqa: E402
+    Call,
+    Variant,
+    VariantKey,
+    VariantsBuilder,
+)
+from spark_examples_tpu_torch.pipeline.pca_driver import (  # noqa: E402
+    PipelineResult,
+    run,
+    run_pipeline,
+)
+from spark_examples_tpu_torch.sharding.contig import Contig, SexChromosomeFilter  # noqa: E402
+from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner  # noqa: E402
 
-__all__ = ["__version__", "run", "run_pipeline"]
+__all__ = [
+    "Call",
+    "Contig",
+    "PipelineResult",
+    "SexChromosomeFilter",
+    "Variant",
+    "VariantKey",
+    "VariantsBuilder",
+    "VariantsPartitioner",
+    "__version__",
+    "run",
+    "run_pipeline",
+]

@@ -4,6 +4,21 @@ package's flag grammar plus ``--device``:
     python -m spark_examples_tpu_torch variants-pca --references 17:41196311:41277499
     python -m spark_examples_tpu_torch variants-pca --num-samples 16 --device cpu
 
+File-backed runs (``--source file``) parse VCF inputs through the
+chunk-parallel native parser; ``--ingest-workers N`` sizes its thread pool
+(default min(8, cpu_count); ``0`` = the serial path, identical output),
+and large single-set VCFs stream in one bounded pass:
+
+    python -m spark_examples_tpu_torch variants-pca --source file \
+        --input-files cohort.vcf.gz --ingest-workers 8
+
+Telemetry: ``--heartbeat-seconds N`` writes a stderr progress line every N
+seconds; ``--metrics-json PATH`` the schema-v2 run manifest;
+``--profile-dir`` the stage timings and a ``torch.profiler`` trace:
+
+    python -m spark_examples_tpu_torch variants-pca --all-references \
+        --heartbeat-seconds 30 --metrics-json run.json
+
 The JAX package's other verbs are not ported yet; they exit with code 2.
 """
 

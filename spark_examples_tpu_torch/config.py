@@ -10,9 +10,12 @@ one argv parses identically in both packages. Two values differ:
   the port's tensors live. ``cpu`` runs the kernels' plain PyTorch versions.
 
 The port runs the synthetic source's three ingest arms (device generation,
-packed, wire), dense strategy, one device. A flag that belongs to any other
-path raises :class:`NotImplementedError` naming the flag
-(:func:`check_ported`), so it is never silently ignored.
+packed, wire) and the file source's (packed, streamed, wire), variant
+checkpoints (``--save-variants``, ``--input-path``) and the run's telemetry
+(``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), dense
+strategy, one device. A flag that belongs to any other path raises
+:class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
+is never silently ignored.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from spark_examples_tpu_torch.sharding.contig import (
     SexChromosomeFilter,
     parse_contigs,
 )
+from spark_examples_tpu_torch.sources.files import file_set_ids
 
 
 def _num_samples_value(text: str) -> str:
@@ -69,18 +73,33 @@ def build_pca_parser(
                    help="Comma-separated list of VariantSetIds to use in the analysis.")
     p.add_argument("--source", choices=["synthetic", "rest", "file"], default="synthetic",
                    help="Genomics backend to stream from.")
-    p.add_argument("--input-files", default=None)
-    p.add_argument("--stream-chunk-bytes", type=int, default=None)
+    p.add_argument("--input-files", default=None,
+                   help="Comma-separated input files for --source file: "
+                   ".vcf[.gz] / .jsonl[.gz] variants (or a checkpoint "
+                   "directory). Each file becomes one variant set whose id is "
+                   "its sanitized stem; --variant-set-id defaults to all of "
+                   "them in order.")
+    p.add_argument("--stream-chunk-bytes", type=int, default=None,
+                   help="Bounded-memory streaming ingest for --source file VCF "
+                   "inputs: parse in chunks of this many decompressed bytes "
+                   "(one pass, coordinate-sorted VCFs only). Unset = automatic "
+                   "(streams past the size threshold); 0 = never stream; N > 0 "
+                   "= always stream with N-byte chunks.")
     p.add_argument("--ingest-workers", type=int, default=None,
-                   help="Packed ingest: >= 1 builds blocks on a prefetch "
-                   "thread and keeps two flushes in flight; 0 is the serial "
-                   "path. Default: min(8, cpu_count).")
+                   help="Packed ingest: parse threads of the chunk-parallel "
+                   "VCF parser; >= 1 also builds blocks on a prefetch thread "
+                   "and keeps two flushes in flight; 0 is the serial path. "
+                   "Default: min(8, cpu_count).")
     p.add_argument("--num-samples", type=_num_samples_value, default="2504",
                    help="Synthetic-source cohort size; a comma-separated list "
                    "gives per-variant-set sizes, zipped with --variant-set-id.")
     p.add_argument("--seed", type=int, default=42, help="Synthetic-source base seed.")
-    p.add_argument("--heartbeat-seconds", type=float, default=0.0)
-    p.add_argument("--metrics-json", default=None, metavar="PATH")
+    p.add_argument("--heartbeat-seconds", type=float, default=0.0,
+                   help="Write a progress line to stderr every N seconds "
+                   "(obs/heartbeat.py). 0 = off (default).")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="Write the schema-v2 run manifest here "
+                   "(obs/manifest.py).")
     p.add_argument("--trace-dir", default=None, metavar="DIR")
     p.add_argument("--gramian-checkpoint-dir", default=None, metavar="DIR")
     p.add_argument("--checkpoint-every-sites", type=int, default=None, metavar="N")
@@ -126,8 +145,12 @@ def build_pca_parser(
                    default="auto")
     p.add_argument("--num-workers", type=int, default=8,
                    help="Host threads of the wire ingest's shard pool.")
-    p.add_argument("--profile-dir", default=None)
-    p.add_argument("--save-variants", default=None, metavar="PATH")
+    p.add_argument("--profile-dir", default=None,
+                   help="Print stage timings and write a torch.profiler "
+                   "Chrome trace of the run into this directory.")
+    p.add_argument("--save-variants", default=None, metavar="PATH",
+                   help="Save the variant records read (wire ingest, single "
+                   "set) as a checkpoint that --input-path resumes from.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where the port's tensors live: the CUDA card "
                    "(default) or the CPU, which runs the kernels' plain "
@@ -150,7 +173,7 @@ class PcaConf:
         default_factory=lambda: [GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1]
     )
     source: str = "synthetic"
-    input_files: Optional[str] = None
+    input_files: Optional[List[str]] = None
     stream_chunk_bytes: Optional[int] = None
     ingest_workers: Optional[int] = None
     num_samples: int = 2504
@@ -192,10 +215,17 @@ class PcaConf:
         conf = cls(**{f: getattr(ns, f) for f in cls.__dataclass_fields__ if hasattr(ns, f)})
         if isinstance(conf.variant_set_id, str):
             conf.variant_set_id = [v for v in conf.variant_set_id.split(",") if v.strip()]
+        if isinstance(conf.input_files, str):
+            conf.input_files = [p.strip() for p in conf.input_files.split(",") if p.strip()]
         if isinstance(conf.num_samples, str):
             sizes = [int(s) for s in conf.num_samples.split(",") if s.strip()]
             conf.num_samples = sizes[0]
             conf.num_samples_per_set = sizes if len(sizes) > 1 else None
+        if conf.heartbeat_seconds < 0:
+            raise ValueError(
+                f"--heartbeat-seconds must be >= 0 (0 = off), got "
+                f"{conf.heartbeat_seconds}"
+            )
         if conf.blocks_per_dispatch is not None and conf.blocks_per_dispatch <= 0:
             raise ValueError(
                 f"--blocks-per-dispatch must be a positive dispatch-group "
@@ -207,14 +237,30 @@ class PcaConf:
                 f"--ingest-workers must be >= 0 (0 = serial oracle path), "
                 f"got {conf.ingest_workers}"
             )
-        if conf.num_samples_per_set and len(set(conf.variant_set_id)) != len(
-            conf.variant_set_id
-        ):
-            raise ValueError(
-                "per-set --num-samples requires distinct --variant-set-id "
-                "values (duplicate ids share one cohort)"
-            )
+        if conf.num_samples_per_set:
+            if conf.source != "synthetic":
+                raise ValueError(
+                    "per-set --num-samples is synthetic-source-only "
+                    f"(--source {conf.source} reads its cohorts from the data)"
+                )
+            if len(set(conf.variant_set_id)) != len(conf.variant_set_id):
+                raise ValueError(
+                    "per-set --num-samples requires distinct --variant-set-id "
+                    "values (duplicate ids share one cohort)"
+                )
         check_ported(conf)
+        if conf.source == "file":
+            if not conf.input_files:
+                raise ValueError("--source file requires --input-files")
+            ids = file_set_ids(conf.input_files)
+            if conf.variant_set_id == [GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1]:
+                # The untouched default: every input file is one variant set.
+                conf.variant_set_id = ids
+            elif not set(conf.variant_set_id) <= set(ids):
+                raise ValueError(
+                    f"--variant-set-id {conf.variant_set_id} not among the "
+                    f"file-derived set ids {ids}"
+                )
         return conf
 
     def get_contigs(self, source, variant_set_ids: Sequence[str]) -> List[Contig]:
@@ -240,12 +286,6 @@ class PcaConf:
 #: Flags of paths the port does not run yet: (field, flag, value that leaves
 #: the flag unused). Any other value raises.
 _UNPORTED = (
-    ("source", "--source", "synthetic"),
-    ("input_path", "--input-path", None),
-    ("input_files", "--input-files", None),
-    ("stream_chunk_bytes", "--stream-chunk-bytes", None),
-    ("heartbeat_seconds", "--heartbeat-seconds", 0.0),
-    ("metrics_json", "--metrics-json", None),
     ("trace_dir", "--trace-dir", None),
     ("gramian_checkpoint_dir", "--gramian-checkpoint-dir", None),
     ("checkpoint_every_sites", "--checkpoint-every-sites", None),
@@ -258,23 +298,26 @@ _UNPORTED = (
     ("ring_pack_bits", "--ring-pack-bits", "auto"),
     ("reduce_schedule", "--reduce-schedule", "auto"),
     ("check_ranges", "--check-ranges", False),
-    ("profile_dir", "--profile-dir", None),
-    ("save_variants", "--save-variants", None),
 )
 
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet (sources other than synthetic, telemetry files,
-    checkpointing, multi-host, meshes and rings)."""
+    does not run yet (the REST source, the flight recorder, Gramian
+    checkpoints and faults, multi-host, meshes and rings)."""
     for name, flag, unused in _UNPORTED:
         value = getattr(conf, name)
         if value != unused:
             raise NotImplementedError(
                 f"{flag} {value!r}: this path is not ported to PyTorch yet "
-                "(the port runs the synthetic source's device, packed and "
-                "wire ingest, dense strategy, one device)"
+                "(the port runs the synthetic and file sources' device, "
+                "packed, streamed and wire ingest, dense strategy, one device)"
             )
+    if conf.source == "rest":
+        raise NotImplementedError(
+            "--source 'rest': this path is not ported to PyTorch yet (the "
+            "REST source needs a network; use --source synthetic or file)"
+        )
     if conf.similarity_strategy == "sharded":
         raise NotImplementedError(
             "--similarity-strategy sharded: the sharded ring is not ported "

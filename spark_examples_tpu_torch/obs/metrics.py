@@ -1,73 +1,160 @@
-"""Thread-safe metrics registry: named counters and gauges.
+"""Thread-safe metrics registry: named, labeled counters, gauges and
+histograms.
 
-The subset of ``spark_examples_tpu/obs/metrics.py`` the port's driver uses:
-one :class:`MetricsRegistry` per run, the well-known gauge names the
-ingest arms publish, and the I/O counters behind
-``pipeline/stats.py``. Registration is idempotent: asking for an existing
-name with the same type returns the existing metric; a mismatch raises.
+The port's copy of ``spark_examples_tpu/obs/metrics.py``: one
+:class:`MetricsRegistry` per run (the driver owns it), with the same data
+model and the same two exports —
+
+- :meth:`MetricsRegistry.as_dict`, the JSON form embedded in the run
+  manifest (``obs/manifest.py``);
+- :meth:`MetricsRegistry.prometheus_text`, the Prometheus text exposition
+  format (v0.0.4).
+
+Registration is idempotent: asking for an existing name with the same type
+and label names returns the existing family; a mismatch raises. The
+well-known names below are the ones the port's producers register and the
+heartbeat (``obs/heartbeat.py``) samples; the reference's serving, ring,
+checkpoint and cost names wait for those layers.
 """
 
 from __future__ import annotations
 
+import math
 import re
+import sys
 import threading
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
+#: Default histogram bucket upper bounds (seconds-oriented; +Inf implied).
+DEFAULT_BUCKETS: Tuple[float, ...] = (
+    0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0,
+)
+
 
 class MetricError(ValueError):
-    """Invalid metric registration or use (name or type mismatch)."""
+    """Invalid metric registration or use (name/type/label mismatch)."""
 
 
+#: Well-known gauge names: one spelling and help string, shared by every
+#: producer and the heartbeat.
 INGEST_SITES_SCANNED = "ingest_sites_scanned"
 INGEST_PARTITIONS_PLANNED = "ingest_partitions_planned"
 INGEST_PARTITIONS_DONE = "ingest_partitions_done"
 PREFETCH_QUEUE_DEPTH = "prefetch_queue_depth"
 PREFETCH_QUEUE_OCCUPANCY = "prefetch_queue_occupancy"
+GRAMIAN_INFLIGHT_DISPATCHES = "gramian_inflight_dispatches"
 DEVICEGEN_DISPATCHES = "devicegen_dispatches"
 DEVICEGEN_SITES_CAPACITY = "devicegen_sites_capacity"
+#: Registry-backed stats counter the heartbeat's per-shard progress reads
+#: (registered by ``pipeline/stats.py``).
 IO_PARTITIONS_TOTAL = "io_partitions_total"
+#: The measured peak process RSS (function-backed: every read samples the
+#: OS) and the static bound it is shown against.
+HOST_PEAK_RSS_BYTES = "host_peak_rss_bytes"
+HOST_STATIC_BOUND_BYTES = "host_static_bound_bytes"
+#: The host-memory bound of a process for which no configuration formula
+#: is registered: the reference's runtime baseline
+#: (``spark_examples_tpu/parallel/mesh.py:HOST_RUNTIME_BASELINE_BYTES``).
+#: The port registers no per-configuration bound yet, so it is the bound the
+#: manifest and the heartbeat show.
+HOST_RUNTIME_BASELINE_BYTES = 4 << 30
+#: Which parser decoded the last packed or streamed VCF pass: 1 for the
+#: native parser (``native/vcfparse.cpp``), 0 for the Python one.
+VCF_NATIVE_PARSE = "vcf_native_parse"
 
 _WELL_KNOWN_GAUGE_HELP = {
-    INGEST_SITES_SCANNED: "Candidate sites scanned so far.",
-    INGEST_PARTITIONS_PLANNED: "Shard windows this run will process.",
-    INGEST_PARTITIONS_DONE: "Shard windows fully ingested so far.",
+    INGEST_SITES_SCANNED: "Candidate sites scanned so far (heartbeat progress).",
+    INGEST_PARTITIONS_PLANNED: (
+        "Shard windows this run will process (heartbeat ETA base)."
+    ),
+    INGEST_PARTITIONS_DONE: "Shard windows the run has reached so far.",
     PREFETCH_QUEUE_DEPTH: "Bound of the prefetch queue.",
     PREFETCH_QUEUE_OCCUPANCY: "Parsed blocks currently waiting in the prefetch queue.",
+    GRAMIAN_INFLIGHT_DISPATCHES: (
+        "Flushed device updates currently left in flight "
+        "(the double-buffered feed depth)."
+    ),
     DEVICEGEN_DISPATCHES: "Fused generate+accumulate dispatch groups issued.",
     DEVICEGEN_SITES_CAPACITY: (
         "Site-grid capacity of every dispatch group issued (padding "
         "included) — the denominator of the padding-waste fraction against "
         "ingest_sites_scanned."
     ),
+    HOST_PEAK_RSS_BYTES: (
+        "Peak resident set size of this process so far (OS-reported "
+        "high-water mark, sampled at read time)."
+    ),
+    HOST_STATIC_BOUND_BYTES: (
+        "Static host-memory bound of this configuration; measured peak RSS "
+        "must stay under it on bounded ingest paths."
+    ),
+    VCF_NATIVE_PARSE: (
+        "1 when the last packed or streamed VCF pass decoded with the "
+        "native parser (native/vcfparse.cpp), 0 for the Python parser."
+    ),
 }
 
 
-def well_known_gauge(registry: "MetricsRegistry", name: str) -> "Gauge":
+def well_known_gauge(registry: "MetricsRegistry", name: str):
     """Register (idempotently) a well-known gauge with its canonical help
     text."""
     return registry.gauge(name, _WELL_KNOWN_GAUGE_HELP[name])
 
 
-class _Metric:
-    def __init__(self, name: str, help_text: str):
-        if not _NAME_RE.match(name or ""):
-            raise MetricError(f"invalid metric name {name!r}")
-        self.name = name
-        self.help = help_text
-        # lock order: leaf lock; nothing else is acquired while holding it.
+def read_host_peak_rss_bytes() -> Optional[int]:
+    """OS-reported peak RSS of this process in BYTES, or ``None`` when the
+    platform exposes neither ``getrusage`` nor ``/proc/self/status``.
+
+    ``ru_maxrss`` is kibibytes on Linux and bytes on macOS (the one
+    platform quirk this helper owns, so no caller re-derives it);
+    ``VmHWM`` is the fallback for environments whose libc stubs rusage.
+    """
+    try:
+        import resource
+
+        rss = int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)
+        if rss > 0:
+            return rss if sys.platform == "darwin" else rss * 1024
+    except Exception:
+        pass
+    try:
+        with open("/proc/self/status", "r", encoding="ascii") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) * 1024
+    except Exception:
+        pass
+    return None
+
+
+def _check_name(name: str) -> str:
+    if not _NAME_RE.match(name or ""):
+        raise MetricError(f"invalid metric name {name!r}")
+    return name
+
+
+class _Child:
+    """One (labels → value) series of a family."""
+
+    def __init__(self, labels: Tuple[Tuple[str, str], ...]):
+        self._labels = labels
+        # lock order: leaf lock, taken last; no other lock is acquired
+        # while holding it (mutations are single-value updates).
         self._lock = threading.Lock()
-        self._value = 0.0
 
     @property
-    def value(self) -> float:
-        with self._lock:
-            return self._value
+    def labels_dict(self) -> Dict[str, str]:
+        return dict(self._labels)
 
 
-class Counter(_Metric):
+class Counter(_Child):
     """Monotonic counter."""
+
+    def __init__(self, labels):
+        super().__init__(labels)
+        self._value = 0.0
 
     def inc(self, amount: float = 1.0) -> None:
         if amount < 0:
@@ -75,12 +162,26 @@ class Counter(_Metric):
         with self._lock:
             self._value += amount
 
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
 
-class Gauge(_Metric):
-    """Settable value, or a function sampled on every read."""
 
-    def __init__(self, name: str, help_text: str):
-        super().__init__(name, help_text)
+class Gauge(_Child):
+    """Settable value; optionally backed by a callable sampled at read
+    time (queue occupancy, in-flight depth — state that lives elsewhere).
+
+    The two modes are exclusive: ``set()`` detaches any function (the
+    owner freezing a live gauge at teardown), while ``inc``/``dec`` on a
+    function-backed gauge raise — the delta would be silently shadowed by
+    the callable on every read, which is exactly the kind of quiet
+    accounting loss this registry exists to prevent.
+    """
+
+    def __init__(self, labels):
+        super().__init__(labels)
+        self._value = 0.0
         self._fn: Optional[Callable[[], float]] = None
 
     def set(self, value: float) -> None:
@@ -88,9 +189,21 @@ class Gauge(_Metric):
             self._fn = None
             self._value = float(value)
 
+    def inc(self, amount: float = 1.0) -> None:
+        with self._lock:
+            if self._fn is not None:
+                raise MetricError(
+                    "gauge is function-backed; inc/dec would be shadowed "
+                    "by the sampler (set() detaches it first)"
+                )
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
     def set_function(self, fn: Callable[[], float]) -> None:
-        """Sample ``fn`` on every read: the gauge tracks live state without
-        its owner pushing updates."""
+        """Sample ``fn`` on every read — the gauge tracks live state
+        without the owner having to push updates."""
         with self._lock:
             self._fn = fn
 
@@ -100,45 +213,371 @@ class Gauge(_Metric):
             fn = self._fn
             if fn is None:
                 return self._value
-        return float(fn())
+        try:
+            return float(fn())
+        except Exception:
+            return float("nan")
+
+
+class Histogram(_Child):
+    """Fixed-bucket histogram (cumulative counts, Prometheus-style)."""
+
+    def __init__(self, labels, buckets: Sequence[float]):
+        super().__init__(labels)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        if not self.buckets:
+            raise MetricError("histogram needs at least one bucket bound")
+        self._counts = [0] * (len(self.buckets) + 1)  # +1 for +Inf
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, value: float) -> None:
+        value = float(value)
+        with self._lock:
+            self._sum += value
+            self._count += 1
+            for i, bound in enumerate(self.buckets):
+                if value <= bound:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    def snapshot(self) -> Dict[str, object]:
+        """Cumulative bucket counts keyed by upper bound, plus sum/count."""
+        with self._lock:
+            counts = list(self._counts)
+            total, n = self._sum, self._count
+        cumulative: Dict[str, int] = {}
+        running = 0
+        for bound, c in zip(self.buckets, counts[:-1]):
+            running += c
+            cumulative[_format_bound(bound)] = running
+        cumulative["+Inf"] = running + counts[-1]
+        return {"buckets": cumulative, "sum": total, "count": n}
+
+    @property
+    def value(self) -> Dict[str, object]:
+        return self.snapshot()
+
+
+def _format_bound(bound: float) -> str:
+    if math.isinf(bound):
+        return "+Inf"
+    text = repr(bound)
+    return text[:-2] if text.endswith(".0") else text
+
+
+def _parse_bound(text: str) -> float:
+    return float("inf") if text == "+Inf" else float(text)
+
+
+def histogram_quantile(snapshot: Mapping, q: float) -> Optional[float]:
+    """Estimate the q-quantile of a :meth:`Histogram.snapshot` (or any
+    dict shaped like one: cumulative ``buckets`` keyed by upper-bound
+    string, plus ``count``) by linear interpolation inside the target
+    bucket — the Prometheus ``histogram_quantile`` estimator, applied to
+    one snapshot instead of a rate.
+
+    Contract (the edges tests pin):
+
+    - empty histogram (``count == 0``) → ``None`` — "no data" must be
+      distinguishable from "0 seconds";
+    - ``q <= 0`` → the lower edge of the first populated bucket (0.0
+      when that is the first bucket — observations have no recorded
+      lower bound below their bucket floor);
+    - ``q >= 1`` → the upper bound of the highest populated bucket;
+    - mass landing in ``+Inf`` reports the highest FINITE bound — the
+      estimator cannot see above the top bucket, and returning a finite
+      floor ("at least this") beats returning infinity.
+    """
+    buckets = snapshot.get("buckets") or {}
+    count = int(snapshot.get("count") or 0)
+    if count <= 0 or not buckets:
+        return None
+    pairs = sorted(
+        ((_parse_bound(k), int(v)) for k, v in buckets.items()),
+        key=lambda kv: kv[0],
+    )
+    top_finite = max(
+        (b for b, _ in pairs if not math.isinf(b)), default=0.0
+    )
+    rank = min(max(float(q), 0.0), 1.0) * count
+    prev_bound = 0.0
+    prev_cumulative = 0
+    for bound, cumulative in pairs:
+        if cumulative > prev_cumulative and rank <= cumulative:
+            if rank <= prev_cumulative:
+                return prev_bound
+            if math.isinf(bound):
+                return top_finite
+            fraction = (rank - prev_cumulative) / (
+                cumulative - prev_cumulative
+            )
+            return prev_bound + (bound - prev_bound) * fraction
+        prev_cumulative = cumulative
+        prev_bound = top_finite if math.isinf(bound) else bound
+    return top_finite
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+
+
+class _Family:
+    """A named metric with a fixed label-name set; children per label set."""
+
+    def __init__(
+        self,
+        name: str,
+        kind: str,
+        help_text: str,
+        labelnames: Tuple[str, ...],
+        buckets: Optional[Sequence[float]] = None,
+    ):
+        self.name = _check_name(name)
+        self.kind = kind
+        self.help = help_text
+        self.labelnames = labelnames
+        self._buckets = buckets
+        # lock order: family lock before any child lock (child creation);
+        # never the reverse.
+        self._lock = threading.Lock()
+        self._children: Dict[Tuple[Tuple[str, str], ...], _Child] = {}
+        if not labelnames:
+            self._default = self.labels()
+
+    def labels(self, **labels: str) -> _Child:
+        if set(labels) != set(self.labelnames):
+            raise MetricError(
+                f"{self.name}: expected labels {sorted(self.labelnames)}, "
+                f"got {sorted(labels)}"
+            )
+        key = tuple((k, str(labels[k])) for k in self.labelnames)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                if self.kind == "histogram":
+                    child = Histogram(key, self._buckets or DEFAULT_BUCKETS)
+                else:
+                    child = _KINDS[self.kind](key)
+                self._children[key] = child
+            return child
+
+    # Label-free convenience: the family IS its single child.
+    def inc(self, amount: float = 1.0) -> None:
+        self._require_default().inc(amount)  # type: ignore[union-attr]
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._require_default().dec(amount)  # type: ignore[union-attr]
+
+    def set(self, value: float) -> None:
+        self._require_default().set(value)  # type: ignore[union-attr]
+
+    def set_function(self, fn: Callable[[], float]) -> None:
+        self._require_default().set_function(fn)  # type: ignore[union-attr]
+
+    def observe(self, value: float) -> None:
+        self._require_default().observe(value)  # type: ignore[union-attr]
+
+    @property
+    def value(self):
+        return self._require_default().value
+
+    def _require_default(self) -> _Child:
+        if self.labelnames:
+            raise MetricError(
+                f"{self.name} is labeled {self.labelnames}; use .labels(...)"
+            )
+        return self._default
+
+    def children(self) -> List[_Child]:
+        with self._lock:
+            return list(self._children.values())
 
 
 class MetricsRegistry:
-    """The registry: one per run."""
+    """The registry: one per run (or per standalone component)."""
 
     def __init__(self) -> None:
-        # lock order: registry lock before a metric's lock; never the reverse.
+        # lock order: registry lock before family lock; never the reverse.
         self._lock = threading.Lock()
-        self._metrics: Dict[str, Union[Counter, Gauge]] = {}
+        self._families: Dict[str, _Family] = {}
 
-    def _register(self, kind, name: str, help_text: str):
+    # --------------------------------------------------------- registration
+
+    def _register(
+        self,
+        name: str,
+        kind: str,
+        help_text: str,
+        labelnames: Sequence[str],
+        buckets: Optional[Sequence[float]] = None,
+    ) -> _Family:
+        labelnames = tuple(labelnames)
         with self._lock:
-            metric = self._metrics.get(name)
-            if metric is None:
-                metric = self._metrics[name] = kind(name, help_text)
-            elif type(metric) is not kind:
-                raise MetricError(
-                    f"metric {name!r} already registered as "
-                    f"{type(metric).__name__}; requested {kind.__name__}"
+            family = self._families.get(name)
+            if family is not None:
+                if family.kind != kind or family.labelnames != labelnames:
+                    raise MetricError(
+                        f"metric {name!r} already registered as "
+                        f"{family.kind}{family.labelnames}; requested "
+                        f"{kind}{labelnames}"
+                    )
+                return family
+            family = _Family(name, kind, help_text, labelnames, buckets)
+            self._families[name] = family
+            return family
+
+    def counter(
+        self, name: str, help_text: str = "", labelnames: Sequence[str] = ()
+    ) -> _Family:
+        return self._register(name, "counter", help_text, labelnames)
+
+    def gauge(
+        self, name: str, help_text: str = "", labelnames: Sequence[str] = ()
+    ) -> _Family:
+        return self._register(name, "gauge", help_text, labelnames)
+
+    def histogram(
+        self,
+        name: str,
+        help_text: str = "",
+        labelnames: Sequence[str] = (),
+        buckets: Sequence[float] = DEFAULT_BUCKETS,
+    ) -> _Family:
+        return self._register(name, "histogram", help_text, labelnames, buckets)
+
+    # --------------------------------------------------------------- access
+
+    def get(self, name: str) -> Optional[_Family]:
+        with self._lock:
+            return self._families.get(name)
+
+    def value(
+        self, name: str, labels: Optional[Mapping[str, str]] = None, default=None
+    ):
+        """Convenience read (manifest/heartbeat/tests): the value of one
+        series, or ``default`` when the metric or label set is absent."""
+        family = self.get(name)
+        if family is None:
+            return default
+        if not family.labelnames:
+            return family.value
+        want = {k: str(v) for k, v in (labels or {}).items()}
+        for child in family.children():
+            if child.labels_dict == want:
+                return child.value
+        return default
+
+    # -------------------------------------------------------------- exports
+
+    def as_dict(self) -> Dict[str, Dict]:
+        """JSON-safe snapshot: ``{name: {type, help, values: [...]}}`` with
+        one entry per label set (``value`` for counters/gauges; cumulative
+        ``buckets``/``sum``/``count`` for histograms)."""
+        out: Dict[str, Dict] = {}
+        with self._lock:
+            families = sorted(self._families.values(), key=lambda f: f.name)
+        for family in families:
+            values = []
+            for child in family.children():
+                entry: Dict[str, object] = {"labels": child.labels_dict}
+                if family.kind == "histogram":
+                    entry.update(child.snapshot())  # type: ignore[union-attr]
+                else:
+                    value = child.value  # type: ignore[union-attr]
+                    entry["value"] = None if _is_nan(value) else value
+                values.append(entry)
+            out[family.name] = {
+                "type": family.kind,
+                "help": family.help,
+                "values": values,
+            }
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format (v0.0.4)."""
+        lines: List[str] = []
+        with self._lock:
+            families = sorted(self._families.values(), key=lambda f: f.name)
+        for family in families:
+            if family.help:
+                lines.append(
+                    f"# HELP {family.name} {escape_help_text(family.help)}"
                 )
-            return metric
+            lines.append(f"# TYPE {family.name} {family.kind}")
+            for child in family.children():
+                label_text = _label_text(child.labels_dict)
+                if family.kind == "histogram":
+                    snap = child.snapshot()  # type: ignore[union-attr]
+                    for bound, count in snap["buckets"].items():
+                        le = _label_text({**child.labels_dict, "le": bound})
+                        lines.append(f"{family.name}_bucket{le} {count}")
+                    lines.append(
+                        f"{family.name}_sum{label_text} {_num(snap['sum'])}"
+                    )
+                    lines.append(
+                        f"{family.name}_count{label_text} {snap['count']}"
+                    )
+                else:
+                    value = child.value  # type: ignore[union-attr]
+                    lines.append(f"{family.name}{label_text} {_num(value)}")
+        return "\n".join(lines) + "\n"
 
-    def counter(self, name: str, help_text: str = "") -> Counter:
-        return self._register(Counter, name, help_text)
 
-    def gauge(self, name: str, help_text: str = "") -> Gauge:
-        return self._register(Gauge, name, help_text)
+def _is_nan(value) -> bool:
+    return isinstance(value, float) and math.isnan(value)
 
-    def value(self, name: str) -> Optional[float]:
-        """The metric's value, or ``None`` when it is not registered."""
-        with self._lock:
-            metric = self._metrics.get(name)
-        return None if metric is None else metric.value
+
+def _num(value: float) -> str:
+    if _is_nan(value):
+        return "NaN"
+    if isinstance(value, float) and value.is_integer():
+        return str(int(value))
+    return repr(value)
+
+
+def _label_text(labels: Mapping[str, str]) -> str:
+    if not labels:
+        return ""
+    body = ",".join(
+        f'{k}="{escape_label_value(v)}"' for k, v in sorted(labels.items())
+    )
+    return "{" + body + "}"
+
+
+def escape_label_value(value: str) -> str:
+    """Label-value escaping per the text exposition format (v0.0.4):
+    backslash FIRST (the escape character itself, so the later
+    replacements cannot double-escape their own output), then the
+    double-quote delimiter, then newline — the three characters the
+    format names."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def escape_help_text(value: str) -> str:
+    """HELP-line escaping per the exposition format: backslash and
+    newline only (a ``#`` or quote is legal inside help text, but a raw
+    newline would terminate the comment mid-help and turn the remainder
+    into an unparseable exposition line)."""
+    return str(value).replace("\\", "\\\\").replace("\n", "\\n")
 
 
 __all__ = [
+    "Counter",
+    "DEFAULT_BUCKETS",
     "DEVICEGEN_DISPATCHES",
     "DEVICEGEN_SITES_CAPACITY",
+    "GRAMIAN_INFLIGHT_DISPATCHES",
+    "Gauge",
+    "HOST_PEAK_RSS_BYTES",
+    "HOST_RUNTIME_BASELINE_BYTES",
+    "HOST_STATIC_BOUND_BYTES",
+    "Histogram",
     "INGEST_PARTITIONS_DONE",
     "INGEST_PARTITIONS_PLANNED",
     "INGEST_SITES_SCANNED",
@@ -147,5 +586,10 @@ __all__ = [
     "MetricsRegistry",
     "PREFETCH_QUEUE_DEPTH",
     "PREFETCH_QUEUE_OCCUPANCY",
+    "VCF_NATIVE_PARSE",
+    "escape_help_text",
+    "escape_label_value",
+    "histogram_quantile",
+    "read_host_peak_rss_bytes",
     "well_known_gauge",
 ]

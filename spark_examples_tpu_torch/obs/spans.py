@@ -25,15 +25,26 @@ from typing import Callable, Dict, List, Optional
 
 
 class Span:
-    """One timed region: name, seconds, sync-honesty flag, children."""
+    """One timed region: name, seconds, sync-honesty flag, start time,
+    children."""
 
-    __slots__ = ("name", "seconds", "synced", "children")
+    __slots__ = ("name", "seconds", "synced", "children", "started_unix")
 
-    def __init__(self, name: str, synced: bool):
+    def __init__(self, name: str, synced: bool, started_unix: float):
         self.name = str(name)
         self.seconds: Optional[float] = None  # None while still open
         self.synced = bool(synced)
         self.children: List["Span"] = []
+        self.started_unix = started_unix
+
+    def as_dict(self) -> Dict:
+        return {
+            "name": self.name,
+            "seconds": self.seconds,
+            "synced": self.synced,
+            "started_unix": self.started_unix,
+            "children": [c.as_dict() for c in self.children],
+        }
 
 
 class SpanRecorder:
@@ -60,7 +71,7 @@ class SpanRecorder:
         """Open a child span of the current thread's innermost open span
         (or a new root). ``sync`` is called before the measurement closes:
         pass the device's synchronisation so the span ends with its work."""
-        span = Span(name, synced=sync is not None)
+        span = Span(name, synced=sync is not None, started_unix=time.time())
         self._attach(span)
         tid = threading.get_ident()
         with self._lock:
@@ -91,11 +102,18 @@ class SpanRecorder:
     def add(self, name: str, seconds: float, synced: bool = False) -> None:
         """Attach a pre-measured duration (an aggregate timed elsewhere,
         e.g. the total host time of the Gramian flushes) as a closed span."""
-        span = Span(name, synced=synced)
+        span = Span(name, synced=synced, started_unix=time.time())
         span.seconds = float(seconds)
         self._attach(span)
 
     # -------------------------------------------------------------- exports
+
+    def as_list(self) -> List[Dict]:
+        """The span tree, JSON-safe (open spans report ``seconds: null``):
+        the run manifest's ``spans`` block."""
+        with self._lock:
+            roots = list(self.roots)
+        return [s.as_dict() for s in roots]
 
     def flat(self) -> List[Dict]:
         """Depth-first ``{path, seconds, synced}`` rows, '/'-joined paths —

@@ -43,6 +43,7 @@ from typing import Iterable, List, Optional
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.obs.metrics import GRAMIAN_INFLIGHT_DISPATCHES, well_known_gauge
 from spark_examples_tpu_torch.ops import _kernels
 from spark_examples_tpu_torch.ops.contracts import flush_entry_increment
 from spark_examples_tpu_torch.ops.devicegen import (
@@ -216,16 +217,18 @@ def dense_update_counts(
 
 
 class _AccumulatorTelemetry:
-    """Flush instrumentation (the subset of the reference's the port's
-    registry holds): unlabeled ``gramian_flushes_total`` /
-    ``gramian_rows_total`` counters; at finalize the accumulated host-side
-    flush time attaches to the open span tree as one ``dispatch`` span, and
-    the drain of the card runs under ``reduce-flush``."""
+    """Flush instrumentation: unlabeled ``gramian_flushes_total`` /
+    ``gramian_rows_total`` counters (one strategy, so the reference's
+    ``strategy`` label is left out), the ``gramian_flush_seconds``
+    histogram of host time per flush and the in-flight gauge the heartbeat
+    reads; at finalize the accumulated host-side flush time attaches to the
+    open span tree as one ``dispatch`` span, and the drain of the card runs
+    under ``reduce-flush``."""
 
     def __init__(self, registry, spans):
         self.spans = spans
         self.flush_seconds_total = 0.0
-        self._flushes = self._rows = None
+        self._flushes = self._rows = self._seconds = self._inflight = None
         if registry is not None:
             self._flushes = registry.counter(
                 "gramian_flushes_total",
@@ -234,12 +237,19 @@ class _AccumulatorTelemetry:
             self._rows = registry.counter(
                 "gramian_rows_total", "Variant rows accumulated into the Gramian."
             )
+            self._seconds = registry.histogram(
+                "gramian_flush_seconds",
+                "Host-side time per flush (pack + copy to the card + launches).",
+            )
+            self._inflight = well_known_gauge(registry, GRAMIAN_INFLIGHT_DISPATCHES)
 
-    def record_flush(self, rows: int, seconds: float) -> None:
+    def record_flush(self, rows: int, seconds: float, in_flight: int) -> None:
         self.flush_seconds_total += seconds
         if self._flushes is not None:
             self._flushes.inc(1)
             self._rows.inc(rows)
+            self._seconds.observe(seconds)
+            self._inflight.set(in_flight)
 
     def finalize_span(self, sync):
         if self.spans is None:
@@ -351,7 +361,9 @@ class GramianAccumulator:
                 self._in_flight.append(done)
                 if len(self._in_flight) > self.pipeline_depth:
                     self._in_flight.pop(0).synchronize()
-        self.telemetry.record_flush(flush_rows, time.perf_counter() - flush_start)
+        self.telemetry.record_flush(
+            flush_rows, time.perf_counter() - flush_start, len(self._in_flight)
+        )
 
     def finalize_device(self) -> torch.Tensor:
         """Flush the ragged tail and return the int32 Gramian, still on the

@@ -200,6 +200,18 @@ class PrefetchIterator:
             "queue_depth": self.depth,
         }
 
+    def overlap_report(self) -> str:
+        """One line of ingest/compute overlap accounting (the stdout form
+        of :meth:`overlap_stats` that ``--profile-dir`` prints, in the
+        reference's format)."""
+        stats = self.overlap_stats()
+        return (
+            f"ingest overlap: parse {stats['parse_busy_seconds']:.3f}s busy, "
+            f"{stats['parse_blocked_on_feed_seconds']:.3f}s blocked on device feed "
+            f"(backpressure); feeder waited {stats['feeder_waited_on_parse_seconds']:.3f}s "
+            f"on parse; {stats['blocks']} blocks through a depth-{stats['queue_depth']} queue"
+        )
+
 
 class VariantsDataset:
     """A sharded stream of ``(VariantKey, Variant)`` records

@@ -1,7 +1,7 @@
 """The flagship PCoA pipeline on one CUDA card: ``variants-pca``.
 
 The port of ``spark_examples_tpu/pipeline/pca_driver.py``
-(``VariantsPca.scala:45-336``): synthetic source → ingest and
+(``VariantsPca.scala:45-336``): synthetic or file source → ingest and
 ``G += XᵀX`` → float64 Gower centering (``ops/centering.py``) → subspace
 eigensolve (``ops/pca.py``) → the TSV rows and the "Variants API stats"
 epilogue. Every printed line but the PC values is identical to the JAX
@@ -10,16 +10,25 @@ package's on the same argv.
 Three ingest arms, resolved from ``--ingest`` exactly as the reference
 resolves them (:func:`resolve_ingest`):
 
-- **device** (``auto`` for distinct variant sets): the card generates the
-  genotypes and accumulates G (``ops/devicegen.py``, two CUDA kernels);
-- **packed**: the host builds dense genotype blocks, and
+- **device** (``auto`` for distinct synthetic variant sets): the card
+  generates the genotypes and accumulates G (``ops/devicegen.py``, two
+  CUDA kernels);
+- **packed**: the host builds dense genotype blocks — the synthetic
+  source's, or a VCF's decoded by the chunk-parallel native parser, in one
+  bounded-memory streamed pass when the file wants streaming — and
   ``ops/gramian.py:GramianAccumulator`` ships them bit-packed to the card,
   unpacks them there and accumulates G (``unpack_rows_t`` +
   ``gram_accumulate``);
 - **wire**: the host pages variant records through the source's client
-  (``pipeline/datasets.py``), joins multiple sets (``iter_calls``) and
-  feeds per-variant column-index rows to the same accumulator — the arm of
-  ``auto`` with duplicate variant-set ids, and of the host backend.
+  (``pipeline/datasets.py``) or a ``--input-path`` checkpoint, joins
+  multiple sets (``iter_calls``; ``--save-variants`` writes the records as
+  they stream) and feeds per-variant column-index rows to the same
+  accumulator — the arm of ``auto`` with duplicate variant-set ids, of
+  small file inputs, and of the host backend.
+
+The run's telemetry is the reference's: ``--heartbeat-seconds`` (stderr
+progress lines), ``--profile-dir`` (stage timings and a ``torch.profiler``
+trace) and ``--metrics-json`` (the schema-v2 manifest, built last).
 
 Two PCA backends, as in the reference: ``gpu`` (the device pipeline) and
 ``host`` (the NumPy replication of the reference algorithm, the oracle,
@@ -29,6 +38,7 @@ which ingests through the wire arm).
 from __future__ import annotations
 
 import os
+import sys
 from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -38,12 +48,17 @@ import torch
 from spark_examples_tpu_torch.config import PcaConf, check_ported
 from spark_examples_tpu_torch.models.variant import Variant
 from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
+from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
+from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_manifest
 from spark_examples_tpu_torch.obs.metrics import (
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
+    HOST_PEAK_RSS_BYTES,
     INGEST_PARTITIONS_DONE,
     INGEST_PARTITIONS_PLANNED,
     INGEST_SITES_SCANNED,
+    VCF_NATIVE_PARSE,
+    read_host_peak_rss_bytes,
     well_known_gauge,
 )
 from spark_examples_tpu_torch.ops.centering import gower_center
@@ -56,6 +71,7 @@ from spark_examples_tpu_torch.ops.pca import (
     mllib_reference_pca,
     principal_components_subspace,
 )
+from spark_examples_tpu_torch.pipeline.checkpoint import CheckpointWriter, load_variants
 from spark_examples_tpu_torch.pipeline.datasets import (
     PrefetchIterator,
     VariantsDataset,
@@ -64,11 +80,19 @@ from spark_examples_tpu_torch.pipeline.datasets import (
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
 from spark_examples_tpu_torch.sources import partition_page_requests
-from spark_examples_tpu_torch.sources.files import _resolve_ingest_workers
+from spark_examples_tpu_torch.sources.base import GenomicsSource
+from spark_examples_tpu_torch.sources.files import (
+    FileGenomicsSource,
+    StreamCounters,
+    _resolve_ingest_workers,
+    af_float,
+    file_set_ids,
+)
 from spark_examples_tpu_torch.sources.stream import MergeJoinStats, merge_join
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
 from spark_examples_tpu_torch.utils.af import af_filter_micro, af_passes
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
+from spark_examples_tpu_torch.utils.tracing import StageTimes, device_trace
 
 #: A similarity matrix: on the device (gpu backend) or a host array (host).
 Similarity = Union[torch.Tensor, np.ndarray]
@@ -92,7 +116,16 @@ def extract_call_info(variant: Variant, mapping: Dict[str, int]) -> List[CallDat
     ]
 
 
-def make_source(conf: PcaConf) -> SyntheticGenomicsSource:
+def make_source(conf: PcaConf) -> GenomicsSource:
+    """The source ``--source`` names: the synthetic cohort, or the files of
+    ``--input-files`` (the REST source is not ported; ``config.py``
+    rejects it)."""
+    if conf.source == "file":
+        return FileGenomicsSource(
+            conf.input_files or [],
+            stream_chunk_bytes=conf.stream_chunk_bytes,
+            ingest_workers=conf.ingest_workers,
+        )
     sizes = conf.num_samples_per_set
     return SyntheticGenomicsSource(
         num_samples=conf.num_samples,
@@ -107,7 +140,7 @@ class VariantsPcaDriver:
     def __init__(
         self,
         conf: PcaConf,
-        source: Optional[SyntheticGenomicsSource] = None,
+        source: Optional[GenomicsSource] = None,
         device: DeviceLike = None,
     ):
         self.conf = conf
@@ -115,9 +148,21 @@ class VariantsPcaDriver:
         self.source = source if source is not None else make_source(conf)
         self.registry = MetricsRegistry()
         self.spans = SpanRecorder()
-        self.io_stats = VariantsDatasetStats(self.registry)
+        #: The packed arm's prefetch overlap accounting (the manifest's
+        #: ``overlap`` block); ``None`` on the other arms.
+        self.overlap: Optional[Dict] = None
+        # Stats are disabled when resuming from materialized input
+        # (``VariantsPca.scala:332-335``).
+        self.io_stats: Optional[VariantsDatasetStats] = (
+            None if conf.input_path else VariantsDatasetStats(self.registry)
+        )
         #: The accumulator of the last similarity stage (device or host-fed).
         self.accumulator = None
+        if read_host_peak_rss_bytes() is not None:
+            # Every read (heartbeat tick, manifest) samples the OS's mark.
+            well_known_gauge(self.registry, HOST_PEAK_RSS_BYTES).set_function(
+                lambda: float(read_host_peak_rss_bytes() or 0)
+            )
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
         callsets = self.source.search_callsets(conf.variant_set_id)
         self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
@@ -129,7 +174,9 @@ class VariantsPcaDriver:
     def get_data(self) -> List[VariantsDataset]:
         """One sharded dataset per variant set (``VariantsPca.scala:111-125``);
         all datasets share one partitioner built from the flattened contig
-        list."""
+        list, or a checkpoint reader under ``--input-path``."""
+        if self.conf.input_path:
+            return [load_variants(self.conf.input_path)]
         contigs = self.conf.get_contigs(self.source, self.conf.variant_set_id)
         partitioner = VariantsPartitioner(contigs, self.conf.bases_per_partition)
         return [
@@ -148,13 +195,19 @@ class VariantsPcaDriver:
         (``VariantsPca.scala:136-148``): strictly greater, first AF value,
         variants without AF dropped. The synthetic source compares with the
         canonical micro-unit rule (``utils/af.py``), so the wire arm agrees
-        bit for bit with the packed and device arms."""
+        bit for bit with the packed and device arms; the file source with
+        the packed parsers' AF grammar (``sources/files.py:af_float``), so
+        its wire and packed arms agree record for record."""
         if self.conf.min_allele_frequency is None:
             return True
         af = variant.info.get("AF")
         if not af:
             return False
-        return bool(af_passes(float(af[0]), self.conf.min_allele_frequency))
+        if isinstance(self.source, SyntheticGenomicsSource):
+            return bool(af_passes(float(af[0]), self.conf.min_allele_frequency))
+        if isinstance(self.source, FileGenomicsSource):
+            return af_float(af[0]) > self.conf.min_allele_frequency
+        return float(af[0]) > self.conf.min_allele_frequency
 
     def iter_calls(self, datasets: List[VariantsDataset]) -> Iterator[List[int]]:
         """Variant → varying callset column indices
@@ -165,6 +218,9 @@ class VariantsPcaDriver:
             print(f"Min allele frequency {self.conf.min_allele_frequency}.")
 
         if n_sets == 1:
+            if self.conf.save_variants:
+                yield from self._iter_calls_saving(datasets[0], self.conf.save_variants)
+                return
             for variant in datasets[0].variants():
                 if not self.filter_variant(variant):
                     continue
@@ -224,6 +280,26 @@ class VariantsPcaDriver:
                     row = [c.callset_id for c in merged if c.has_variation]
                     if row:
                         yield row
+
+    def _iter_calls_saving(self, dataset: VariantsDataset, path: str) -> Iterator[List[int]]:
+        """Single-set wire ingest that also writes every shard as a
+        checkpoint part while it streams (``--save-variants``). Records are
+        written unfiltered, before the AF filter, so a resumed run
+        re-applies any threshold. The checkpoint's manifest is written only
+        after the last shard, so an interrupted save fails loudly on
+        resume."""
+        writer = CheckpointWriter(path)
+        for _part, records in dataset.iter_shards():
+            writer.write_shard(records)
+            for _key, variant in records:
+                if not self.filter_variant(variant):
+                    continue
+                calls = extract_call_info(variant, self.indexes)
+                row = [c.callset_id for c in calls if c.has_variation]
+                if row:
+                    yield row
+        writer.close()
+        print(f"Saved {writer.total} variants to {path}.")
 
     # ------------------------------------------------------------ similarity
 
@@ -401,25 +477,34 @@ class VariantsPcaDriver:
         return lines
 
     def report_io_stats(self) -> None:
-        print(str(self.io_stats))
+        if self.io_stats is not None:
+            print(str(self.io_stats))
 
 
 @dataclass
 class PipelineResult:
-    """One completed analysis: the emitted TSV lines, and the driver that
-    ran it (its accumulator, spans and registry)."""
+    """One completed analysis: the emitted TSV lines, the driver that ran
+    it (its accumulator, spans and registry), the run manifest when one was
+    built (``--metrics-json``) and the path it was written to when the
+    write succeeded."""
 
     lines: List[str]
     driver: VariantsPcaDriver
+    manifest: Optional[Dict] = None
+    manifest_path: Optional[str] = None
 
 
-def resolve_ingest(conf: PcaConf) -> Tuple[bool, bool]:
+def resolve_ingest(conf: PcaConf, source: GenomicsSource) -> Tuple[bool, bool]:
     """``(use_device, use_packed)`` for ``conf`` — neither means the wire
     arm — with the reference's rules and errors
-    (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``, its
-    synthetic-source cases): ``auto`` takes device generation on the gpu
-    backend with distinct variant sets, and the wire arm otherwise."""
-    synthetic_gpu = conf.pca_backend == "gpu"
+    (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): ``auto``
+    takes device generation on the gpu backend with distinct synthetic
+    variant sets, the packed arm for a single-set VCF that wants streaming,
+    and the wire arm otherwise; ``--save-variants`` forces the wire arm.
+    ``source`` is the run's source."""
+    synthetic_gpu = (
+        conf.source == "synthetic" and not conf.input_path and conf.pca_backend == "gpu"
+    )
     # Duplicate ids collapse the column index: a same-set join that only
     # the wire arm's count multiplicity reproduces.
     device_ok = len(set(conf.variant_set_id)) == len(conf.variant_set_id)
@@ -432,71 +517,175 @@ def resolve_ingest(conf: PcaConf) -> Tuple[bool, bool]:
             "the column index); using wire ingest."
         )
     use_packed = conf.ingest == "packed"
+    file_packed = (
+        conf.source == "file" and not conf.input_path and conf.pca_backend == "gpu"
+    )
+    if (
+        not use_packed
+        and conf.ingest == "auto"
+        and file_packed
+        and len(conf.variant_set_id) == 1
+        and isinstance(source, FileGenomicsSource)
+        and source.wants_streaming(conf.variant_set_id[0])
+    ):
+        # A large (or explicitly streamed) single-set VCF: the packed arm
+        # with the bounded-memory streamed pass — the wire arm would hold
+        # the whole file as Python records.
+        use_packed = True
+    if conf.save_variants:
+        # The writer materializes wire records shard by shard; device and
+        # packed ingest never build them.
+        if conf.ingest in ("device", "packed"):
+            raise ValueError(
+                "--save-variants materializes wire records; it needs the "
+                "wire ingest (--ingest wire, or leave --ingest auto)"
+            )
+        if conf.input_path:
+            raise ValueError(
+                "--save-variants with --input-path would re-save an "
+                "existing checkpoint; copy the directory instead"
+            )
+        if len(conf.variant_set_id) != 1:
+            raise ValueError(
+                "--save-variants supports a single variant set "
+                "(--input-path resume loads one dataset)"
+            )
+        if isinstance(source, FileGenomicsSource) and source.wants_streaming(
+            conf.variant_set_id[0]
+        ):
+            raise ValueError(
+                "--save-variants uses the wire ingest, which would load "
+                "this streaming-scale VCF fully into host memory; the "
+                "input is already resumable from disk. Force the in-memory "
+                "path with --stream-chunk-bytes 0 if the host has room."
+            )
+        use_device = False
+        use_packed = False
     if use_device and not (synthetic_gpu and device_ok):
         raise ValueError(
             "--ingest device requires --source synthetic, --pca-backend gpu, "
             "and distinct variant-set ids"
         )
-    if use_packed and not synthetic_gpu:
+    if use_packed and not (synthetic_gpu or file_packed):
         raise ValueError(
-            "--ingest packed requires --pca-backend gpu and --source synthetic"
+            "--ingest packed requires --pca-backend gpu and --source "
+            "synthetic or file (VCF inputs)"
         )
     if use_packed and len(conf.variant_set_id) != 1:
         raise ValueError(
             "--ingest packed supports a single variant set; use --ingest "
             "device (distinct sets) or --ingest wire"
         )
+    if use_packed and file_packed:
+        # Packed file ingest is VCF-only: fail here, not from a worker
+        # thread mid-pipeline.
+        selected = dict(zip(file_set_ids(conf.input_files or []), conf.input_files))[
+            conf.variant_set_id[0]
+        ]
+        lowered = selected[:-3] if selected.endswith(".gz") else selected
+        if not lowered.endswith(".vcf"):
+            raise ValueError(
+                f"--ingest packed needs a .vcf[.gz] input; got {selected!r} "
+                "(use --ingest wire for JSONL/checkpoint inputs)"
+            )
     return use_device, use_packed
 
 
-def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
-    """The packed arm: dense genotype blocks from the source, through a
-    bounded prefetch thread (with ingest workers enabled) into the
-    double-buffered accumulator (``pipeline_depth=2``), so the host builds
-    block k+1 while the card works on block k."""
+def _feed_rows(conf: PcaConf, driver: VariantsPcaDriver, rows: Iterable[np.ndarray]) -> Similarity:
+    """Run a block stream through the bounded prefetch thread (with ingest
+    workers enabled) into the double-buffered accumulator
+    (``pipeline_depth=2``), so the host builds block k+1 while the card
+    works on block k. The overlap accounting lands in the registry and the
+    manifest; ``--profile-dir`` also prints it."""
     ingest_workers = _resolve_ingest_workers(conf.ingest_workers)
-    pipeline_depth = 2 if ingest_workers > 0 else None
-    source = driver.source
-    contigs = conf.get_contigs(source, conf.variant_set_id)
-    partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(
-        conf.variant_set_id[0]
-    )
-    well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
-
-    def block_stream():
-        # Blocks flow one at a time from the per-window producer; stats
-        # account per window as it streams, in partition order.
-        done_gauge = well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
-        for index, part in enumerate(partitions):
-            driver.io_stats.add_partition(part.range)
-            driver.io_stats.add_requests(
-                partition_page_requests(
-                    source, part.variant_set_id, part.contig, conf.bases_per_partition
-                )
-            )
-            window_variants = 0
-            for block in source.genotype_blocks(
-                part.variant_set_id,
-                part.contig,
-                block_size=conf.block_size,
-                min_allele_frequency=conf.min_allele_frequency,
-            ):
-                window_variants += len(block["positions"])
-                yield block["has_variation"]
-            driver.io_stats.add_variants(window_variants)
-            done_gauge.set(index + 1)
-
-    rows = block_stream()
     prefetch = None
     if ingest_workers > 0:
         rows = prefetch = PrefetchIterator(
             rows, depth=2, registry=driver.registry, spans=driver.spans
         )
     try:
-        return driver.get_similarity_rows(rows, pipeline_depth=pipeline_depth)
+        return driver.get_similarity_rows(
+            rows, pipeline_depth=2 if ingest_workers > 0 else None
+        )
     finally:
         if prefetch is not None:
             prefetch.close()
+            driver.overlap = prefetch.overlap_stats()
+            if conf.profile_dir:
+                print(prefetch.overlap_report())
+
+
+def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
+    """The packed arm: dense genotype blocks from the source — the
+    synthetic generator's, or a VCF's from the native parser — window by
+    window in partition order, or, for a VCF that wants streaming, from one
+    bounded-memory pass in file order (G += XᵀX commutes). Both account
+    the same per-shard pages and variants in the I/O stats."""
+    source = driver.source
+    set_id = conf.variant_set_id[0]
+    contigs = conf.get_contigs(source, conf.variant_set_id)
+    partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(set_id)
+    well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
+    done_gauge = well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
+    io_stats = driver.io_stats
+    file_source = isinstance(source, FileGenomicsSource)
+    streamed = file_source and source.wants_streaming(set_id)
+
+    if streamed:
+        counters = StreamCounters(len(partitions), registry=driver.registry)
+
+        def streamed_rows():
+            for block in source.stream_genotype_blocks(
+                set_id,
+                [p.contig for p in partitions],
+                block_size=conf.block_size,
+                min_allele_frequency=conf.min_allele_frequency,
+                counters=counters,
+            ):
+                yield block["has_variation"]
+
+        similarity = _feed_rows(conf, driver, streamed_rows())
+        # Every window is done, including any past the file's last record
+        # that the cursor never reached.
+        done_gauge.set(len(partitions))
+        if io_stats is not None:
+            for part in partitions:
+                io_stats.add_partition(part.range)
+            io_stats.add_requests(counters.requests())
+            io_stats.add_variants(counters.variants)
+    else:
+
+        def block_stream():
+            # Blocks flow one at a time from the per-window producer; stats
+            # account per window as it streams, in partition order.
+            for index, part in enumerate(partitions):
+                if io_stats is not None:
+                    io_stats.add_partition(part.range)
+                    io_stats.add_requests(
+                        partition_page_requests(
+                            source, part.variant_set_id, part.contig,
+                            conf.bases_per_partition,
+                        )
+                    )
+                window_variants = 0
+                for block in source.genotype_blocks(
+                    part.variant_set_id,
+                    part.contig,
+                    block_size=conf.block_size,
+                    min_allele_frequency=conf.min_allele_frequency,
+                ):
+                    window_variants += len(block["positions"])
+                    yield block["has_variation"]
+                if io_stats is not None:
+                    io_stats.add_variants(window_variants)
+                done_gauge.set(index + 1)
+
+        similarity = _feed_rows(conf, driver, block_stream())
+    if file_source:
+        native = source.native_parse(set_id, streamed)
+        if native is not None:
+            well_known_gauge(driver.registry, VCF_NATIVE_PARSE).set(float(native))
+    return similarity
 
 
 def _similarity_stage(
@@ -513,21 +702,59 @@ def _similarity_stage(
 
 
 def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
-    """The analysis, CLI-free: config in, result out. Runs on ``device``
-    (default ``conf.device``); raises when a CUDA device is asked for and
-    none is present."""
+    """The analysis, CLI-free: config in, result out, in the reference's
+    order (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): the
+    heartbeat starts, the stages run under ``--profile-dir``'s device
+    trace, the rows and the stats print, then the stage report and the
+    manifest, built last so it snapshots what the epilogue printed. Runs on
+    ``device`` (default ``conf.device``); raises when a CUDA device is
+    asked for and none is present."""
     check_ported(conf)
-    use_device, use_packed = resolve_ingest(conf)
-    driver = VariantsPcaDriver(conf, device=conf.device if device is None else device)
-    # Every arm's stage span ends with the card synchronised.
+    source = make_source(conf)
+    use_device, use_packed = resolve_ingest(conf, source)
+    driver = VariantsPcaDriver(
+        conf, source, device=conf.device if device is None else device
+    )
+    times = StageTimes(recorder=driver.spans)
+    heartbeat = None
+    if conf.heartbeat_seconds > 0:
+        heartbeat = Heartbeat(conf.heartbeat_seconds, driver.registry).start()
+    # Every arm's stage ends with the card synchronised.
     sync = synchronizer(driver.device)
-    with driver.spans.span("ingest+similarity", sync=sync):
-        similarity = _similarity_stage(conf, driver, use_device, use_packed)
-    with driver.spans.span("center+pca", sync=sync):
-        result = driver.compute_pca(similarity)
+    try:
+        with device_trace(conf.profile_dir):
+            with times.stage("ingest+similarity", sync=sync):
+                similarity = _similarity_stage(conf, driver, use_device, use_packed)
+            with times.stage("center+pca", sync=sync):
+                result = driver.compute_pca(similarity)
+    finally:
+        # A failed run gets its last heartbeat, then silence.
+        if heartbeat is not None:
+            heartbeat.stop()
     lines = driver.emit_result(result)
     driver.report_io_stats()
-    return PipelineResult(lines, driver)
+    if conf.profile_dir:
+        print(str(times))
+        print(f"Device trace written to {conf.profile_dir}.")
+    manifest = manifest_path = None
+    if conf.metrics_json:
+        manifest = build_run_manifest(
+            conf=conf,
+            spans=driver.spans,
+            registry=driver.registry,
+            io_stats=driver.io_stats,
+            overlap=driver.overlap,
+        )
+        try:
+            write_manifest(conf.metrics_json, manifest)
+        except OSError as e:
+            # The results are printed already: report the lost telemetry
+            # and keep the run's exit intact.
+            print(f"Run manifest NOT written to {conf.metrics_json}: {e}", file=sys.stderr)
+        else:
+            manifest_path = conf.metrics_json
+            print(f"Run manifest written to {conf.metrics_json}.")
+    return PipelineResult(lines, driver, manifest, manifest_path)
 
 
 def run(argv: Sequence[str], device: DeviceLike = None) -> List[str]:

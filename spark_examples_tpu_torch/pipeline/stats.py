@@ -13,7 +13,7 @@ read-only properties, and a direct ``stats.requests += n`` raises.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 from spark_examples_tpu_torch.obs.metrics import IO_PARTITIONS_TOTAL, MetricsRegistry
 from spark_examples_tpu_torch.sources.base import ClientCounters
@@ -32,6 +32,11 @@ _STAT_METRICS = {
     ),
     "io_exceptions": ("io_io_exceptions_total", "I/O exceptions raised."),
     "variants": ("io_variants_total", "Variant records read (pre-drop)."),
+    # Not in the six-line report; the manifest's io_stats block carries it.
+    "retries": (
+        "io_retries_total",
+        "Transient-failure retries (bounded-backoff) issued by clients.",
+    ),
 }
 
 
@@ -65,6 +70,7 @@ class VariantsDatasetStats:
     unsuccessful_responses = _read_only("unsuccessful_responses")
     io_exceptions = _read_only("io_exceptions")
     variants = _read_only("variants")
+    retries = _read_only("retries")
 
     def add_partition(self, reference_bases: int) -> None:
         self._counters["partitions"].inc(1)
@@ -81,11 +87,24 @@ class VariantsDatasetStats:
 
     def add_client(self, counters: ClientCounters) -> None:
         """Flush a per-partition client's counters (the wire arm,
-        ``rdd/VariantsRDD.scala:192-196``). Retries are not in the report,
-        so the port keeps no counter of them yet."""
+        ``rdd/VariantsRDD.scala:192-196``)."""
         self._counters["requests"].inc(counters.initialized_requests)
         self._counters["unsuccessful_responses"].inc(counters.unsuccessful_responses)
         self._counters["io_exceptions"].inc(counters.io_exceptions)
+        self._counters["retries"].inc(counters.retries)
+
+    def as_dict(self) -> Dict[str, int]:
+        """The manifest's ``io_stats`` block (``obs/manifest.py``): the
+        numbers ``__str__`` prints, and the retries."""
+        return {
+            "partitions": self.partitions,
+            "reference_bases": self.reference_bases,
+            "variants": self.variants,
+            "requests": self.requests,
+            "unsuccessful_responses": self.unsuccessful_responses,
+            "io_exceptions": self.io_exceptions,
+            "io_retries": self.retries,
+        }
 
     def __str__(self) -> str:
         return (

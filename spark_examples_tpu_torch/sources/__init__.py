@@ -1,5 +1,6 @@
 """Genomics sources: the synthetic 1000 Genomes cohort (``synthetic.py``)
-behind the client/source interfaces of ``base.py``."""
+and local VCF/JSONL files (``files.py``, over the windowed readers of
+``stream.py``) behind the client/source interfaces of ``base.py``."""
 
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
 

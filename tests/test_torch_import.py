@@ -63,13 +63,19 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
     "spark_examples_tpu_torch.models.variant",
+    "spark_examples_tpu_torch.obs.heartbeat",
+    "spark_examples_tpu_torch.obs.manifest",
+    "spark_examples_tpu_torch.obs.metrics",
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.devicegen",
     "spark_examples_tpu_torch.ops.gramian",
+    "spark_examples_tpu_torch.pipeline.checkpoint",
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
     "spark_examples_tpu_torch.sources.files",
     "spark_examples_tpu_torch.sources.stream",
+    "spark_examples_tpu_torch.utils.native",
+    "spark_examples_tpu_torch.utils.tracing",
 )
 
 
@@ -146,16 +152,16 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
 @pytest.mark.parametrize(
     "flags, named",
     [
-        (["--metrics-json", "m.json"], "--metrics-json"),
-        (["--heartbeat-seconds", "5"], "--heartbeat-seconds"),
-        (["--profile-dir", "p"], "--profile-dir"),
+        (["--checkpoint-every-sites", "10"], "--checkpoint-every-sites"),
+        (["--fault-plan", "files.read:fail"], "--fault-plan"),
+        (["--num-processes", "2"], "--num-processes"),
         (["--resume-from", "ck"], "--resume-from"),
         (["--gramian-checkpoint-dir", "ck"], "--gramian-checkpoint-dir"),
         (["--coordinator-address", "h:1"], "--coordinator-address"),
         (["--similarity-strategy", "sharded"], "--similarity-strategy sharded"),
         (["--mesh-shape", "1,2"], "--mesh-shape"),
         (["--trace-dir", "t"], "--trace-dir"),
-        (["--save-variants", "v"], "--save-variants"),
+        (["--reduce-schedule", "flat"], "--reduce-schedule"),
         (["--source", "rest"], "--source"),
     ],
 )
@@ -164,3 +170,45 @@ def test_unported_flags_raise_naming_the_flag(flags, named):
 
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         PcaConf.parse(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--metrics-json", "m.json"],
+        ["--heartbeat-seconds", "5"],
+        ["--profile-dir", "p"],
+        ["--save-variants", "v"],
+        ["--input-path", "ck"],
+        ["--source", "file", "--input-files", "a.vcf.gz,b.jsonl"],
+        ["--source", "file", "--input-files", "a.vcf", "--stream-chunk-bytes", "4096"],
+    ],
+)
+def test_ported_flags_parse(flags):
+    """The file source, variant checkpoints and run telemetry flags parse
+    with the reference's validation instead of raising."""
+    from spark_examples_tpu_torch.config import PcaConf
+
+    conf = PcaConf.parse(flags + ["--device", "cpu"])
+    if "--input-files" in flags:
+        assert conf.variant_set_id == [p.split("/")[-1].split(".")[0]
+                                       for p in conf.input_files]
+
+
+@pytest.mark.parametrize(
+    "flags, message",
+    [
+        (["--source", "file"], "--input-files"),
+        (["--heartbeat-seconds", "-1"], "--heartbeat-seconds"),
+        (["--source", "file", "--input-files", "a.vcf", "--num-samples", "3,4"],
+         "synthetic-source-only"),
+    ],
+)
+def test_ported_flags_validate_like_the_reference(flags, message):
+    from spark_examples_tpu.config import PcaConf as RefConf
+    from spark_examples_tpu_torch.config import PcaConf
+
+    with pytest.raises(ValueError):
+        RefConf.parse(flags)
+    with pytest.raises(ValueError, match=message):
+        PcaConf.parse(flags)

@@ -34,7 +34,7 @@ def _runs(capsys, argv, ref_argv=None):
     return ref_lines, ref_out, lines, out
 
 
-def _assert_same_output(ref_out, out, atol):
+def _assert_same_output(ref_out, out, atol, stats=True):
     assert len(out) == len(ref_out)
     rows = 0
     for got, want in zip(out, ref_out):
@@ -49,7 +49,7 @@ def _assert_same_output(ref_out, out, atol):
         )
     assert rows > 0
     assert any(line.startswith("Non zero rows in matrix:") for line in out)
-    assert "Variants API stats:" in out
+    assert ("Variants API stats:" in out) == stats
 
 
 @pytest.mark.parametrize(
@@ -169,3 +169,127 @@ def test_output_path_matches_jax(tmp_path, capsys):
             np.array(g[1:-1], dtype=float), np.array(w[1:-1], dtype=float),
             rtol=0, atol=TOLERANCE,
         )
+
+
+# ------------------------------------------------------------- file source
+
+
+def _write_vcf(tmp_path, name, seed, n_samples=9, rows=150, compress=False):
+    """A seeded coordinate-sorted VCF over two contigs: missing and
+    multi-allelic calls, AF-less lines."""
+    rng = np.random.default_rng(seed)
+    lines = ["##fileformat=VCFv4.2",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+             + "\t".join(f"NA{i:03d}" for i in range(n_samples))]
+    for contig in ("1", "17"):
+        for k in range(rows):
+            info = f"AF={rng.random():.3f}" if k % 4 else "NS=3"
+            gts = "\t".join(rng.choice(["0|0", "0|1", "1|1", "./.", "1/2"],
+                                       p=[0.5, 0.2, 0.1, 0.1, 0.1]) for _ in range(n_samples))
+            lines.append(f"{contig}\t{100 + 37 * k}\t.\tA\tG,T\t.\t.\t{info}\tGT\t{gts}")
+    text = "\n".join(lines) + "\n"
+    path = tmp_path / (name + (".gz" if compress else ""))
+    if compress:
+        import gzip
+
+        with gzip.open(path, "wt") as f:
+            f.write(text)
+    else:
+        path.write_text(text)
+    return str(path)
+
+
+def _file_argv(paths, extra):
+    return ["--source", "file", "--input-files", ",".join(paths),
+            "--references", "1:0:6000,17:0:6000", "--bases-per-partition", "1500"] + extra
+
+
+@pytest.mark.parametrize(
+    "extra, compress",
+    [
+        (["--ingest", "packed"], False),
+        (["--ingest", "packed", "--ingest-workers", "0"], False),
+        (["--ingest", "packed", "--min-allele-frequency", "0.3", "--block-size", "8"], True),
+        (["--ingest", "packed", "--stream-chunk-bytes", "200"], False),
+        (["--ingest", "packed", "--stream-chunk-bytes", "777", "--ingest-workers", "3"], True),
+        (["--stream-chunk-bytes", "300", "--min-allele-frequency", "0.2"], True),
+        (["--ingest", "wire"], False),
+        ([], True),
+        (["--ingest", "wire", "--min-allele-frequency", "0.3", "--num-workers", "1"], False),
+    ],
+)
+def test_file_arms_match_jax(tmp_path, capsys, extra, compress):
+    """The file source's packed arm (the native parser), its streamed pass
+    (explicit, or auto past a small ``--stream-chunk-bytes``; chunks cut
+    lines mid-record) and its wire arm print the reference's lines; the PC
+    values agree within the tolerance."""
+    path = _write_vcf(tmp_path, "cohort.vcf", seed=1, compress=compress)
+    ref_lines, ref_out, lines, out = _runs(capsys, _file_argv([path], extra))
+    _assert_same_output(ref_out, out, TOLERANCE)
+    assert len(lines) == len(ref_lines) == 9
+
+
+def test_file_two_set_join_and_host_backend_match_jax(tmp_path, capsys):
+    a = _write_vcf(tmp_path, "a.vcf", seed=2)
+    b = _write_vcf(tmp_path, "b.vcf", seed=3, n_samples=4)
+    ref_lines, ref_out, lines, out = _runs(capsys, _file_argv([a, b], []))
+    _assert_same_output(ref_out, out, TOLERANCE)
+    assert len(lines) == 13
+    ref_lines, ref_out, lines, out = _runs(capsys, _file_argv([a], ["--pca-backend", "host"]))
+    assert out == ref_out and lines == ref_lines
+
+
+def test_save_variants_then_input_path_match_jax(tmp_path, capsys):
+    """``--save-variants`` (wire ingest, the records written as they stream)
+    and then ``--input-path`` over the saved checkpoint: each prints the
+    reference's lines on the same argv, and the resumed run prints the
+    saving run's rows."""
+    path = _write_vcf(tmp_path, "cohort.vcf", seed=4)
+    save = lambda tag: _file_argv([path], ["--save-variants", str(tmp_path / tag)])
+    ref_lines, ref_out, lines, out = _runs(capsys, save("port"), save("ref"))
+    ref_out = [line.replace(str(tmp_path / "ref"), str(tmp_path / "port")) for line in ref_out]
+    _assert_same_output(ref_out, out, TOLERANCE)
+    assert f"Saved 300 variants to {tmp_path / 'port'}." in out
+    resume = lambda tag: _file_argv([path], ["--input-path", str(tmp_path / tag)])
+    ref_resumed, ref_out, resumed, out = _runs(capsys, resume("port"), resume("ref"))
+    # Stats are off when resuming (``VariantsPca.scala:332-335``).
+    _assert_same_output(ref_out, out, TOLERANCE, stats=False)
+    assert [l.split("\t")[:2] for l in resumed] == [l.split("\t")[:2] for l in lines]
+    np.testing.assert_allclose(
+        np.array([l.split("\t")[2:] for l in resumed], dtype=float),
+        np.array([l.split("\t")[2:] for l in lines], dtype=float), rtol=0, atol=TOLERANCE)
+
+
+@pytest.mark.parametrize(
+    "extra, message",
+    [
+        (["--ingest", "packed", "--save-variants", "{tmp}/s"], "--save-variants materializes"),
+        (["--input-path", "{tmp}/s", "--save-variants", "{tmp}/t"], "--save-variants with"),
+        (["--stream-chunk-bytes", "100", "--save-variants", "{tmp}/s"], "streaming-scale"),
+        (["--ingest", "packed", "--pca-backend", "host"], "--ingest packed requires"),
+        (["--ingest", "device"], "--ingest device requires"),
+    ],
+)
+def test_file_ingest_resolution_errors_match_jax(tmp_path, extra, message):
+    path = _write_vcf(tmp_path, "cohort.vcf", seed=5, rows=20)
+    argv = _file_argv([path], [e.replace("{tmp}", str(tmp_path)) for e in extra])
+    with pytest.raises(ValueError):
+        ref_driver.run(argv)
+    with pytest.raises(ValueError, match=message):
+        run(argv, device="cpu")
+
+
+def test_file_packed_needs_a_vcf_and_one_set(tmp_path):
+    jsonl = tmp_path / "w.jsonl"
+    jsonl.write_text("")
+    for argv, message in (
+        (_file_argv([str(jsonl)], ["--ingest", "packed"]), "needs a .vcf"),
+        (_file_argv([_write_vcf(tmp_path, "a.vcf", 6, rows=5),
+                     _write_vcf(tmp_path, "b.vcf", 7, rows=5)], ["--ingest", "packed"]),
+         "single variant set"),
+        (_file_argv([str(jsonl)], ["--variant-set-id", "nope"]), "not among"),
+    ):
+        with pytest.raises(ValueError):
+            ref_driver.run(argv)
+        with pytest.raises(ValueError, match=message):
+            run(argv, device="cpu")
