@@ -9,9 +9,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. build: every kernel built from ``spark_examples_tpu_torch/csrc`` with
    nvcc, one process per source, all started together (``-Xptxas -v``
    report printed), and the native VCF parser (``native/vcfparse.cpp``)
-   with g++; the build's SASS (``cuobjdump``) must show TMA stores
-   in the generation kernel, int8 warpgroup MMAs and TMA loads in the
-   product's kernel and bulk copies in the scratch copy's;
+   with g++; the build's SASS (``cuobjdump``) must show 16-byte stores
+   in the generation and unpack kernels, int8 warpgroup MMAs and TMA loads
+   in the product's kernel, bulk copies in the scratch copy's and 16-byte
+   loads and stores in the op chains'; then chr17 through the CLI in a
+   process of its own (started here, while this one is small), whose
+   manifest's ``hostmem`` pair holds that process's peak RSS against the
+   configuration's host-memory bound;
 3. kernels: each kernel against its plain PyTorch version at the shapes its
    path gives it, exactly equal: the generation at 2,504 samples × 16,384
    sites (a full block and chr17's ragged tail) and × 1,024 (the CLI's
@@ -24,15 +28,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the card's limit. Then CUDA-event times of each kernel, its plain
    version and, where one exists, the PyTorch library call computing the
    same function (the generation and the product at both depths, with
-   their launches' blocks and waves);
+   their launches' blocks and waves); the op chains also at ragged
+   lengths and off a 16-byte boundary, with their SASS split by pipe;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
-   the default BRCA1 region; then the host-fed arms at 2,504 samples: packed
-   over 2 Mb of chr17, wire over 10 kb, and the same-set join (a duplicated
-   variant-set id: count-valued rows) over 5 kb. For each: launch counts,
-   wall-clock, stage spans, peak device memory, and the PCs checked
-   against a full ``eigh`` of the same run's centered Gramian;
+   the default BRCA1 region; nine variant sets of 280 samples through the
+   CLI, their Gramian exactly the wire arm's on the same argv (and the
+   clusters of 682- and 800-set plans, which the card must place); then the
+   host-fed arms at 2,504 samples: packed over 2 Mb of chr17, wire over
+   10 kb, and the same-set join (a duplicated variant-set id: count-valued
+   rows) over 5 kb. For each: launch counts, wall-clock, stage spans, peak
+   device memory (its own: earlier runs' results are dropped first), and
+   the PCs checked against a full ``eigh`` of the same run's centered
+   Gramian;
 5. files: the packed window's synthetic cohort written as a VCF (GT from
    ``has_variation``, AF in INFO; about 180 MB) and a gzip copy, the wire
    window's as a small VCF, under ``chip_smoke_data/``; then the file
@@ -44,7 +53,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the resumed run's rows equal to the saving run's;
 6. telemetry: chr17 and the file packed arm once more with
    ``--profile-dir`` and ``--metrics-json``: the manifest must pass the
-   port's validator, and the card's busy share of the ``ingest+similarity``
+   port's validator and carry the configuration's host-memory bound with
+   its ``hostmem`` conformance pair, and the card's busy share of the
+   ``ingest+similarity``
    range is read from the trace's CUDA kernel events (traced wall-clock is
    reported apart from the untraced runs');
 7. probes: the entry points of the two probes, ``probe_ops.run`` for every
@@ -92,6 +103,14 @@ PACKED_ARGV = ["--references", "17:41196311:43196311", "--num-samples", "2504",
 WIRE_ARGV = ["--references", "17:41196311:41206311", "--num-samples", "2504",
              "--ingest", "wire"]
 SAME_SET_WINDOW = "17:41196311:41201311"
+#: Device generation over more sets than a byte of set flags holds, through
+#: the CLI: nine variant sets of 280 samples (2,520 columns, the 1000
+#: Genomes width) over the wire arm's 10 kb. Its oracle is the same argv
+#: through the host-fed wire arm (the nine sets' records joined on the
+#: host), short because wire records are built in Python.
+MANY_SETS = 9
+MANY_SETS_ARGV = ["--references", "17:41196311:41206311", "--num-samples", "280",
+                  "--variant-set-id", ",".join(f"chip-smoke-{i}" for i in range(MANY_SETS))]
 #: Where the file phase writes its VCF inputs (git-ignored).
 DATA_DIR = Path(__file__).resolve().parent / "chip_smoke_data"
 #: The streamed arm's decompressed chunk: several chunks for the parse pool.
@@ -104,13 +123,14 @@ CLI_BLOCK = 1024
 UNPACK_ROWS = (CLI_BLOCK, BLOCK)
 #: SASS opcodes each redesigned kernel must contain, in this run's build:
 #: 16-byte stores (the generation's staged Xᵀ chunks and the unpack's
-#: rows); int8 warpgroup MMAs and TMA tensor loads; bulk copies. IMMA is
-#: mma.sync.
+#: rows); int8 warpgroup MMAs and TMA tensor loads; bulk copies; 16-byte
+#: loads and stores (the op chains' vectors). IMMA is mma.sync.
 HOPPER_SASS = {
     "gen_genotypes_kernel": ("devicegen.cu", ("STG.E.128",), ()),
     "unpack_rows_t_kernel": ("gramian.cu", ("STG.E.128",), ()),
     "gram_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
     "scratch_copy_kernel": ("probes.cu", ("UBLKCP",), ()),
+    "probe_op_chain_kernel": ("probes.cu", ("LDG.E.128", "STG.E.128"), ()),
 }
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -238,7 +258,7 @@ def phase_kernels(torch, devicegen):
         f"{kept_cli} of {CLI_BLOCK}")
     gen = {}
     for sites, kept_n in ((BLOCK, kept_sites), (CLI_BLOCK, kept_cli)):
-        launch, resident, sms, cluster = devicegen.gen_genotypes_grid(plan, sites, dev)
+        launch, resident, sms, cluster, tables = devicegen.gen_genotypes_grid(plan, sites, dev)
         r = gen[sites] = dict(
             ms=cuda_ms(lambda: devicegen.gen_genotypes(plan, 400_000, sites, sites, kept, vrows), 50),
             plain_ms=cuda_ms(lambda: devicegen.gen_genotypes_plain(plan, 400_000, sites, sites, kept, vrows), 5, 1),
@@ -248,7 +268,7 @@ def phase_kernels(torch, devicegen):
         log(f"kernels: gen_genotypes at {sites} sites: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} "
             f"ms, bound {r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} "
             f"% of it); launch: {launch} blocks in clusters of {cluster}, {resident} resident "
-            f"({resident / sms:.2f} an SM), {launch / resident:.2f} waves")
+            f"({resident / sms:.2f} an SM), {launch / resident:.2f} waves, {tables} tables")
     rows["gen_genotypes"].update(gen[BLOCK])
     g_k = torch.zeros((n, n), dtype=torch.int32, device=dev)
     depths = {}
@@ -366,37 +386,9 @@ def phase_unpack(torch, devicegen, gramian, int32_rate):
     return row, times
 
 
-def sass_opcodes(library) -> dict:
-    """Mangled function name → the opcodes of its SASS with their
-    modifiers (``STG.E.128``), in order, from ``cuobjdump -sass`` of this
-    run's build."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(library)], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
-    functions = {}
-    for function in sass.split("Function : ")[1:]:
-        name, body = function.split("\n", 1)
-        functions[name.strip()] = re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body)
-    return functions
-
-
-def sass_instructions_per_element(probe_ops, library) -> dict:
-    """op → SASS instructions ``probe_op_chain_kernel<op>`` issues per
-    element per iteration, from ``cuobjdump -sass`` of this run's build:
-    every instruction but NOP, BRA and EXIT, over the R iterations (one
-    thread per element runs the whole function once). A diagnostic printed
-    beside the bound, which counts what the function needs instead."""
-    counts = {}
-    for name, opcodes in sass_opcodes(library).items():
-        found = re.search(r"probe_op_chain_kernelILi(\d+)E", name)
-        if found is None:
-            continue
-        issued = sum(1 for op in opcodes if op.split(".")[0] not in ("NOP", "BRA", "EXIT"))
-        counts[probe_ops.OPS[int(found.group(1))]] = issued / probe_ops.R
-    if sorted(counts) != sorted(probe_ops.OPS):
-        raise AssertionError(f"SASS of {library} lacks some probe ops: {sorted(counts)}")
-    return counts
+#: Chains of R steps compiled into each ``probe_op_chain_kernel``: the four
+#: of the vector loop and one scalar chain the ragged head and tail share.
+PROBE_CHAINS = 5
 
 
 def check_hopper_sass(libs) -> None:
@@ -405,6 +397,8 @@ def check_hopper_sass(libs) -> None:
     any modifiers: ``IMMA`` is ``IMMA.16832.S8.S8`` too), in this run's
     build; prints the tensor-core, TMA, bulk-copy and 16-byte store
     opcodes found in each."""
+    from spark_examples_tpu_torch.utils.sass import sass_opcodes
+
     def has(opcodes, op):
         return any(o == op or o.startswith(op + ".") for o in opcodes)
 
@@ -415,7 +409,7 @@ def check_hopper_sass(libs) -> None:
             raise AssertionError(f"SASS of {source} has no function named {kernel}")
         for name, opcodes in functions.items():
             found = sorted({op.split(".")[0] if "MMA" in op else op for op in opcodes
-                            if re.search(r"MMA|UTMA|UBLK|STG.*\.128", op)})
+                            if re.search(r"MMA|UTMA|UBLK|(LDG|STG).*\.128", op)})
             log(f"sass: {name}: {', '.join(found) or 'no MMA, TMA, bulk-copy or 16-byte store opcode'}")
             missing = [op for op in wanted if not has(opcodes, op)]
             present = [op for op in banned if has(opcodes, op)]
@@ -425,15 +419,22 @@ def check_hopper_sass(libs) -> None:
 
 def phase_probe_kernels(torch, probe_ops, vmem_capacity, int32_rate, library):
     """The six u32 op chains bit-equal to the plain chain after 21 chained
-    calls at (1024, 2560), and the scratch copy at the card's limit exact;
-    plain and library times for the JSON rows (the kernels' own times come
-    from the probes' entry points, phase 5)."""
+    calls at (1024, 2560), and after two at ragged lengths (1, 3, 4,097)
+    and on views off a 16-byte boundary; the scratch copy at the card's
+    limit exact; plain and library times for the JSON rows (the kernels'
+    own times come from the probes' entry points, phase 7). Prints each
+    op's SASS instructions per element per iteration, split by pipe."""
     from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+    from spark_examples_tpu_torch.utils.sass import pipe_split
 
     dev = torch.device("cuda")
     x = torch.from_numpy(probe_ops.random_tile(0)).to(dev)
+    base = torch.from_numpy(probe_ops.random_tile(3, (1, 4100))).to(dev).view(-1)
+    ragged = {"1": base[:1], "3": base[:3], "4097": base[:4097], "x[1:]": base[1:],
+              "x[3:4002]": base[3:4002]}
     elements = x.numel()
-    sass = sass_instructions_per_element(probe_ops, library)
+    sass = pipe_split(library, "probe_op_chain_kernel", probe_ops.OPS,
+                      PROBE_CHAINS * probe_ops.R)
     per_op = {}
     for op in probe_ops.OPS:
         got, want = x, x
@@ -443,15 +444,22 @@ def phase_probe_kernels(torch, probe_ops, vmem_capacity, int32_rate, library):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"probe_op_chain[{op}] != plain after {probe_ops.REPS + 1} calls")
+        for label, view in ragged.items():
+            got = probe_ops.probe_op_chain(probe_ops.probe_op_chain(view, op), op)
+            want = probe_ops.probe_op_chain_plain(probe_ops.probe_op_chain_plain(view, op), op)
+            if not torch.equal(got, want):
+                raise AssertionError(f"probe_op_chain[{op}] != plain at {label}")
         plain_ms = cuda_ms(lambda: probe_ops.probe_op_chain_plain(x, op), 3, 1)
         ops = probe_ops.R * PROBE_OPS_PER_ITERATION[op] * elements
         per_op[op] = dict(plain_ms=plain_ms, bytes=8 * elements, ops=ops,
                           bound=bound(8 * elements, ops, int32_rate))
+        split = sass[op]
         log(f"kernels: probe_op_chain[{op}] == plain, bit for bit, after "
-            f"{probe_ops.REPS + 1} chained calls at {tuple(x.shape)}; bound "
-            f"{per_op[op]['bound'][0]:.4f} ms by {per_op[op]['bound'][1]} "
-            f"({PROBE_OPS_PER_ITERATION[op]} operations per element per iteration; "
-            f"the kernel's SASS issues {sass[op]:.4f})")
+            f"{probe_ops.REPS + 1} chained calls at {tuple(x.shape)} and two at "
+            f"{', '.join(ragged)}; bound {per_op[op]['bound'][0]:.4f} ms by "
+            f"{per_op[op]['bound'][1]} ({PROBE_OPS_PER_ITERATION[op]} operations per element per "
+            f"iteration; the kernel's SASS issues {split['alu']:.4f} on the ALU pipe, "
+            f"{split['fma']:.4f} on the FMA pipe, {split['other']:.4f} other)")
 
     limit = vmem_capacity.max_shared_memory_optin()
     tile = torch.randn(vmem_capacity.TILE, device=dev)
@@ -524,6 +532,7 @@ def run_main_path(torch, kernels, argv, label, expect):
     conf = PcaConf.parse(argv)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     reset_counts(kernels)
     printed = io.StringIO()
     t0 = time.perf_counter()
@@ -544,8 +553,8 @@ def run_main_path(torch, kernels, argv, label, expect):
         INGEST_SITES_SCANNED, DEVICEGEN_DISPATCHES, DEVICEGEN_SITES_CAPACITY,
         "gramian_flushes_total", "gramian_rows_total")}
     log(f"main path {label}: wall {wall:.4f} s, stages {json.dumps(stages)}, "
-        f"launches {json.dumps(launches)}, peak device memory {peak / 2**20:.1f} MiB, "
-        f"gauges {json.dumps(gauges)}")
+        f"launches {json.dumps(launches)}, peak device memory {peak / 2**20:.1f} MiB "
+        f"({held / 2**20:.1f} MiB held before the run), gauges {json.dumps(gauges)}")
     missing = [k for k in expect if launches[k] <= 0]
     if missing:
         raise AssertionError(f"main path {label} never launched {missing}")
@@ -566,6 +575,51 @@ def run_main_path(torch, kernels, argv, label, expect):
     if gap > PC_TOLERANCE:
         raise AssertionError(f"{label}: PCs differ from the full eigh by {gap}")
     return launches, result
+
+
+def phase_many_sets(torch, devicegen, kernels):
+    """Device generation over MANY_SETS variant sets through the CLI (the
+    kernel's bit rows of set flags, past the 8 sets a byte holds),
+    against the same argv through the host-fed wire arm: the Gramian
+    exactly equal; the set count, the launches and the per-set variant
+    rows printed. Then the launch shape of two plans whose tables leave an
+    SM one block (682 and 800 sets, which the gpu tests hold exact): the
+    card must hold a cluster of it."""
+    from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+
+    launches, result = run_main_path(torch, kernels, MANY_SETS_ARGV + ["--ingest", "device"],
+                                     f"{MANY_SETS} sets", ("gen_genotypes", "gram_accumulate"))
+    acc = result.driver.accumulator
+    got_g = acc.G.cpu()
+    rows, kept = acc.ingest_counters()
+    grid = devicegen.gen_genotypes_grid(acc.plan, acc.block_size, acc.G.device)
+    block = acc.block_size
+    acc_device = acc.G.device
+    del result, acc
+    _, oracle = run_main_path(torch, kernels, MANY_SETS_ARGV + ["--ingest", "wire"],
+                              f"{MANY_SETS} sets wire oracle", ("unpack_rows_t", "gram_accumulate"))
+    want_g = oracle.driver.accumulator.G.cpu()
+    del oracle
+    if got_g.shape != (MANY_SETS * 280, MANY_SETS * 280) or not torch.equal(got_g, want_g):
+        raise AssertionError(f"{MANY_SETS} sets: the device Gramian differs from the wire arm's")
+    if len(rows) != MANY_SETS or min(rows) <= 0:
+        raise AssertionError(f"{MANY_SETS} sets: variant rows {rows.tolist()}")
+    log(f"many sets: {MANY_SETS} variant sets, {got_g.shape[0]} columns: device Gramian == the "
+        f"wire arm's exactly (trace {int(got_g.diagonal().long().sum())}); gen_genotypes "
+        f"launches {launches['gen_genotypes']} at {block} sites ({grid[0]} blocks in clusters of "
+        f"{grid[3]}, {grid[4]} tables); kept {kept}, variant rows {rows.tolist()}")
+    for sets, samples in ((682, 3), (800, 2)):
+        source = SyntheticGenomicsSource(num_samples=samples)
+        wide = devicegen.make_gen_plan(
+            [source.genotype_stream_key(f"vs{i}") for i in range(sets)],
+            [source.populations] * sets, source.site_key, source.variant_spacing,
+            source.ref_block_fraction, None, source.n_pops, acc_device)
+        blocks, resident, sms, cluster, path = devicegen.gen_genotypes_grid(wide, 1024, acc_device)
+        if resident < cluster:
+            raise AssertionError(f"{sets} sets: the card holds no cluster of {cluster}")
+        log(f"many sets: {sets} sets of {samples} samples at 1024 sites: {blocks} blocks in "
+            f"clusters of {cluster}, {resident} resident on {sms} SMs, {path} tables")
+    return launches["gen_genotypes"]
 
 
 def write_cohort_vcf(window: str, path: Path, gz_path=None) -> int:
@@ -644,7 +698,7 @@ def phase_files(torch, kernels, expect, packed_g, wire_g):
         argv = ["--source", "file", "--input-files", ",".join(files),
                 "--references", window] + extra
         _, result = run_main_path(torch, kernels, argv, label, expect)
-        got_g = result.driver.accumulator.G
+        got_g = result.driver.accumulator.G.cpu()
         if not torch.equal(got_g, want_g):
             err = int((got_g.long() - want_g.long()).abs().max())
             raise AssertionError(f"{label}: Gramian differs from the synthetic run's by {err}")
@@ -653,10 +707,11 @@ def phase_files(torch, kernels, expect, packed_g, wire_g):
             raise AssertionError(f"{label}: the native VCF parser did not run ({parser})")
         log(f"files: {label}: Gramian == the synthetic run's over the same records "
             f"(trace {int(got_g.diagonal().long().sum())}); native parser gauge {parser}")
-        results[label] = result
-    if results["file resume"].lines != results["file save"].lines:
+        results[label] = result.lines
+        del result
+    if results["file resume"] != results["file save"]:
         raise AssertionError("the resumed run's rows differ from the saving run's")
-    log(f"files: the resumed run printed the saving run's {len(results['file save'].lines)} "
+    log(f"files: the resumed run printed the saving run's {len(results['file save'])} "
         "rows exactly")
 
 
@@ -692,6 +747,58 @@ def busy_share(trace_path: str, span: str = "ingest+similarity"):
     return kernels / (hi - lo), with_copies / (hi - lo), (hi - lo) / 1e3, count
 
 
+def check_host_bound(doc, label) -> dict:
+    """The manifest carries the configuration's host-memory bound (above
+    the runtime baseline) and the ``hostmem`` conformance pair against it;
+    prints both and reads the verdict. The verdict is a measurement of the
+    process (its peak RSS so far), not a condition of the run: on the card
+    it reads false, as the reference's runtime baseline (kept for parity)
+    is below what ``import torch`` alone takes there."""
+    from spark_examples_tpu_torch.parallel.mesh import HOST_RUNTIME_BASELINE_BYTES
+
+    bound, hostmem = doc["host_memory"]["static_bound_bytes"], doc["conformance"]["hostmem"]
+    if bound <= HOST_RUNTIME_BASELINE_BYTES or hostmem is None or hostmem["proven"] != bound:
+        raise AssertionError(f"{label}: host-memory bound {bound}, conformance {hostmem}")
+    over = hostmem["measured"] - bound
+    verdict = (f"holds, {-over} bytes under" if hostmem["ok"] else
+               f"does not hold, {over} bytes over: the bound's {HOST_RUNTIME_BASELINE_BYTES}-byte "
+               f"runtime baseline (the reference's, set for a TPU host) is below a CUDA "
+               f"process's (experiments/host_rss.py)")
+    log(f"telemetry {label}: host-memory bound {bound} bytes, peak RSS "
+        f"{doc['host_memory']['peak_rss_bytes']} bytes, hostmem conformance {hostmem}: {verdict}")
+    return hostmem
+
+
+def phase_standalone_run():
+    """chr17 (16,384-site blocks) through the CLI in a process of its own,
+    as a user runs it, with ``--metrics-json``: the manifest must pass the
+    port's validator; its ``hostmem`` pair compares that process's peak
+    RSS with the bound (this script's own RSS holds every phase before the
+    telemetry's). Run while this script is still small: on Linux a child's
+    ``ru_maxrss`` starts from the parent's RSS at the fork."""
+    from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
+    from spark_examples_tpu_torch.obs.metrics import read_host_peak_rss_bytes
+
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    floor = read_host_peak_rss_bytes()
+    path = DATA_DIR / "manifest_standalone.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch", "variants-pca", *CHR17_ARGV,
+         "--metrics-json", str(path)],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    if proc.returncode:
+        raise AssertionError(f"the standalone run failed: {proc.stderr[-2000:]}")
+    doc = read_manifest(str(path))
+    problems = validate_manifest(doc)
+    if problems:
+        raise AssertionError(f"the standalone run's manifest is invalid: {problems}")
+    log(f"telemetry standalone chr17: {time.perf_counter() - t0:.1f} s with the process's start; "
+        f"this script's peak RSS at the fork {floor} bytes (the child's floor)")
+    return check_host_bound(doc, "standalone chr17")
+
+
 def phase_telemetry(torch, kernels):
     """chr17 (16,384-site blocks) and the file packed arm once more, traced
     (``--profile-dir``) with a manifest (``--metrics-json``): the manifest
@@ -713,9 +820,11 @@ def phase_telemetry(torch, kernels):
         shutil.rmtree(profile, ignore_errors=True)
         run_main_path(torch, kernels, argv + ["--profile-dir", str(profile),
                                               "--metrics-json", str(metrics_json)], label, expect)
-        problems = validate_manifest(read_manifest(str(metrics_json)))
+        doc = read_manifest(str(metrics_json))
+        problems = validate_manifest(doc)
         if problems:
             raise AssertionError(f"{label}: the manifest is invalid: {problems}")
+        check_host_bound(doc, label)
         traces = glob.glob(str(profile / "torch_trace_*.json"))
         if len(traces) != 1:
             raise AssertionError(f"{label}: expected one trace in {profile}, found {traces}")
@@ -768,6 +877,9 @@ def main() -> int:
             if any(key in line for key in ("Compiling entry", "Used", "spill", "arning")):
                 log(f"build: {source}: {line.strip()}")
     check_hopper_sass(libs)
+    # Before this process grows: a child's ru_maxrss starts from its
+    # parent's RSS at the fork (Linux keeps the pre-exec mark).
+    phase_standalone_run()
 
     int32_rate = int32_ops_per_s(torch)
     rows = phase_kernels(torch, devicegen)
@@ -781,18 +893,24 @@ def main() -> int:
     device_path = ("gen_genotypes", "gram_accumulate")
     host_fed = ("unpack_rows_t", "gram_accumulate")
     run_main_path(torch, path_kernels, CHR17_ARGV, "chr17 cold", device_path)
-    launches, _ = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)
+    launches = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)[0]
     run_main_path(torch, path_kernels, CHR17_CLI_ARGV, "chr17 default block", device_path)
     run_main_path(torch, path_kernels, BRCA1_ARGV, "brca1", device_path)
+    phase_many_sets(torch, devicegen, path_kernels)
+    # Each run's results are dropped (the Gramians the file phase compares
+    # with are kept on the host), so its peak device memory is its own.
     packed, packed_run = run_main_path(torch, path_kernels, PACKED_ARGV, "packed", host_fed)
+    packed_g = packed_run.driver.accumulator.G.cpu()
+    del packed_run
     _, wire_run = run_main_path(torch, path_kernels, WIRE_ARGV, "wire", host_fed)
+    wire_g = wire_run.driver.accumulator.G.cpu()
+    del wire_run
     set_id = GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1
     same_set_argv = ["--references", SAME_SET_WINDOW, "--num-samples", str(N_SAMPLES),
                      "--variant-set-id", f"{set_id},{set_id}"]
     run_main_path(torch, path_kernels, same_set_argv, "same-set wire", host_fed)
     launches["unpack_rows_t"] = packed["unpack_rows_t"]
-    phase_files(torch, path_kernels, host_fed, packed_run.driver.accumulator.G,
-                wire_run.driver.accumulator.G)
+    phase_files(torch, path_kernels, host_fed, packed_g, wire_g)
     phase_telemetry(torch, path_kernels)
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
     # probe_op_chain's row is the six-op suite, one call of each op: times

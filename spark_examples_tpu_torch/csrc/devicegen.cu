@@ -48,12 +48,29 @@
 //   store of the staged chunk measured 1–2 % slower (gen_variants.py).
 //   Counters: a site counts in rows[s] if any column of set s in any block
 //   drew a variant, so the blocks OR their per-site set bits into the
-//   leader block's shared memory (atomicOr through the cluster) before one
-//   warp ballot per set; the leader counts kept sites. A split cluster
-//   barrier (arrive at the start, wait before the ORs) orders the leader's
-//   zeroing before them at no cost, and a last cluster barrier keeps the
-//   leader alive until its peers are done. No mbarrier is used, so
-//   hopper.cuh's no-cluster assumption holds.
+//   leader block's (atomicOr through the cluster) before the leader counts
+//   them; it also counts kept sites. A split cluster barrier (arrive at the
+//   start, wait before the ORs) orders the leader's zeroing before them at
+//   no cost, and a last cluster barrier keeps the leader alive until its
+//   peers are done. No mbarrier is used, so hopper.cuh's no-cluster
+//   assumption holds.
+//   Any number of sets, populations and sites: the stream keys are read
+//   from device memory, and a block's tables ((populations + 1 + sets)
+//   rows of 64 words, and the set-bit rows) are sized at launch (GenPath).
+//   The set flags meet in bit rows of 32 sets a site word, and the
+//   leader's warps count a word each, one ballot a set. Up to 8 sets a
+//   thread gathers its sites' flags in a register, a byte a site and a bit
+//   a set (the one-set main path); past 8 a thread's columns come in set
+//   order, so it ORs its sites' flags into the rows when its set changes.
+//   That general path, run at one set, measured 8 % slower at 16,384 sites
+//   and 4 % at 1,024 on an H100 SXM (gen_variants.py), so the register
+//   path stays. A cluster of blocks too large to share an SM holds fewer
+//   blocks where the card cannot place it.
+//   Tables that do not fit shared memory (1,000 sets) live in a device
+//   buffer the wrapper allocates, a block's own slice, and the grid then
+//   holds no more clusters than the card runs at once, each walking tiles.
+//   Tiles lie along gridDim.x (2^31 − 1 blocks), so a block may hold any
+//   site count an int32 ld takes.
 //
 // gram_accumulate_kernel — G[i, j] += Σ_s Xᵀ[i, s]·Xᵀ[j, s] into the
 //   resident int32 G: the product half of pallas_gram
@@ -120,12 +137,14 @@ constexpr uint64_t POP_HI_Q32 = 4080218931;
 constexpr int GEN_SITES = 64;     // sites per generation tile (one cluster)
 constexpr int GEN_MAX_CLUSTER = 16;  // blocks per tile: 16 needs the non-portable size
 constexpr int GEN_THREADS = 256;
+constexpr int GEN_FEW_SETS = 8;   // sets whose flags fit a byte: the register path
 constexpr int GEN_COLS = 64;      // columns per chunk: one staged piece of Xᵀ
 constexpr int GEN_QUADS = GEN_SITES / 4;               // a thread's 4 sites ...
 constexpr int GEN_GROUPS = GEN_THREADS / GEN_QUADS;    // ... and column group
 constexpr int GEN_COLS_PER_THREAD = GEN_COLS / GEN_GROUPS;
-constexpr int MAX_POPS = 16;
-constexpr int MAX_SETS = 8;
+// The most device memory one launch's tables may take where they do not
+// fit shared memory (the grid shrinks to fit, its clusters walking tiles).
+constexpr int64_t GEN_TABLE_BYTES = 256ll << 20;
 constexpr int GT = 128;           // Gramian tile edge: rows of Xᵀ in one TMA box
 constexpr int GK = 128;           // sites per stage: one 128-byte swizzle row
 constexpr int G_BOX_BYTES = GT * GK;                 // 16 KiB
@@ -140,7 +159,16 @@ constexpr int G_STRIDE = G_BN + 1;  // staged int32 row: odd, so columns read co
 // full and empty barriers.
 constexpr int G_SMEM_BYTES = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8;
 static_assert(GT * G_STRIDE * 4 <= G_STAGES * G_STAGE_BYTES, "the staged tile reuses the ring");
-constexpr int G_MAX_DEVICES = 64;  // devices whose shared-memory attribute is cached
+constexpr int G_MAX_DEVICES = 64;  // devices whose kernel attributes are cached
+
+// Where a launch keeps each block's tables (GEN_SITES words a row: n_pops
+// threshold rows and a zero row for padding columns, n_sets rows of
+// xorshift16(fold(h2)), set_words rows of per-site set bits).
+enum GenPath {
+  GEN_FEW = 0,     // shared memory; at most GEN_FEW_SETS sets, flags gathered in registers
+  GEN_MANY = 1,    // shared memory; any sets, flags ORed into the bit rows on a set change
+  GEN_GLOBAL = 2,  // as GEN_MANY, the tables in a device buffer (a slice per block)
+};
 
 struct GenParams {
   int64_t grid_offset;
@@ -154,9 +182,14 @@ struct GenParams {
   int n_sets;
   int n_cols;
   int n_cols_pad;
-  int ld;  // sites per Xᵀ row (the padded block size)
-  uint64_t vs_keys[MAX_SETS];  // per-set genotype stream keys
+  int ld;           // sites per Xᵀ row (the padded block size)
+  int set_words;    // rows of per-site set bits: 32 sets a row
+  int table_words;  // a block's tables
 };
+
+int gen_table_words(int n_pops, int n_sets) {
+  return GEN_SITES * (n_pops + 1 + n_sets + (n_sets + 31) / 32);
+}
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x += P1;
@@ -197,6 +230,16 @@ __device__ __forceinline__ uint32_t draw4(uint4 f, uint32_t s, uint4 t) {
          (has_variation(f.w ^ s, t.w) ? 0x1000000u : 0u);
 }
 
+// Bit `set` of the set-bit rows at the sites sl + i whose byte i of `any`
+// is set.
+__device__ __forceinline__ void or_set_bits(uint32_t* bits, int sl, int set, uint32_t any) {
+  if (any == 0u) return;
+  uint32_t* word = bits + (set / 32) * GEN_SITES + sl;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if ((any >> (8 * i)) & 0xFFu) atomicOr(word + i, 1u << (set % 32));
+}
+
 // Split cluster barrier: arrive now, wait later (release / acquire).
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
@@ -206,155 +249,197 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// One cluster of S blocks (S chosen at launch, gridDim.x) per tile of
-// GEN_SITES sites (blockIdx.y); block `rank` of it draws the chunks rank,
-// rank + S, ... of GEN_COLS columns.
+// One cluster of S blocks (S chosen at launch) per tile of GEN_SITES
+// sites, clusters side by side along gridDim.x; where there are fewer
+// clusters than tiles (GEN_GLOBAL) each walks tiles. Block `rank` of a
+// cluster draws the chunks rank, rank + S, ... of GEN_COLS columns.
+template <GenPath PATH>
 __global__ void __launch_bounds__(GEN_THREADS, 4)
-gen_genotypes_kernel(GenParams p, const uint32_t* __restrict__ col_fsamp,
-                     const int32_t* __restrict__ col_set, const int32_t* __restrict__ col_pop,
-                     int8_t* __restrict__ xt, unsigned long long* __restrict__ kept,
-                     unsigned long long* __restrict__ rows) {
+gen_genotypes_kernel(GenParams p, const uint64_t* __restrict__ vs_keys,
+                     const uint32_t* __restrict__ col_fsamp, const int32_t* __restrict__ col_set,
+                     const int32_t* __restrict__ col_pop, int8_t* __restrict__ xt,
+                     unsigned long long* __restrict__ kept, unsigned long long* __restrict__ rows,
+                     uint32_t* __restrict__ tables) {
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int blocks = static_cast<int>(cluster.num_blocks());
-  // The tile's metadata: thresholds (row MAX_POPS is zero, the row of
-  // padding columns), xorshift16(fold(h2)) per set, kept flags.
-  __shared__ __align__(16) uint32_t s_thr[MAX_POPS + 1][GEN_SITES];
-  __shared__ __align__(16) uint32_t s_fsite[MAX_SETS][GEN_SITES];
+  constexpr bool FEW = PATH == GEN_FEW;
+  extern __shared__ __align__(16) uint32_t gen_smem[];
+  // The tile's tables (GenPath), and the kept flags.
+  uint32_t* const s_tab =
+      PATH == GEN_GLOBAL ? tables + static_cast<int64_t>(blockIdx.x) * p.table_words : gen_smem;
+  uint32_t* const s_bits = s_tab + (p.n_pops + 1 + p.n_sets) * GEN_SITES;  // [set word][site]
+  // This block's set bits, then the cluster's in the leader's.
+  uint32_t* const leader_bits = PATH == GEN_GLOBAL
+                                    ? s_bits - static_cast<int64_t>(rank) * p.table_words
+                                    : cluster.map_shared_rank(s_bits, 0);
   __shared__ uint32_t s_kept[GEN_SITES];
-  __shared__ uint32_t s_any[GEN_SITES];  // per-site set bits: this block's, then the cluster's (leader)
   __shared__ __align__(16) uint32_t s_out[2][GEN_COLS * GEN_QUADS];  // [column][site quad]
-  // A chunk's columns: threshold row and set row (word offsets), set, and
-  // xorshift16(fold(s·P4)).
+  // A chunk's columns: threshold row and xorshift16(fold(h2)) row (word
+  // offsets into the tables), set, and xorshift16(fold(s·P4)).
   __shared__ uint4 s_col[2][GEN_COLS];
 
   const int tid = threadIdx.x;
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.y) * GEN_SITES;
   const int chunks = p.n_cols_pad / GEN_COLS;
+  const uint32_t zero_row = p.n_pops * GEN_SITES;
+  const uint32_t fsite_rows = (p.n_pops + 1) * GEN_SITES;
   // Column c as the draws read it (s_col); padding columns read the zero
   // threshold row.
   auto column = [&](int c) {
-    if (c >= p.n_cols) return make_uint4(MAX_POPS * GEN_SITES, 0u, 0u, 0u);
+    if (c >= p.n_cols) return make_uint4(zero_row, fsite_rows, 0u, 0u);
     const uint32_t set = __ldg(col_set + c);
-    return make_uint4(__ldg(col_pop + c) * GEN_SITES, set * GEN_SITES, set,
+    return make_uint4(__ldg(col_pop + c) * GEN_SITES, fsite_rows + set * GEN_SITES, set,
                       xorshift16(__ldg(col_fsamp + c)));
   };
-  // The first chunk's columns load while the metadata is computed.
-  uint4 next = make_uint4(MAX_POPS * GEN_SITES, 0u, 0u, 0u);
-  if (tid < GEN_COLS && rank < chunks) next = column(rank * GEN_COLS + tid);
-  if (tid < GEN_SITES) {
-    s_any[tid] = 0u;
-    s_thr[MAX_POPS][tid] = 0u;
-  }
-  // The leader's s_any must be zero before a peer ORs into it: arrive now,
-  // wait just before the ORs.
-  cluster_arrive();
-
-  // Site metadata, one (site, population) or (site, set) pair a thread. A
-  // population's threshold needs three independent streams (ref-block
-  // flag, AF, the population's factor), so no thread waits for another.
-  for (int i = tid; i < GEN_SITES * (p.n_pops + p.n_sets); i += GEN_THREADS) {
-    const int site = i % GEN_SITES, item = i / GEN_SITES;
-    const uint64_t pos_term =
-        static_cast<uint64_t>((p.grid_offset + tile0 + site) * p.spacing) * P2;
-    if (item < p.n_pops) {
-      const bool is_ref = (u64_stream(p.site_key, pos_term, S_REF_BLOCK) >> 11) < p.ref_thresh;
-      const uint64_t u_af = u64_stream(p.site_key, pos_term, S_AF) >> 48;
-      const uint64_t u_p = u64_stream(p.site_key, pos_term, S_POP_BASE + item) >> 48;
-      const uint64_t af_q32 = AF_BASE_Q32 + ((u_af * u_af * AF_SPAN_Q16) >> 16);
-      bool keep = tile0 + site < p.n_valid && !is_ref;
-      if (p.has_min_af) {
-        // round-half-even(af_q32 · 1e6 / 2^32) > floor(threshold · 1e6).
-        const uint64_t x = af_q32 * 1000000ull;
-        const uint64_t q = x >> 32;
-        const uint64_t frac = x & 0xFFFFFFFFull;
-        const uint64_t half = 1ull << 31;
-        const uint64_t r = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
-        keep = keep && r > p.min_af_micro;
-      }
-      const uint64_t factor = POP_BASE_Q16 + ((u_p * POP_SPAN_Q17) >> 16);
-      uint64_t af_pop = (af_q32 * factor) >> 16;
-      af_pop = af_pop < POP_LO_Q32 ? POP_LO_Q32 : af_pop;
-      af_pop = af_pop > POP_HI_Q32 ? POP_HI_Q32 : af_pop;
-      s_thr[item][site] = keep ? static_cast<uint32_t>(af_pop) : 0u;
-      // A kept site's thresholds are all at least POP_LO_Q32, so it is kept
-      // exactly when it is not dropped.
-      if (item == 0) s_kept[site] = keep;
-    } else {
-      const uint64_t h2 =
-          mix64(mix64(p.vs_keys[item - p.n_pops] ^ pos_term) ^ (S_GENOTYPE * P3));
-      s_fsite[item - p.n_pops][site] =
-          xorshift16(static_cast<uint32_t>(h2 >> 32) ^ static_cast<uint32_t>(h2));
-    }
-  }
-  if (tid < GEN_COLS) s_col[0][tid] = next;
-  __syncthreads();
-
-  // Draws: thread (quad q, group g) takes sites 4q..4q+3 of the chunk's
-  // columns g, g + 16, g + 32, g + 48 (a warp's 32 words land in 32 banks).
-  // A thread whose four sites are all dropped stores zeros without drawing.
-  // Each chunk is staged in one of two buffers and leaves as 16-byte stores,
-  // a thread's 16 sites of one Xᵀ row, after one barrier.
   const int q = tid % GEN_QUADS;
   const int g = tid / GEN_QUADS;
   const int sl = 4 * q;
-  const bool live = (s_kept[sl] | s_kept[sl + 1] | s_kept[sl + 2] | s_kept[sl + 3]) != 0u;
-  uint32_t any = 0;  // byte i: the sets in which site sl + i drew a variant
-  int buf = 0;
-  for (int chunk = rank; chunk < chunks; chunk += blocks, buf ^= 1) {
-    // The next chunk's columns load while this one is drawn.
-    if (tid < GEN_COLS && chunk + blocks < chunks) next = column((chunk + blocks) * GEN_COLS + tid);
-    // All loads first, then the 16 draws as independent chains.
-    uint32_t packed[GEN_COLS_PER_THREAD] = {};
-    if (live) {
-      uint4 col[GEN_COLS_PER_THREAD], t[GEN_COLS_PER_THREAD], f[GEN_COLS_PER_THREAD];
-#pragma unroll
-      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) col[k] = s_col[buf][g + GEN_GROUPS * k];
-#pragma unroll
-      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
-        t[k] = *reinterpret_cast<const uint4*>(&s_thr[0][0] + col[k].x + sl);
-        f[k] = *reinterpret_cast<const uint4*>(&s_fsite[0][0] + col[k].y + sl);
-      }
-#pragma unroll
-      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
-        packed[k] = draw4(f[k], col[k].w, t[k]);
-        any |= packed[k] << col[k].z;  // bytes are 0 or 1, so each stays inside its byte
+  const int64_t first = blockIdx.x / blocks;
+  for (int64_t tile = first; tile < p.ld / GEN_SITES; tile += gridDim.x / blocks) {
+    const int64_t tile0 = tile * GEN_SITES;
+    if (tile != first) __syncthreads();  // the last tile's counters have read the tables
+    // The first chunk's columns load while the metadata is computed.
+    uint4 next = make_uint4(zero_row, fsite_rows, 0u, 0u);
+    if (tid < GEN_COLS && rank < chunks) next = column(rank * GEN_COLS + tid);
+    for (int i = tid; i < p.set_words * GEN_SITES; i += GEN_THREADS) s_bits[i] = 0u;
+    if (tid < GEN_SITES) s_tab[zero_row + tid] = 0u;
+    // The leader's set bits must be zero before a peer ORs into them:
+    // arrive now, wait just before the ORs.
+    cluster_arrive();
+
+    // Site metadata, one (site, population) or (site, set) pair a thread. A
+    // population's threshold needs three independent streams (ref-block
+    // flag, AF, the population's factor), so no thread waits for another.
+    for (int i = tid; i < GEN_SITES * (p.n_pops + p.n_sets); i += GEN_THREADS) {
+      const int site = i % GEN_SITES, item = i / GEN_SITES;
+      const uint64_t pos_term =
+          static_cast<uint64_t>((p.grid_offset + tile0 + site) * p.spacing) * P2;
+      if (item < p.n_pops) {
+        const bool is_ref = (u64_stream(p.site_key, pos_term, S_REF_BLOCK) >> 11) < p.ref_thresh;
+        const uint64_t u_af = u64_stream(p.site_key, pos_term, S_AF) >> 48;
+        const uint64_t u_p = u64_stream(p.site_key, pos_term, S_POP_BASE + item) >> 48;
+        const uint64_t af_q32 = AF_BASE_Q32 + ((u_af * u_af * AF_SPAN_Q16) >> 16);
+        bool keep = tile0 + site < p.n_valid && !is_ref;
+        if (p.has_min_af) {
+          // round-half-even(af_q32 · 1e6 / 2^32) > floor(threshold · 1e6).
+          const uint64_t x = af_q32 * 1000000ull;
+          const uint64_t q = x >> 32;
+          const uint64_t frac = x & 0xFFFFFFFFull;
+          const uint64_t half = 1ull << 31;
+          const uint64_t r = q + ((frac > half || (frac == half && (q & 1))) ? 1 : 0);
+          keep = keep && r > p.min_af_micro;
+        }
+        const uint64_t factor = POP_BASE_Q16 + ((u_p * POP_SPAN_Q17) >> 16);
+        uint64_t af_pop = (af_q32 * factor) >> 16;
+        af_pop = af_pop < POP_LO_Q32 ? POP_LO_Q32 : af_pop;
+        af_pop = af_pop > POP_HI_Q32 ? POP_HI_Q32 : af_pop;
+        s_tab[item * GEN_SITES + site] = keep ? static_cast<uint32_t>(af_pop) : 0u;
+        // A kept site's thresholds are all at least POP_LO_Q32, so it is kept
+        // exactly when it is not dropped.
+        if (item == 0) s_kept[site] = keep;
+      } else {
+        const uint64_t h2 =
+            mix64(mix64(__ldg(reinterpret_cast<const unsigned long long*>(vs_keys) + item -
+                              p.n_pops) ^
+                        pos_term) ^
+                  (S_GENOTYPE * P3));
+        s_tab[fsite_rows + (item - p.n_pops) * GEN_SITES + site] =
+            xorshift16(static_cast<uint32_t>(h2 >> 32) ^ static_cast<uint32_t>(h2));
       }
     }
-    uint32_t* out = s_out[buf];
-#pragma unroll
-    for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) out[(g + GEN_GROUPS * k) * GEN_QUADS + q] = packed[k];
-    if (tid < GEN_COLS) s_col[buf ^ 1][tid] = next;
+    if (tid < GEN_COLS) s_col[0][tid] = next;
     __syncthreads();
-    const int row = tid / (GEN_QUADS / 4), seg = tid % (GEN_QUADS / 4);
-    *reinterpret_cast<uint4*>(xt + static_cast<int64_t>(chunk * GEN_COLS + row) * p.ld + tile0 +
-                              16 * seg) = *reinterpret_cast<const uint4*>(out + row * GEN_QUADS + 4 * seg);
-  }
 
-  // Lanes l and l ^ 16 hold the same sites; then the block's bits, then the
-  // cluster's in the leader's s_any.
-  any |= __shfl_xor_sync(0xFFFFFFFFu, any, 16);
-  if ((tid & 31) < 16) {
+    // Draws: thread (quad q, group g) takes sites 4q..4q+3 of the chunk's
+    // columns g, g + 16, g + 32, g + 48 (a warp's 32 words land in 32 banks).
+    // A thread whose four sites are all dropped stores zeros without drawing.
+    // Each chunk is staged in one of two buffers and leaves as 16-byte
+    // stores, a thread's 16 sites of one Xᵀ row, after one barrier.
+    const bool live = (s_kept[sl] | s_kept[sl + 1] | s_kept[sl + 2] | s_kept[sl + 3]) != 0u;
+    // GEN_FEW: byte i holds the sets in which site sl + i drew a variant.
+    // Otherwise byte i is set where it did in set `set`; a thread's columns
+    // come in set order, so it ORs them into the bit rows when its set
+    // changes.
+    uint32_t any = 0;
+    int set = 0;
+    int buf = 0;
+    for (int chunk = rank; chunk < chunks; chunk += blocks, buf ^= 1) {
+      // The next chunk's columns load while this one is drawn.
+      if (tid < GEN_COLS && chunk + blocks < chunks) next = column((chunk + blocks) * GEN_COLS + tid);
+      // All loads first, then the 16 draws as independent chains.
+      uint32_t packed[GEN_COLS_PER_THREAD] = {};
+      if (live) {
+        uint4 col[GEN_COLS_PER_THREAD], t[GEN_COLS_PER_THREAD], f[GEN_COLS_PER_THREAD];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if ((any >> (8 * i)) & 0xFFu) atomicOr(&s_any[sl + i], (any >> (8 * i)) & 0xFFu);
-  }
-  __syncthreads();
-  cluster_wait();
-  if (rank != 0 && tid < GEN_SITES && s_any[tid] != 0u)
-    atomicOr(cluster.map_shared_rank(&s_any[tid], 0), s_any[tid]);
-  cluster.sync();  // the leader holds the tile's bits; no block touches a peer after this
+        for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) col[k] = s_col[buf][g + GEN_GROUPS * k];
+#pragma unroll
+        for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
+          t[k] = *reinterpret_cast<const uint4*>(s_tab + col[k].x + sl);
+          f[k] = *reinterpret_cast<const uint4*>(s_tab + col[k].y + sl);
+        }
+#pragma unroll
+        for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) {
+          packed[k] = draw4(f[k], col[k].w, t[k]);
+          if constexpr (FEW) {
+            any |= packed[k] << col[k].z;  // bytes are 0 or 1, so each stays inside its byte
+          } else {
+            if (static_cast<int>(col[k].z) != set) {
+              or_set_bits(s_bits, sl, set, any);
+              set = static_cast<int>(col[k].z);
+              any = 0;
+            }
+            any |= packed[k];
+          }
+        }
+      }
+      uint32_t* out = s_out[buf];
+#pragma unroll
+      for (int k = 0; k < GEN_COLS_PER_THREAD; ++k) out[(g + GEN_GROUPS * k) * GEN_QUADS + q] = packed[k];
+      if (tid < GEN_COLS) s_col[buf ^ 1][tid] = next;
+      __syncthreads();
+      const int row = tid / (GEN_QUADS / 4), seg = tid % (GEN_QUADS / 4);
+      *reinterpret_cast<uint4*>(xt + static_cast<int64_t>(chunk * GEN_COLS + row) * p.ld + tile0 +
+                                16 * seg) = *reinterpret_cast<const uint4*>(out + row * GEN_QUADS + 4 * seg);
+    }
 
-  // Counters, by the leader: warps 0 and 1 hold one site a lane.
-  if (rank == 0 && tid < GEN_SITES) {
-    const int lane = tid & 31;
-    const unsigned kept_mask = __ballot_sync(0xFFFFFFFFu, s_kept[tid] != 0u);
-    if (lane == 0 && kept_mask) atomicAdd(kept, static_cast<unsigned long long>(__popc(kept_mask)));
-    const uint32_t any = s_any[tid];
-    for (int s = 0; s < p.n_sets; ++s) {
-      const unsigned m = __ballot_sync(0xFFFFFFFFu, (any >> s) & 1u);
-      if (lane == 0 && m) atomicAdd(rows + s, static_cast<unsigned long long>(__popc(m)));
+    // The block's set bits, then the cluster's in the leader's.
+    if constexpr (FEW) {
+      // Lanes l and l ^ 16 hold the same sites.
+      any |= __shfl_xor_sync(0xFFFFFFFFu, any, 16);
+      if ((tid & 31) < 16) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if ((any >> (8 * i)) & 0xFFu) atomicOr(&s_bits[sl + i], (any >> (8 * i)) & 0xFFu);
+      }
+    } else {
+      or_set_bits(s_bits, sl, set, any);
+    }
+    __syncthreads();
+    cluster_wait();
+    if (rank != 0)
+      for (int i = tid; i < p.set_words * GEN_SITES; i += GEN_THREADS)
+        if (s_bits[i] != 0u) atomicOr(leader_bits + i, s_bits[i]);
+    cluster.sync();  // the leader holds the tile's bits; no block touches a peer after this
+
+    // Counters, by the leader: warps 0 and 1 hold one site a lane for the
+    // kept sites; warp w counts the set words w, w + 8, ..., a lane holding
+    // sites lane and lane + 32, one ballot a set.
+    if (rank == 0) {
+      const int lane = tid & 31;
+      if (tid < GEN_SITES) {
+        const unsigned kept_mask = __ballot_sync(0xFFFFFFFFu, s_kept[tid] != 0u);
+        if (lane == 0 && kept_mask) atomicAdd(kept, static_cast<unsigned long long>(__popc(kept_mask)));
+      }
+      for (int w = tid / 32; w < p.set_words; w += GEN_THREADS / 32) {
+        const uint32_t lo = s_bits[w * GEN_SITES + lane], hi = s_bits[w * GEN_SITES + 32 + lane];
+        const int sets = min(32, p.n_sets - 32 * w);
+        for (int b = 0; b < sets; ++b) {
+          const int m = __popc(__ballot_sync(0xFFFFFFFFu, (lo >> b) & 1u)) +
+                        __popc(__ballot_sync(0xFFFFFFFFu, (hi >> b) & 1u));
+          if (lane == 0 && m) atomicAdd(rows + 32 * w + b, static_cast<unsigned long long>(m));
+        }
+      }
     }
   }
 }
@@ -580,37 +665,126 @@ cudaError_t gram_prepare(int* device) {
   return status;
 }
 
-// The launch of one generation: one cluster of S blocks per tile of
-// GEN_SITES sites. S divides the chunks of columns, so every block draws as
-// many; it is the least such divisor that gives every SM two blocks, or the
-// largest up to GEN_MAX_CLUSTER when none does (10 at 2,504 samples and the
-// CLI's 1,024 sites: 160 blocks; 2 at 16,384 sites: 512 blocks). Allows the non-portable cluster size once per device.
-cudaError_t gen_config(int ld, int n_cols_pad, cudaStream_t stream, cudaLaunchConfig_t* config,
-                       cudaLaunchAttribute* cluster, int* sms) {
-  static std::atomic<bool> ready[G_MAX_DEVICES];
+using GenKernel = void (*)(GenParams, const uint64_t*, const uint32_t*, const int32_t*,
+                           const int32_t*, int8_t*, unsigned long long*, unsigned long long*,
+                           uint32_t*);
+
+GenKernel gen_kernel(int path) {
+  return path == GEN_FEW ? gen_genotypes_kernel<GEN_FEW>
+         : path == GEN_MANY ? gen_genotypes_kernel<GEN_MANY>
+                            : gen_genotypes_kernel<GEN_GLOBAL>;
+}
+
+// Once per device: allows the non-portable cluster size and, on the
+// shared-memory paths, all the dynamic shared memory a block may opt in to.
+// Writes the device's SMs and that shared-memory size.
+cudaError_t gen_prepare(int* sms, int* max_dynamic) {
+  static std::atomic<int> cached_sms[G_MAX_DEVICES], cached_dynamic[G_MAX_DEVICES];
   int device = 0;
   cudaError_t status = cudaGetDevice(&device);
-  if (status == cudaSuccess && !(device < G_MAX_DEVICES && ready[device])) {
-    status = cudaFuncSetAttribute(gen_genotypes_kernel,
-                                  cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (status == cudaSuccess && device < G_MAX_DEVICES) ready[device] = true;
+  if (status != cudaSuccess) return status;
+  if (device < G_MAX_DEVICES && cached_sms[device] > 0) {
+    *sms = cached_sms[device];
+    *max_dynamic = cached_dynamic[device];
+    return cudaSuccess;
   }
+  int optin = 0;
+  cudaFuncAttributes attributes{};
+  status = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
   if (status == cudaSuccess)
-    status = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-  const int tiles = ld / GEN_SITES, chunks = n_cols_pad / GEN_COLS;
+    status = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (status == cudaSuccess)
+    status = cudaFuncGetAttributes(&attributes, gen_kernel(GEN_MANY));
+  *max_dynamic = optin - static_cast<int>(attributes.sharedSizeBytes);
+  for (int path = GEN_FEW; path <= GEN_GLOBAL && status == cudaSuccess; ++path) {
+    status = cudaFuncSetAttribute(gen_kernel(path), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (status == cudaSuccess && path != GEN_GLOBAL)
+      status = cudaFuncSetAttribute(gen_kernel(path),
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, *max_dynamic);
+  }
+  if (status == cudaSuccess && device < G_MAX_DEVICES) {
+    cached_dynamic[device] = *max_dynamic;
+    cached_sms[device] = *sms;
+  }
+  return status;
+}
+
+// The launch of one generation. The tables live in shared memory where
+// they fit (GEN_FEW up to GEN_FEW_SETS sets, else GEN_MANY), else in a
+// device buffer of `*table_words` words (GEN_GLOBAL). One cluster of S
+// blocks per tile of GEN_SITES sites: S divides the chunks of columns, so
+// every block draws as many; it is the least such divisor that gives every
+// SM two blocks, or the largest up to GEN_MAX_CLUSTER when none does (10 at
+// 2,504 samples and the CLI's 1,024 sites: 160 blocks; 2 at 16,384 sites:
+// 512 blocks). Tables above a third
+// of the shared memory a block may take leave an SM room for one or two
+// such blocks, so S shrinks to the next divisor until the card can place a
+// cluster (the query costs host time, so smaller tables skip it).
+// GEN_GLOBAL launches no more clusters than the card holds at once and
+// than GEN_TABLE_BYTES of tables allow; they walk the tiles.
+struct GenLaunch {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  GenParams params;
+  int path;
+  int sms;
+  int64_t table_words;  // the device buffer GEN_GLOBAL needs; 0 on the other paths
+};
+
+cudaError_t gen_config(int ld, int n_cols_pad, int n_pops, int n_sets, cudaStream_t stream,
+                       GenLaunch* launch) {
+  if (ld % GT || n_cols_pad % GT || n_pops < 1 || n_sets < 1) return cudaErrorInvalidValue;
+  int max_dynamic = 0;
+  cudaError_t status = gen_prepare(&launch->sms, &max_dynamic);
+  if (status != cudaSuccess) return status;
+  GenParams& p = launch->params;
+  p.n_pops = n_pops;
+  p.n_sets = n_sets;
+  p.n_cols_pad = n_cols_pad;
+  p.ld = ld;
+  p.set_words = (n_sets + 31) / 32;
+  p.table_words = gen_table_words(n_pops, n_sets);
+  const int64_t table_bytes = 4ll * p.table_words;
+  launch->path = table_bytes > max_dynamic       ? GEN_GLOBAL
+                 : n_sets <= GEN_FEW_SETS ? GEN_FEW
+                                          : GEN_MANY;
+  const int64_t tiles = ld / GEN_SITES;
+  const int chunks = n_cols_pad / GEN_COLS;
   int blocks = 1;
-  for (int d = 2; d <= GEN_MAX_CLUSTER && d <= chunks && tiles * blocks < 2 * *sms; ++d)
+  for (int d = 2; d <= GEN_MAX_CLUSTER && d <= chunks && tiles * blocks < 2 * launch->sms; ++d)
     if (chunks % d == 0) blocks = d;
-  *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3(blocks, tiles);
-  config->blockDim = dim3(GEN_THREADS);
-  config->stream = stream;
-  cluster->id = cudaLaunchAttributeClusterDimension;
-  cluster->val.clusterDim.x = blocks;
-  cluster->val.clusterDim.y = 1;
-  cluster->val.clusterDim.z = 1;
-  config->attrs = cluster;
-  config->numAttrs = 1;
+  cudaLaunchConfig_t& config = launch->config;
+  config = cudaLaunchConfig_t{};
+  config.blockDim = dim3(GEN_THREADS);
+  config.dynamicSmemBytes = launch->path == GEN_GLOBAL ? 0 : table_bytes;
+  config.stream = stream;
+  config.attrs = &launch->cluster;
+  config.numAttrs = 1;
+  launch->cluster.id = cudaLaunchAttributeClusterDimension;
+  launch->cluster.val.clusterDim.y = 1;
+  launch->cluster.val.clusterDim.z = 1;
+  auto shape = [&](int64_t clusters) {
+    config.gridDim = dim3(static_cast<unsigned>(blocks * clusters));
+    launch->cluster.val.clusterDim.x = blocks;
+  };
+  shape(tiles);
+  launch->table_words = 0;
+  const void* kernel = reinterpret_cast<const void*>(gen_kernel(launch->path));
+  int resident = 0;
+  if (launch->path != GEN_GLOBAL && 3 * table_bytes > max_dynamic) {
+    while ((status = cudaOccupancyMaxActiveClusters(&resident, kernel, &config)) == cudaSuccess &&
+           resident == 0 && blocks > 1) {
+      do --blocks; while (blocks > 1 && chunks % blocks);
+      shape(tiles);
+    }
+  } else if (launch->path == GEN_GLOBAL) {
+    status = cudaOccupancyMaxActiveClusters(&resident, kernel, &config);
+    const int64_t affordable = GEN_TABLE_BYTES / (4ll * blocks * p.table_words);
+    int64_t clusters = tiles < resident ? tiles : resident;
+    clusters = clusters < affordable ? clusters : affordable;
+    shape(clusters > 1 ? clusters : 1);
+    launch->table_words = static_cast<int64_t>(config.gridDim.x) * p.table_words;
+  }
   return status;
 }
 
@@ -622,23 +796,35 @@ extern "C" {
 // (ld) and rows are multiples of the product's 128-wide TMA box.
 int devicegen_site_tile() { return GT; }
 int devicegen_col_tile() { return GT; }
-int devicegen_max_pops() { return MAX_POPS; }
-int devicegen_max_sets() { return MAX_SETS; }
+
+// The device buffer, in 32-bit words, that gen_genotypes_launch needs for
+// these shapes on the current card (its tables): 0 when they fit shared
+// memory.
+int gen_genotypes_table_words(int ld, int n_cols_pad, int n_pops, int n_sets, int64_t* words) {
+  GenLaunch launch{};
+  const cudaError_t status = gen_config(ld, n_cols_pad, n_pops, n_sets, nullptr, &launch);
+  *words = launch.table_words;
+  return static_cast<int>(status);
+}
 
 // Xᵀ (n_cols_pad, ld) at `xt` (16-byte aligned, both multiples of 128) for
-// the sites at grid_offset + [0, ld), the first n_valid real; `vs_keys` is
-// a host array of the n_sets stream keys.
-int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
-                         const uint64_t* vs_keys, const uint32_t* col_fsamp,
-                         const int32_t* col_set, const int32_t* col_pop,
+// the sites at grid_offset + [0, ld), the first n_valid real; `vs_keys`
+// holds the n_sets stream keys on the device, `tables` (16-byte aligned)
+// the `table_words` words gen_genotypes_table_words asks for.
+int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows, const uint64_t* vs_keys,
+                         const uint32_t* col_fsamp, const int32_t* col_set,
+                         const int32_t* col_pop, uint32_t* tables, int64_t table_words,
                          int64_t grid_offset, int64_t n_valid, int64_t spacing,
                          uint64_t site_key, uint64_t ref_thresh, int has_min_af,
                          uint64_t min_af_micro, int n_pops, int n_sets, int n_cols,
                          int n_cols_pad, int ld, void* stream) {
-  if (ld % GT || n_cols_pad % GT || ld / GEN_SITES > 65535 || n_sets > MAX_SETS ||
-      n_pops > MAX_POPS)
+  GenLaunch launch{};
+  cudaError_t status =
+      gen_config(ld, n_cols_pad, n_pops, n_sets, static_cast<cudaStream_t>(stream), &launch);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  if (table_words < launch.table_words || (launch.table_words > 0 && tables == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  GenParams p = {};
+  GenParams& p = launch.params;
   p.grid_offset = grid_offset;
   p.n_valid = n_valid;
   p.spacing = spacing;
@@ -646,42 +832,32 @@ int gen_genotypes_launch(int8_t* xt, int64_t* kept, int64_t* rows,
   p.ref_thresh = ref_thresh;
   p.min_af_micro = min_af_micro;
   p.has_min_af = has_min_af;
-  p.n_pops = n_pops;
-  p.n_sets = n_sets;
   p.n_cols = n_cols;
-  p.n_cols_pad = n_cols_pad;
-  p.ld = ld;
-  for (int s = 0; s < n_sets; ++s) p.vs_keys[s] = vs_keys[s];
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute cluster;
-  int sms = 0;
-  cudaError_t status =
-      gen_config(ld, n_cols_pad, static_cast<cudaStream_t>(stream), &config, &cluster, &sms);
-  if (status == cudaSuccess)
-    status = cudaLaunchKernelEx(&config, gen_genotypes_kernel, p, col_fsamp, col_set, col_pop, xt,
-                                reinterpret_cast<unsigned long long*>(kept),
-                                reinterpret_cast<unsigned long long*>(rows));
+  status = cudaLaunchKernelEx(&launch.config, gen_kernel(launch.path), p, vs_keys, col_fsamp,
+                              col_set, col_pop, xt, reinterpret_cast<unsigned long long*>(kept),
+                              reinterpret_cast<unsigned long long*>(rows), tables);
   if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch shape of one generation of ld sites over n_cols_pad columns on
-// the current card: grid[0] blocks, grid[1] blocks resident at once (the
-// clusters the card holds × the cluster size), grid[2] the card's SMs,
-// grid[3] the cluster size. A diagnostic: the launcher does not need it.
-int gen_genotypes_grid(int ld, int n_cols_pad, int* grid) {
-  cudaLaunchConfig_t config;
-  cudaLaunchAttribute cluster;
-  int sms = 0, clusters = 0;
-  cudaError_t status = gen_config(ld, n_cols_pad, nullptr, &config, &cluster, &sms);
+// The launch shape of one generation on the current card: grid[0] blocks,
+// grid[1] blocks resident at once (the clusters the card holds × the
+// cluster size), grid[2] the card's SMs, grid[3] the cluster size, grid[4]
+// where the tables live (GenPath). A diagnostic: the launcher does not
+// need it.
+int gen_genotypes_grid(int ld, int n_cols_pad, int n_pops, int n_sets, int* grid) {
+  GenLaunch launch{};
+  int clusters = 0;
+  cudaError_t status = gen_config(ld, n_cols_pad, n_pops, n_sets, nullptr, &launch);
   if (status == cudaSuccess)
     status = cudaOccupancyMaxActiveClusters(
-        &clusters, reinterpret_cast<const void*>(gen_genotypes_kernel), &config);
-  const int blocks = static_cast<int>(config.gridDim.x);
-  grid[0] = blocks * (ld / GEN_SITES);
+        &clusters, reinterpret_cast<const void*>(gen_kernel(launch.path)), &launch.config);
+  const int blocks = static_cast<int>(launch.cluster.val.clusterDim.x);
+  grid[0] = static_cast<int>(launch.config.gridDim.x);
   grid[1] = clusters * blocks;
-  grid[2] = sms;
+  grid[2] = launch.sms;
   grid[3] = blocks;
+  grid[4] = launch.path;
   return static_cast<int>(status);
 }
 

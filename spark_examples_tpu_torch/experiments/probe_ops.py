@@ -73,7 +73,8 @@ def _library():
 
 def probe_op_chain(x: torch.Tensor, op: str) -> torch.Tensor:
     """``op`` applied R times to every element of ``x`` (int32 holding u32
-    bits), with the loop index; a new tensor of the same shape.
+    bits, contiguous, any length and offset), with the loop index; a new
+    tensor of the same shape.
 
     Replaces ``experiments/probe_ops.py:run``'s Pallas kernel (body
     ``make``). CPU tensors take :func:`probe_op_chain_plain`; CUDA tensors
@@ -83,7 +84,12 @@ def probe_op_chain(x: torch.Tensor, op: str) -> torch.Tensor:
     _require(x, "x", torch.int32)
     if x.device.type == "cpu":
         return probe_op_chain_plain(x, op)
-    out = torch.empty_like(x)
+    # `out` as far past a 16-byte boundary as `x` (a view such as x[1:] is
+    # not on one), so the kernel's 16-byte vectors align in both.
+    shift = x.data_ptr() % 16 // 4
+    out = torch.empty(x.numel() + shift, dtype=torch.int32, device=x.device)[shift:].view(x.shape)
+    if x.numel() == 0:
+        return out
     with torch.cuda.device(x.device):
         status = _library().probe_op_chain_launch(
             x.data_ptr(), out.data_ptr(), x.numel(), _CODES[op],

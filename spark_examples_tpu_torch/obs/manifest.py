@@ -11,12 +11,14 @@ validator, so a manifest from either package passes both packages'
 
 The blocks whose subject the port does not have yet are absent exactly as
 the reference writes them when absent: ``compile_cache`` (the XLA compile
-cache), ``conformance`` (the static provers), ``multihost`` (cross-process
-aggregation), ``gramian_exactness``, ``resume``, ``analysis``,
-``schedule`` and ``cost`` are null, and ``process`` is the single process.
-``host_memory`` holds the OS's peak RSS of this process and the bound the
-run registered (the runtime baseline until a per-configuration bound is
-ported).
+cache), ``multihost`` (cross-process aggregation), ``gramian_exactness``,
+``resume``, ``analysis``, ``schedule`` and ``cost`` are null, and
+``process`` is the single process. ``host_memory`` holds the OS's peak RSS
+of this process and the bound the run registered
+(``check/hostmem.py:conf_host_peak_bytes``). ``conformance`` holds the
+``hostmem`` pair the driver's epilogue records (peak RSS against that
+bound); its ``sched`` and ``ranges`` entries are null, their flags being
+unported.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, List, Mapping, Optional
 from spark_examples_tpu_torch.obs.metrics import (
     HOST_RUNTIME_BASELINE_BYTES,
     HOST_STATIC_BOUND_BYTES,
+    conformance_block,
     read_host_peak_rss_bytes,
 )
 
@@ -88,6 +91,7 @@ def build_manifest(
     io_stats: Optional[Dict] = None,
     overlap: Optional[Dict] = None,
     host_memory: Optional[Dict] = None,
+    conformance: Optional[Dict] = None,
 ) -> Dict:
     """Assemble a manifest from already-snapshotted parts (the low-level
     form; :func:`build_run_manifest` snapshots a live driver)."""
@@ -106,7 +110,7 @@ def build_manifest(
         "resume": None,
         "analysis": None,
         "schedule": None,
-        "conformance": None,
+        "conformance": conformance,
         "cost": None,
         "compile_cache": None,
         "process": {"index": 0, "count": 1},
@@ -134,6 +138,7 @@ def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
         io_stats=io_stats.as_dict() if io_stats is not None else None,
         overlap=overlap,
         host_memory=_host_memory_block(registry),
+        conformance=conformance_block(registry) if registry is not None else None,
     )
 
 

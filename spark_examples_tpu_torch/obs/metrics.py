@@ -25,6 +25,8 @@ import sys
 import threading
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+from spark_examples_tpu_torch.parallel.mesh import HOST_RUNTIME_BASELINE_BYTES
+
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
 #: Default histogram bucket upper bounds (seconds-oriented; +Inf implied).
@@ -54,12 +56,11 @@ IO_PARTITIONS_TOTAL = "io_partitions_total"
 #: OS) and the static bound it is shown against.
 HOST_PEAK_RSS_BYTES = "host_peak_rss_bytes"
 HOST_STATIC_BOUND_BYTES = "host_static_bound_bytes"
-#: The host-memory bound of a process for which no configuration formula
-#: is registered: the reference's runtime baseline
-#: (``spark_examples_tpu/parallel/mesh.py:HOST_RUNTIME_BASELINE_BYTES``).
-#: The port registers no per-configuration bound yet, so it is the bound the
-#: manifest and the heartbeat show.
-HOST_RUNTIME_BASELINE_BYTES = 4 << 30
+#: Labeled conformance gauges: a static prover's measured subject and its
+#: proven bound, by prover (the manifest's ``conformance`` block).
+PROVER_CONFORMANCE_MEASURED = "prover_conformance_measured"
+PROVER_CONFORMANCE_PROVEN = "prover_conformance_proven"
+CONFORMANCE_PROVERS = ("hostmem", "sched", "ranges")
 #: Which parser decoded the last packed or streamed VCF pass: 1 for the
 #: native parser (``native/vcfparse.cpp``), 0 for the Python one.
 VCF_NATIVE_PARSE = "vcf_native_parse"
@@ -258,6 +259,102 @@ class Histogram(_Child):
     @property
     def value(self) -> Dict[str, object]:
         return self.snapshot()
+
+
+_CONFORMANCE_HELP = {
+    PROVER_CONFORMANCE_MEASURED: (
+        "Measured value of a static prover's runtime subject, by prover "
+        "(hostmem: peak RSS bytes; sched: accounted ring bytes; ranges: "
+        "max |Gramian entry|). Must stay <= prover_conformance_proven."
+    ),
+    PROVER_CONFORMANCE_PROVEN: (
+        "Statically-proven bound of the same subject, by prover "
+        "(hostmem: host_peak_bytes; sched: the schedule's ring-byte "
+        "projection; ranges: the GR005-proven entry projection)."
+    ),
+}
+
+
+def record_prover_conformance(
+    registry: "MetricsRegistry",
+    prover: str,
+    measured: float,
+    proven: Optional[float],
+) -> None:
+    """Register one prover's measured/proven pair as the labeled
+    conformance gauges (idempotent; re-recording overwrites — the pair is
+    a run-level snapshot, not an accumulator). ``proven=None`` records the
+    measured side only — kept for provers whose bound is conditional
+    (hostmem's never is: ``conf_host_peak_bytes`` is total, so its
+    callers always pass a real bound)."""
+    if prover not in CONFORMANCE_PROVERS:
+        raise MetricError(
+            f"unknown conformance prover {prover!r} "
+            f"(one of {CONFORMANCE_PROVERS})"
+        )
+    registry.gauge(
+        PROVER_CONFORMANCE_MEASURED,
+        _CONFORMANCE_HELP[PROVER_CONFORMANCE_MEASURED],
+        labelnames=("prover",),
+    ).labels(prover=prover).set(float(measured))
+    # proven=None SETS NaN rather than skipping: re-recording over an
+    # earlier pair must never leave a stale proven bound behind (the
+    # serve mirror is last-write-wins per prover — pairing one job's
+    # measured with another job's proven would fabricate verdicts).
+    registry.gauge(
+        PROVER_CONFORMANCE_PROVEN,
+        _CONFORMANCE_HELP[PROVER_CONFORMANCE_PROVEN],
+        labelnames=("prover",),
+    ).labels(prover=prover).set(
+        float(proven) if proven is not None else float("nan")
+    )
+
+
+def conformance_block(registry: "MetricsRegistry") -> Optional[Dict]:
+    """The run manifest's ``conformance`` block, read back from the
+    labeled gauges: ``{prover: {measured, proven, ok} | null}`` per
+    registered prover (``ok`` is null when no bound was provable), or
+    ``None`` when no prover recorded a pair — manifests of runs without
+    conformance telemetry are unchanged."""
+    out: Dict[str, Optional[Dict]] = {}
+    any_present = False
+    for prover in CONFORMANCE_PROVERS:
+        measured = registry.value(
+            PROVER_CONFORMANCE_MEASURED, labels={"prover": prover}
+        )
+        if measured is None or measured != measured:
+            out[prover] = None
+            continue
+        any_present = True
+        proven = registry.value(
+            PROVER_CONFORMANCE_PROVEN, labels={"prover": prover}
+        )
+        has_bound = proven is not None and proven == proven
+        if has_bound:
+            # The verdict compares the RAW floats; the displayed ints
+            # (the validator's int contract) then round in the verdict's
+            # direction — floor/ceil chosen so `measured <= proven` over
+            # the INTS holds iff `ok` does. Consumers re-deriving the
+            # comparison from the block (or from a re-recorded mirror of
+            # it, serve/daemon.py:_mirror_conformance) can never see a
+            # violated bound read as a pass, or the reverse.
+            ok = bool(measured <= proven)
+            if ok:
+                measured_int = int(math.floor(measured))
+                proven_int: Optional[int] = int(math.ceil(proven))
+            else:
+                measured_int = int(math.ceil(measured))
+                proven_int = int(math.floor(proven))
+        else:
+            ok = None
+            measured_int = int(round(measured))
+            proven_int = None
+        out[prover] = {
+            "measured": measured_int,
+            "proven": proven_int,
+            "ok": ok,
+        }
+    return out if any_present else None
 
 
 def _format_bound(bound: float) -> str:
@@ -568,6 +665,7 @@ def escape_help_text(value: str) -> str:
 
 
 __all__ = [
+    "CONFORMANCE_PROVERS",
     "Counter",
     "DEFAULT_BUCKETS",
     "DEVICEGEN_DISPATCHES",
@@ -586,10 +684,14 @@ __all__ = [
     "MetricsRegistry",
     "PREFETCH_QUEUE_DEPTH",
     "PREFETCH_QUEUE_OCCUPANCY",
+    "PROVER_CONFORMANCE_MEASURED",
+    "PROVER_CONFORMANCE_PROVEN",
     "VCF_NATIVE_PARSE",
+    "conformance_block",
     "escape_help_text",
     "escape_label_value",
     "histogram_quantile",
     "read_host_peak_rss_bytes",
+    "record_prover_conformance",
     "well_known_gauge",
 ]

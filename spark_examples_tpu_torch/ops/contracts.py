@@ -91,8 +91,16 @@ def flush_entry_increment(rows: int, max_count: int) -> int:
     return int(rows) * int(max_count) * int(max_count)
 
 
+#: Declared production geometry: the most candidate sites one run may scan
+#: (the reference's ceiling: the whole-genome synthetic grid carries about
+#: 39.5M). The host-memory bound charges it for inputs whose size it cannot
+#: read (``check/hostmem.py``).
+DECLARED_MAX_SITES = 40_000_000
+
+
 __all__ = [
     "COUNT_ROW",
+    "DECLARED_MAX_SITES",
     "EXACT_F32_LIMIT",
     "RangeContract",
     "SAME_SET_JOIN_MAX_COUNT",

@@ -71,8 +71,12 @@ _S_GENOTYPE = 100
 #: 128-wide TMA box; the generation's own 64-site tiles divide both.
 SITE_TILE = 128
 COL_TILE = 128
-MAX_POPS = 16
-MAX_SETS = 8
+#: Where ``gen_genotypes_kernel`` keeps a block's tables, by the code
+#: ``gen_genotypes_grid`` reports (``csrc/devicegen.cu:GenPath``): shared
+#: memory with the set flags gathered in registers (up to 8 sets), shared
+#: memory with the flags ORed into bit rows of 32 sets, or a device buffer
+#: for tables past shared memory.
+TABLE_PATHS = ("few-set", "many-set", "global tables")
 
 U64 = Union[torch.Tensor, int]
 
@@ -236,7 +240,6 @@ class GenPlan:
     min_af_micro: Optional[int]
     n_pops: int
     vs_keys: torch.Tensor  # (S,) int64: u64 genotype stream keys
-    vs_keys_host: Tuple[int, ...]  # the same keys as host u64 values (the kernel's parameters)
     set_sizes: Tuple[int, ...]
     col_set: torch.Tensor  # (C,) int32
     col_pop: torch.Tensor  # (C,) int32
@@ -292,7 +295,6 @@ def make_gen_plan(
         min_af_micro=None if min_af_micro is None else int(min_af_micro),
         n_pops=int(n_pops),
         vs_keys=torch.from_numpy(keys).to(device),
-        vs_keys_host=tuple(int(k) & _MASK64 for k in vs_keys),
         set_sizes=tuple(len(p) for p in pops_per_set),
         col_set=torch.from_numpy(col_set).to(device),
         col_pop=torch.from_numpy(col_pop).to(device),
@@ -336,13 +338,8 @@ def gen_genotypes_plain(
 def _library():
     """The kernels' library, its tiling checked against this module's."""
     lib = _kernels.library("devicegen.cu")
-    got = (
-        lib.devicegen_site_tile(),
-        lib.devicegen_col_tile(),
-        lib.devicegen_max_pops(),
-        lib.devicegen_max_sets(),
-    )
-    if got != (SITE_TILE, COL_TILE, MAX_POPS, MAX_SETS):
+    got = (lib.devicegen_site_tile(), lib.devicegen_col_tile())
+    if got != (SITE_TILE, COL_TILE):
         raise RuntimeError(f"csrc/devicegen.cu tiling {got} does not match ops/devicegen.py")
     return lib
 
@@ -387,24 +384,22 @@ def gen_genotypes(
     _require(plan.vs_keys, "vs_keys", torch.int64, (plan.n_sets,), device)
     for name in ("col_set", "col_pop", "col_fsamp"):
         _require(getattr(plan, name), name, torch.int32, (plan.n_cols,), device)
-    if plan.n_pops > MAX_POPS or plan.n_sets > MAX_SETS:
-        raise ValueError(
-            f"the kernel takes at most {MAX_POPS} populations and {MAX_SETS} "
-            f"variant sets, got {plan.n_pops} and {plan.n_sets}"
-        )
     ld = _round_up(block_sites, SITE_TILE)
     xt = torch.empty((plan.n_cols_pad, ld), dtype=torch.int8, device=device)
-    keys = (ctypes.c_uint64 * MAX_SETS)(*plan.vs_keys_host)
     lib = _library()
     with torch.cuda.device(device):
+        words = _table_words(device.index, ld, plan.n_cols_pad, plan.n_pops, plan.n_sets)
+        tables = torch.empty((words,), dtype=torch.int32, device=device) if words else None
         status = lib.gen_genotypes_launch(
             xt.data_ptr(),
             kept.data_ptr(),
             rows.data_ptr(),
-            keys,
+            plan.vs_keys.data_ptr(),
             plan.col_fsamp.data_ptr(),
             plan.col_set.data_ptr(),
             plan.col_pop.data_ptr(),
+            None if tables is None else tables.data_ptr(),
+            words,
             int(grid_offset),
             int(n_valid),
             plan.spacing,
@@ -427,21 +422,37 @@ def gen_genotypes(
 gen_genotypes.launches = 0  # type: ignore[attr-defined]
 
 
+@functools.lru_cache(maxsize=None)
+def _table_words(device_index: int, ld: int, n_cols_pad: int, n_pops: int, n_sets: int) -> int:
+    """The device buffer (int32 words) ``gen_genotypes_kernel`` needs for
+    its tables at these shapes on the current card: 0 where they fit shared
+    memory. Depends on the card alone besides the shapes, so it is asked
+    once."""
+    words = (ctypes.c_int64 * 1)()
+    _kernels.check(
+        _library().gen_genotypes_table_words(ld, n_cols_pad, n_pops, n_sets, words),
+        "gen_genotypes_table_words",
+    )
+    return words[0]
+
+
 def gen_genotypes_grid(
     plan: GenPlan, block_sites: int, device: torch.device
-) -> tuple[int, int, int, int]:
+) -> tuple[int, int, int, int, str]:
     """``gen_genotypes_kernel``'s launch on ``device`` for ``plan``'s
     columns and a block of ``block_sites`` sites: (blocks, blocks resident
-    at once, the card's SMs, blocks a cluster). One cluster per 64 sites."""
-    grid = (ctypes.c_int * 4)()
+    at once, the card's SMs, blocks a cluster, where the tables live: one of
+    :data:`TABLE_PATHS`). One cluster per 64 sites, or per walk of tiles
+    when the tables live in device memory."""
+    grid = (ctypes.c_int * 5)()
     with torch.cuda.device(device):
         _kernels.check(
             _library().gen_genotypes_grid(
-                _round_up(block_sites, SITE_TILE), plan.n_cols_pad, grid
+                _round_up(block_sites, SITE_TILE), plan.n_cols_pad, plan.n_pops, plan.n_sets, grid
             ),
             "gen_genotypes_grid",
         )
-    return grid[0], grid[1], grid[2], grid[3]
+    return grid[0], grid[1], grid[2], grid[3], TABLE_PATHS[grid[4]]
 
 
 def gram_accumulate_plain(G: torch.Tensor, xt: torch.Tensor) -> None:
@@ -675,6 +686,7 @@ __all__ = [
     "GenPlan",
     "KERNELS",
     "SITE_TILE",
+    "TABLE_PATHS",
     "auto_blocks_per_dispatch",
     "fmix32",
     "gen_genotypes",

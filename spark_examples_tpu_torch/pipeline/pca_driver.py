@@ -45,6 +45,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
 from spark_examples_tpu_torch.config import PcaConf, check_ported
 from spark_examples_tpu_torch.models.variant import Variant
 from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
@@ -54,11 +55,14 @@ from spark_examples_tpu_torch.obs.metrics import (
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
     HOST_PEAK_RSS_BYTES,
+    HOST_RUNTIME_BASELINE_BYTES,
+    HOST_STATIC_BOUND_BYTES,
     INGEST_PARTITIONS_DONE,
     INGEST_PARTITIONS_PLANNED,
     INGEST_SITES_SCANNED,
     VCF_NATIVE_PARSE,
     read_host_peak_rss_bytes,
+    record_prover_conformance,
     well_known_gauge,
 )
 from spark_examples_tpu_torch.ops.centering import gower_center
@@ -158,16 +162,37 @@ class VariantsPcaDriver:
         )
         #: The accumulator of the last similarity stage (device or host-fed).
         self.accumulator = None
-        if read_host_peak_rss_bytes() is not None:
-            # Every read (heartbeat tick, manifest) samples the OS's mark.
-            well_known_gauge(self.registry, HOST_PEAK_RSS_BYTES).set_function(
-                lambda: float(read_host_peak_rss_bytes() or 0)
-            )
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
         callsets = self.source.search_callsets(conf.variant_set_id)
         self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
         self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
         print(f"Matrix size: {len(self.indexes)}.")
+        # After callset discovery: the bound needs the real cohort width
+        # (file sources carry theirs in the data, not the flag).
+        self._register_host_memory_gauges()
+
+    def _register_host_memory_gauges(self) -> None:
+        """The host-memory pair the heartbeat and the manifest show: the
+        peak-RSS gauge (every read samples the OS's mark) and the static
+        bound of this configuration, ``check/hostmem.py:
+        conf_host_peak_bytes`` on the port's one device and one process,
+        as the reference's ``_register_host_memory_gauges`` resolves it.
+        Telemetry never takes down a run: if the resolver raises, the
+        runtime baseline is registered."""
+        if read_host_peak_rss_bytes() is not None:
+            well_known_gauge(self.registry, HOST_PEAK_RSS_BYTES).set_function(
+                lambda: float(read_host_peak_rss_bytes() or 0)
+            )
+        try:
+            bound = conf_host_peak_bytes(
+                self.conf,
+                device_count=1,
+                num_samples=len(self.indexes) or None,
+                num_hosts=1,
+            )
+        except Exception:
+            bound = HOST_RUNTIME_BASELINE_BYTES
+        well_known_gauge(self.registry, HOST_STATIC_BOUND_BYTES).set(float(bound))
 
     # ------------------------------------------------------------------ data
 
@@ -731,6 +756,7 @@ def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
         # A failed run gets its last heartbeat, then silence.
         if heartbeat is not None:
             heartbeat.stop()
+    _register_prover_conformance(driver)
     lines = driver.emit_result(result)
     driver.report_io_stats()
     if conf.profile_dir:
@@ -755,6 +781,26 @@ def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
             manifest_path = conf.metrics_json
             print(f"Run manifest written to {conf.metrics_json}.")
     return PipelineResult(lines, driver, manifest, manifest_path)
+
+
+def _register_prover_conformance(driver: VariantsPcaDriver) -> None:
+    """The run's ``hostmem`` conformance pair (the manifest's
+    ``conformance`` block): the peak RSS measured against the bound the
+    driver registered at set-up, as the reference's epilogue records it.
+    The ``sched`` and ``ranges`` pairs belong to flags the port does not
+    take yet (the sharded schedule, ``--check-ranges``), so they stay
+    absent. Telemetry never takes down a completed run."""
+    registry = driver.registry
+    try:
+        measured = registry.value(HOST_PEAK_RSS_BYTES)
+        if measured is not None and measured == measured:
+            bound = registry.value(HOST_STATIC_BOUND_BYTES)
+            record_prover_conformance(
+                registry, "hostmem", measured,
+                bound if bound is not None and bound == bound else None,
+            )
+    except Exception:
+        pass
 
 
 def run(argv: Sequence[str], device: DeviceLike = None) -> List[str]:

@@ -222,6 +222,30 @@ def test_accumulator_multi_set_asymmetric_matches_jax(first, second):
     assert min(got[1]) > 0
 
 
+@pytest.mark.parametrize(
+    "n_sets, samples, n_pops",
+    [(9, 5, 4), (33, 3, 4), (1, 40, 17), (9, 20, 17)],
+    ids=["9-sets", "33-sets", "17-populations", "9-sets-17-populations"],
+)
+def test_accumulator_many_sets_and_populations_match_jax(n_sets, samples, n_pops):
+    """Past the reference's single-set main path: 9 sets (more than a byte
+    of set flags), 33 (more than a word of set bits) and 17 populations;
+    G, the per-set variant rows and the kept sites, exactly."""
+    source = SyntheticGenomicsSource(num_samples=samples, seed=8, n_pops=n_pops)
+    sets = [f"vs-{i}" for i in range(n_sets)]
+    jax_acc, torch_acc = _make_pair(source, sets, 64, 4)
+    for contig in (Contig("2", 0, 25_000), Contig("9", 3_000, 9_000)):
+        k0, k1 = source.site_grid_range(contig)
+        jax_acc.add_grid(k0, k1)
+        torch_acc.add_grid(k0, k1)
+    want, got = _state(jax_acc), _state(torch_acc)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    assert len(got[1]) == n_sets and min(got[1]) > 0
+    assert torch_acc.plan.n_pops == n_pops
+    assert int(torch_acc.plan.col_pop.max()) == min(samples, n_pops) - 1
+
+
 def test_accumulator_add_range_validation():
     source = SyntheticGenomicsSource(num_samples=12, seed=1)
     _, acc = _make_pair(source, ["vs"], 32, 2)

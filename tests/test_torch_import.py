@@ -60,6 +60,7 @@ def test_source_has_no_jax_or_reference_imports():
 #: Modules this test must cover, one per layer the slices added.
 EXPECTED_MODULES = (
     "spark_examples_tpu_torch.api",
+    "spark_examples_tpu_torch.check.hostmem",
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
     "spark_examples_tpu_torch.models.variant",
@@ -69,12 +70,14 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.devicegen",
     "spark_examples_tpu_torch.ops.gramian",
+    "spark_examples_tpu_torch.parallel.mesh",
     "spark_examples_tpu_torch.pipeline.checkpoint",
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
     "spark_examples_tpu_torch.sources.files",
     "spark_examples_tpu_torch.sources.stream",
     "spark_examples_tpu_torch.utils.native",
+    "spark_examples_tpu_torch.utils.sass",
     "spark_examples_tpu_torch.utils.tracing",
 )
 

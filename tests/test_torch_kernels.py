@@ -11,6 +11,7 @@ versions at the main path's full width. How the libraries are built and
 bound is tested here on any machine.
 """
 
+import math
 import types
 
 import pytest
@@ -60,6 +61,56 @@ def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
     assert _kernels.library_path("k.cu") == first
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _kernels.library_path("k.cu") != first
+
+
+@pytest.mark.parametrize("name", ["index-table", "early-load", "alu-adds", "imad-hi", "bulk"])
+def test_probe_variants_patch_the_current_source(name):
+    """Each design alternative that ``experiments/probe_variants.py`` times
+    is an edit of ``csrc/probes.cu`` as it stands: the code and comments
+    its patch anchors on are still there (a missing anchor raises)."""
+    from spark_examples_tpu_torch.experiments import probe_variants
+
+    kept = (_kernels.CSRC_DIR / "probes.cu").read_text()
+    text = probe_variants.variants(kept)[name]
+    assert text != kept and "probe_op_chain_kernel" in text
+
+
+#: Two functions of a ``cuobjdump -sass`` listing: the op-chain kernel's
+#: instance 1 and another kernel.
+SASS_LISTING = """
+\t\tFunction : _ZN41_GLOBAL__N__probes_cu21probe_op_chain_kernelILi1EEEvPKjPjllljj
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E.128.CONSTANT R4, desc[UR4][R2.64] ;
+        /*0020*/                   SHF.R.U32.HI R5, RZ, 0x10, R4 ;
+        /*0030*/                   LOP3.LUT R5, R5, R4, RZ, 0x3c, !PT ;
+        /*0040*/                   IMAD R6, R5, R7, R8 ;
+        /*0050*/              @!P0 BRA 0x70 ;
+        /*0060*/                   STG.E.128 desc[UR4][R2.64], R4 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   NOP;
+\t\tFunction : _ZN41_GLOBAL__N__probes_cu19scratch_copy_kernelEPKfPfi
+        /*0000*/                   UBLKCP.S.G [UR4], [UR6], UR8 ;
+"""
+
+
+def test_sass_listing_splits_by_pipe(monkeypatch):
+    """``utils/sass.py`` reads each function's opcodes with their modifiers
+    (a predicate is not an opcode) and counts a template instance's
+    instructions by pipe, NOP, BRA and EXIT aside."""
+    from spark_examples_tpu_torch.utils import sass
+
+    monkeypatch.setattr(sass.subprocess, "run",
+                        lambda *a, **k: types.SimpleNamespace(stdout=SASS_LISTING))
+    functions = sass.sass_opcodes("lib.so")
+    assert list(functions.values()) == [
+        ["LDC", "LDG.E.128.CONSTANT", "SHF.R.U32.HI", "LOP3.LUT", "IMAD", "BRA", "STG.E.128",
+         "EXIT", "NOP"],
+        ["UBLKCP.S.G"],
+    ]
+    split = sass.pipe_split("lib.so", "probe_op_chain_kernel", ("a", "b"), steps=2)
+    assert list(split) == ["b"]
+    assert split["b"]["alu"] == 1.0 and split["b"]["fma"] == 0.5 and split["b"]["other"] == 1.5
 
 
 def test_scratch_copy_smallest_scratch():
@@ -126,6 +177,89 @@ def test_kernels_equal_plain_versions_on_the_card(case):
     port.gram_accumulate_plain(G_plain, got)
     assert torch.equal(G, G_plain)
     assert [k.launches for k in port.KERNELS] == [1, 1]
+
+
+#: (sets, samples a set, populations, grid offset, valid sites, block
+#: sites, min AF, where the tables live) of the generation cases past the
+#: one-set main path: 9 and 33 sets (33 needs two words of set bits a
+#: site); 682 sets of 3 samples (tables of 177 KB: one block an SM, in
+#: clusters of up to 16) and 800 of 2 (207 KB, near the most a block may
+#: take); 1,000 sets (tables past shared memory, in a device buffer,
+#: clusters walking tiles); 17 populations; and a block past 65,535 tiles
+#: of 64 sites (4,194,240) on a small cohort.
+WIDE_CASES = {
+    "9-sets": (9, 40, 4, 400_000, 1000, 1024, None, "many-set"),
+    "33-sets-min-af": (33, 20, 4, 12_345, 1100, 1100, 0.05, "many-set"),
+    "682-sets": (682, 3, 4, 400_000, 1024, 1024, None, "many-set"),
+    "800-sets": (800, 2, 4, 400_000, 1024, 1024, None, "many-set"),
+    "1000-sets": (1000, 2, 4, 400_000, 1024, 1024, None, "global tables"),
+    "17-populations": (1, 300, 17, 400_000, 1024, 1024, None, "few-set"),
+    "block-of-4194432-sites": (1, 8, 4, 0, 4_194_355, 4_194_432, None, "few-set"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_gen_genotypes_takes_any_sets_populations_and_block(case):
+    """gen_genotypes against its plain version, exactly, with both counters,
+    at wide plans, each on the path where its tables live and in clusters
+    the card can place; then the product of the generated block (but for
+    the 537 MB block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    sets, samples, pops, offset, n_valid, block, min_af, path = WIDE_CASES[case]
+    dev = torch.device("cuda")
+    source = SyntheticGenomicsSource(num_samples=samples, seed=6, n_pops=pops)
+    plan = port.make_gen_plan(
+        [source.genotype_stream_key(f"vs{i}") for i in range(sets)], [source.populations] * sets,
+        source.site_key, source.variant_spacing, source.ref_block_fraction,
+        af_filter_micro(min_af), pops, dev,
+    )
+    grid = port.gen_genotypes_grid(plan, block, dev)
+    assert grid[4] == path and grid[1] >= grid[3] > 0, grid
+    counters = [
+        (torch.zeros((), dtype=torch.int64, device=dev),
+         torch.zeros(sets, dtype=torch.int64, device=dev))
+        for _ in range(2)
+    ]
+    port.reset_launch_counts()
+    got = port.gen_genotypes(plan, offset, n_valid, block, *counters[0])
+    want = port.gen_genotypes_plain(plan, offset, n_valid, block, *counters[1])
+    assert torch.equal(got, want)
+    assert torch.equal(counters[0][0], counters[1][0]) and torch.equal(counters[0][1], counters[1][1])
+    assert int(counters[0][1].min()) > 0 and port.gen_genotypes.launches == 1
+    if block < 1 << 20:
+        G = torch.full((plan.n_cols, plan.n_cols), 7, dtype=torch.int32, device=dev)
+        G_plain = G.clone()
+        port.gram_accumulate(G, got)
+        port.gram_accumulate_plain(G_plain, got)
+        assert torch.equal(G, G_plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (3,), (4097,), (1024, 2560), "x[1:]", "x[3:4000]"])
+def test_probe_op_chain_ragged_and_misaligned(shape):
+    """Every op bit for bit, chained twice, at lengths that are not
+    multiples of the kernel's 16-byte vectors and on views that do not
+    start on a 16-byte boundary: the kernel runs the ragged head and tail
+    itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spark_examples_tpu_torch.experiments import probe_ops
+
+    dev = torch.device("cuda")
+    if isinstance(shape, str):
+        base = torch.from_numpy(probe_ops.random_tile(5, (1, 4097))).to(dev).view(-1)
+        x = base[1:] if shape == "x[1:]" else base[3:4000]
+        assert x.data_ptr() % 16
+    else:
+        x = torch.from_numpy(probe_ops.random_tile(5, (1, math.prod(shape)))).to(dev).view(shape)
+    probe_ops.probe_op_chain.launches = 0
+    for op in probe_ops.OPS:
+        got = probe_ops.probe_op_chain(probe_ops.probe_op_chain(x, op), op)
+        want = probe_ops.probe_op_chain_plain(probe_ops.probe_op_chain_plain(x, op), op)
+        assert got.shape == x.shape and torch.equal(got, want), op
+    assert probe_ops.probe_op_chain.launches == 2 * len(probe_ops.OPS)
 
 
 @pytest.mark.gpu

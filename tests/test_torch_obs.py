@@ -340,3 +340,113 @@ def test_span_tree_export():
     assert [c["name"] for c in tree["children"]] == ["inner", "agg"]
     assert tree["children"][0]["synced"] is True
     assert isinstance(tree["started_unix"], float)
+
+
+# --------------------------------------------------------- host-memory bound
+
+
+def _bound_argvs(tmp_path):
+    """name → argv of the host-memory bound's cases: every ingest shape
+    the bound resolves differently."""
+    import gzip
+    import shutil
+
+    vcf = _vcf(tmp_path)
+    gz = tmp_path / "obs.vcf.gz"
+    with open(vcf, "rb") as src, gzip.open(gz, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    other = tmp_path / "other.vcf"
+    other.write_text(open(vcf).read())
+    saved = tmp_path / "saved"
+    run(["--source", "file", "--input-files", vcf, "--references", "17:0:5000",
+         "--save-variants", str(saved)], device="cpu")
+    file = ["--source", "file", "--references", "17:0:5000", "--input-files"]
+    return {
+        "synthetic": BASE,
+        "synthetic packed, block 2048, 3 workers": BASE + [
+            "--ingest", "packed", "--block-size", "2048", "--ingest-workers", "3"],
+        "synthetic host backend": BASE + ["--pca-backend", "host"],
+        "file packed .vcf": file + [vcf, "--ingest", "packed"],
+        "file streamed .vcf.gz": file + [str(gz), "--ingest", "packed",
+                                         "--stream-chunk-bytes", "300"],
+        "file wire": file + [vcf, "--ingest", "wire"],
+        "multi-set wire": file + [f"{vcf},{other}", "--variant-set-id", "obs,other"],
+        "--input-path resume": file + [vcf, "--input-path", str(saved)],
+    }
+
+
+BOUND_CASES = ("synthetic", "synthetic packed, block 2048, 3 workers", "synthetic host backend",
+               "file packed .vcf", "file streamed .vcf.gz", "file wire", "multi-set wire",
+               "--input-path resume")
+
+
+@pytest.mark.parametrize("case", BOUND_CASES)
+def test_host_bound_equals_the_reference_at_one_device(tmp_path, capsys, case):
+    """``conf_host_peak_bytes`` of both packages, integer for integer, at
+    one device (the port's), from the flag's cohort width and from the
+    discovered one; the port's driver registers that bound, and its
+    manifest records it with a ``hostmem`` conformance pair."""
+    from spark_examples_tpu.check.hostmem import conf_host_peak_bytes as ref_bound
+    from spark_examples_tpu.config import PcaConf as RefPcaConf
+    from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
+
+    argv = _bound_argvs(tmp_path)[case]
+    conf, ref_conf = PcaConf.parse(argv), RefPcaConf.parse(argv)
+    for n in (None, 5, 2504):
+        got = conf_host_peak_bytes(conf, device_count=1, num_samples=n)
+        assert isinstance(got, int) and got == ref_bound(ref_conf, device_count=1, num_samples=n)
+    path = tmp_path / "m.json"
+    result = run_pipeline(PcaConf.parse(argv + ["--metrics-json", str(path)]), "cpu")
+    capsys.readouterr()
+    width = len(result.driver.indexes)
+    want = ref_bound(ref_conf, device_count=1, num_samples=width)
+    assert result.driver.registry.value(metrics.HOST_STATIC_BOUND_BYTES) == want
+    assert want > metrics.HOST_RUNTIME_BASELINE_BYTES
+    doc = manifest.read_manifest(str(path))
+    assert doc["host_memory"]["static_bound_bytes"] == want
+    hostmem = doc["conformance"]["hostmem"]
+    assert hostmem["proven"] == want and hostmem["ok"] is True
+    assert hostmem["measured"] == int(doc["host_memory"]["peak_rss_bytes"])
+    assert doc["conformance"]["sched"] is None and doc["conformance"]["ranges"] is None
+
+
+def test_both_manifests_carry_the_same_bound_and_conformance(tmp_path, capsys):
+    """On one argv, the reference run on a one-device list (its tests run
+    on eight virtual devices, which would widen its data axis) and the
+    port's write the same ``static_bound_bytes`` and each a ``hostmem``
+    conformance entry; both validators pass both manifests."""
+    import jax
+
+    from spark_examples_tpu.config import PcaConf as RefPcaConf
+
+    argv = BASE + ["--ingest", "packed", "--block-size", "512"]
+    ref_path, path = tmp_path / "ref.json", tmp_path / "port.json"
+    ref_driver.run_pipeline(RefPcaConf.parse(argv + ["--metrics-json", str(ref_path)]),
+                            devices=jax.devices()[:1])
+    run_pipeline(PcaConf.parse(argv + ["--metrics-json", str(path)]), "cpu")
+    capsys.readouterr()
+    ref_doc, doc = ref_manifest.read_manifest(str(ref_path)), manifest.read_manifest(str(path))
+    assert doc["host_memory"]["static_bound_bytes"] == ref_doc["host_memory"]["static_bound_bytes"]
+    assert doc["conformance"].keys() == ref_doc["conformance"].keys()
+    for d in (doc, ref_doc):
+        assert d["conformance"]["hostmem"]["proven"] == doc["host_memory"]["static_bound_bytes"]
+        assert d["conformance"]["hostmem"]["ok"] is True
+        assert manifest.validate_manifest(d) == [] and ref_manifest.validate_manifest(d) == []
+
+
+def test_conformance_block_matches_the_reference():
+    """The same pairs recorded in both registries give the same block: a
+    held bound, a broken one (rounded toward the verdict), a pair without a
+    bound, and an unknown prover refused."""
+    blocks = []
+    for module in (metrics, ref_metrics):
+        reg = module.MetricsRegistry()
+        assert module.conformance_block(reg) is None
+        module.record_prover_conformance(reg, "hostmem", 100.5, 200.2)
+        module.record_prover_conformance(reg, "sched", 300.5, 300.2)
+        module.record_prover_conformance(reg, "ranges", 7.6, None)
+        with pytest.raises(module.MetricError, match="unknown conformance prover"):
+            module.record_prover_conformance(reg, "lint", 1.0, 2.0)
+        blocks.append(module.conformance_block(reg))
+    assert blocks[0] == blocks[1]
+    assert blocks[0]["sched"] == {"measured": 301, "proven": 300, "ok": False}

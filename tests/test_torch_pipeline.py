@@ -79,6 +79,49 @@ def test_multi_set_asymmetric_cohort_matches_jax(capsys):
     assert len(lines) == len(ref_lines) == 37
 
 
+@pytest.mark.parametrize("n_sets", [9, 33])
+def test_device_path_many_sets_matches_jax(capsys, n_sets):
+    """``--ingest device`` over 9 and 33 variant sets: the printed lines as
+    the JAX package prints them, and the run's Gramian, per-set variant rows
+    and kept sites exactly the JAX accumulator's over the same grid."""
+    from spark_examples_tpu.ops.devicegen import DeviceGenGramianAccumulator as RefAccumulator
+    from spark_examples_tpu.sharding.contig import Contig
+    from spark_examples_tpu.sources.synthetic import SyntheticGenomicsSource
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+    sets = [f"vs-{i}" for i in range(n_sets)]
+    argv = [
+        "--references", "17:0:12000",
+        "--variant-set-id", ",".join(sets),
+        "--num-samples", "3",
+        "--seed", "5",
+        "--bases-per-partition", "5000",
+        "--ingest", "device",
+    ]
+    ref_driver.run(argv)
+    ref_out = capsys.readouterr().out.splitlines()
+    result = run_pipeline(PcaConf.parse(argv), device="cpu")
+    out = capsys.readouterr().out.splitlines()
+    _assert_same_output(ref_out, out, TOLERANCE)
+    assert len(result.lines) == 3 * n_sets
+
+    source = SyntheticGenomicsSource(num_samples=3, seed=5)
+    ref_acc = RefAccumulator(
+        num_samples=3, vs_keys=[source.genotype_stream_key(v) for v in sets],
+        pops=source.populations, site_key=source.site_key, spacing=source.variant_spacing,
+        ref_block_fraction=source.ref_block_fraction, block_size=1024, blocks_per_dispatch=32,
+        n_pops=source.n_pops,
+    )
+    ref_acc.add_grid(*source.site_grid_range(Contig("17", 0, 12000)))
+    acc = result.driver.accumulator
+    np.testing.assert_array_equal(acc.finalize(), ref_acc.finalize())
+    rows, kept = acc.ingest_counters()
+    want_rows, want_kept = ref_acc.ingest_counters()
+    assert rows.tolist() == np.asarray(want_rows).tolist() and kept == int(want_kept)
+    assert min(rows) > 0
+
+
 def test_host_backend_matches_jax_exactly(capsys):
     """With ``--pca-backend host`` both packages ingest through the wire arm
     and run the same NumPy oracle on the same Gramian: every printed line is

@@ -50,6 +50,25 @@ def test_op_chain_matches_the_pallas_kernel_bit_for_bit(reference_make, op):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("length", [1, 3, 4097])
+@pytest.mark.parametrize("op", probe_ops.OPS)
+def test_op_chain_at_ragged_lengths_matches_the_pallas_kernel(reference_make, op, length):
+    """Lengths that are not a whole number of the card kernel's 16-byte
+    vectors, through the plain chain (a CPU tensor) and the Pallas body in
+    interpret mode, and the same values on a view one element in."""
+    base = probe_ops.random_tile(seed=length, shape=(1, length + 1))
+    x = base[:, 1:]
+    kernel = pl.pallas_call(
+        reference_make(op),
+        out_shape=jax.ShapeDtypeStruct((1, length), jnp.uint32),
+        interpret=True,
+    )
+    want = np.asarray(kernel(jnp.asarray(np.ascontiguousarray(x).view(np.uint32)))).view(np.int32)
+    view = torch.from_numpy(base).view(-1)[1:]
+    got = probe_ops.probe_op_chain(view, op)
+    np.testing.assert_array_equal(got.numpy(), want[0])
+
+
 def test_run_chains_the_output_as_the_reference_does():
     x = torch.from_numpy(probe_ops.random_tile(seed=2, shape=(4, 64)))
     out, ms = probe_ops.run("fmix32", device="cpu", x=x, reps=3)
