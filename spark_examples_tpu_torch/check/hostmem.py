@@ -6,11 +6,20 @@ resolved into the arguments of ``parallel/mesh.py:host_peak_bytes`` (the
 bound the driver registers as ``host_static_bound_bytes`` and the manifest
 records beside the measured peak RSS). Reference names and arithmetic are
 kept, so both packages give the same bound for the same argv at the same
-device count; the static prover over the source tree is not ported.
+device count and runtime baseline; the static prover over the source tree
+is not ported.
+
+The runtime baseline is the one term that differs by device
+(:func:`runtime_baseline_bytes`): the reference's constant, set for a TPU
+host, on the CPU; on the card, the process's peak RSS measured at the
+driver's set-up once the CUDA runtime and libraries are up (``import
+torch`` alone holds more than the constant there), so the bound's data
+terms are what a run is held to.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, List, Optional, Tuple
 
@@ -118,11 +127,60 @@ def _wire_table_term(rows: int, num_samples: int) -> int:
     return int(rows) * per_row + 4 * DEFAULT_WINDOW_BYTES
 
 
+#: Width of the warm-up Gramian :func:`runtime_baseline_bytes` centers and
+#: eigensolves on the card: a few tiles, enough to take the run's cuBLAS
+#: and cuSOLVER paths, small enough to stage no data.
+_WARMUP_SAMPLES = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_cuda_runtime(device_index: int) -> None:
+    """Bring up, once per process and card, what every run on the card
+    loads before its first result: the context, the kernels' libraries,
+    and cuBLAS and cuSOLVER through one centering and one step of the
+    subspace eigensolve on a small random Gramian."""
+    import torch
+
+    from spark_examples_tpu_torch.ops import devicegen, gramian
+    from spark_examples_tpu_torch.ops.centering import gower_center
+    from spark_examples_tpu_torch.ops.pca import principal_components_subspace
+
+    dev = torch.device("cuda", device_index)
+    devicegen._library()
+    gramian._library()
+    generator = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand((_WARMUP_SAMPLES, _WARMUP_SAMPLES), generator=generator, device=dev)
+    components, _ = principal_components_subspace(gower_center(x @ x.T), 2, iterations=1)
+    components.cpu()
+
+
+def runtime_baseline_bytes(device) -> int:
+    """The runtime baseline of the host-memory bound of a run on
+    ``device``. On the CPU the reference's constant
+    (``parallel/mesh.py:HOST_RUNTIME_BASELINE_BYTES``), so the bound equals
+    the reference's integer for integer. On the card the process's peak RSS
+    once the CUDA runtime is up (:func:`_warm_cuda_runtime`), taken before
+    the run stages any data: what the run adds past it is held to the data
+    terms. The constant when the OS reports no peak RSS."""
+    import torch
+
+    from spark_examples_tpu_torch.obs.metrics import read_host_peak_rss_bytes
+    from spark_examples_tpu_torch.parallel.mesh import HOST_RUNTIME_BASELINE_BYTES
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return HOST_RUNTIME_BASELINE_BYTES
+    _warm_cuda_runtime(dev.index if dev.index is not None else torch.cuda.current_device())
+    peak = read_host_peak_rss_bytes()
+    return int(peak) if peak is not None else HOST_RUNTIME_BASELINE_BYTES
+
+
 def conf_host_peak_bytes(
     conf: Any,
     device_count: Optional[int] = None,
     num_samples: Optional[int] = None,
     num_hosts: int = 1,
+    baseline_bytes: Optional[int] = None,
 ) -> int:
     """``host_peak_bytes`` for one parsed configuration. TOTAL: every
     (source kind x ingest mode x analysis x serve job kind) resolves to a
@@ -135,6 +193,8 @@ def conf_host_peak_bytes(
     its resolved matrix size, the static plan validator the declared flag).
     ``num_hosts > 1`` charges the host-sharded ingest merge term — a
     PER-HOST bound (the port's driver runs one process and passes 1).
+    ``baseline_bytes`` is the runtime baseline (default: the reference's
+    constant; the driver passes :func:`runtime_baseline_bytes`).
 
     Per-path terms, all monotone in the cohort width:
 
@@ -158,7 +218,11 @@ def conf_host_peak_bytes(
       journal directory's parts (sizes from disk when statable, the
       geometry ceiling otherwise).
     """
-    from spark_examples_tpu_torch.parallel.mesh import host_peak_bytes
+    from spark_examples_tpu_torch.config import GrmConf
+    from spark_examples_tpu_torch.parallel.mesh import (
+        HOST_RUNTIME_BASELINE_BYTES,
+        host_peak_bytes,
+    )
     from spark_examples_tpu_torch.sources.files import _resolve_ingest_workers
 
     if num_samples is None:
@@ -226,16 +290,19 @@ def conf_host_peak_bytes(
         prefetch_depth=prefetch_depth,
         pipeline_depth=pipeline_depth,
         # The host-oracle N×N accumulator exists where the run builds a
-        # Gramian on the host (--pca-backend host). The GRM finalize and
-        # the LD window terms belong to the analyses, which the port runs
-        # no configuration of yet: PCA never pays them.
+        # Gramian on the host (--pca-backend host); the GRM finalize's N×N
+        # host matrices only on the grm verb. The LD window term belongs
+        # to ld-prune, not ported yet.
         host_accumulator=host_backend,
-        grm_finalize=False,
+        grm_finalize=isinstance(conf, GrmConf),
         ld_window_sites=0,
         num_hosts=int(num_hosts),
         wire_table_bytes=wire_table_bytes,
         merge_join_bytes=merge_join_bytes,
+        baseline_bytes=(
+            HOST_RUNTIME_BASELINE_BYTES if baseline_bytes is None else int(baseline_bytes)
+        ),
     )
 
 
-__all__ = ["conf_host_peak_bytes", "conf_mesh_axes"]
+__all__ = ["conf_host_peak_bytes", "conf_mesh_axes", "runtime_baseline_bytes"]

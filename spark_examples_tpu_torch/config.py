@@ -10,10 +10,14 @@ one argv parses identically in both packages. Two values differ:
   the port's tensors live. ``cpu`` runs the kernels' plain PyTorch versions.
 
 The port runs the synthetic source's three ingest arms (device generation,
-packed, wire) and the file source's (packed, streamed, wire), variant
-checkpoints (``--save-variants``, ``--input-path``) and the run's telemetry
+packed, wire), the file source's (packed, streamed, wire) and the REST
+source's (wire), variant checkpoints (``--save-variants``,
+``--input-path``), Gramian checkpoints and resume
+(``--gramian-checkpoint-dir``, ``--checkpoint-every-sites``,
+``--resume-from``), fault plans (``--fault-plan``) and the run's telemetry
 (``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), dense
-strategy, one device. A flag that belongs to any other path raises
+strategy, one device; :class:`GrmConf` adds the ``grm`` verb's
+``--grm-out``. A flag that belongs to any other path raises
 :class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
 is never silently ignored.
 """
@@ -33,6 +37,7 @@ from spark_examples_tpu_torch.sharding.contig import (
     parse_contigs,
 )
 from spark_examples_tpu_torch.sources.files import file_set_ids
+from spark_examples_tpu_torch.utils.faults import parse_plan
 
 
 def _num_samples_value(text: str) -> str:
@@ -101,10 +106,26 @@ def build_pca_parser(
                    help="Write the schema-v2 run manifest here "
                    "(obs/manifest.py).")
     p.add_argument("--trace-dir", default=None, metavar="DIR")
-    p.add_argument("--gramian-checkpoint-dir", default=None, metavar="DIR")
-    p.add_argument("--checkpoint-every-sites", type=int, default=None, metavar="N")
-    p.add_argument("--resume-from", default=None, metavar="DIR")
-    p.add_argument("--fault-plan", default=None, metavar="SPEC")
+    p.add_argument("--gramian-checkpoint-dir", default=None, metavar="DIR",
+                   help="Periodically persist the accumulator state (partial "
+                   "Gramian, site cursor, conf fingerprint) as one atomically "
+                   "published artifact under DIR, so a killed run resumes "
+                   "(host-fed ingest: packed or wire; --pca-backend gpu).")
+    p.add_argument("--checkpoint-every-sites", type=int, default=None, metavar="N",
+                   help="Snapshot cadence for --gramian-checkpoint-dir: one "
+                   "checkpoint per N accumulated sites. Default: "
+                   "pipeline/checkpoint.py:DEFAULT_CHECKPOINT_EVERY_SITES.")
+    p.add_argument("--resume-from", default=None, metavar="DIR",
+                   help="Resume from the newest complete Gramian checkpoint in "
+                   "DIR (its conf fingerprint must match this run's flags); no "
+                   "complete artifact yet starts from zero. Checkpoints of "
+                   "either package resume in the other.")
+    p.add_argument("--fault-plan", default=None, metavar="SPEC",
+                   help="Deterministic fault-injection plan (testing): "
+                   "comma-separated action@site[#nth][=arg] entries "
+                   "(utils/faults.py). Equivalent to the "
+                   "SPARK_EXAMPLES_TPU_FAULTS environment variable; the flag "
+                   "wins when both are set.")
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
@@ -211,7 +232,10 @@ class PcaConf:
 
     @classmethod
     def parse(cls, argv: Sequence[str]) -> "PcaConf":
-        ns = build_pca_parser().parse_args(list(argv))
+        return cls._from_namespace(build_pca_parser().parse_args(list(argv)))
+
+    @classmethod
+    def _from_namespace(cls, ns: argparse.Namespace) -> "PcaConf":
         conf = cls(**{f: getattr(ns, f) for f in cls.__dataclass_fields__ if hasattr(ns, f)})
         if isinstance(conf.variant_set_id, str):
             conf.variant_set_id = [v for v in conf.variant_set_id.split(",") if v.strip()]
@@ -237,6 +261,15 @@ class PcaConf:
                 f"--ingest-workers must be >= 0 (0 = serial oracle path), "
                 f"got {conf.ingest_workers}"
             )
+        if conf.checkpoint_every_sites is not None and conf.checkpoint_every_sites < 1:
+            raise ValueError(
+                f"--checkpoint-every-sites must be >= 1, got "
+                f"{conf.checkpoint_every_sites} (omit the flag for the "
+                "default cadence)"
+            )
+        if conf.fault_plan is not None:
+            # A typo'd site name fails at parse time, not mid-run.
+            parse_plan(conf.fault_plan)
         if conf.num_samples_per_set:
             if conf.source != "synthetic":
                 raise ValueError(
@@ -287,10 +320,6 @@ class PcaConf:
 #: the flag unused). Any other value raises.
 _UNPORTED = (
     ("trace_dir", "--trace-dir", None),
-    ("gramian_checkpoint_dir", "--gramian-checkpoint-dir", None),
-    ("checkpoint_every_sites", "--checkpoint-every-sites", None),
-    ("resume_from", "--resume-from", None),
-    ("fault_plan", "--fault-plan", None),
     ("coordinator_address", "--coordinator-address", None),
     ("num_processes", "--num-processes", None),
     ("process_id", "--process-id", None),
@@ -303,21 +332,15 @@ _UNPORTED = (
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet (the REST source, the flight recorder, Gramian
-    checkpoints and faults, multi-host, meshes and rings)."""
+    does not run yet (the flight recorder, multi-host, meshes and rings)."""
     for name, flag, unused in _UNPORTED:
         value = getattr(conf, name)
         if value != unused:
             raise NotImplementedError(
                 f"{flag} {value!r}: this path is not ported to PyTorch yet "
-                "(the port runs the synthetic and file sources' device, "
+                "(the port runs the synthetic, file and REST sources' device, "
                 "packed, streamed and wire ingest, dense strategy, one device)"
             )
-    if conf.source == "rest":
-        raise NotImplementedError(
-            "--source 'rest': this path is not ported to PyTorch yet (the "
-            "REST source needs a network; use --source synthetic or file)"
-        )
     if conf.similarity_strategy == "sharded":
         raise NotImplementedError(
             "--similarity-strategy sharded: the sharded ring is not ported "
@@ -325,4 +348,28 @@ def check_ported(conf: PcaConf) -> None:
         )
 
 
-__all__ = ["PcaConf", "build_pca_parser", "check_ported"]
+def build_grm_parser(
+    parser: Optional[argparse.ArgumentParser] = None,
+) -> argparse.ArgumentParser:
+    """``grm`` verb flags (``spark_examples_tpu/config.py:build_grm_parser``):
+    the PCA surface plus the kinship output path."""
+    p = build_pca_parser(parser)
+    p.add_argument("--grm-out", default=None, metavar="PATH",
+                   help="Write the N×N VanRaden kinship matrix as a TSV (one "
+                   "row per sample: name, then N float64 values; atomic "
+                   "publish). Unset: only the summary is printed.")
+    return p
+
+
+@dataclass
+class GrmConf(PcaConf):
+    """``grm`` flags: allele-frequency-standardized kinship (VanRaden)."""
+
+    grm_out: Optional[str] = None
+
+    @classmethod
+    def parse(cls, argv: Sequence[str]) -> "GrmConf":
+        return cls._from_namespace(build_grm_parser().parse_args(list(argv)))
+
+
+__all__ = ["GrmConf", "PcaConf", "build_grm_parser", "build_pca_parser", "check_ported"]

@@ -8,13 +8,16 @@ before the first step.)
 Prints, after each step a ``variants-pca`` run takes on the card, the
 process's peak RSS (``ru_maxrss``, what the manifest's ``hostmem`` pair
 measures) and its current RSS (``VmRSS``): the interpreter, ``import
-torch``, the CUDA driver (``torch.cuda.is_available``), a context (a
-tensor on the card), the kernels' libraries, a cuBLAS product, cuSOLVER's
-``eigh`` at 2,504 samples, and chr17 at 16,384-site blocks through
-``run_pipeline`` in this process; then that configuration's host-memory
-bound (``check/hostmem.py:conf_host_peak_bytes``). Start it from a small
-parent: a child's ``ru_maxrss`` begins at its parent's RSS at the fork.
-Prints the card line and one JSON object. Runs on a CUDA card only.
+torch``, the CUDA driver (``torch.cuda.is_available``), the driver's
+runtime baseline (``check/hostmem.py:runtime_baseline_bytes``: the
+context, the kernels' libraries, a centering and subspace eigensolve on
+cuBLAS and cuSOLVER), and chr17 at 16,384-site blocks through
+``run_pipeline`` in this process; then that run's host-memory bound over
+the baseline its driver registered, the bound's data terms (bound less
+baseline), the run's growth past the baseline and its ``hostmem``
+conformance pair. Start it from a small parent: a child's ``ru_maxrss``
+begins at its parent's RSS at the fork. Prints the card line and one JSON
+object. Runs on a CUDA card only.
 """
 
 from __future__ import annotations
@@ -61,33 +64,34 @@ def main() -> int:
         print("host_rss: no CUDA device is available", file=sys.stderr)
         return 1
     mark("CUDA driver")
-    x = torch.ones((2504, 2504), device="cuda")
-    torch.cuda.synchronize()
-    mark("context and a tensor")
-    from spark_examples_tpu_torch.ops import _kernels
-
-    for source in _kernels.SOURCES:
-        _kernels.library(source)
-    mark("kernel libraries")
-    (x @ x).sum().item()
-    mark("cuBLAS product")
-    torch.linalg.eigh(x + x.T).eigenvalues.sum().item()
-    mark("cuSOLVER eigh")
-    from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
+    from spark_examples_tpu_torch.check.hostmem import runtime_baseline_bytes
     from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.obs.metrics import (
+        HOST_BASELINE_RSS_BYTES,
+        HOST_STATIC_BOUND_BYTES,
+        conformance_block,
+    )
     from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
 
+    runtime_baseline_bytes("cuda")
+    mark("runtime baseline (context, libraries, cuBLAS, cuSOLVER)")
     conf = PcaConf.parse(CHR17_ARGV)
     with contextlib.redirect_stdout(io.StringIO()):
         result = run_pipeline(conf)
     torch.cuda.synchronize()
     mark("chr17 variants-pca")
-    bound = conf_host_peak_bytes(conf, device_count=1, num_samples=len(result.driver.indexes))
+    registry = result.driver.registry
+    baseline = int(registry.value(HOST_BASELINE_RSS_BYTES))
+    bound = int(registry.value(HOST_STATIC_BOUND_BYTES))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    print(json.dumps({"steps": [{"step": s, "peak_rss_bytes": p, "rss_bytes": r}
-                                for s, p, r in steps], "chr17_bound_bytes": bound}))
+    print(json.dumps({
+        "steps": [{"step": s, "peak_rss_bytes": p, "rss_bytes": r} for s, p, r in steps],
+        "chr17_baseline_bytes": baseline, "chr17_bound_bytes": bound,
+        "data_terms_bytes": bound - baseline, "growth_bytes": steps[-1][1] - baseline,
+        "hostmem": conformance_block(registry)["hostmem"],
+    }))
     return 0
 
 

@@ -12,13 +12,17 @@ validator, so a manifest from either package passes both packages'
 The blocks whose subject the port does not have yet are absent exactly as
 the reference writes them when absent: ``compile_cache`` (the XLA compile
 cache), ``multihost`` (cross-process aggregation), ``gramian_exactness``,
-``resume``, ``analysis``, ``schedule`` and ``cost`` are null, and
-``process`` is the single process. ``host_memory`` holds the OS's peak RSS
-of this process and the bound the run registered
-(``check/hostmem.py:conf_host_peak_bytes``). ``conformance`` holds the
-``hostmem`` pair the driver's epilogue records (peak RSS against that
-bound); its ``sched`` and ``ranges`` entries are null, their flags being
-unported.
+``schedule`` and ``cost`` are null, and ``process`` is the single process.
+``resume`` is the checkpointed run's ``{checkpoint_sites, sites_skipped,
+faults_injected}``, ``analysis`` an analysis verb's ``{kind, sites_kept,
+sites_tested}``, both null otherwise. ``host_memory`` holds the OS's peak
+RSS of this process, the bound the run registered
+(``check/hostmem.py:conf_host_peak_bytes``) and, beside the reference's
+two fields, the runtime baseline inside that bound
+(``runtime_baseline_bytes``: measured at set-up on the card, the
+reference's constant on the CPU). ``conformance`` holds the ``hostmem``
+pair the driver's epilogue records (peak RSS against that bound); its
+``sched`` and ``ranges`` entries are null, their flags being unported.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import time
 from typing import Dict, List, Mapping, Optional
 
 from spark_examples_tpu_torch.obs.metrics import (
+    HOST_BASELINE_RSS_BYTES,
     HOST_RUNTIME_BASELINE_BYTES,
     HOST_STATIC_BOUND_BYTES,
     conformance_block,
@@ -70,17 +75,20 @@ def _json_safe(value):
 
 def _host_memory_block(registry=None) -> Dict:
     """The v2 ``host_memory`` block: measured peak RSS (read directly from
-    the OS) next to the registered static bound, or the runtime baseline
-    when none is registered (the bound is never null in schema v2)."""
-    bound = HOST_RUNTIME_BASELINE_BYTES
-    if registry is not None:
-        value = registry.value(HOST_STATIC_BOUND_BYTES)
+    the OS) next to the registered static bound and the runtime baseline
+    inside it, each the reference's constant when none is registered (the
+    bound is never null in schema v2)."""
+    def registered(name):
+        value = registry.value(name) if registry is not None else None
         if value is not None and value == value and value > 0:
-            bound = int(value)
+            return int(value)
+        return HOST_RUNTIME_BASELINE_BYTES
+
     peak = read_host_peak_rss_bytes()
     return {
         "peak_rss_bytes": int(peak) if peak is not None else None,
-        "static_bound_bytes": bound,
+        "static_bound_bytes": registered(HOST_STATIC_BOUND_BYTES),
+        "runtime_baseline_bytes": registered(HOST_BASELINE_RSS_BYTES),
     }
 
 
@@ -92,6 +100,8 @@ def build_manifest(
     overlap: Optional[Dict] = None,
     host_memory: Optional[Dict] = None,
     conformance: Optional[Dict] = None,
+    resume: Optional[Dict] = None,
+    analysis: Optional[Dict] = None,
 ) -> Dict:
     """Assemble a manifest from already-snapshotted parts (the low-level
     form; :func:`build_run_manifest` snapshots a live driver)."""
@@ -107,8 +117,8 @@ def build_manifest(
             host_memory if host_memory is not None else _host_memory_block()
         ),
         "gramian_exactness": None,
-        "resume": None,
-        "analysis": None,
+        "resume": resume,
+        "analysis": analysis,
         "schedule": None,
         "conformance": conformance,
         "cost": None,
@@ -119,13 +129,14 @@ def build_manifest(
 
 
 def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
-                       overlap=None) -> Dict:
+                       overlap=None, resume=None, analysis=None) -> Dict:
     """Snapshot a live run: ``conf`` (dataclass or mapping), the run's
     :class:`~spark_examples_tpu_torch.obs.spans.SpanRecorder` and
     :class:`~spark_examples_tpu_torch.obs.metrics.MetricsRegistry`, the
     driver's ``VariantsDatasetStats`` (or ``None`` when stats are disabled,
     as under ``--input-path``) and the structured overlap dict of
-    ``PrefetchIterator.overlap_stats()``."""
+    ``PrefetchIterator.overlap_stats()``; ``resume`` and ``analysis`` are
+    the blocks of a checkpointed run and of an analysis verb."""
     config = (
         dataclasses.asdict(conf)
         if dataclasses.is_dataclass(conf)
@@ -139,6 +150,8 @@ def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
         overlap=overlap,
         host_memory=_host_memory_block(registry),
         conformance=conformance_block(registry) if registry is not None else None,
+        resume=resume,
+        analysis=analysis,
     )
 
 

@@ -13,8 +13,8 @@ model and the same two exports —
 Registration is idempotent: asking for an existing name with the same type
 and label names returns the existing family; a mismatch raises. The
 well-known names below are the ones the port's producers register and the
-heartbeat (``obs/heartbeat.py``) samples; the reference's serving, ring,
-checkpoint and cost names wait for those layers.
+heartbeat (``obs/heartbeat.py``) samples; the reference's serving, ring
+and cost names wait for those layers.
 """
 
 from __future__ import annotations
@@ -64,6 +64,17 @@ CONFORMANCE_PROVERS = ("hostmem", "sched", "ranges")
 #: Which parser decoded the last packed or streamed VCF pass: 1 for the
 #: native parser (``native/vcfparse.cpp``), 0 for the Python one.
 VCF_NATIVE_PARSE = "vcf_native_parse"
+#: The process's peak RSS when the driver took its runtime baseline (after
+#: the CUDA libraries' set-up on the card): the constant term of the
+#: host-memory bound (``utils/device.py:runtime_baseline_bytes``).
+HOST_BASELINE_RSS_BYTES = "host_baseline_rss_bytes"
+#: Gramian checkpointing (``pipeline/checkpoint.py:GramianFeeder``): the
+#: cursor of the newest published snapshot, and the saves counter.
+GRAMIAN_CHECKPOINT_SITES = "gramian_checkpoint_sites"
+GRAMIAN_CHECKPOINT_SAVES = "gramian_checkpoint_saves_total"
+#: Per-site analyses (``analyses/``): sites tested and kept.
+ANALYSIS_SITES_TESTED = "analysis_sites_tested"
+ANALYSIS_SITES_KEPT = "analysis_sites_kept"
 
 _WELL_KNOWN_GAUGE_HELP = {
     INGEST_SITES_SCANNED: "Candidate sites scanned so far (heartbeat progress).",
@@ -95,6 +106,31 @@ _WELL_KNOWN_GAUGE_HELP = {
         "1 when the last packed or streamed VCF pass decoded with the "
         "native parser (native/vcfparse.cpp), 0 for the Python parser."
     ),
+    HOST_BASELINE_RSS_BYTES: (
+        "Runtime baseline of the host-memory bound: the process's peak RSS "
+        "at driver set-up, after the CUDA context and libraries (the "
+        "reference's constant on the CPU)."
+    ),
+    GRAMIAN_CHECKPOINT_SITES: (
+        "Ingest cursor (rows of the deterministic stream) covered by the "
+        "newest published Gramian checkpoint — what a preemption would "
+        "resume from."
+    ),
+    ANALYSIS_SITES_TESTED: (
+        "Sites this per-site analysis (analyses/: GRM, LD prune, assoc "
+        "scan) has tested so far."
+    ),
+    ANALYSIS_SITES_KEPT: (
+        "Sites the pruning analysis has kept so far (LD kept-mask "
+        "cardinality; equals tested for non-pruning analyses)."
+    ),
+}
+
+_WELL_KNOWN_COUNTER_HELP = {
+    GRAMIAN_CHECKPOINT_SAVES: (
+        "Atomic Gramian accumulator snapshots published by this run "
+        "(--gramian-checkpoint-dir)."
+    ),
 }
 
 
@@ -102,6 +138,12 @@ def well_known_gauge(registry: "MetricsRegistry", name: str):
     """Register (idempotently) a well-known gauge with its canonical help
     text."""
     return registry.gauge(name, _WELL_KNOWN_GAUGE_HELP[name])
+
+
+def well_known_counter(registry: "MetricsRegistry", name: str):
+    """Register (idempotently) a well-known counter with its canonical help
+    text."""
+    return registry.counter(name, _WELL_KNOWN_COUNTER_HELP[name])
 
 
 def read_host_peak_rss_bytes() -> Optional[int]:
@@ -665,13 +707,18 @@ def escape_help_text(value: str) -> str:
 
 
 __all__ = [
+    "ANALYSIS_SITES_KEPT",
+    "ANALYSIS_SITES_TESTED",
     "CONFORMANCE_PROVERS",
     "Counter",
     "DEFAULT_BUCKETS",
     "DEVICEGEN_DISPATCHES",
     "DEVICEGEN_SITES_CAPACITY",
+    "GRAMIAN_CHECKPOINT_SAVES",
+    "GRAMIAN_CHECKPOINT_SITES",
     "GRAMIAN_INFLIGHT_DISPATCHES",
     "Gauge",
+    "HOST_BASELINE_RSS_BYTES",
     "HOST_PEAK_RSS_BYTES",
     "HOST_RUNTIME_BASELINE_BYTES",
     "HOST_STATIC_BOUND_BYTES",
@@ -693,5 +740,6 @@ __all__ = [
     "histogram_quantile",
     "read_host_peak_rss_bytes",
     "record_prover_conformance",
+    "well_known_counter",
     "well_known_gauge",
 ]

@@ -297,6 +297,7 @@ class GramianAccumulator:
         self._entry_bound = 0
         self._staging = np.zeros((self.block_size, self.num_samples), dtype=np.uint8)
         self._fill = 0
+        self._flushes = 0
         self.rows_seen = 0
         self.G = torch.zeros(
             (self.num_samples, self.num_samples), dtype=torch.int32, device=self.device
@@ -352,6 +353,7 @@ class GramianAccumulator:
                 self.G, self._ship(np.packbits(block, axis=-1)), self.num_samples
             )
         self._fill = 0
+        self._flushes += 1
         if self.device.type == "cuda":
             if self.pipeline_depth is None:
                 torch.cuda.current_stream(self.device).synchronize()
@@ -364,6 +366,63 @@ class GramianAccumulator:
         self.telemetry.record_flush(
             flush_rows, time.perf_counter() - flush_start, len(self._in_flight)
         )
+
+    def snapshot_state(self) -> dict:
+        """Crash-consistent checkpoint state: flush the staged tail, drain
+        the card (every in-flight update finished) and fetch the partial
+        Gramian with the accumulator's bookkeeping — what
+        :meth:`restore_state` needs to rebuild it mid-stream in a fresh
+        process. G is saved as the reference's ``(data_parallel, N, N)``
+        stack of one slice, int32 (the reference climbs to int32 on resume).
+        The fetch is periodic (``--checkpoint-every-sites``), not a hot-path
+        sync."""
+        self._flush()
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._in_flight.clear()
+        return {
+            "strategy": "dense",
+            "G": self.G.cpu().numpy()[None],
+            "accum_dtype": "int32",
+            "exact_int": True,
+            "entry_bound": self._entry_bound,
+            "rows_seen": self.rows_seen,
+            "flushes": self._flushes,
+            "num_samples": self.num_samples,
+            "data_parallel": 1,
+            "padded": self.num_samples,
+        }
+
+    def restore_state(self, checkpoint: dict) -> None:
+        """Merge a persisted partial into this (fresh, empty) accumulator:
+        load the saved G and restore the cursor bookkeeping. A reference
+        artifact may hold one partial per data-parallel device (summed here:
+        G is additive over any split of the rows) and float32 entries
+        (exact integers below 2^24, cast to int32 without loss). Geometry
+        mismatches fail loudly — the conf fingerprint should have caught
+        them already; this is the shape check behind it."""
+        meta, G = checkpoint["meta"], np.asarray(checkpoint["G"])
+        if meta["strategy"] != "dense":
+            raise ValueError(
+                f"checkpoint was written by the {meta['strategy']!r} "
+                "strategy; this run resolved dense — the similarity "
+                "strategy is part of the checkpoint geometry"
+            )
+        n = self.num_samples
+        if G.ndim != 3 or G.shape[1:] != (n, n):
+            raise ValueError(
+                f"checkpoint Gramian shape {tuple(G.shape)} != this run's "
+                f"(data_parallel, {n}, {n}) (the cohort width changed)"
+            )
+        if G.dtype.kind == "f" and not np.array_equal(G, np.trunc(G)):
+            raise ValueError("checkpoint Gramian entries are not exact integers")
+        total = G.astype(np.int64).sum(axis=0)
+        if np.abs(total).max(initial=0) > _INT32_MAX:
+            raise ValueError("checkpoint Gramian entries do not fit int32")
+        self.G = torch.from_numpy(total.astype(np.int32)).to(self.device)
+        self._entry_bound = int(meta["entry_bound"])
+        self.rows_seen = int(meta["rows_seen"])
+        self._flushes = int(meta["flushes"])
 
     def finalize_device(self) -> torch.Tensor:
         """Flush the ragged tail and return the int32 Gramian, still on the

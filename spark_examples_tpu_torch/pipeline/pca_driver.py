@@ -26,9 +26,19 @@ resolves them (:func:`resolve_ingest`):
   accumulator — the arm of ``auto`` with duplicate variant-set ids, of
   small file inputs, and of the host backend.
 
+The REST source (``--source rest``, ``sources/rest.py``) feeds the wire
+arm.
+
 The run's telemetry is the reference's: ``--heartbeat-seconds`` (stderr
 progress lines), ``--profile-dir`` (stage timings and a ``torch.profiler``
 trace) and ``--metrics-json`` (the schema-v2 manifest, built last).
+
+Robustness is the reference's too: ``--gramian-checkpoint-dir`` puts a
+``pipeline/checkpoint.py:GramianFeeder`` between the host-fed arms and
+their accumulator (periodic atomic snapshots), ``--resume-from`` restores
+the newest snapshot and fast-forwards the stream past it, and a fault plan
+(``--fault-plan`` or ``SPARK_EXAMPLES_TPU_FAULTS``, ``utils/faults.py``)
+fires at the registered kill points and IO boundaries.
 
 Two PCA backends, as in the reference: ``gpu`` (the device pipeline) and
 ``host`` (the NumPy replication of the reference algorithm, the oracle,
@@ -45,7 +55,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Un
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
+from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes, runtime_baseline_bytes
 from spark_examples_tpu_torch.config import PcaConf, check_ported
 from spark_examples_tpu_torch.models.variant import Variant
 from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
@@ -54,8 +64,8 @@ from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_mani
 from spark_examples_tpu_torch.obs.metrics import (
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
+    HOST_BASELINE_RSS_BYTES,
     HOST_PEAK_RSS_BYTES,
-    HOST_RUNTIME_BASELINE_BYTES,
     HOST_STATIC_BOUND_BYTES,
     INGEST_PARTITIONS_DONE,
     INGEST_PARTITIONS_PLANNED,
@@ -75,7 +85,13 @@ from spark_examples_tpu_torch.ops.pca import (
     mllib_reference_pca,
     principal_components_subspace,
 )
-from spark_examples_tpu_torch.pipeline.checkpoint import CheckpointWriter, load_variants
+from spark_examples_tpu_torch.pipeline.checkpoint import (
+    CheckpointWriter,
+    GramianFeeder,
+    gramian_checkpoint_fingerprint,
+    load_gramian_checkpoint,
+    load_variants,
+)
 from spark_examples_tpu_torch.pipeline.datasets import (
     PrefetchIterator,
     VariantsDataset,
@@ -84,7 +100,7 @@ from spark_examples_tpu_torch.pipeline.datasets import (
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
 from spark_examples_tpu_torch.sources import partition_page_requests
-from spark_examples_tpu_torch.sources.base import GenomicsSource
+from spark_examples_tpu_torch.sources.base import GenomicsSource, get_access_token
 from spark_examples_tpu_torch.sources.files import (
     FileGenomicsSource,
     StreamCounters,
@@ -92,8 +108,10 @@ from spark_examples_tpu_torch.sources.files import (
     af_float,
     file_set_ids,
 )
+from spark_examples_tpu_torch.sources.rest import RestGenomicsSource
 from spark_examples_tpu_torch.sources.stream import MergeJoinStats, merge_join
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+from spark_examples_tpu_torch.utils import faults
 from spark_examples_tpu_torch.utils.af import af_filter_micro, af_passes
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
 from spark_examples_tpu_torch.utils.tracing import StageTimes, device_trace
@@ -121,9 +139,11 @@ def extract_call_info(variant: Variant, mapping: Dict[str, int]) -> List[CallDat
 
 
 def make_source(conf: PcaConf) -> GenomicsSource:
-    """The source ``--source`` names: the synthetic cohort, or the files of
-    ``--input-files`` (the REST source is not ported; ``config.py``
-    rejects it)."""
+    """The source ``--source`` names: the synthetic cohort, the files of
+    ``--input-files``, or the REST backend with the token of
+    ``--client-secrets``."""
+    if conf.source == "rest":
+        return RestGenomicsSource(auth=get_access_token(conf.client_secrets))
     if conf.source == "file":
         return FileGenomicsSource(
             conf.input_files or [],
@@ -162,6 +182,26 @@ class VariantsPcaDriver:
         )
         #: The accumulator of the last similarity stage (device or host-fed).
         self.accumulator = None
+        #: The checkpoint feeder between the host-fed rows and the
+        #: accumulator (``_wrap_accumulator``); ``None`` without the flags.
+        self.feeder: Optional[GramianFeeder] = None
+        # The resume artifact loads here, before any ingest, so a
+        # fingerprint mismatch or a corrupt artifact fails in milliseconds
+        # instead of after a re-ingest pass.
+        self._gramian_resume: Optional[Dict] = None
+        self._ckpt_fingerprint = ""
+        if conf.gramian_checkpoint_dir or conf.resume_from:
+            self._ckpt_fingerprint = gramian_checkpoint_fingerprint(conf)
+            if conf.resume_from:
+                self._gramian_resume = load_gramian_checkpoint(
+                    conf.resume_from, self._ckpt_fingerprint
+                )
+                if self._gramian_resume is not None:
+                    print(
+                        f"Resuming from Gramian checkpoint at {conf.resume_from}: "
+                        f"{self._gramian_resume['meta']['sites']} sites already "
+                        "accumulated."
+                    )
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
         callsets = self.source.search_callsets(conf.variant_set_id)
         self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
@@ -176,22 +216,27 @@ class VariantsPcaDriver:
         peak-RSS gauge (every read samples the OS's mark) and the static
         bound of this configuration, ``check/hostmem.py:
         conf_host_peak_bytes`` on the port's one device and one process,
-        as the reference's ``_register_host_memory_gauges`` resolves it.
-        Telemetry never takes down a run: if the resolver raises, the
-        runtime baseline is registered."""
+        as the reference's ``_register_host_memory_gauges`` resolves it,
+        over this device's runtime baseline (``runtime_baseline_bytes``:
+        measured here on the card, before any data is staged). Telemetry
+        never takes down a run: if the resolver raises, the runtime
+        baseline is registered."""
         if read_host_peak_rss_bytes() is not None:
             well_known_gauge(self.registry, HOST_PEAK_RSS_BYTES).set_function(
                 lambda: float(read_host_peak_rss_bytes() or 0)
             )
+        baseline = runtime_baseline_bytes(self.device)
         try:
             bound = conf_host_peak_bytes(
                 self.conf,
                 device_count=1,
                 num_samples=len(self.indexes) or None,
                 num_hosts=1,
+                baseline_bytes=baseline,
             )
         except Exception:
-            bound = HOST_RUNTIME_BASELINE_BYTES
+            bound = baseline
+        well_known_gauge(self.registry, HOST_BASELINE_RSS_BYTES).set(float(baseline))
         well_known_gauge(self.registry, HOST_STATIC_BOUND_BYTES).set(float(bound))
 
     # ------------------------------------------------------------------ data
@@ -340,6 +385,35 @@ class VariantsPcaDriver:
         self.accumulator = acc
         return acc
 
+    def _wrap_accumulator(self, acc):
+        """Interpose the checkpoint feeder between the ingest stream and a
+        fresh accumulator when checkpointing or resume is configured; the
+        accumulator itself otherwise. The feeder restores the persisted
+        partial into ``acc`` and fast-forwards the first
+        ``checkpoint_sites`` rows it is fed. (A resume flag with no complete
+        artifact yet still gets a feeder: it starts from zero and the
+        manifest says so.)"""
+        conf = self.conf
+        if conf.gramian_checkpoint_dir is None and conf.resume_from is None:
+            return acc
+        self.feeder = GramianFeeder(
+            acc,
+            directory=conf.gramian_checkpoint_dir,
+            every_sites=conf.checkpoint_every_sites,
+            fingerprint=self._ckpt_fingerprint,
+            resume=self._gramian_resume,
+            registry=self.registry,
+        )
+        return self.feeder
+
+    def _finish_checkpointing(self) -> None:
+        """End of ingest: the final snapshot (a crash between here and the
+        finalize resumes at O(1) re-ingest), then the ``driver.pre-finalize``
+        kill point — a no-op unless a fault plan names it."""
+        if self.feeder is not None:
+            self.feeder.finish()
+        faults.kill_point("driver.pre-finalize")
+
     def get_similarity_matrix(self, calls: Iterable[List[int]]) -> Similarity:
         """Similarity counts G = XᵀX from per-variant index rows
         (``VariantsPca.scala:210-231``, dense strategy): on the device, or
@@ -352,9 +426,10 @@ class VariantsPcaDriver:
         # pair-loop multiplicity, ``VariantsPca.scala:224-229``).
         ids = self.conf.variant_set_id
         accumulate_index_rows(
-            acc, calls, len(self.indexes), self.conf.block_size,
+            self._wrap_accumulator(acc), calls, len(self.indexes), self.conf.block_size,
             accumulate_duplicates=len(set(ids)) != len(ids),
         )
+        self._finish_checkpointing()
         return acc.finalize_device()
 
     def get_similarity_rows(
@@ -370,8 +445,10 @@ class VariantsPcaDriver:
                 matrix += X.T @ X
             return matrix.astype(np.float64)
         acc = self._dense_accumulator(pipeline_depth)
+        feed = self._wrap_accumulator(acc)
         for block in blocks:
-            acc.add_rows(block)
+            feed.add_rows(block)
+        self._finish_checkpointing()
         return acc.finalize_device()
 
     def get_similarity_device_gen(self, contigs) -> torch.Tensor:
@@ -525,8 +602,9 @@ def resolve_ingest(conf: PcaConf, source: GenomicsSource) -> Tuple[bool, bool]:
     (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): ``auto``
     takes device generation on the gpu backend with distinct synthetic
     variant sets, the packed arm for a single-set VCF that wants streaming,
-    and the wire arm otherwise; ``--save-variants`` forces the wire arm.
-    ``source`` is the run's source."""
+    and the wire arm otherwise; ``--save-variants`` forces the wire arm,
+    and Gramian checkpointing leaves device generation for the packed
+    (one set) or wire arm. ``source`` is the run's source."""
     synthetic_gpu = (
         conf.source == "synthetic" and not conf.input_path and conf.pca_backend == "gpu"
     )
@@ -586,6 +664,30 @@ def resolve_ingest(conf: PcaConf, source: GenomicsSource) -> Tuple[bool, bool]:
             )
         use_device = False
         use_packed = False
+    if conf.gramian_checkpoint_dir or conf.resume_from:
+        # Checkpoints snapshot the device accumulator against a host-fed,
+        # deterministically ordered row cursor: the host backend has no
+        # accumulator and device generation no host-side cursor.
+        if conf.pca_backend != "gpu":
+            raise ValueError(
+                "--gramian-checkpoint-dir/--resume-from checkpoint the "
+                "device accumulator; they need --pca-backend gpu"
+            )
+        if conf.ingest == "device":
+            raise ValueError(
+                "--ingest device has no host-fed row cursor to checkpoint "
+                "or resume; use --ingest packed or wire (or leave --ingest "
+                "auto, which falls back for checkpointed runs)"
+            )
+        if use_device:
+            single = len(conf.variant_set_id) == 1
+            print(
+                "Device ingest disabled for Gramian checkpointing (the "
+                "fused generator has no host-fed cursor); using "
+                + ("packed ingest." if single else "wire ingest.")
+            )
+            use_device = False
+            use_packed = single
     if use_device and not (synthetic_gpu and device_ok):
         raise ValueError(
             "--ingest device requires --source synthetic, --pca-backend gpu, "
@@ -726,16 +828,29 @@ def _similarity_stage(
     return driver.get_similarity_matrix(driver.iter_calls(driver.get_data()))
 
 
-def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
+def run_pipeline(
+    conf: PcaConf, device: DeviceLike = None, source: Optional[GenomicsSource] = None
+) -> PipelineResult:
     """The analysis, CLI-free: config in, result out, in the reference's
     order (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): the
-    heartbeat starts, the stages run under ``--profile-dir``'s device
-    trace, the rows and the stats print, then the stage report and the
-    manifest, built last so it snapshots what the epilogue printed. Runs on
-    ``device`` (default ``conf.device``); raises when a CUDA device is
-    asked for and none is present."""
+    fault plan is configured, the heartbeat starts, the stages run under
+    ``--profile-dir``'s device trace, the rows and the stats print, then the
+    stage report and the manifest, built last so it snapshots what the
+    epilogue printed. Runs on ``device`` (default ``conf.device``); raises
+    when a CUDA device is asked for and none is present. ``source``
+    replaces the one ``--source`` names (a REST source with its own
+    transport, say)."""
     check_ported(conf)
-    source = make_source(conf)
+    if conf.fault_plan is not None:
+        # The flag wins over the environment variable; configuring resets
+        # hit counts, so every run starts a fresh deterministic schedule.
+        faults.configure(conf.fault_plan)
+    else:
+        # Parse the environment's plan now: a typo'd site fails here, not
+        # at the first checkpoint of a whole-genome run.
+        faults.active()
+    if source is None:
+        source = make_source(conf)
     use_device, use_packed = resolve_ingest(conf, source)
     driver = VariantsPcaDriver(
         conf, source, device=conf.device if device is None else device
@@ -764,12 +879,23 @@ def run_pipeline(conf: PcaConf, device: DeviceLike = None) -> PipelineResult:
         print(f"Device trace written to {conf.profile_dir}.")
     manifest = manifest_path = None
     if conf.metrics_json:
+        resume = None
+        if driver.feeder is not None:
+            # Where this run started from (0 for a fresh checkpointed run),
+            # how much ingest the cursor fast-forwarded, and how many
+            # faults fired in-process.
+            resume = {
+                "checkpoint_sites": int(driver.feeder.checkpoint_sites),
+                "sites_skipped": int(driver.feeder.sites_skipped),
+                "faults_injected": int(faults.injected_count()),
+            }
         manifest = build_run_manifest(
             conf=conf,
             spans=driver.spans,
             registry=driver.registry,
             io_stats=driver.io_stats,
             overlap=driver.overlap,
+            resume=resume,
         )
         try:
             write_manifest(conf.metrics_json, manifest)

@@ -1,6 +1,7 @@
-"""Genomics sources: the synthetic 1000 Genomes cohort (``synthetic.py``)
-and local VCF/JSONL files (``files.py``, over the windowed readers of
-``stream.py``) behind the client/source interfaces of ``base.py``."""
+"""Genomics sources: the synthetic 1000 Genomes cohort (``synthetic.py``),
+local VCF/JSONL files (``files.py``, over the windowed readers of
+``stream.py``) and the REST backend (``rest.py``) behind the client/source
+interfaces of ``base.py``."""
 
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
 

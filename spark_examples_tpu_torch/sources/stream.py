@@ -17,8 +17,8 @@ stream.py``).
 - **Streaming k-way merge-join** (:func:`merge_join`): multi-set joins
   hold one key group at a time.
 
-The reference's read-fault injection point (``utils/faults.py``) waits for
-the port's fault plans; the windows read the file directly.
+Every window is read through the ``files.read`` fault point
+(``utils/faults.py``), as in the reference.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ from typing import (
 )
 
 import numpy as np
+
+from spark_examples_tpu_torch.utils import faults
 
 T = TypeVar("T")
 
@@ -158,7 +160,10 @@ def iter_byte_windows(path: str, window_bytes: int) -> Iterator[bytes]:
     carry = b""
     with open_binary(path) as f:
         while True:
-            data = f.read(window_bytes)
+            # Registered IO fault boundary (utils/faults.py): a plan entry
+            # can fail, truncate, or delay exactly one windowed read here —
+            # the reproducible stand-in for a failing disk.
+            data = faults.io_point("files.read", f.read(window_bytes))
             if not data:
                 break
             if carry:

@@ -59,8 +59,11 @@ def test_source_has_no_jax_or_reference_imports():
 
 #: Modules this test must cover, one per layer the slices added.
 EXPECTED_MODULES = (
+    "spark_examples_tpu_torch.analyses.base",
+    "spark_examples_tpu_torch.analyses.grm",
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.hostmem",
+    "spark_examples_tpu_torch.experiments.cli_wall",
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
     "spark_examples_tpu_torch.models.variant",
@@ -74,9 +77,14 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.pipeline.checkpoint",
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
+    "spark_examples_tpu_torch.pipeline.sitewriter",
     "spark_examples_tpu_torch.sources.files",
+    "spark_examples_tpu_torch.sources.rest",
     "spark_examples_tpu_torch.sources.stream",
+    "spark_examples_tpu_torch.utils.cache",
+    "spark_examples_tpu_torch.utils.faults",
     "spark_examples_tpu_torch.utils.native",
+    "spark_examples_tpu_torch.utils.retry",
     "spark_examples_tpu_torch.utils.sass",
     "spark_examples_tpu_torch.utils.tracing",
 )
@@ -144,7 +152,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert "Matrix size: 8." in out and "Variants API stats:" in out
 
 
-@pytest.mark.parametrize("verb", ["grm", "serve", "search-variants-brca1"])
+@pytest.mark.parametrize("verb", ["ld-prune", "serve", "search-variants-brca1"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
     from spark_examples_tpu_torch.cli import main
 
@@ -155,17 +163,12 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
 @pytest.mark.parametrize(
     "flags, named",
     [
-        (["--checkpoint-every-sites", "10"], "--checkpoint-every-sites"),
-        (["--fault-plan", "files.read:fail"], "--fault-plan"),
         (["--num-processes", "2"], "--num-processes"),
-        (["--resume-from", "ck"], "--resume-from"),
-        (["--gramian-checkpoint-dir", "ck"], "--gramian-checkpoint-dir"),
         (["--coordinator-address", "h:1"], "--coordinator-address"),
         (["--similarity-strategy", "sharded"], "--similarity-strategy sharded"),
         (["--mesh-shape", "1,2"], "--mesh-shape"),
         (["--trace-dir", "t"], "--trace-dir"),
         (["--reduce-schedule", "flat"], "--reduce-schedule"),
-        (["--source", "rest"], "--source"),
     ],
 )
 def test_unported_flags_raise_naming_the_flag(flags, named):
@@ -185,11 +188,17 @@ def test_unported_flags_raise_naming_the_flag(flags, named):
         ["--input-path", "ck"],
         ["--source", "file", "--input-files", "a.vcf.gz,b.jsonl"],
         ["--source", "file", "--input-files", "a.vcf", "--stream-chunk-bytes", "4096"],
+        ["--checkpoint-every-sites", "10"],
+        ["--resume-from", "ck"],
+        ["--gramian-checkpoint-dir", "ck"],
+        ["--fault-plan", "ioerror@files.read#2"],
+        ["--source", "rest"],
     ],
 )
 def test_ported_flags_parse(flags):
-    """The file source, variant checkpoints and run telemetry flags parse
-    with the reference's validation instead of raising."""
+    """The file and REST sources, variant and Gramian checkpoints, fault
+    plans and run telemetry flags parse with the reference's validation
+    instead of raising."""
     from spark_examples_tpu_torch.config import PcaConf
 
     conf = PcaConf.parse(flags + ["--device", "cpu"])
@@ -205,6 +214,8 @@ def test_ported_flags_parse(flags):
         (["--heartbeat-seconds", "-1"], "--heartbeat-seconds"),
         (["--source", "file", "--input-files", "a.vcf", "--num-samples", "3,4"],
          "synthetic-source-only"),
+        (["--fault-plan", "files.read:fail"], "is not action@site"),
+        (["--checkpoint-every-sites", "0"], "--checkpoint-every-sites"),
     ],
 )
 def test_ported_flags_validate_like_the_reference(flags, message):

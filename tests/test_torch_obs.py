@@ -383,9 +383,10 @@ BOUND_CASES = ("synthetic", "synthetic packed, block 2048, 3 workers", "syntheti
 @pytest.mark.parametrize("case", BOUND_CASES)
 def test_host_bound_equals_the_reference_at_one_device(tmp_path, capsys, case):
     """``conf_host_peak_bytes`` of both packages, integer for integer, at
-    one device (the port's), from the flag's cohort width and from the
-    discovered one; the port's driver registers that bound, and its
-    manifest records it with a ``hostmem`` conformance pair."""
+    one device (the port's) and the reference's runtime baseline, passed
+    explicitly, from the flag's cohort width and from the discovered one;
+    the port's driver on the CPU registers that bound, and its manifest
+    records it, its baseline, and a ``hostmem`` conformance pair."""
     from spark_examples_tpu.check.hostmem import conf_host_peak_bytes as ref_bound
     from spark_examples_tpu.config import PcaConf as RefPcaConf
     from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
@@ -393,7 +394,8 @@ def test_host_bound_equals_the_reference_at_one_device(tmp_path, capsys, case):
     argv = _bound_argvs(tmp_path)[case]
     conf, ref_conf = PcaConf.parse(argv), RefPcaConf.parse(argv)
     for n in (None, 5, 2504):
-        got = conf_host_peak_bytes(conf, device_count=1, num_samples=n)
+        got = conf_host_peak_bytes(conf, device_count=1, num_samples=n,
+                                   baseline_bytes=metrics.HOST_RUNTIME_BASELINE_BYTES)
         assert isinstance(got, int) and got == ref_bound(ref_conf, device_count=1, num_samples=n)
     path = tmp_path / "m.json"
     result = run_pipeline(PcaConf.parse(argv + ["--metrics-json", str(path)]), "cpu")
@@ -404,10 +406,27 @@ def test_host_bound_equals_the_reference_at_one_device(tmp_path, capsys, case):
     assert want > metrics.HOST_RUNTIME_BASELINE_BYTES
     doc = manifest.read_manifest(str(path))
     assert doc["host_memory"]["static_bound_bytes"] == want
+    assert doc["host_memory"]["runtime_baseline_bytes"] == metrics.HOST_RUNTIME_BASELINE_BYTES
     hostmem = doc["conformance"]["hostmem"]
     assert hostmem["proven"] == want and hostmem["ok"] is True
     assert hostmem["measured"] == int(doc["host_memory"]["peak_rss_bytes"])
     assert doc["conformance"]["sched"] is None and doc["conformance"]["ranges"] is None
+
+
+def test_runtime_baseline_is_the_reference_constant_on_the_cpu():
+    """The one device-dependent term: on the CPU the reference's 4 GiB;
+    a different baseline moves the bound by exactly the difference, every
+    data term staying the reference's."""
+    from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes, runtime_baseline_bytes
+
+    assert runtime_baseline_bytes("cpu") == metrics.HOST_RUNTIME_BASELINE_BYTES == 4 << 30
+    conf = PcaConf.parse(BASE + ["--ingest", "packed"])
+    default = conf_host_peak_bytes(conf, device_count=1)
+    assert default == conf_host_peak_bytes(
+        conf, device_count=1, baseline_bytes=metrics.HOST_RUNTIME_BASELINE_BYTES)
+    warm = 5_374_447_616
+    assert conf_host_peak_bytes(conf, device_count=1, baseline_bytes=warm) - default == (
+        warm - metrics.HOST_RUNTIME_BASELINE_BYTES)
 
 
 def test_both_manifests_carry_the_same_bound_and_conformance(tmp_path, capsys):
