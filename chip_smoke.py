@@ -11,8 +11,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    report printed), and the native VCF parser (``native/vcfparse.cpp``)
    with g++; the build's SASS (``cuobjdump``) must show 16-byte stores
    in the generation and unpack kernels, int8 warpgroup MMAs and TMA loads
-   in the product's kernel, bulk copies in the scratch copy's and 16-byte
-   loads and stores in the op chains'; then chr17 through the CLI in a
+   in the product's kernel, bulk copies in the scratch copy's, 16-byte
+   loads and stores in the op chains' and POPC in the association counts';
+   then chr17 through the CLI in a
    process of its own (started here, while this one is small), whose
    manifest's ``hostmem`` pair must hold: that process's peak RSS within
    the configuration's host-memory bound over the runtime baseline its
@@ -24,7 +25,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    counters; the product at both depths, on
    count-valued rows and at 130 and 13 samples; the unpack of host-fed
    blocks, bit-packed and count-valued, at 2,504 samples × 1,024 and
-   16,384 rows, each followed by the product; the six u32 op chains at
+   16,384 rows, each followed by the product; the association counts
+   (``case_counts``) at 2,504 samples × 1,024 and 16,384 rows, 13 and 130
+   samples and a ragged block, and the LD window product at 256 sites ×
+   2,504 samples and on a 37-site tail window; the six u32 op chains at
    (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
    the card's limit. Then CUDA-event times of each kernel, its plain
    version and, where one exists, the PyTorch library call computing the
@@ -55,7 +59,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. grm: the ``grm`` verb through the CLI's entry point over the packed
    window, synthetic and from its VCF, each kinship TSV byte-identical to
    the int64 oracle on the same rows, each manifest with its ``analysis``
-   block;
+   block; then ``ld-prune`` (windows of 256 sites, r² thresholds 0.2 and,
+   synthetic only, 0.002) and
+   ``assoc-scan`` (callset i a case when i is odd) the same way, each
+   ``--ld-out``/``--assoc-out`` TSV (and the printed top 10) byte-identical
+   to the oracle's walk over the same rows, the LD window product
+   (``unpack_rows_t`` then ``gram_accumulate``) launched once per window
+   and ``case_counts`` once per block;
 7. checkpoints: the packed window with a snapshot every 4,096 sites, plain
    and checkpointed (the seconds per save), then CLI processes killed by
    SIGKILL at ``driver.post-flush#2`` and ``checkpoint.mid-write#2``, each
@@ -84,6 +94,7 @@ result when no CUDA card is present or the port is not beside this file.
 from __future__ import annotations
 
 import contextlib
+import functools
 import glob
 import gzip
 import io
@@ -150,6 +161,7 @@ HOPPER_SASS = {
     "gram_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
     "scratch_copy_kernel": ("probes.cu", ("UBLKCP",), ()),
     "probe_op_chain_kernel": ("probes.cu", ("LDG.E.128", "STG.E.128"), ()),
+    "case_counts_kernel": ("ld.cu", ("POPC",), ()),
 }
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -175,6 +187,17 @@ GEN_OPS_PER_GENOTYPE = 12
 #: its SASS count is printed beside the bound.
 PROBE_OPS_PER_ITERATION = {"xor": 2, "shiftxor": 3, "cmp": 2, "mul": 1, "mul_i32": 1,
                            "fmix32": 9}
+#: The LD prune's defaults (--ld-window-sites, --ld-r2-threshold).
+LD_WINDOW = 256
+LD_THRESHOLD = 0.2
+#: A threshold that prunes on the synthetic cohort, whose sites are drawn
+#: independently (r² about 1/N between two sites, so none passes 0.2).
+LD_LOW_THRESHOLD = 0.002
+#: Sites of the LD tail window the kernels phase checks.
+LD_TAIL = 37
+#: u32 operations of the association counts per 32-bit word of a row: an
+#: and and two popc.
+CASE_COUNT_OPS_PER_WORD = 3
 #: |PC entry| tolerance between the subspace iteration and a full eigh of the
 #: same centered matrix: both in float32 on unit-norm components, with
 #: different starts; see PERF.md for the measured gap.
@@ -405,6 +428,107 @@ def phase_unpack(torch, devicegen, gramian, int32_rate):
     return row, times
 
 
+def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
+    """The two device programs of ``ld-prune`` and ``assoc-scan`` against
+    their plain versions, exactly: ``case_counts`` on blocks shipped as the
+    scan ships them (16-byte pitch) at 2,504 samples × 1,024 and 16,384
+    rows, at 13 and 130 samples, and on a ragged block; the LD window
+    product on the packed cell's first 256 sites and a 37-site tail.
+    Times with CUDA events beside the plain versions, the library calls and
+    the bounds; returns the JSON rows (``case_counts`` at the CLI's 1,024
+    rows, ``gram_accumulate`` at the LD window's shape)."""
+    from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    for n, rows in ((N_SAMPLES, CLI_BLOCK), (N_SAMPLES, BLOCK), (130, CLI_BLOCK),
+                    (13, CLI_BLOCK), (N_SAMPLES, 937)):
+        values = (rng.random((rows, n)) < 0.3).astype(np.uint8)
+        case = (np.arange(n) % 2).astype(np.uint8)
+        block, case_t = ld.pack_rows(values, dev), ld.pack_case(case, dev)
+        a, t = ld.case_counts(block, case_t, n)
+        a_p, t_p = ld.case_counts_plain(block, case_t, n)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, a_p) and torch.equal(t, t_p)):
+            raise AssertionError(f"case_counts != plain at N={n}, {rows} rows")
+        log(f"kernels: case_counts == plain (N={n}, {rows} rows, pitch {block.stride(0)}): "
+            f"{int(a.long().sum())} case carriers of {int(t.long().sum())}")
+
+    # The packed cell's first window (real cohort rows) and a tail window.
+    _, blocks = window_blocks(PACKED_ARGV[1])
+    first = next(blocks)["has_variation"]
+    for sites in (LD_WINDOW, LD_TAIL):
+        window = first[:sites]
+        packed = torch.from_numpy(ld.pack_window(window)).to(dev)
+        C = ld.window_counts(packed, sites)
+        C_p = torch.zeros_like(C)
+        devicegen.gram_accumulate_plain(C_p, gramian.unpack_rows_t_plain(packed, sites))
+        torch.cuda.synchronize()
+        if not torch.equal(C, C_p):
+            raise AssertionError(f"LD window product != plain at {sites} sites")
+        X = window.astype(np.float64)
+        if not np.array_equal(C.cpu().numpy(), (X @ X.T).astype(np.int64)):
+            raise AssertionError(f"LD window product != float64 BLAS at {sites} sites")
+        log(f"kernels: LD window product (unpack_rows_t, gram_accumulate) == plain at {sites} "
+            f"sites x {N_SAMPLES} samples: trace {int(C.diagonal().long().sum())}")
+
+    # Times at the main paths' shapes: the CLI's 1,024-row block at 2,504
+    # samples, and one full window of 256 sites.
+    n, width = N_SAMPLES, -(-N_SAMPLES // 8)
+    values = (rng.random((CLI_BLOCK, n)) < 0.3).astype(np.uint8)
+    case = (np.arange(n) % 2).astype(np.uint8)
+    block, case_t = ld.pack_rows(values, dev), ld.pack_case(case, dev)
+    Xf = torch.from_numpy(values).to(dev).float()
+    M = torch.stack([torch.from_numpy(case).to(dev).float(), torch.ones(n, device=dev)], dim=1)
+    words = CLI_BLOCK * -(-width // 4)
+    counts_row = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: ld.case_counts(block, case_t, n), 50),
+        plain_ms=cuda_ms(lambda: ld.case_counts_plain(block, case_t, n), 5, 1),
+        library_ms=cuda_ms(lambda: torch.matmul(Xf, M), 50),
+        # Reads the packed block and the case mask once, writes a and t.
+        bound=bound(CLI_BLOCK * width + width + 8 * CLI_BLOCK,
+                    words * CASE_COUNT_OPS_PER_WORD, int32_rate),
+    )
+    r = counts_row
+    log(f"kernels: case_counts at {CLI_BLOCK} rows x {n} samples: {r['ms']:.4f} ms (plain "
+        f"{r['plain_ms']:.4f} ms, torch.matmul of the unpacked float32 block by [case, 1] "
+        f"{r['library_ms']:.4f} ms, reading 8x the bytes; bound {r['bound'][0]:.6f} ms by "
+        f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+    window = first[:LD_WINDOW]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        ld.pack_window(window)
+    pack_ms = (time.perf_counter() - t0) / 20 * 1e3
+    packed = torch.from_numpy(ld.pack_window(window)).to(dev)
+    xt = gramian.unpack_rows_t(packed, LD_WINDOW)
+    C = torch.zeros((LD_WINDOW, LD_WINDOW), dtype=torch.int32, device=dev)
+    blocks_, resident = devicegen.gram_accumulate_grid(xt.shape[0], dev)
+    operand = xt.numel()
+    window_row = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: devicegen.gram_accumulate(C, xt), 50),
+        plain_ms=cuda_ms(lambda: devicegen.gram_accumulate_plain(C, xt), 5, 1),
+        library_ms=cuda_ms(lambda: torch._int_mm(xt, xt.t()), 50),
+        # Reads the int8 operand once and writes C; W·(W+1)·N operations
+        # of the symmetric product over the real samples.
+        bound=bound(operand + 4 * LD_WINDOW * LD_WINDOW,
+                    float(LD_WINDOW) * (LD_WINDOW + 1) * n, PEAK_INT8_OPS_PER_S),
+    )
+    unpack_ms = cuda_ms(lambda: gramian.unpack_rows_t(packed, LD_WINDOW), 50)
+    program_ms = cuda_ms(lambda: ld.window_counts(packed, LD_WINDOW), 50)
+    r = window_row
+    log(f"kernels: gram_accumulate at the LD window ({LD_WINDOW} sites x {n} samples, operand "
+        f"{tuple(xt.shape)}): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch._int_mm "
+        f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, "
+        f"{100 * r['bound'][0] / r['ms']:.2f} % of it); launch: {blocks_} blocks, {resident} "
+        f"resident, on {torch.cuda.get_device_properties(0).multi_processor_count} SMs; "
+        f"unpack_rows_t of the transposed packing {unpack_ms:.4f} ms; the program (unpack, "
+        f"zeroed C, product) {program_ms:.4f} ms; the host's transposed packing "
+        f"{pack_ms:.4f} ms")
+    return counts_row, window_row
+
+
 #: Chains of R steps compiled into each ``probe_op_chain_kernel``: the four
 #: of the vector loop and one scalar chain the ragged head and tail share.
 PROBE_CHAINS = 5
@@ -428,8 +552,9 @@ def check_hopper_sass(libs) -> None:
             raise AssertionError(f"SASS of {source} has no function named {kernel}")
         for name, opcodes in functions.items():
             found = sorted({op.split(".")[0] if "MMA" in op else op for op in opcodes
-                            if re.search(r"MMA|UTMA|UBLK|(LDG|STG).*\.128", op)})
-            log(f"sass: {name}: {', '.join(found) or 'no MMA, TMA, bulk-copy or 16-byte store opcode'}")
+                            if re.search(r"MMA|UTMA|UBLK|POPC|(LDG|STG).*\.128", op)})
+            log(f"sass: {name}: "
+                f"{', '.join(found) or 'no MMA, TMA, bulk-copy, POPC or 16-byte store opcode'}")
             missing = [op for op in wanted if not has(opcodes, op)]
             present = [op for op in banned if has(opcodes, op)]
             if missing or present:
@@ -662,6 +787,17 @@ def window_blocks(window: str):
     return names, blocks
 
 
+@functools.lru_cache(maxsize=None)
+def packed_cell():
+    """(callset names, positions, has-variation rows, block count) of the
+    packed cell's synthetic stream, generated once for the oracles of the
+    ``grm``, ``ld`` and ``assoc`` phases."""
+    names, blocks = window_blocks(PACKED_ARGV[1])
+    blocks = list(blocks)
+    return (names, np.concatenate([block["positions"] for block in blocks]),
+            np.concatenate([block["has_variation"] for block in blocks]), len(blocks))
+
+
 def write_cohort_vcf(window: str, path: Path, gz_path=None) -> int:
     """The CLI's synthetic cohort over ``window`` as a VCF: one line per
     variant row of the synthetic packed arm's blocks (``GT`` 0|1 where the
@@ -756,8 +892,7 @@ def phase_grm(torch, kernels):
     from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
 
     t0 = time.perf_counter()
-    names, blocks = window_blocks(PACKED_ARGV[1])
-    rows = np.concatenate([block["has_variation"] for block in blocks])
+    names, _, rows, _ = packed_cell()
     oracle = "".join("\t".join(map(str, row)) + "\n" for row in
                      [("name", *names), *format_grm_rows(names, grm_reference(rows, N_SAMPLES))])
     log(f"grm: oracle over {rows.shape[0]} rows x {rows.shape[1]} samples in "
@@ -794,6 +929,179 @@ def phase_grm(torch, kernels):
             raise AssertionError(f"grm {label}: the kinship differs from the int64 oracle's")
         log(f"grm {label}: kinship TSV ({out.stat().st_size} bytes) byte-identical to the "
             f"oracle's; analysis block {doc['analysis']}")
+
+
+def run_cli(torch, kernels, argv, label):
+    """``cli.main(argv)`` with every launch count set to 0 just before:
+    (wall seconds, launches, printed lines); every printed line is logged."""
+    from spark_examples_tpu_torch import cli
+
+    reset_counts(kernels)
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"{label}: exit code {rc}")
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        if line.strip():
+            log(f"{label} | {line}")
+    return wall, {k.__name__: k.launches for k in kernels}, lines
+
+
+def analysis_sources(label):
+    """The packed cell's argv from the synthetic source or from the file
+    phase's VCF of the same rows."""
+    if label == "synthetic":
+        return PACKED_ARGV[:4]
+    return ["--source", "file", "--input-files", str(DATA_DIR / "packed_window.vcf"),
+            "--references", PACKED_ARGV[1]]
+
+
+def check_analysis_manifest(path, want_block, label) -> dict:
+    """The manifest valid with ``want_block`` as its ``analysis`` block;
+    returns its spans by path."""
+    from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
+
+    doc = read_manifest(str(path))
+    problems = validate_manifest(doc)
+    if problems or doc["analysis"] != want_block:
+        raise AssertionError(f"{label}: manifest problems {problems}, analysis "
+                             f"{doc['analysis']} (want {want_block})")
+
+    def walk(spans, prefix):
+        for span in spans:
+            name = f"{prefix}/{span['name']}" if prefix else span["name"]
+            yield name, span["seconds"]
+            yield from walk(span["children"], name)
+
+    return dict(walk(doc["spans"], ""))
+
+
+def count_blocks(argv) -> int:
+    """The blocks an analysis streams for ``argv`` (its source's
+    ``genotype_blocks`` over its partitions)."""
+    from spark_examples_tpu_torch.analyses.base import AnalysisContext
+    from spark_examples_tpu_torch.config import PcaConf
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return sum(1 for _ in AnalysisContext(PcaConf.parse(argv), "assoc").blocks())
+
+
+def phase_ld(torch, kernels):
+    """``ld-prune`` through the CLI's entry point over the packed cell at
+    its defaults (windows of 256 sites, r² > 0.2 pruned), synthetic and
+    from the file phase's VCF, then synthetic at r² > 0.002 (the synthetic
+    sites are drawn independently, so 0.2 prunes none of them and 0.002
+    prunes most): each ``--ld-out`` TSV byte-identical to the
+    oracle, ``ld_prune_reference``'s walk with its counts from float64 BLAS
+    (exact below 2^53; NumPy's int64 product has no BLAS path); each
+    manifest valid with its ``analysis`` block; ``unpack_rows_t`` and
+    ``gram_accumulate`` launched once per window, ``case_counts`` never.
+    Returns the synthetic run's launches."""
+    from spark_examples_tpu_torch.ops.ld import greedy_prune
+
+    t0 = time.perf_counter()
+    _, positions, rows, _ = packed_cell()
+    counts = []
+    for lo in range(0, len(rows), LD_WINDOW):
+        X = rows[lo:lo + LD_WINDOW]
+        Xf = X.astype(np.float64)
+        counts.append(((Xf @ Xf.T).astype(np.int64), X.sum(axis=1)))
+    windows = len(counts)
+    oracles = {}
+    for threshold in (LD_THRESHOLD, LD_LOW_THRESHOLD):
+        kept = np.concatenate([greedy_prune(C, k, N_SAMPLES, threshold) for C, k in counts])
+        text = "".join(f"17\t{int(p)}\t{int(m)}\n" for p, m in zip(positions, kept))
+        oracles[threshold] = ("contig\tpos\tkept\n" + text, int(kept.sum()))
+    log(f"ld: oracle over {rows.shape[0]} rows x {rows.shape[1]} samples, {windows} windows, "
+        f"{oracles[LD_THRESHOLD][1]} kept at r² > {LD_THRESHOLD} pruned, "
+        f"{oracles[LD_LOW_THRESHOLD][1]} at > {LD_LOW_THRESHOLD}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    result = None
+    for label, threshold in (("synthetic", LD_THRESHOLD), ("file", LD_THRESHOLD),
+                             ("synthetic", LD_LOW_THRESHOLD)):
+        oracle, kept_total = oracles[threshold]
+        want_block = {"kind": "ld", "sites_kept": kept_total, "sites_tested": int(rows.shape[0])}
+        tag = f"{label}_{threshold}"
+        out, manifest = DATA_DIR / f"ld_kept_{tag}.tsv", DATA_DIR / f"manifest_ld_{tag}.json"
+        flags = [] if threshold == LD_THRESHOLD else ["--ld-r2-threshold", str(threshold)]
+        wall, launches, _ = run_cli(torch, kernels, ["ld-prune", *analysis_sources(label), *flags,
+                                                     "--ld-out", str(out), "--metrics-json",
+                                                     str(manifest)], f"ld {label}")
+        label = f"{label} at r² > {threshold}"
+        spans = check_analysis_manifest(manifest, want_block, f"ld {label}")
+        log(f"ld {label}: wall {wall:.4f} s, spans {json.dumps(spans)}, launches "
+            f"{json.dumps(launches)}")
+        if (launches["unpack_rows_t"], launches["gram_accumulate"], launches["case_counts"]) != (
+                windows, windows, 0):
+            raise AssertionError(f"ld {label}: launches {launches}, {windows} windows")
+        if out.read_text() != oracle:
+            raise AssertionError(f"ld {label}: the kept mask differs from the oracle's")
+        log(f"ld {label}: kept-mask TSV ({out.stat().st_size} bytes) byte-identical to the "
+            f"oracle's; analysis block {want_block}")
+        result = result or launches
+    return result
+
+
+def phase_assoc(torch, kernels):
+    """``assoc-scan`` through the CLI's entry point over the packed cell,
+    synthetic and from the file phase's VCF, the phenotypes written as
+    ``bench.py`` writes them (callset i has status i % 2): each
+    ``--assoc-out`` TSV and the printed top 10 byte-identical to the
+    oracle's (``case_counts_reference`` and ``chi2_from_counts`` over the
+    same rows, ranked by χ² then stream order); each manifest valid;
+    ``case_counts`` launched once per block. Returns the synthetic run's
+    launches."""
+    from spark_examples_tpu_torch.analyses.assoc import chi2_from_counts
+    from spark_examples_tpu_torch.ops.ld import case_counts_reference
+
+    t0 = time.perf_counter()
+    names, positions, rows, n_blocks = packed_cell()
+    phenotypes = DATA_DIR / "phenotypes.tsv"
+    phenotypes.write_text("".join(f"{name}\t{i % 2}\n" for i, name in enumerate(names)))
+    case = (np.arange(len(names)) % 2).astype(np.uint8)
+    n_cases = int(case.sum())
+    a, t = case_counts_reference(rows, case)
+    chi2 = chi2_from_counts(a, t, n_cases, len(names) - n_cases)
+    lines, ranked = ["contig\tpos\tcase_carriers\tcarriers\tchi2"], []
+    for p, a_i, t_i, c in zip(positions, a, t, chi2):
+        lines.append(f"17\t{int(p)}\t{int(a_i)}\t{int(t_i)}\t{float(c)!r}")
+        ranked.append((float(c), -len(ranked), int(p), int(a_i), int(t_i)))
+    oracle = "\n".join(lines) + "\n"
+    top = [f"17\t{p}\t{a_i}\t{t_i}\t{c:.6g}" for c, _, p, a_i, t_i in sorted(ranked)[::-1][:10]]
+    log(f"assoc: oracle over {len(ranked)} rows, {n_blocks} blocks, {n_cases} cases, in "
+        f"{time.perf_counter() - t0:.1f} s; top chi2 {top[0]!r}")
+    want_block = {"kind": "assoc", "sites_kept": None, "sites_tested": len(ranked)}
+    result = None
+    for label in ("synthetic", "file"):
+        out = DATA_DIR / f"assoc_scan_{label}.tsv"
+        manifest = DATA_DIR / f"manifest_assoc_{label}.json"
+        wall, launches, printed = run_cli(
+            torch, kernels, ["assoc-scan", *analysis_sources(label), "--phenotypes",
+                             str(phenotypes), "--assoc-out", str(out), "--metrics-json",
+                             str(manifest)], f"assoc {label}")
+        spans = check_analysis_manifest(manifest, want_block, f"assoc {label}")
+        log(f"assoc {label}: wall {wall:.4f} s, spans {json.dumps(spans)}, launches "
+            f"{json.dumps(launches)}")
+        blocks_run = launches["case_counts"]
+        blocks_streamed = count_blocks(analysis_sources(label))
+        if blocks_run != blocks_streamed or (label == "synthetic" and blocks_run != n_blocks):
+            raise AssertionError(f"assoc {label}: case_counts launches {launches}, "
+                                 f"{blocks_streamed} blocks streamed")
+        start = printed.index(f"Association scan: {len(ranked)} sites tested.") + 1
+        if printed[start:start + 10] != top:
+            raise AssertionError(f"assoc {label}: top 10 {printed[start:start + 10]} != {top}")
+        if out.read_text() != oracle:
+            raise AssertionError(f"assoc {label}: the scan differs from the oracle's")
+        log(f"assoc {label}: scan TSV ({out.stat().st_size} bytes) and top 10 byte-identical "
+            f"to the oracle's; case_counts launched {blocks_run} times over its blocks")
+        result = result or launches
+    return result
 
 
 def phase_checkpoint(torch, kernels):
@@ -1033,7 +1341,7 @@ def main() -> int:
     try:
         from spark_examples_tpu_torch.constants import GoogleGenomicsPublicData
         from spark_examples_tpu_torch.experiments import probe_ops, vmem_capacity
-        from spark_examples_tpu_torch.ops import _kernels, devicegen, gramian
+        from spark_examples_tpu_torch.ops import _kernels, devicegen, gramian, ld
         from spark_examples_tpu_torch.utils import native
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -1064,10 +1372,12 @@ def main() -> int:
     int32_rate = int32_ops_per_s(torch)
     rows = phase_kernels(torch, devicegen)
     rows["unpack_rows_t"], _ = phase_unpack(torch, devicegen, gramian, int32_rate)
+    rows["case_counts"], rows["gram_accumulate_ld_window"] = phase_ld_kernels(
+        torch, devicegen, gramian, ld, int32_rate)
     per_op, rows["scratch_copy"] = phase_probe_kernels(
         torch, probe_ops, vmem_capacity, int32_rate, libs["probes.cu"])
 
-    path_kernels = devicegen.KERNELS + gramian.KERNELS
+    path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS
     # The first run in a process also pays the CUDA libraries' lazy set-up
     # (the eigensolve's first cuSOLVER call); the second is the warm time.
     device_path = ("gen_genotypes", "gram_accumulate")
@@ -1092,6 +1402,8 @@ def main() -> int:
     launches["unpack_rows_t"] = packed["unpack_rows_t"]
     phase_files(torch, path_kernels, host_fed, packed_g, wire_g)
     phase_grm(torch, path_kernels)
+    launches["gram_accumulate_ld_window"] = phase_ld(torch, path_kernels)["gram_accumulate"]
+    launches["case_counts"] = phase_assoc(torch, path_kernels)["case_counts"]
     phase_checkpoint(torch, path_kernels)
     phase_rest(torch, path_kernels, wire_g)
     phase_telemetry(torch, path_kernels)
@@ -1121,6 +1433,10 @@ def main() -> int:
          "experiments/probe_ops.py:37"),
         ("scratch_copy", "spark_examples_tpu_torch/csrc/probes.cu",
          "experiments/vmem_capacity.py:5"),
+        ("case_counts", "spark_examples_tpu_torch/csrc/ld.cu",
+         "spark_examples_tpu/ops/ld.py:161"),
+        ("gram_accumulate_ld_window", "spark_examples_tpu_torch/csrc/devicegen.cu",
+         "spark_examples_tpu/ops/ld.py:48"),
     ):
         r = rows[name]
         kernels.append({

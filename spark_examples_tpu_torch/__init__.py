@@ -6,7 +6,9 @@ flagship ``variants-pca`` pipeline on one NVIDIA Hopper card: the synthetic
 the synthetic cohort or VCF/JSONL files are fed from the host as packed
 blocks or wire records (``csrc/gramian.cu`` unpacks them), the Gramian
 accumulated by hand-written CUDA kernels, then centered and
-eigendecomposed with PyTorch; ``api.py`` exposes the stages.
+eigendecomposed with PyTorch; ``api.py`` exposes the stages. The
+``grm``, ``ld-prune`` and ``assoc-scan`` analyses (``analyses/``) run on
+the same kernels and on ``csrc/ld.cu``.
 It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU

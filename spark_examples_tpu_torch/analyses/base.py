@@ -11,11 +11,10 @@ manifest epilogue:
   variant set, a synthetic or file source, no PCA-only flags;
 - :func:`iter_site_blocks` — the contig-ordered block stream with the
   standard ingest accounting;
+- :class:`AnalysisContext` — the LD prune's and association scan's
+  subset of the driver: source, cohort, telemetry and the run's device;
 - :func:`finish_analysis_run` — the manifest epilogue with the
   ``analysis`` block and the ``analysis.pre-manifest`` kill point.
-
-The reference's ``AnalysisContext`` (the LD and association scans' driver
-subset) comes with those analyses.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
 from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_manifest
 from spark_examples_tpu_torch.obs.metrics import (
     ANALYSIS_SITES_KEPT,
@@ -34,12 +34,14 @@ from spark_examples_tpu_torch.obs.metrics import (
     INGEST_SITES_SCANNED,
     well_known_gauge,
 )
+from spark_examples_tpu_torch.pipeline.pca_driver import make_source
+from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
 from spark_examples_tpu_torch.sources import partition_page_requests
 from spark_examples_tpu_torch.utils import faults
+from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device
 
-#: The analysis kinds of the reference (``grm`` is ported; ``ld`` and
-#: ``assoc`` keep their codes here so the violations catalogue is whole).
+#: The analysis kinds of the reference.
 ANALYSIS_KINDS = ("grm", "ld", "assoc")
 
 
@@ -160,6 +162,51 @@ def cohort_sample_names(indexes: Dict[str, int], names: Dict[str, str]) -> List[
     return [names[reverse[i]] for i in range(len(indexes))]
 
 
+class AnalysisContext:
+    """Source + callsets + telemetry + device for the per-site analyses.
+
+    The reference's ``AnalysisContext``: a subset of ``VariantsPcaDriver``,
+    since LD and assoc have no N×N accumulator. They need the shared
+    plumbing (cohort discovery, partitioning, registry, spans and stats)
+    but none of the similarity machinery. Where the reference resolves a
+    mesh, the port resolves the run's one ``torch.device`` (``device``,
+    default ``conf.device``; a CUDA request without a card raises).
+    """
+
+    def __init__(self, conf, kind: str, device: DeviceLike = None):
+        check_analysis_conf(conf, kind)
+        self.conf = conf
+        self.kind = kind
+        self.device = resolve_device(conf.device if device is None else device)
+        self.source = make_source(conf)
+        self.registry = MetricsRegistry()
+        self.spans = SpanRecorder()
+        self.io_stats = VariantsDatasetStats(self.registry)
+        callsets = self.source.search_callsets(conf.variant_set_id)
+        self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
+        self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
+        self.num_samples = len(self.indexes)
+        if self.num_samples < 1:
+            raise ValueError(
+                f"the {kind} analysis found an empty cohort for variant "
+                f"set {conf.variant_set_id[0]!r}"
+            )
+        print(f"Cohort size: {self.num_samples}.")
+
+    def sample_names(self) -> List[str]:
+        """Callset names in column order (cohort order, not the PCA emit's
+        name-sorted order)."""
+        return cohort_sample_names(self.indexes, self.names)
+
+    def partitions(self):
+        return analysis_partitions(self.conf, self.source)
+
+    def blocks(self) -> Iterator[Tuple[str, Dict[str, np.ndarray]]]:
+        return iter_site_blocks(
+            self.conf, self.source, self.partitions(), self.io_stats, self.registry
+        )
+
+
 def finish_analysis_run(
     conf,
     kind: str,
@@ -207,6 +254,7 @@ def finish_analysis_run(
 
 __all__ = [
     "ANALYSIS_KINDS",
+    "AnalysisContext",
     "analysis_conf_violations",
     "analysis_partitions",
     "check_analysis_conf",

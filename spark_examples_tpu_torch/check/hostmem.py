@@ -218,7 +218,7 @@ def conf_host_peak_bytes(
       journal directory's parts (sizes from disk when statable, the
       geometry ceiling otherwise).
     """
-    from spark_examples_tpu_torch.config import GrmConf
+    from spark_examples_tpu_torch.config import AssocConf, GrmConf, LdConf
     from spark_examples_tpu_torch.parallel.mesh import (
         HOST_RUNTIME_BASELINE_BYTES,
         host_peak_bytes,
@@ -289,13 +289,16 @@ def conf_host_peak_bytes(
         chunk_bytes=chunk_bytes,
         prefetch_depth=prefetch_depth,
         pipeline_depth=pipeline_depth,
-        # The host-oracle N×N accumulator exists where the run builds a
-        # Gramian on the host (--pca-backend host); the GRM finalize's N×N
-        # host matrices only on the grm verb. The LD window term belongs
-        # to ld-prune, not ported yet.
-        host_accumulator=host_backend,
+        # The host-oracle N×N accumulator exists only where the run builds
+        # a Gramian (PCA, and GRM whose device work is the Gramian); LD and
+        # assoc under --pca-backend host run O(window) NumPy oracles. The
+        # GRM finalize's N×N host matrices belong to the grm verb, the W×W
+        # per-window working set to ld-prune.
+        host_accumulator=host_backend and not isinstance(conf, (LdConf, AssocConf)),
         grm_finalize=isinstance(conf, GrmConf),
-        ld_window_sites=0,
+        ld_window_sites=(
+            int(getattr(conf, "ld_window_sites", 0) or 0) if isinstance(conf, LdConf) else 0
+        ),
         num_hosts=int(num_hosts),
         wire_table_bytes=wire_table_bytes,
         merge_join_bytes=merge_join_bytes,

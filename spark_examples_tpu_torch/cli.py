@@ -1,10 +1,14 @@
-"""Command-line entry point: the ``variants-pca`` and ``grm`` verbs, with
-the JAX package's flag grammar plus ``--device``:
+"""Command-line entry point: the ``variants-pca``, ``grm``, ``ld-prune`` and
+``assoc-scan`` verbs, with the JAX package's flag grammar plus ``--device``:
 
     python -m spark_examples_tpu_torch variants-pca --references 17:41196311:41277499
     python -m spark_examples_tpu_torch variants-pca --num-samples 16 --device cpu
     python -m spark_examples_tpu_torch grm --num-samples 64 \
         --references 1:0:400000 --grm-out kinship.tsv
+    python -m spark_examples_tpu_torch ld-prune --references 17:41196311:43196311 \
+        --ld-window-sites 256 --ld-r2-threshold 0.2 --ld-out kept.tsv
+    python -m spark_examples_tpu_torch assoc-scan --references 17:41196311:43196311 \
+        --phenotypes phenotypes.tsv --assoc-out scan.tsv --assoc-top 10
 
 File-backed runs (``--source file``) parse VCF inputs through the
 chunk-parallel native parser; ``--ingest-workers N`` sizes its thread pool
@@ -38,14 +42,12 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from spark_examples_tpu_torch.analyses import grm
+from spark_examples_tpu_torch.analyses import assoc, grm, ld
 from spark_examples_tpu_torch.pipeline import pca_driver
 
 #: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
 #: the port does not run yet.
 NOT_PORTED = (
-    "ld-prune",
-    "assoc-scan",
     "graftcheck",
     "serve",
     "submit",
@@ -61,7 +63,12 @@ NOT_PORTED = (
 
 
 #: The ported verbs.
-COMMANDS = {"variants-pca": pca_driver.run, "grm": grm.run}
+COMMANDS = {
+    "variants-pca": pca_driver.run,
+    "grm": grm.run,
+    "ld-prune": ld.run,
+    "assoc-scan": assoc.run,
+}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

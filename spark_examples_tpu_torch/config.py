@@ -17,7 +17,9 @@ source's (wire), variant checkpoints (``--save-variants``,
 ``--resume-from``), fault plans (``--fault-plan``) and the run's telemetry
 (``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), dense
 strategy, one device; :class:`GrmConf` adds the ``grm`` verb's
-``--grm-out``. A flag that belongs to any other path raises
+``--grm-out``, :class:`LdConf` the ``ld-prune`` verb's ``--ld-*`` flags and
+:class:`AssocConf` the ``assoc-scan`` verb's ``--phenotypes`` and
+``--assoc-*``. A flag that belongs to any other path raises
 :class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
 is never silently ignored.
 """
@@ -361,6 +363,50 @@ def build_grm_parser(
     return p
 
 
+def build_ld_parser(
+    parser: Optional[argparse.ArgumentParser] = None,
+) -> argparse.ArgumentParser:
+    """``ld-prune`` verb flags (``spark_examples_tpu/config.py:
+    build_ld_parser``): windowed r² pruning over contig-ordered sites."""
+    p = build_pca_parser(parser)
+    p.add_argument("--ld-r2-threshold", type=float, default=0.2,
+                   help="Prune a site whose r² with any previously-kept site in "
+                   "its window is STRICTLY greater than this (greedy, contig "
+                   "order; must be in [0, 1]).")
+    p.add_argument("--ld-window-sites", type=int, default=256,
+                   help="Sites per pruning window (>= 2). Windows are "
+                   "contig-ordered and independent; the device computes one "
+                   "W×W co-carrier matrix per window, so host and device "
+                   "memory cost is O(W²), never O(M).")
+    p.add_argument("--ld-out", default=None, metavar="PATH",
+                   help="Write the per-site kept mask as a TSV (contig, pos, "
+                   "kept 0/1), streamed window by window (bounded host memory, "
+                   "atomic publish). Unset: only the kept/tested counts are "
+                   "printed.")
+    return p
+
+
+def build_assoc_parser(
+    parser: Optional[argparse.ArgumentParser] = None,
+) -> argparse.ArgumentParser:
+    """``assoc-scan`` verb flags (``spark_examples_tpu/config.py:
+    build_assoc_parser``): per-site case/control chi-square."""
+    p = build_pca_parser(parser)
+    p.add_argument("--phenotypes", default=None, metavar="TSV",
+                   help="REQUIRED: two-column TSV (sample name, status "
+                   "0=control/1=case; '#' comment lines skipped) covering "
+                   "every cohort sample by its callset name.")
+    p.add_argument("--assoc-out", default=None, metavar="PATH",
+                   help="Write the per-site scan as a TSV (contig, pos, case "
+                   "carriers, total carriers, chi2), streamed block by block "
+                   "(bounded host memory, atomic publish). Unset: only the "
+                   "top-ranked sites are printed.")
+    p.add_argument("--assoc-top", type=int, default=10,
+                   help="How many top-chi² sites to print (and return) — a "
+                   "bounded heap, so the ranking never holds O(M) rows on host.")
+    return p
+
+
 @dataclass
 class GrmConf(PcaConf):
     """``grm`` flags: allele-frequency-standardized kinship (VanRaden)."""
@@ -372,4 +418,64 @@ class GrmConf(PcaConf):
         return cls._from_namespace(build_grm_parser().parse_args(list(argv)))
 
 
-__all__ = ["GrmConf", "PcaConf", "build_grm_parser", "build_pca_parser", "check_ported"]
+@dataclass
+class LdConf(PcaConf):
+    """``ld-prune`` flags: windowed LD r² pruning."""
+
+    ld_r2_threshold: float = 0.2
+    ld_window_sites: int = 256
+    ld_out: Optional[str] = None
+
+    @classmethod
+    def parse(cls, argv: Sequence[str]) -> "LdConf":
+        return cls._from_namespace(build_ld_parser().parse_args(list(argv)))
+
+    @classmethod
+    def _from_namespace(cls, ns: argparse.Namespace) -> "LdConf":
+        conf = super()._from_namespace(ns)
+        # Parse-time rejects, the reference's words: a threshold outside
+        # [0, 1] silently keeps or prunes everything, a window below 2 has
+        # nothing to correlate.
+        if not (0.0 <= conf.ld_r2_threshold <= 1.0):
+            raise ValueError(
+                f"--ld-r2-threshold must be in [0, 1], got "
+                f"{conf.ld_r2_threshold}"
+            )
+        if conf.ld_window_sites < 2:
+            raise ValueError(
+                f"--ld-window-sites must be >= 2, got {conf.ld_window_sites}"
+            )
+        return conf
+
+
+@dataclass
+class AssocConf(PcaConf):
+    """``assoc-scan`` flags: per-site case/control chi-square."""
+
+    phenotypes: Optional[str] = None
+    assoc_out: Optional[str] = None
+    assoc_top: int = 10
+
+    @classmethod
+    def parse(cls, argv: Sequence[str]) -> "AssocConf":
+        return cls._from_namespace(build_assoc_parser().parse_args(list(argv)))
+
+    @classmethod
+    def _from_namespace(cls, ns: argparse.Namespace) -> "AssocConf":
+        conf = super()._from_namespace(ns)
+        if conf.assoc_top < 1:
+            raise ValueError(f"--assoc-top must be >= 1, got {conf.assoc_top}")
+        return conf
+
+
+__all__ = [
+    "AssocConf",
+    "GrmConf",
+    "LdConf",
+    "PcaConf",
+    "build_assoc_parser",
+    "build_grm_parser",
+    "build_ld_parser",
+    "build_pca_parser",
+    "check_ported",
+]

@@ -12,9 +12,9 @@ host rss peak 1.2 GiB/4.0 GiB bound; device mem 0.2/79.1 GiB
 Segments appear only when their metric exists, so every ingest arm
 (device generation, packed, streamed, wire) gets an honest subset. Enabled
 by ``--heartbeat-seconds N`` (0 = off, the default). The port samples the
-reference's ingest, prefetch, dispatch and host-memory segments; its
-serving, ring, analysis, cost and compile-cache segments wait for those
-layers. Device memory is ``torch.cuda.memory_allocated`` against the card's
+reference's ingest, prefetch, dispatch, analysis (the LD prune's ``analysis
+kept K/T sites``) and host-memory segments; its serving, ring, cost and
+compile-cache segments wait for those layers. Device memory is ``torch.cuda.memory_allocated`` against the card's
 total memory.
 
 ``stop()`` is idempotent and joins the thread: the driver stops it in a
@@ -30,6 +30,8 @@ import time
 from typing import Callable, Optional
 
 from spark_examples_tpu_torch.obs.metrics import (
+    ANALYSIS_SITES_KEPT,
+    ANALYSIS_SITES_TESTED,
     GRAMIAN_INFLIGHT_DISPATCHES,
     HOST_PEAK_RSS_BYTES,
     HOST_RUNTIME_BASELINE_BYTES,
@@ -192,6 +194,16 @@ class Heartbeat:
         in_flight = self.registry.value(GRAMIAN_INFLIGHT_DISPATCHES)
         if in_flight is not None:
             parts.append(f"dispatch in-flight {int(in_flight)}")
+
+        # Per-site analysis progress (the LD prune): kept vs tested,
+        # advanced per flushed window. The tested count alone would repeat
+        # the sites-scanned segment, so the pair appears only once a
+        # pruning analysis registers its kept gauge.
+        kept = self.registry.value(ANALYSIS_SITES_KEPT)
+        if kept is not None and kept == kept:
+            tested = self.registry.value(ANALYSIS_SITES_TESTED)
+            if tested is not None and tested == tested:
+                parts.append(f"analysis kept {int(kept):,}/{int(tested):,} sites")
 
         # Host memory: each tick samples the function-backed peak-RSS
         # gauge, shown against the registered bound (the runtime baseline

@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("devicegen.cu", "gramian.cu", "probes.cu")
+SOURCES = ("devicegen.cu", "gramian.cu", "ld.cu", "probes.cu")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -57,6 +57,11 @@ _SIGNATURES = {
         # in, rows, in_width, n_cols, packed, xt, n_pad, ld, stream
         "unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P),
         "gramian_tile_sites": (),
+    },
+    "ld.cu": {
+        # in, rows, width, pitch, words, case, n_cols, a, t, stream
+        "case_counts_launch": (_P, _I32, _I32, _I64, _I32, _P, _I32, _P, _P, _P),
+        "case_counts_max_width": (),
     },
     "probes.cu": {
         "probe_op_chain_launch": (_P, _P, _I64, _I32, _P),  # in, out, n, op, stream

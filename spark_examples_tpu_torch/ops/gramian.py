@@ -96,19 +96,22 @@ def _packed_width(num_columns: int) -> int:
     return -(-int(num_columns) // 8)
 
 
+def unpack_bits(packed: torch.Tensor, num_columns: int) -> torch.Tensor:
+    """Bit-packed bytes (np.packbits' big-endian order, as
+    ``_unpack_bits``) along the last axis as int32 {0,1} columns, the bits
+    past ``num_columns`` dropped."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[..., None] >> shifts) & 1
+    return bits.reshape(*packed.shape[:-1], -1)[..., :num_columns]
+
+
 def unpack_rows_t_plain(
     block: torch.Tensor, num_columns: int, counts: bool = False
 ) -> torch.Tensor:
     """Plain version of :func:`unpack_rows_t`: shifts and masks in PyTorch
-    (np.packbits' big-endian bit order, as ``_unpack_bits``), transposed
-    into a zero-padded int8 Xᵀ."""
+    (:func:`unpack_bits`), transposed into a zero-padded int8 Xᵀ."""
     rows = block.shape[0]
-    if counts:
-        X = block[:, :num_columns]
-    else:
-        shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=block.device)
-        bits = (block.to(torch.int32)[..., None] >> shifts) & 1
-        X = bits.reshape(rows, -1)[:, :num_columns]
+    X = block[:, :num_columns] if counts else unpack_bits(block, num_columns)
     xt = torch.zeros(
         (_round_up(num_columns, COL_TILE), _round_up(max(rows, 1), SITE_TILE)),
         dtype=torch.int8,

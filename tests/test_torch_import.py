@@ -59,8 +59,10 @@ def test_source_has_no_jax_or_reference_imports():
 
 #: Modules this test must cover, one per layer the slices added.
 EXPECTED_MODULES = (
+    "spark_examples_tpu_torch.analyses.assoc",
     "spark_examples_tpu_torch.analyses.base",
     "spark_examples_tpu_torch.analyses.grm",
+    "spark_examples_tpu_torch.analyses.ld",
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.hostmem",
     "spark_examples_tpu_torch.experiments.cli_wall",
@@ -73,6 +75,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.devicegen",
     "spark_examples_tpu_torch.ops.gramian",
+    "spark_examples_tpu_torch.ops.ld",
     "spark_examples_tpu_torch.parallel.mesh",
     "spark_examples_tpu_torch.pipeline.checkpoint",
     "spark_examples_tpu_torch.pipeline.datasets",
@@ -152,7 +155,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert "Matrix size: 8." in out and "Variants API stats:" in out
 
 
-@pytest.mark.parametrize("verb", ["ld-prune", "serve", "search-variants-brca1"])
+@pytest.mark.parametrize("verb", ["graftcheck", "serve", "search-variants-brca1"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
     from spark_examples_tpu_torch.cli import main
 

@@ -360,3 +360,74 @@ def test_probe_kernels_equal_plain_versions_on_the_card():
         vmem_capacity.scratch_copy(tile, vmem_capacity.MIN_BYTES - 1)
     assert vmem_capacity.scratch_copy(tile, limit + 1) is None
     assert torch.equal(vmem_capacity.scratch_copy(tile, limit), tile)  # still usable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pitch", ["16-byte", "odd", "contiguous"])
+@pytest.mark.parametrize("rows", [1, 37, 1024, 16384])
+@pytest.mark.parametrize("n", [13, 130, 2504])
+def test_case_counts_kernel_equals_plain_version_on_the_card(n, rows, pitch):
+    """The association counts against the plain version and numpy, exactly,
+    with junk in the unused bits of the last byte and in the pitch's
+    padding: the shipped 16-byte pitch, a pitch that is not a multiple of 4
+    (byte loads) and contiguous rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import ld
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + rows)
+    values = (rng.random((rows, n)) < 0.3).astype(np.uint8)
+    case = (rng.random(n) < 0.5).astype(np.uint8)
+    packed = np.packbits(values, axis=1)
+    width = packed.shape[1]
+    # The odd pitch: the first length past the width that is not a multiple of 4.
+    odd = width + 1 if (width + 1) % 4 else width + 2
+    stride = {"16-byte": -(-width // 16) * 16, "odd": odd, "contiguous": width}[pitch]
+    host = np.full((rows, stride), 0xA5, dtype=np.uint8)
+    host[:, :width] = packed
+    case_packed = np.packbits(case)
+    if n % 8:
+        host[:, width - 1] |= 0xFF >> (8 - (-n % 8))
+        case_packed[-1] |= 0xFF >> (8 - (-n % 8))
+    block = torch.from_numpy(host).to(dev)[:, :width]
+    case_t = torch.from_numpy(case_packed).to(dev)
+    ld.reset_launch_counts()
+    a, t = ld.case_counts(block, case_t, n)
+    a_plain, t_plain = ld.case_counts_plain(block, case_t, n)
+    assert ld.case_counts.launches == 1
+    assert torch.equal(a, a_plain) and torch.equal(t, t_plain)
+    want_a, want_t = ld.case_counts_reference(values, case)
+    assert np.array_equal(a.cpu().numpy(), want_a) and np.array_equal(t.cpu().numpy(), want_t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [13, 2504])
+@pytest.mark.parametrize("sites", [2, 37, 256, 1024])
+def test_ld_window_product_equals_plain_version_on_the_card(sites, n):
+    """The LD window's C = X·Xᵀ: ``unpack_rows_t`` on the transposed
+    packing, then ``gram_accumulate`` into a zeroed (W, W), against their
+    plain versions and numpy, exactly; k = diag(C)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import gramian, ld
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(sites + n)
+    rows = (rng.random((sites, n)) < 0.3).astype(np.uint8)
+    rows[0] = 1
+    packed = torch.from_numpy(ld.pack_window(rows)).to(dev)
+    port.reset_launch_counts()
+    gramian.reset_launch_counts()
+    C = ld.window_counts(packed, sites)
+    C_plain = torch.zeros_like(C)
+    port.gram_accumulate_plain(C_plain, gramian.unpack_rows_t_plain(packed, sites))
+    assert (port.gram_accumulate.launches, gramian.unpack_rows_t.launches) == (1, 1)
+    assert torch.equal(C, C_plain)
+    C_host, k = ld.ld_window_stats(rows, dev)
+    X = rows.astype(np.int64)
+    assert np.array_equal(C_host, X @ X.T) and np.array_equal(k, X.sum(axis=1))

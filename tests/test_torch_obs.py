@@ -413,6 +413,60 @@ def test_host_bound_equals_the_reference_at_one_device(tmp_path, capsys, case):
     assert doc["conformance"]["sched"] is None and doc["conformance"]["ranges"] is None
 
 
+@pytest.mark.parametrize("host", [False, True], ids=["device", "host backend"])
+@pytest.mark.parametrize("verb", ["ld-prune", "assoc-scan", "grm"])
+def test_analysis_host_bound_equals_the_reference(tmp_path, verb, host):
+    """The analyses' bound, integer for integer at one device: the W×W
+    window term charged to ``ld-prune`` only, and the host accumulator
+    left off ``ld-prune`` and ``assoc-scan`` under ``--pca-backend host``
+    (charged to ``grm``)."""
+    from spark_examples_tpu.check.hostmem import conf_host_peak_bytes as ref_bound
+    from spark_examples_tpu.config import AssocConf as RefAssocConf
+    from spark_examples_tpu.config import GrmConf as RefGrmConf
+    from spark_examples_tpu.config import LdConf as RefLdConf
+    from spark_examples_tpu_torch.check.hostmem import conf_host_peak_bytes
+    from spark_examples_tpu_torch.config import AssocConf, GrmConf, LdConf
+
+    confs = {"ld-prune": (LdConf, RefLdConf, ["--ld-window-sites", "512"]),
+             "assoc-scan": (AssocConf, RefAssocConf, ["--phenotypes", "p.tsv"]),
+             "grm": (GrmConf, RefGrmConf, [])}
+    port_conf, ref_conf, extra = confs[verb]
+    file = ["--source", "file", "--references", "17:0:5000", "--input-files", _vcf(tmp_path)]
+    backend = ["--pca-backend", "host"] if host else []
+    for argv in (BASE, file):
+        conf, ref = port_conf.parse(argv + extra + backend), ref_conf.parse(argv + extra + backend)
+        for n in (None, 5, 2504):
+            got = conf_host_peak_bytes(conf, device_count=1, num_samples=n,
+                                       baseline_bytes=metrics.HOST_RUNTIME_BASELINE_BYTES)
+            assert isinstance(got, int) and got == ref_bound(ref, device_count=1, num_samples=n)
+
+    def bound(cls, argv):
+        return conf_host_peak_bytes(cls.parse(BASE + argv), device_count=1, num_samples=2504)
+
+    # The host backend's N×N accumulator is charged to grm alone; the
+    # window term to ld-prune alone.
+    charged = bound(port_conf, extra + backend) - bound(port_conf, extra)
+    assert (charged > 0) == (host and verb == "grm")
+    pca = bound(PcaConf, [])
+    assert (bound(port_conf, extra) > pca) == (verb != "assoc-scan")
+
+
+def test_heartbeat_analysis_segment_matches_the_reference():
+    """``analysis kept K/T sites`` appears once the kept gauge exists, in
+    the reference's words and place."""
+    lines = []
+    for module, hb_module in ((metrics, heartbeat), (ref_metrics, ref_heartbeat)):
+        registry = module.MetricsRegistry()
+        beat = hb_module.Heartbeat(60.0, registry, emit=lambda line: None, clock=lambda: 0.0)
+        assert "analysis kept" not in beat.line()
+        module.well_known_gauge(registry, module.ANALYSIS_SITES_TESTED).set(1000)
+        module.well_known_gauge(registry, module.ANALYSIS_SITES_KEPT).set(250)
+        registry.gauge("gramian_inflight_dispatches").set(1)
+        lines.append(beat.line())
+    assert lines[0] == lines[1]
+    assert "dispatch in-flight 1; analysis kept 250/1,000 sites" in lines[0]
+
+
 def test_runtime_baseline_is_the_reference_constant_on_the_cpu():
     """The one device-dependent term: on the CPU the reference's 4 GiB;
     a different baseline moves the bound by exactly the difference, every
