@@ -30,11 +30,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    samples and a ragged block, and the LD window product at 256 sites ×
    2,504 samples and on a 37-site tail window; the six u32 op chains at
    (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
-   the card's limit. Then CUDA-event times of each kernel, its plain
+   the card's limit; the read depth (``depth_counts``) at a whole-chr21
+   shard of example 3 (26,194 reads, W = 327,414 + 128) and the base counts
+   (``base_counts``) at an example-4 shard (4,210 reads × 128, W = 52,631
+   + 128), both also at edge shapes (reads before and past the window,
+   zero, negative and over-long lengths, unknown codes, an all-false mask,
+   one read, none). Then CUDA-event times of each kernel, its plain
    version and, where one exists, the PyTorch library call computing the
    same function (the generation and the product at both depths, with
-   their launches' blocks and waves); the op chains also at ragged
-   lengths and off a 16-byte boundary, with their SASS split by pipe;
+   their launches' blocks and waves; ``torch.bincount`` for the depth
+   kernels); the op chains also at ragged lengths and off a 16-byte
+   boundary, with their SASS split by pipe;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
@@ -85,7 +91,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 10. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
-11. the ``kernels`` JSON line, the card line, and last the result line.
+11. variants examples: ``search-variants-klotho`` (defaults) and
+   ``search-variants-brca1 --num-samples 17`` through the CLI, and Klotho
+   over 2 kb around its SNP, each printed line list equal to an oracle
+   counting the same source's records;
+12. reads examples on the synthetic source through
+   ``reads_examples.run_example*`` on the card, every read kept as served:
+   example 1 at the CLI's default SNP (where the JAX package raises; the
+   pileup must be the half-open oracle's), example 2 over 200 kb of chr21
+   (coverage = Σ lengths / chr21 length), example 3 over 500 kb (two
+   shards; the part file byte-identical to a naive numpy depth), example 4
+   over 200 kb of chr1 (four shards, normal and tumor; the diff lines equal
+   a numpy oracle and are not empty); each with its wall-clock, depth
+   launches, derived kernel time and peak device memory;
+13. reads from SAM: example 3's reads and example 4's normal and tumor
+   reads written as SAM files under ``chip_smoke_data/``; examples 3 and 4
+   through the CLI with ``--source file`` at their defaults (all of chr21;
+   1 Mb of chr1), each output byte-identical to the synthetic run's;
+14. the ``kernels`` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when no CUDA card is present or the port is not beside this file.
@@ -198,6 +221,42 @@ LD_TAIL = 37
 #: u32 operations of the association counts per 32-bit word of a row: an
 #: and and two popc.
 CASE_COUNT_OPS_PER_WORD = 3
+#: The reads examples at the synthetic read geometry (length 100, depth 8).
+#: Each shard holds what a user's run holds; only the number of shards is
+#: cut (PERF.md §4). Example 2: one shard of 200 kb of chr21 (16,000
+#: reads); example 3: two shards of 250,000 bases (20,000 reads each) with
+#: the carry between them (whole chr21 is 147 shards of 327,414 bases);
+#: example 4: four shards of 50,000 bases of chr1, normal and tumor (its
+#: default 1 Mb is 19 shards of 52,631).
+EX2_REGION = (1_000_000, 1_200_000)
+EX3_REGION = (1_000_000, 1_500_000)
+EX4_REGION = (100_000_000, 100_200_000)
+#: Example 4's defaults (``reads_examples.run_example4``), which its SAM
+#: run takes: 19 shards of 52,631 bases.
+EX4_DEFAULT_REGION = (100_000_000, 101_000_000)
+EX4_DEFAULT_SHARDS = 19
+#: The kernels phase's shapes: a whole-chr21 shard of example 3 (26,194
+#: reads) and a default example-4 shard (4,210 reads of one readset), the
+#: window a shard's span plus the 128-base read pad.
+CHR21_SHARD_SPAN = 327_414
+EX4_SHARD_SPAN = 52_631
+EX4_SHARD_READS = 4_210
+READ_PAD = 128
+DEPTH_WINDOW_START = 1_000_000
+#: The synthetic base qualities are uniform on 20..40: 11 of 21 pass the
+#: example's 30.
+QUALITY_PASS_SHARE = 11 / 21
+#: Edge shapes of the depth kernels: (reads, read length, window,
+#: max_read_length, mode of ``depth_inputs``).
+DEPTH_EDGE_CASES = {
+    "edges": (997, 192, 5000, 256, "edges"),
+    "all-unknown codes": (300, 100, 2000, 128, "unknown"),
+    "all-false mask": (300, 100, 2000, 128, "masked"),
+    "one read": (1, 100, 64, 128, "random"),
+    "no reads": (0, 100, 64, 128, "random"),
+}
+#: The Klotho example's second, wider run: 2 kb around the SNP.
+KLOTHO_WIDE = 2_000
 #: |PC entry| tolerance between the subspace iteration and a full eigh of the
 #: same centered matrix: both in float32 on unit-norm components, with
 #: different starts; see PERF.md for the measured gap.
@@ -1328,6 +1387,454 @@ def phase_telemetry(torch, kernels):
     return shares
 
 
+# ------------------------------------------------------------ reads examples
+
+
+def sync(torch, dev) -> None:
+    """Wait for ``dev``'s queued work (nothing to wait for on the CPU)."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def depth_inputs(rng, rows, length, window, max_len, mode="random"):
+    """(starts, lengths, codes, quality mask) of ``rows`` synthetic-geometry
+    reads around a window at ``DEPTH_WINDOW_START``: starts from a read
+    length before the window to past its end. ``mode`` "edges" adds zero,
+    negative and over-``max_len`` lengths and codes up to 5; "unknown"
+    makes every code -1, "masked" every mask bit false."""
+    starts = rng.integers(DEPTH_WINDOW_START - length, DEPTH_WINDOW_START + window + 50,
+                          rows).astype(np.int32)
+    lengths = np.full(rows, min(length, max_len), dtype=np.int32)
+    codes = rng.integers(0, 4, (rows, max_len)).astype(np.int8)
+    codes[:, length:] = -1
+    ok = rng.random((rows, max_len)) < QUALITY_PASS_SHARE
+    if mode == "edges":
+        lengths = rng.integers(-3, 2 * max_len, rows).astype(np.int32)
+        codes = rng.integers(-1, 6, (rows, max_len)).astype(np.int8)
+    if mode == "unknown":
+        codes[:] = -1
+    if mode == "masked":
+        ok[:] = False
+    return starts, lengths, codes, ok
+
+
+def chr21_shard_reads():
+    """Starts of the reads of one whole-chr21 shard of example 3 at the
+    synthetic read geometry (length 100, depth 8): 26,194 reads."""
+    from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+
+    source = SyntheticGenomicsSource(num_samples=1)
+    lo = DEPTH_WINDOW_START
+    return np.array(sorted(p for p, _ in source.read_starts(lo, lo + CHR21_SHARD_SPAN)),
+                    dtype=np.int32)
+
+
+def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
+    """``depth_counts`` at a whole-chr21 shard (26,194 reads, W = 327,414 +
+    128) and ``base_counts`` at an example-4 shard (4,210 reads x 128, W =
+    52,631 + 128), and both at edge shapes, each exactly equal to its
+    plain version; then CUDA-event times of each, its plain version and
+    ``torch.bincount`` over the valid flattened indices (weighted per base
+    for ``base_counts``: its index is position x 4 + base), with the
+    bounds: the bytes read and written against one 32-bit atomic per
+    counted (read, offset) pair. Returns the two JSON rows."""
+    from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+    rng = np.random.default_rng(21)
+    starts = chr21_shard_reads()
+    ex4_starts, _, ex4_codes, ex4_ok = depth_inputs(
+        rng, EX4_SHARD_READS, 100, EX4_SHARD_SPAN + READ_PAD, READ_PAD)
+    rows = {}
+    cases = [("chr21 shard", starts, np.full(len(starts), 100, np.int32), None, None,
+              CHR21_SHARD_SPAN + READ_PAD, READ_PAD)]
+    for label, (n, length, window, max_len, mode) in DEPTH_EDGE_CASES.items():
+        s, lengths, codes, ok = depth_inputs(rng, n, length, window, max_len, mode)
+        cases.append((label, s, lengths, codes, ok, window, max_len))
+    cases.append(("example-4 shard", ex4_starts, None, ex4_codes, ex4_ok,
+                  EX4_SHARD_SPAN + READ_PAD, READ_PAD))
+    for label, s, lengths, codes, ok, window, max_len in cases:
+        pos = torch.from_numpy(s).to(dev)
+        if lengths is not None:
+            lens = torch.from_numpy(lengths).to(dev)
+            got = depth.depth_counts(pos, lens, DEPTH_WINDOW_START, window, max_len)
+            want = depth.depth_counts_plain(pos, lens, DEPTH_WINDOW_START, window, max_len)
+            sync(torch, dev)
+            if not torch.equal(got, want):
+                raise AssertionError(f"depth_counts != plain at {label}")
+            log(f"kernels: depth_counts == plain ({label}: {len(s)} reads, W {window}, "
+                f"max_read_length {max_len}): {int(got.long().sum())} pairs counted")
+        if codes is not None:
+            codes_t, ok_t = torch.from_numpy(codes).to(dev), torch.from_numpy(ok).to(dev)
+            got = depth.base_counts(pos, codes_t, ok_t, DEPTH_WINDOW_START, window)
+            want = depth.base_counts_plain(pos, codes_t, ok_t, DEPTH_WINDOW_START, window)
+            sync(torch, dev)
+            if not torch.equal(got, want):
+                raise AssertionError(f"base_counts != plain at {label}")
+            log(f"kernels: base_counts == plain ({label}: {codes.shape[0]} reads x "
+                f"{codes.shape[1]}, W {window}): {int(got.long().sum())} bases counted")
+    if torch.device(dev).type != "cuda":
+        return rows
+
+    # Times at the examples' shapes: the chr21 shard and the example-4 shard.
+    R, W = len(starts), CHR21_SHARD_SPAN + READ_PAD
+    pos = torch.from_numpy(starts).to(dev)
+    lens = torch.full((R,), 100, dtype=torch.int32, device=dev)
+    rel = pos.long() - DEPTH_WINDOW_START
+    idx = rel[:, None] + torch.arange(READ_PAD, device=dev)[None, :]
+    flat = idx[(torch.arange(READ_PAD, device=dev)[None, :] < lens.long()[:, None])
+               & (idx >= 0) & (idx < W)]
+    pairs = int(flat.numel())
+    rows["depth_counts"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: depth.depth_counts(pos, lens, DEPTH_WINDOW_START, W, READ_PAD), 50),
+        plain_ms=cuda_ms(lambda: depth.depth_counts_plain(
+            pos, lens, DEPTH_WINDOW_START, W, READ_PAD), 10, 1),
+        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=W), 50),
+        # Reads positions and lengths once, writes the window; one atomic
+        # per counted pair.
+        bound=bound(8 * R + 4 * W, pairs, int32_rate),
+    )
+    r = rows["depth_counts"]
+    log(f"kernels: depth_counts at a chr21 shard ({R} reads, W {W}, {pairs} pairs): "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch.bincount of the valid "
+        f"flattened indices {r['library_ms']:.4f} ms; bound {r['bound'][0]:.6f} ms by "
+        f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+    R, W = EX4_SHARD_READS, EX4_SHARD_SPAN + READ_PAD
+    pos = torch.from_numpy(ex4_starts).to(dev)
+    codes_t, ok_t = torch.from_numpy(ex4_codes).to(dev), torch.from_numpy(ex4_ok).to(dev)
+    ok_u8 = ok_t.to(torch.uint8)
+    idx = pos.long()[:, None] - DEPTH_WINDOW_START + torch.arange(READ_PAD, device=dev)[None, :]
+    valid = ok_t & (codes_t >= 0) & (idx >= 0) & (idx < W)
+    flat = (idx * 4 + codes_t.long().clamp(0, 3))[valid]
+    pairs = int(flat.numel())
+    rows["base_counts"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: depth.base_counts(pos, codes_t, ok_u8, DEPTH_WINDOW_START, W), 50),
+        plain_ms=cuda_ms(lambda: depth.base_counts_plain(
+            pos, codes_t, ok_u8, DEPTH_WINDOW_START, W), 10, 1),
+        library_ms=cuda_ms(lambda: torch.bincount(flat, minlength=4 * W), 50),
+        # Reads positions, codes and the mask once, writes the (W, 4)
+        # counts; one atomic per counted base.
+        bound=bound(4 * R + 2 * R * READ_PAD + 16 * W, pairs, int32_rate),
+    )
+    r = rows["base_counts"]
+    log(f"kernels: base_counts at an example-4 shard ({R} reads x {READ_PAD}, W {W}, "
+        f"{pairs} bases): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch.bincount of "
+        f"position x 4 + base over the valid bases {r['library_ms']:.4f} ms; bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+    return rows
+
+
+class RecordingSource:
+    """A source whose clients keep every read they serve, compactly:
+    (read group set, reference, position, sequence, quality string as SAM
+    writes it, mapping quality, fragment name). The oracles and the SAM
+    files are built from exactly the reads an example's run saw."""
+
+    def __init__(self, source):
+        self.source = source
+        self.reads = []
+
+    def client(self):
+        inner, reads = self.source.client(), self.reads
+
+        class Client:
+            def search_reads(self, request, boundary):
+                for wire in inner.search_reads(request, boundary):
+                    alignment = wire["alignment"]
+                    reads.append((
+                        wire["readGroupSetId"], alignment["position"]["referenceName"],
+                        int(alignment["position"]["position"]), wire["alignedSequence"],
+                        "".join(chr(q + 33) for q in wire["alignedQuality"]),
+                        int(alignment["mappingQuality"]), wire["fragmentName"]))
+                    yield wire
+
+        return Client()
+
+    def take(self, in_order=False):
+        """The reads served so far, sorted by position (or in the order
+        served: one shard's order is the source's); forgets them."""
+        got, self.reads[:] = list(self.reads), []
+        return got if in_order else sorted(got, key=lambda r: (r[2], r[6]))
+
+
+def run_example(torch, kernels, label, fn, dev="cuda"):
+    """One example run with every launch count set to 0 just before:
+    (result, printed lines, wall seconds, launches, peak device memory)."""
+    sync(torch, dev)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        result = fn()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    return result, printed.getvalue().splitlines(), wall, launches, peak
+
+
+def report_example(label, wall, launches, peak, kernel_ms, want):
+    """Log a run's wall-clock, depth launches, derived kernel time and peak
+    device memory; fail unless each depth kernel launched as ``want``."""
+    got = {name: launches[name] for name in want}
+    derived = sum(launches[name] * kernel_ms.get(name, 0.0) for name in want)
+    log(f"reads {label}: wall {wall:.4f} s, depth launches {json.dumps(got)}, kernels "
+        f"{derived:.4f} ms (launches x CUDA-event ms, derived), peak device memory "
+        f"{peak / 2**20:.1f} MiB")
+    if got != want:
+        raise AssertionError(f"reads {label}: launches {got}, want {want}")
+
+
+def write_sam(path: Path, reads) -> int:
+    """SAM text of the recorded reads: FLAG 0, ``<len>M``, MAPQ and QUAL
+    (``chr(q + 33)``) as served, no mate."""
+    with open(path, "w") as f:
+        f.write("@HD\tVN:1.6\tSO:coordinate\n")
+        for _, ref, pos, seq, qual, mapq, name in reads:
+            f.write(f"{name}\t0\t{ref}\t{pos + 1}\t{mapq}\t{len(seq)}M\t*\t0\t0\t{seq}\t{qual}\n")
+    return len(reads)
+
+
+def naive_depth_lines(reads) -> str:
+    """The part file a naive per-read depth gives: ``(pos,depth)`` for every
+    covered position, ascending (``_naive_depth`` of the reference's
+    tests, in numpy)."""
+    starts = np.array([r[2] for r in reads], dtype=np.int64)
+    lengths = np.array([len(r[3]) for r in reads], dtype=np.int64)
+    lo = int(starts.min())
+    counts = np.zeros(int((starts + lengths).max()) - lo, dtype=np.int64)
+    for length in np.unique(lengths):
+        sel = starts[lengths == length] - lo
+        for off in range(int(length)):
+            np.add.at(counts, sel + off, 1)
+    covered = np.nonzero(counts)[0]
+    return "".join(f"({lo + int(i)},{int(counts[i])})\n" for i in covered)
+
+
+def naive_diff_lines(normal, tumor, min_mapq=30, min_baseq=30, min_freq=0.25):
+    """Example 4's ``(pos,(normalBases,tumorBases))`` lines from the reads in
+    numpy: per position base counts of the reads at or above ``min_mapq``,
+    bases at or above ``min_baseq``; the sets of bases at or above
+    ``min_freq`` of a position's count, joined on the positions both
+    readsets cover, where they differ."""
+    def counts(reads):
+        kept = [r for r in reads if r[5] >= min_mapq]
+        lo = min(r[2] for r in kept)
+        hi = max(r[2] + len(r[3]) for r in kept)
+        table = np.zeros((hi - lo, 4), dtype=np.int64)
+        for r in kept:
+            seq = np.frombuffer(r[3].encode(), dtype=np.uint8)
+            qual = np.frombuffer(r[4].encode(), dtype=np.uint8).astype(np.int64) - 33
+            code = np.full(len(seq), -1)
+            for i, base in enumerate(b"ACGT"):
+                code[seq == base] = i
+            sel = (code >= 0) & (qual[:len(seq)] >= min_baseq)
+            np.add.at(table, (r[2] - lo + np.nonzero(sel)[0], code[sel]), 1)
+        return lo, table
+
+    def frequent(row):
+        total = row.sum()
+        return "".join("ACGT"[i] for i in range(4) if row[i] / total >= min_freq)
+
+    (lo_n, n), (lo_t, t) = counts(normal), counts(tumor)
+    lines = []
+    for pos in range(max(lo_n, lo_t), min(lo_n + len(n), lo_t + len(t))):
+        a, b = n[pos - lo_n], t[pos - lo_t]
+        if a.sum() and b.sum() and frequent(a) != frequent(b):
+            lines.append(f"({pos},({frequent(a)},{frequent(b)}))")
+    return lines
+
+
+def phase_variants_examples(torch, kernels):
+    """``search-variants-klotho`` at its defaults and ``search-variants-brca1
+    --num-samples 17`` through the CLI, and the Klotho example over 10 kb
+    around the SNP through ``run_klotho``: each printed line list equal to
+    an oracle counting the same source's records in plain Python (one
+    STRICT request over the contig), the counts adding up."""
+    from spark_examples_tpu_torch.analyses import variants_examples
+    from spark_examples_tpu_torch.config import GenomicsConf
+    from spark_examples_tpu_torch.constants import GoogleGenomicsPublicData
+    from spark_examples_tpu_torch.pipeline.pca_driver import make_source
+    from spark_examples_tpu_torch.sharding.contig import Contig
+
+    def oracle(conf, contig, name, klotho):
+        set_id = (conf.variant_set_id[0] if conf.variant_set_id
+                  else GoogleGenomicsPublicData.PLATINUM_GENOMES)
+        records = [r for r in make_source(conf).client().search_variants(
+            {"variantSetIds": [set_id], "referenceName": contig.reference_name,
+             "start": contig.start, "end": contig.end})
+            if re.fullmatch(r"([a-z]*)?([0-9]*)", r["referenceName"])]
+        if klotho:
+            n_var = sum(1 for r in records if "alternateBases" in r)
+        else:
+            n_var = sum(1 for r in records if r["referenceBases"] != "N")
+        lines = [f"We have {len(records)} records that overlap {name}.",
+                 f"But only {n_var} records are of a variant.",
+                 f"The other {len(records) - n_var} records are reference-matching blocks."]
+        if klotho:
+            contig_name = re.fullmatch(r"([a-z]*)?([0-9]*)", contig.reference_name).group(2)
+            lines += [f"Reference: {contig_name} @ {r['start']}" for r in records
+                      if r["referenceBases"] != "N"]
+        return lines, len(records), n_var
+
+    wide = Contig("chr13", variants_examples.KLOTHO_CONTIG.start - KLOTHO_WIDE // 2,
+                  variants_examples.KLOTHO_CONTIG.start + KLOTHO_WIDE // 2)
+    for label, argv, contig, name, klotho in (
+        ("klotho", [], variants_examples.KLOTHO_CONTIG, "Klotho", True),
+        ("klotho 2 kb", None, wide, "Klotho", True),
+        ("brca1", ["--num-samples", "17"], variants_examples.BRCA1_CONTIG, "BRCA1", False),
+    ):
+        if argv is None:
+            conf = GenomicsConf.parse([])
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                printed = variants_examples.run_klotho(conf, make_source(conf), wide)
+            wall = time.perf_counter() - t0
+        else:
+            verb = "search-variants-klotho" if klotho else "search-variants-brca1"
+            wall, _, printed = run_cli(torch, kernels, [verb, *argv], f"variants {label}")
+            conf = GenomicsConf.parse(argv)
+        want, total, n_var = oracle(conf, contig, name, klotho)
+        if printed != want:
+            raise AssertionError(f"variants {label}: printed {printed[:4]} != oracle {want[:4]}")
+        numbers = [int(printed[i].split()[j]) for i, j in ((0, 2), (1, 2), (2, 2))]
+        if numbers != [total, n_var, total - n_var]:
+            raise AssertionError(f"variants {label}: counts {numbers} do not add up")
+        log(f"variants {label}: {len(printed)} lines equal the oracle's ({total} records = "
+            f"{n_var} variant + {total - n_var} reference blocks), wall {wall:.4f} s")
+
+
+def phase_reads_examples(torch, depth, kernels, kernel_ms, dev="cuda"):
+    """The four reads examples through ``reads_examples.run_example*`` on
+    the synthetic source (the CLI's seed; length 100, depth 8), each read
+    kept as served for its oracle: example 1 at the default SNP (the JAX
+    package raises there), example 2 over ``EX2_REGION``, example 3 over
+    ``EX3_REGION`` (two shards, the carry between them), example 4 over
+    ``EX4_REGION`` (four shards, normal and tumor). Returns the reads of
+    examples 3 and 4, the synthetic outputs and the launches for the
+    ``kernels`` line."""
+    from spark_examples_tpu_torch.analyses import reads_examples
+    from spark_examples_tpu_torch.config import GenomicsConf
+    from spark_examples_tpu_torch.constants import Examples
+    from spark_examples_tpu_torch.pipeline.pca_driver import make_source
+
+    out_dir = DATA_DIR / "reads_synthetic"
+    conf = GenomicsConf.parse(["--device", str(dev), "--output-path", str(out_dir)])
+    source = RecordingSource(make_source(conf))
+    none = {"depth_counts": 0, "base_counts": 0}
+
+    snp = Examples.CILANTRO
+    lines, _, wall, launches, peak = run_example(
+        torch, kernels, "example 1", lambda: reads_examples.run_example1(conf, source), dev)
+    reads = source.take(in_order=True)  # one shard: the pileup's order
+    covering = [r for r in reads if r[2] <= snp < r[2] + len(r[3])]
+    first = min(r[2] for r in covering)
+    want = [" " * (snp - first) + "v"]
+    for _, _, pos, seq, qual, _, _ in covering:
+        i = snp - pos
+        want.append(" " * (pos - first) + seq[: i + 1] + f"({ord(qual[i]) - 33:02d}) "
+                    + seq[i + 1:])
+    want.append(" " * (snp - first) + "^")
+    marker = len(lines[0]) - 1
+    if lines != want or any(line.index("(") - 1 != marker for line in lines[1:-1]):
+        raise AssertionError("example 1: the pileup differs from the half-open oracle")
+    ending_before = sum(1 for r in reads if r[2] + len(r[3]) == snp)
+    log(f"reads example 1: {len(covering)} reads cover {snp} (half-open), each quality "
+        f"under the 'v'; {ending_before} read(s) end at snp - 1, where the JAX package "
+        f"indexes past the read")
+    report_example("example 1", wall, launches, peak, kernel_ms, none)
+
+    coverage, _, wall, launches, peak = run_example(
+        torch, kernels, "example 2",
+        lambda: reads_examples.run_example2(conf, source, region=EX2_REGION), dev)
+    reads = source.take()
+    starts = [p for p, _ in make_source(conf).read_starts(*EX2_REGION)]
+    want = sum(len(r[3]) for r in reads) / float(Examples.HUMAN_CHROMOSOMES["21"])
+    if coverage != want or sorted(starts) != [r[2] for r in reads]:
+        raise AssertionError(f"example 2: coverage {coverage} != {want} over {len(reads)} reads")
+    log(f"reads example 2: coverage {coverage!r} = Σ lengths / chr21 length over "
+        f"{len(reads)} reads")
+    report_example("example 2", wall, launches, peak, kernel_ms, none)
+
+    part, _, wall, launches, peak = run_example(
+        torch, kernels, "example 3",
+        lambda: reads_examples.run_example3(conf, source, region=EX3_REGION), dev)
+    ex3_reads = source.take()
+    ex3_text = Path(part).read_text()
+    if ex3_text != naive_depth_lines(ex3_reads):
+        raise AssertionError("example 3: the part file differs from the naive depth")
+    log(f"reads example 3: part file ({len(ex3_text)} bytes, {ex3_text.count(chr(10))} "
+        f"positions) byte-identical to the naive depth over {len(ex3_reads)} reads")
+    report_example("example 3", wall, launches, peak, kernel_ms,
+                   {"depth_counts": 2, "base_counts": 0})
+    ex3_launches = launches
+
+    diff, _, wall, launches, peak = run_example(
+        torch, kernels, "example 4",
+        lambda: reads_examples.run_example4(conf, source, region=EX4_REGION), dev)
+    ex4_reads = source.take()
+    normal = [r for r in ex4_reads if r[0] == Examples.GOOGLE_DREAM_SET3_NORMAL]
+    tumor = [r for r in ex4_reads if r[0] == Examples.GOOGLE_DREAM_SET3_TUMOR]
+    if not diff or diff != naive_diff_lines(normal, tumor):
+        raise AssertionError(f"example 4: {len(diff)} diff lines differ from the numpy oracle")
+    log(f"reads example 4: {len(diff)} diff lines equal the numpy oracle's over "
+        f"{len(normal)} normal and {len(tumor)} tumor reads; the first {diff[0]}")
+    report_example("example 4", wall, launches, peak, kernel_ms,
+                   {"depth_counts": 0, "base_counts": 8})
+    ex4_text = (out_dir / "diff_1" / "part-00000").read_text()
+    return (ex3_reads, ex3_text, normal, tumor, ex4_text,
+            {"depth_counts": ex3_launches["depth_counts"],
+             "base_counts": launches["base_counts"]})
+
+
+def shards_with_reads(readsets, region, shards) -> int:
+    """(readset, shard) pairs holding a read of mapping quality >= 30, over
+    ``shards`` equal spans of ``region``: example 4's launches."""
+    span = (region[1] - region[0]) // shards
+    return sum(len({(r[2] - region[0]) // span for r in reads if r[5] >= 30})
+               for reads in readsets)
+
+
+def phase_reads_sam(torch, kernels, kernel_ms, ex3_reads, ex3_text, normal, tumor, ex4_text,
+                    dev="cuda"):
+    """Examples 3 and 4 through the CLI with ``--source file`` at their
+    defaults (all of chr21: 147 shards; 1 Mb of chr1: 19 shards) on SAM
+    files of the synthetic runs' reads: each output byte-identical to the
+    synthetic run's."""
+    DATA_DIR.mkdir(exist_ok=True)
+    sams = {name: DATA_DIR / f"{name}.sam" for name in ("ex3_reads", "ex4_normal", "ex4_tumor")}
+    t0 = time.perf_counter()
+    for name, reads in (("ex3_reads", ex3_reads), ("ex4_normal", normal), ("ex4_tumor", tumor)):
+        write_sam(sams[name], reads)
+    log(f"reads sam: {len(ex3_reads)} + {len(normal)} + {len(tumor)} reads written in "
+        f"{time.perf_counter() - t0:.1f} s, {sum(p.stat().st_size for p in sams.values())} bytes")
+    for label, argv, got_path, want, expect in (
+        ("example 3", ["search-reads-example-3", "--input-files", str(sams["ex3_reads"])],
+         "coverage_21", ex3_text, {"depth_counts": 2, "base_counts": 0}),
+        ("example 4", ["search-reads-example-4", "--input-files",
+                       f"{sams['ex4_normal']},{sams['ex4_tumor']}"],
+         "diff_1", ex4_text, {"depth_counts": 0, "base_counts": shards_with_reads(
+             (normal, tumor), EX4_DEFAULT_REGION, EX4_DEFAULT_SHARDS)}),
+    ):
+        out = DATA_DIR / f"reads_sam_{label.split()[-1]}"
+        device = [] if dev == "cuda" else ["--device", str(dev)]
+        torch.cuda.reset_peak_memory_stats()
+        wall, launches, _ = run_cli(torch, kernels, [*argv[:1], "--source", "file", *argv[1:],
+                                                     "--output-path", str(out), *device],
+                                    f"sam {label}")
+        peak = torch.cuda.max_memory_allocated()
+        report_example(f"sam {label}", wall, launches, peak, kernel_ms, expect)
+        text = (out / got_path / "part-00000").read_text()
+        if text != want:
+            raise AssertionError(f"sam {label}: the output differs from the synthetic run's")
+        log(f"reads sam {label}: part file ({len(text)} bytes) byte-identical to the "
+            f"synthetic run's")
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -1341,7 +1848,7 @@ def main() -> int:
     try:
         from spark_examples_tpu_torch.constants import GoogleGenomicsPublicData
         from spark_examples_tpu_torch.experiments import probe_ops, vmem_capacity
-        from spark_examples_tpu_torch.ops import _kernels, devicegen, gramian, ld
+        from spark_examples_tpu_torch.ops import _kernels, depth, devicegen, gramian, ld
         from spark_examples_tpu_torch.utils import native
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -1376,6 +1883,7 @@ def main() -> int:
         torch, devicegen, gramian, ld, int32_rate)
     per_op, rows["scratch_copy"] = phase_probe_kernels(
         torch, probe_ops, vmem_capacity, int32_rate, libs["probes.cu"])
+    rows.update(phase_depth_kernels(torch, depth, int32_rate))
 
     path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS
     # The first run in a process also pays the CUDA libraries' lazy set-up
@@ -1408,6 +1916,14 @@ def main() -> int:
     phase_rest(torch, path_kernels, wire_g)
     phase_telemetry(torch, path_kernels)
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
+    t0 = time.perf_counter()
+    examples_kernels = path_kernels + depth.KERNELS
+    kernel_ms = {name: rows[name]["ms"] for name in ("depth_counts", "base_counts")}
+    phase_variants_examples(torch, examples_kernels)
+    *synthetic, reads_launches = phase_reads_examples(torch, depth, examples_kernels, kernel_ms)
+    launches.update(reads_launches)
+    phase_reads_sam(torch, examples_kernels, kernel_ms, *synthetic)
+    log(f"examples: the variants, reads and SAM phases in {time.perf_counter() - t0:.1f} s")
     # probe_op_chain's row is the six-op suite, one call of each op: times
     # summed over the ops, the bound from the suite's bytes and operations.
     rows["probe_op_chain"] = {
@@ -1437,6 +1953,10 @@ def main() -> int:
          "spark_examples_tpu/ops/ld.py:161"),
         ("gram_accumulate_ld_window", "spark_examples_tpu_torch/csrc/devicegen.cu",
          "spark_examples_tpu/ops/ld.py:48"),
+        ("depth_counts", "spark_examples_tpu_torch/csrc/depth.cu",
+         "spark_examples_tpu/ops/depth.py:30"),
+        ("base_counts", "spark_examples_tpu_torch/csrc/depth.cu",
+         "spark_examples_tpu/ops/depth.py:61"),
     ):
         r = rows[name]
         kernels.append({

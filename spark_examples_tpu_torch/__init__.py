@@ -8,7 +8,12 @@ blocks or wire records (``csrc/gramian.cu`` unpacks them), the Gramian
 accumulated by hand-written CUDA kernels, then centered and
 eigendecomposed with PyTorch; ``api.py`` exposes the stages. The
 ``grm``, ``ld-prune`` and ``assoc-scan`` analyses (``analyses/``) run on
-the same kernels and on ``csrc/ld.cu``.
+the same kernels and on ``csrc/ld.cu``. The reference's other examples
+run too: ``search-variants-klotho`` and ``search-variants-brca1`` on the
+host, ``search-reads-example-1`` … ``-4`` over reads from the synthetic
+source, REST or SAM files, their depth and base counts on
+``csrc/depth.cu``. The verbs not ported yet are ``graftcheck``,
+``serve``, ``submit``, ``trace`` and ``obs``.
 It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
@@ -22,6 +27,7 @@ PyTorch version:
 
 __version__ = "0.1.0"
 
+from spark_examples_tpu_torch.models.read import Read, ReadBuilder, ReadKey  # noqa: E402
 from spark_examples_tpu_torch.models.variant import (  # noqa: E402
     Call,
     Variant,
@@ -34,13 +40,24 @@ from spark_examples_tpu_torch.pipeline.pca_driver import (  # noqa: E402
     run_pipeline,
 )
 from spark_examples_tpu_torch.sharding.contig import Contig, SexChromosomeFilter  # noqa: E402
-from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner  # noqa: E402
+from spark_examples_tpu_torch.sharding.partitioners import (  # noqa: E402
+    FixedSplits,
+    ReadsPartitioner,
+    TargetSizeSplits,
+    VariantsPartitioner,
+)
 
 __all__ = [
     "Call",
     "Contig",
+    "FixedSplits",
     "PipelineResult",
+    "Read",
+    "ReadBuilder",
+    "ReadKey",
+    "ReadsPartitioner",
     "SexChromosomeFilter",
+    "TargetSizeSplits",
     "Variant",
     "VariantKey",
     "VariantsBuilder",

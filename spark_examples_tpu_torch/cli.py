@@ -1,5 +1,6 @@
 """Command-line entry point: the ``variants-pca``, ``grm``, ``ld-prune`` and
-``assoc-scan`` verbs, with the JAX package's flag grammar plus ``--device``:
+``assoc-scan`` verbs and the six other reference examples, with the JAX
+package's flag grammar plus ``--device``:
 
     python -m spark_examples_tpu_torch variants-pca --references 17:41196311:41277499
     python -m spark_examples_tpu_torch variants-pca --num-samples 16 --device cpu
@@ -9,6 +10,16 @@
         --ld-window-sites 256 --ld-r2-threshold 0.2 --ld-out kept.tsv
     python -m spark_examples_tpu_torch assoc-scan --references 17:41196311:43196311 \
         --phenotypes phenotypes.tsv --assoc-out scan.tsv --assoc-top 10
+    python -m spark_examples_tpu_torch search-variants-klotho
+    python -m spark_examples_tpu_torch search-variants-brca1 --num-samples 17
+    python -m spark_examples_tpu_torch search-reads-example-1 .. -4 --output-path out
+
+The examples take the base flags only (``config.py:GenomicsConf``). With
+``--source file`` the reads examples take their readsets from
+``--input-files`` in order (example 4: normal, then tumor), as SAM files:
+
+    python -m spark_examples_tpu_torch search-reads-example-4 --source file \
+        --input-files normal.sam,tumor.sam --output-path out
 
 File-backed runs (``--source file``) parse VCF inputs through the
 chunk-parallel native parser; ``--ingest-workers N`` sizes its thread pool
@@ -42,8 +53,11 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from spark_examples_tpu_torch.analyses import assoc, grm, ld
+from spark_examples_tpu_torch.analyses import assoc, grm, ld, reads_examples, variants_examples
+from spark_examples_tpu_torch.config import GenomicsConf
 from spark_examples_tpu_torch.pipeline import pca_driver
+from spark_examples_tpu_torch.sources.files import file_set_ids
+from spark_examples_tpu_torch.utils.device import resolve_device
 
 #: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
 #: the port does not run yet.
@@ -53,13 +67,41 @@ NOT_PORTED = (
     "submit",
     "trace",
     "obs",
-    "search-variants-klotho",
-    "search-variants-brca1",
-    "search-reads-example-1",
-    "search-reads-example-2",
-    "search-reads-example-3",
-    "search-reads-example-4",
 )
+
+
+def _readset_kwargs(conf: GenomicsConf, names: Sequence[str]) -> dict:
+    """For ``--source file``, route the file-derived set ids into the reads
+    examples' readset parameters (``names``, in ``--input-files`` order) —
+    the hardcoded Google public readset ids only exist on the sunset API."""
+    if conf.source != "file":
+        return {}
+    ids = file_set_ids(conf.input_files or [])
+    if len(ids) < len(names):
+        raise ValueError(
+            f"this analysis needs {len(names)} --input-files "
+            f"({', '.join(names)} in order); got {len(ids)}"
+        )
+    return dict(zip(names, ids))
+
+
+def _variants_cmd(run_fn):
+    def invoke(argv):
+        conf = GenomicsConf.parse(argv)
+        # Host-only, but on the device the flags name: no card, no run.
+        resolve_device(conf.device)
+        return run_fn(conf, pca_driver.make_source(conf))
+
+    return invoke
+
+
+def _reads_cmd(run_fn, readset_params: Sequence[str]):
+    def invoke(argv):
+        conf = GenomicsConf.parse(argv)
+        resolve_device(conf.device)
+        return run_fn(conf, pca_driver.make_source(conf), **_readset_kwargs(conf, readset_params))
+
+    return invoke
 
 
 #: The ported verbs.
@@ -68,6 +110,14 @@ COMMANDS = {
     "grm": grm.run,
     "ld-prune": ld.run,
     "assoc-scan": assoc.run,
+    "search-variants-klotho": _variants_cmd(variants_examples.run_klotho),
+    "search-variants-brca1": _variants_cmd(variants_examples.run_brca1),
+    "search-reads-example-1": _reads_cmd(reads_examples.run_example1, ["readset"]),
+    "search-reads-example-2": _reads_cmd(reads_examples.run_example2, ["readset"]),
+    "search-reads-example-3": _reads_cmd(reads_examples.run_example3, ["readset"]),
+    "search-reads-example-4": _reads_cmd(
+        reads_examples.run_example4, ["normal_readset", "tumor_readset"]
+    ),
 }
 
 

@@ -1,8 +1,12 @@
-"""CLI configuration: the JAX package's PCA flag grammar, preserved.
+"""CLI configuration: the JAX package's flag grammar, preserved.
 
-``PcaConf`` mirrors ``spark_examples_tpu/config.py:PcaConf`` (itself
-``GenomicsConf.scala:29-98``): every flag, name and default is the same, so
-one argv parses identically in both packages. Two values differ:
+``GenomicsConf`` mirrors ``spark_examples_tpu/config.py:GenomicsConf``
+(``GenomicsConf.scala:29-64``), the flags of the seven examples' verbs;
+``PcaConf`` extends it as ``spark_examples_tpu/config.py:PcaConf`` does
+(``GenomicsConf.scala:66-98``): every flag, name and default is the same, so
+one argv parses identically in both packages, and a ``variants-pca`` flag
+given to an example verb is refused by argparse, as the reference refuses
+it. Two values differ:
 
 - ``--pca-backend {gpu,host}``: the device value is ``gpu`` (the default);
   ``host`` stays the NumPy oracle of the reference algorithm;
@@ -56,12 +60,9 @@ def _num_samples_value(text: str) -> str:
     return text
 
 
-def build_pca_parser(
-    parser: Optional[argparse.ArgumentParser] = None,
-) -> argparse.ArgumentParser:
-    """The ``variants-pca`` flag surface (``spark_examples_tpu/config.py:
-    build_pca_parser``) plus ``--device``."""
-    p = parser or argparse.ArgumentParser()
+def _build_base_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The base flags (``spark_examples_tpu/config.py:_build_base_parser``)
+    plus ``--device``."""
     p.add_argument("--bases-per-partition", type=int, default=DEFAULT_BASES_PER_SHARD,
                    help="Partition each reference using a fixed number of bases")
     p.add_argument("--client-secrets", default="client_secrets.json")
@@ -83,9 +84,10 @@ def build_pca_parser(
     p.add_argument("--input-files", default=None,
                    help="Comma-separated input files for --source file: "
                    ".vcf[.gz] / .jsonl[.gz] variants (or a checkpoint "
-                   "directory). Each file becomes one variant set whose id is "
-                   "its sanitized stem; --variant-set-id defaults to all of "
-                   "them in order.")
+                   "directory), .sam reads. Each file becomes one variant set "
+                   "(or read group set) whose id is its sanitized stem; "
+                   "--variant-set-id defaults to all of them in order; the "
+                   "reads examples take their readsets in file order.")
     p.add_argument("--stream-chunk-bytes", type=int, default=None,
                    help="Bounded-memory streaming ingest for --source file VCF "
                    "inputs: parse in chunks of this many decompressed bytes "
@@ -131,6 +133,19 @@ def build_pca_parser(
     p.add_argument("--coordinator-address", default=None)
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="Where the port's tensors live: the CUDA card "
+                   "(default) or the CPU, which runs the kernels' plain "
+                   "PyTorch versions.")
+    return p
+
+
+def build_pca_parser(
+    parser: Optional[argparse.ArgumentParser] = None,
+) -> argparse.ArgumentParser:
+    """The ``variants-pca`` flag surface (``spark_examples_tpu/config.py:
+    build_pca_parser``) plus ``--device``."""
+    p = _build_base_parser(parser or argparse.ArgumentParser())
     p.add_argument("--all-references", action="store_true",
                    help="Use all references (except X and Y) to compute PCA "
                    "(overrides --references).")
@@ -174,16 +189,13 @@ def build_pca_parser(
     p.add_argument("--save-variants", default=None, metavar="PATH",
                    help="Save the variant records read (wire ingest, single "
                    "set) as a checkpoint that --input-path resumes from.")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="Where the port's tensors live: the CUDA card "
-                   "(default) or the CPU, which runs the kernels' plain "
-                   "PyTorch versions.")
     return p
 
 
 @dataclass
-class PcaConf:
-    """Parsed ``variants-pca`` flags (``GenomicsConf.scala:29-98``)."""
+class GenomicsConf:
+    """Parsed base flags (``GenomicsConf.scala:29-64``): the examples'
+    verbs."""
 
     bases_per_partition: int = DEFAULT_BASES_PER_SHARD
     client_secrets: str = "client_secrets.json"
@@ -212,6 +224,85 @@ class PcaConf:
     coordinator_address: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
+    device: str = "cuda"
+
+    @classmethod
+    def parse(cls, argv: Sequence[str]) -> "GenomicsConf":
+        parser = _build_base_parser(argparse.ArgumentParser())
+        return cls._from_namespace(parser.parse_args(list(argv)))
+
+    @classmethod
+    def _from_namespace(cls, ns: argparse.Namespace):
+        conf = cls(**{f: getattr(ns, f) for f in cls.__dataclass_fields__ if hasattr(ns, f)})
+        if isinstance(conf.variant_set_id, str):
+            conf.variant_set_id = [v for v in conf.variant_set_id.split(",") if v.strip()]
+        if isinstance(conf.input_files, str):
+            conf.input_files = [p.strip() for p in conf.input_files.split(",") if p.strip()]
+        if isinstance(conf.num_samples, str):
+            sizes = [int(s) for s in conf.num_samples.split(",") if s.strip()]
+            conf.num_samples = sizes[0]
+            conf.num_samples_per_set = sizes if len(sizes) > 1 else None
+        if conf.heartbeat_seconds < 0:
+            raise ValueError(
+                f"--heartbeat-seconds must be >= 0 (0 = off), got "
+                f"{conf.heartbeat_seconds}"
+            )
+        if conf.ingest_workers is not None and conf.ingest_workers < 0:
+            raise ValueError(
+                f"--ingest-workers must be >= 0 (0 = serial oracle path), "
+                f"got {conf.ingest_workers}"
+            )
+        if conf.checkpoint_every_sites is not None and conf.checkpoint_every_sites < 1:
+            raise ValueError(
+                f"--checkpoint-every-sites must be >= 1, got "
+                f"{conf.checkpoint_every_sites} (omit the flag for the "
+                "default cadence)"
+            )
+        if conf.fault_plan is not None:
+            # A typo'd site name fails at parse time, not mid-run.
+            parse_plan(conf.fault_plan)
+        conf._check_flags()
+        if conf.num_samples_per_set:
+            if conf.source != "synthetic":
+                raise ValueError(
+                    "per-set --num-samples is synthetic-source-only "
+                    f"(--source {conf.source} reads its cohorts from the data)"
+                )
+            if len(set(conf.variant_set_id)) != len(conf.variant_set_id):
+                raise ValueError(
+                    "per-set --num-samples requires distinct --variant-set-id "
+                    "values (duplicate ids share one cohort)"
+                )
+        if conf.source == "file":
+            if not conf.input_files:
+                raise ValueError("--source file requires --input-files")
+            ids = file_set_ids(conf.input_files)
+            if conf.variant_set_id == [GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1]:
+                # The untouched default: every input file is one variant set.
+                conf.variant_set_id = ids
+            elif not set(conf.variant_set_id) <= set(ids):
+                raise ValueError(
+                    f"--variant-set-id {conf.variant_set_id} not among the "
+                    f"file-derived set ids {ids}"
+                )
+        return conf
+
+    def _check_flags(self) -> None:
+        """The subclass's own flag checks, before the source checks. The
+        examples take every base flag, as the reference's do; the ones their
+        paths do not read (telemetry, checkpoints, the cluster's) are unused
+        there too."""
+
+    def get_references(self) -> List[List[Contig]]:
+        """One contig list per variant set (``GenomicsConf.scala:59-63``),
+        ';' between the per-set lists and ',' within one."""
+        return [parse_contigs(spec) for spec in self.references.split(";")]
+
+
+@dataclass
+class PcaConf(GenomicsConf):
+    """Parsed ``variants-pca`` flags (``GenomicsConf.scala:66-98``)."""
+
     all_references: bool = False
     debug_datasets: bool = False
     min_allele_frequency: Optional[float] = None
@@ -230,73 +321,19 @@ class PcaConf:
     num_workers: int = 8
     profile_dir: Optional[str] = None
     save_variants: Optional[str] = None
-    device: str = "cuda"
 
     @classmethod
     def parse(cls, argv: Sequence[str]) -> "PcaConf":
         return cls._from_namespace(build_pca_parser().parse_args(list(argv)))
 
-    @classmethod
-    def _from_namespace(cls, ns: argparse.Namespace) -> "PcaConf":
-        conf = cls(**{f: getattr(ns, f) for f in cls.__dataclass_fields__ if hasattr(ns, f)})
-        if isinstance(conf.variant_set_id, str):
-            conf.variant_set_id = [v for v in conf.variant_set_id.split(",") if v.strip()]
-        if isinstance(conf.input_files, str):
-            conf.input_files = [p.strip() for p in conf.input_files.split(",") if p.strip()]
-        if isinstance(conf.num_samples, str):
-            sizes = [int(s) for s in conf.num_samples.split(",") if s.strip()]
-            conf.num_samples = sizes[0]
-            conf.num_samples_per_set = sizes if len(sizes) > 1 else None
-        if conf.heartbeat_seconds < 0:
-            raise ValueError(
-                f"--heartbeat-seconds must be >= 0 (0 = off), got "
-                f"{conf.heartbeat_seconds}"
-            )
-        if conf.blocks_per_dispatch is not None and conf.blocks_per_dispatch <= 0:
+    def _check_flags(self) -> None:
+        if self.blocks_per_dispatch is not None and self.blocks_per_dispatch <= 0:
             raise ValueError(
                 f"--blocks-per-dispatch must be a positive dispatch-group "
-                f"length, got {conf.blocks_per_dispatch} (omit the flag for "
+                f"length, got {self.blocks_per_dispatch} (omit the flag for "
                 "the auto rule)"
             )
-        if conf.ingest_workers is not None and conf.ingest_workers < 0:
-            raise ValueError(
-                f"--ingest-workers must be >= 0 (0 = serial oracle path), "
-                f"got {conf.ingest_workers}"
-            )
-        if conf.checkpoint_every_sites is not None and conf.checkpoint_every_sites < 1:
-            raise ValueError(
-                f"--checkpoint-every-sites must be >= 1, got "
-                f"{conf.checkpoint_every_sites} (omit the flag for the "
-                "default cadence)"
-            )
-        if conf.fault_plan is not None:
-            # A typo'd site name fails at parse time, not mid-run.
-            parse_plan(conf.fault_plan)
-        if conf.num_samples_per_set:
-            if conf.source != "synthetic":
-                raise ValueError(
-                    "per-set --num-samples is synthetic-source-only "
-                    f"(--source {conf.source} reads its cohorts from the data)"
-                )
-            if len(set(conf.variant_set_id)) != len(conf.variant_set_id):
-                raise ValueError(
-                    "per-set --num-samples requires distinct --variant-set-id "
-                    "values (duplicate ids share one cohort)"
-                )
-        check_ported(conf)
-        if conf.source == "file":
-            if not conf.input_files:
-                raise ValueError("--source file requires --input-files")
-            ids = file_set_ids(conf.input_files)
-            if conf.variant_set_id == [GoogleGenomicsPublicData.THOUSAND_GENOMES_PHASE_1]:
-                # The untouched default: every input file is one variant set.
-                conf.variant_set_id = ids
-            elif not set(conf.variant_set_id) <= set(ids):
-                raise ValueError(
-                    f"--variant-set-id {conf.variant_set_id} not among the "
-                    f"file-derived set ids {ids}"
-                )
-        return conf
+        check_ported(self)
 
     def get_contigs(self, source, variant_set_ids: Sequence[str]) -> List[Contig]:
         """Contigs for all datasets (``GenomicsConf.scala:83-97``):
@@ -470,6 +507,7 @@ class AssocConf(PcaConf):
 
 __all__ = [
     "AssocConf",
+    "GenomicsConf",
     "GrmConf",
     "LdConf",
     "PcaConf",

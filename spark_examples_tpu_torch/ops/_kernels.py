@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("devicegen.cu", "gramian.cu", "ld.cu", "probes.cu")
+SOURCES = ("depth.cu", "devicegen.cu", "gramian.cu", "ld.cu", "probes.cu")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
@@ -37,6 +37,12 @@ _U64 = ctypes.c_uint64
 
 #: C signatures of each source's functions: source → name → argtypes.
 _SIGNATURES = {
+    "depth.cu": {
+        # positions, lengths, rows, window_start, window_size, max_read_length, out, stream
+        "depth_counts_launch": (_P, _P, _I32, _I64, _I32, _I32, _P, _P),
+        # positions, codes, quality_ok, rows, read_len, window_start, window_size, out, stream
+        "base_counts_launch": (_P, _P, _P, _I32, _I32, _I64, _I32, _P, _P),
+    },
     "devicegen.cu": {
         "gen_genotypes_launch": (
             _P, _P, _P, _P, _P, _P, _P,  # xt, kept, rows, vs_keys, fsamp, set, pop

@@ -7,8 +7,9 @@ stream whose partitions are genomic ranges (``rdd/VariantsRDD.scala:
 source's client with STRICT boundaries in a bounded thread pool
 (:func:`_parallel_shards`), and :class:`PrefetchIterator` hands packed
 genotype blocks from a producer thread to the device feeder, so the host
-builds block k+1 while the card works on block k. ``ReadsDataset`` waits
-for the analyses.
+builds block k+1 while the card works on block k. :class:`ReadsDataset`
+pages read shards the same way for the reads examples
+(``analyses/reads_examples.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import threading
 import time
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple, TypeVar
 
+from spark_examples_tpu_torch.models.read import Read, ReadBuilder, ReadKey
 from spark_examples_tpu_torch.models.variant import Variant, VariantKey, VariantsBuilder
 from spark_examples_tpu_torch.obs.metrics import (
     PREFETCH_QUEUE_DEPTH,
@@ -27,6 +29,8 @@ from spark_examples_tpu_torch.obs.metrics import (
 )
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import (
+    ReadsPartition,
+    ReadsPartitioner,
     VariantsPartition,
     VariantsPartitioner,
 )
@@ -267,4 +271,46 @@ class VariantsDataset:
             yield variant
 
 
-__all__ = ["PrefetchIterator", "VariantsDataset"]
+class ReadsDataset:
+    """A sharded stream of ``(ReadKey, Read)`` records
+    (``rdd/ReadsRDD.scala:93-118``)."""
+
+    def __init__(
+        self,
+        source: GenomicsSource,
+        read_group_set_ids: Sequence[str],
+        partitioner: ReadsPartitioner,
+        num_workers: int = 8,
+    ):
+        self.source = source
+        self.read_group_set_ids = list(read_group_set_ids)
+        self.partitioner = partitioner
+        self.num_workers = num_workers
+
+    def partitions(self) -> List[ReadsPartition]:
+        return self.partitioner.get_partitions(self.read_group_set_ids)
+
+    def compute(self, partition: ReadsPartition) -> List[Tuple[ReadKey, Read]]:
+        """One shard: a fresh client pages the reads STARTING in the
+        partition's range (STRICT), so each read lands in one shard."""
+        client = self.source.client()
+        return [
+            ReadBuilder.build(wire)
+            for wire in client.search_reads(
+                partition.get_reads_request(), ShardBoundary.STRICT
+            )
+        ]
+
+    def iter_shards(self) -> Iterator[Tuple[ReadsPartition, List[Tuple[ReadKey, Read]]]]:
+        yield from _parallel_shards(self.partitions(), self.compute, self.num_workers)
+
+    def __iter__(self) -> Iterator[Tuple[ReadKey, Read]]:
+        for _, records in self.iter_shards():
+            yield from records
+
+    def reads(self) -> Iterator[Read]:
+        for _, read in self:
+            yield read
+
+
+__all__ = ["PrefetchIterator", "ReadsDataset", "VariantsDataset"]

@@ -1,16 +1,16 @@
-"""File-backed genomics source: VCF and wire-JSONL variants.
+"""File-backed genomics source: VCF / wire-JSONL variants, SAM reads.
 
 The port's copy of ``spark_examples_tpu/sources/files.py``: local files
-behind the :class:`GenomicsSource` seam, so ``variants-pca`` runs on real
-data.
+behind the :class:`GenomicsSource` seam, so ``variants-pca``, the
+analyses and the seven examples run on real data.
 
 - ``*.vcf`` / ``*.vcf.gz`` — VCF 4.x text: sites, INFO (``AF`` feeds the
   ``--min-allele-frequency`` filter), and per-sample GT calls.
 - ``*.jsonl`` / ``*.jsonl.gz`` — one wire-format variant dict per line, or
   the checkpoint entry shape ``{"key": ..., "variant": ...}``; a checkpoint
   directory (``pipeline/checkpoint.py``) is read through its part files.
-- ``*.sam`` raises :class:`NotImplementedError`: the reads analyses are not
-  ported yet.
+- ``*.sam`` — SAM text alignments for the reads examples, served as read
+  wire dicts by :meth:`FileClient.search_reads`.
 
 Three views of one VCF serve the three ingest arms of the driver:
 
@@ -24,7 +24,8 @@ Three views of one VCF serve the three ingest arms of the driver:
 - the **streamed** view (:class:`_StreamedVcf`): one bounded-memory pass
   over a coordinate-sorted file, serving every shard window in file order.
 
-Each file is one variant set whose id is the file's sanitized stem —
+Each file is one variant set (or read group set) whose id is the file's
+sanitized stem —
 ``/data/chr17.vcf.gz`` → ``chr17`` — with callset ids ``<set>-<i>``, so
 ``emit_result``'s dataset split on ``-`` works (``VariantsPca.scala:275``).
 """
@@ -61,6 +62,23 @@ from spark_examples_tpu_torch.sources.stream import (
     iter_text_lines,
     wire_rows_bound,
 )
+
+#: letter → wire operation (inverse of ``ReadBuilder.CIGAR_MATCH``,
+#: ``models/read.py``; SAM column 6).
+_CIGAR_OPS = {
+    "M": "ALIGNMENT_MATCH",
+    "H": "CLIP_HARD",
+    "S": "CLIP_SOFT",
+    "D": "DELETE",
+    "I": "INSERT",
+    "P": "PAD",
+    "=": "SEQUENCE_MATCH",
+    "X": "SEQUENCE_MISMATCH",
+    "N": "SKIP",
+}
+
+_CIGAR_RE = re.compile(r"(\d+)([MIDNSHP=X])")
+
 
 def file_set_id(path: str) -> str:
     """A file's variant/read-group set id: the stem, sanitized so callset ids
@@ -321,8 +339,55 @@ def _parse_jsonl(
     return callsets
 
 
-def _load(path: str, set_id: str) -> Tuple[List[Dict], SpooledRecordTable]:
-    """Parse one input into a finished spooled table. The table's row
+def _parse_sam(path: str, set_id: str, sink: SpooledRecordTable) -> List[Dict]:
+    """Stream SAM text into ``sink`` as read wire dicts (the SearchReads
+    item shape ``ReadBuilder.build`` consumes, ``models/read.py``)."""
+    for line_no, line in enumerate(iter_text_lines(path)):
+        if not line or line.startswith("@"):
+            continue
+        fields = line.split("\t")
+        if len(fields) < 11:
+            raise ValueError(
+                f"{path}: malformed SAM data line (<11 fields): {line[:80]!r}"
+            )
+        qname, _flag, rname, pos, mapq, cigar, rnext, pnext, tlen, seq, qual = (
+            fields[:11]
+        )
+        if rname == "*":
+            continue  # unmapped: no position to shard on
+        start = int(pos) - 1
+        record: Dict = {
+            "id": f"{set_id}:{line_no}",
+            "fragmentName": qname,
+            "readGroupSetId": set_id,
+            "alignedSequence": "" if seq == "*" else seq,
+            "fragmentLength": int(tlen),
+            "alignment": {
+                "position": {"referenceName": rname, "position": start},
+                "mappingQuality": int(mapq),
+                "cigar": [
+                    {
+                        "operationLength": int(length),
+                        "operation": _CIGAR_OPS[op],
+                    }
+                    for length, op in _CIGAR_RE.findall(cigar)
+                ],
+            },
+        }
+        if qual != "*":
+            record["alignedQuality"] = [ord(c) - 33 for c in qual]
+        if rnext != "*":
+            record["nextMatePosition"] = {
+                "referenceName": rname if rnext == "=" else rnext,
+                "position": int(pnext) - 1,
+            }
+        sink.add(rname, start, record)
+    return []
+
+
+def _load(path: str, set_id: str) -> Tuple[List[Dict], SpooledRecordTable, str]:
+    """Parse one input into a finished spooled table and its record kind
+    (``"variants"`` or ``"reads"``). The table's row
     capacity is the closed-form wire bound (``stream.wire_rows_bound``),
     enforced live: an input violating it raises ``StreamBudgetError``
     instead of growing past the bound."""
@@ -343,19 +408,15 @@ def _load(path: str, set_id: str) -> Tuple[List[Dict], SpooledRecordTable]:
         for name in parts:
             part_callsets = _parse_jsonl(os.path.join(path, name), set_id, sink)
             callsets = callsets or part_callsets
-        return callsets, sink.finish()
+        return callsets, sink.finish(), "variants"
+    sink = SpooledRecordTable(path, capacity_rows=wire_rows_bound(path))
     lowered = path[:-3] if path.endswith(".gz") else path
-    if lowered.endswith(".sam"):
-        raise NotImplementedError(
-            f"{path!r}: SAM input (.sam reads) is not ported to PyTorch yet "
-            "(the reads analyses are not ported); use .vcf[.gz] or .jsonl[.gz]"
-        )
     if lowered.endswith(".vcf"):
-        sink = SpooledRecordTable(path, capacity_rows=wire_rows_bound(path))
-        return _parse_vcf(path, set_id, sink), sink.finish()
+        return _parse_vcf(path, set_id, sink), sink.finish(), "variants"
     if lowered.endswith(".jsonl"):
-        sink = SpooledRecordTable(path, capacity_rows=wire_rows_bound(path))
-        return _parse_jsonl(path, set_id, sink), sink.finish()
+        return _parse_jsonl(path, set_id, sink), sink.finish(), "variants"
+    if lowered.endswith(".sam"):
+        return _parse_sam(path, set_id, sink), sink.finish(), "reads"
     raise ValueError(
         f"unsupported input file {path!r}: expected .vcf[.gz], .jsonl[.gz], "
         ".sam, or a checkpoint directory"
@@ -370,7 +431,7 @@ class _FileTable:
     def __init__(self, path: str, set_id: str):
         self.path = path
         self.set_id = set_id
-        self.callsets, self.table = _load(path, set_id)
+        self.callsets, self.table, self.kind = _load(path, set_id)
 
     def query(
         self, contig: str, start: int, end: int, boundary: ShardBoundary
@@ -400,12 +461,26 @@ class _FileTable:
 
 
 def _record_end(record: Dict) -> int:
-    """Half-open end of a variant record."""
-    return int(record.get("end", int(record["start"]) + 1))
+    """Half-open end of a variant or read record. Reads derive theirs from
+    the reference-consuming CIGAR operations (M/D/N/=/X), the SAM span."""
+    alignment = record.get("alignment")
+    if alignment is None:
+        return int(record.get("end", int(record["start"]) + 1))
+    position = int(alignment["position"]["position"])
+    span = sum(
+        int(unit["operationLength"])
+        for unit in alignment.get("cigar", [])
+        if unit["operation"]
+        in ("ALIGNMENT_MATCH", "DELETE", "SKIP", "SEQUENCE_MATCH", "SEQUENCE_MISMATCH")
+    )
+    return position + max(1, span)
 
 
 def _record_start(record: Dict) -> int:
-    return int(record["start"])
+    alignment = record.get("alignment")
+    if alignment is None:
+        return int(record["start"])
+    return int(alignment["position"]["position"])
 
 
 def _max_span(records: List[Dict]) -> int:
@@ -1044,8 +1119,8 @@ class FileClient(GenomicsClient):
         boundary: ShardBoundary = ShardBoundary.STRICT,
         page_size: int = FILE_PAGE_SIZE,
     ) -> Iterator[Dict]:
-        raise NotImplementedError(
-            "SearchReads over files (SAM input) is not ported to PyTorch yet"
+        return self._search(
+            request["readGroupSetIds"], request, boundary, page_size
         )
 
 

@@ -288,10 +288,15 @@ def test_unsorted_vcf_raises_like_reference(tmp_path, order):
 
 
 def test_sam_input_raises_naming_the_format(tmp_path):
-    path = _write(tmp_path, "reads.sam", "@HD\tVN:1.6\n")
-    source = files.FileGenomicsSource([path])
-    with pytest.raises(NotImplementedError, match="SAM"):
-        source.client()
+    """SAM input is ported: a header-only file is an empty read group set,
+    and a malformed data line raises naming the format, in both packages."""
+    empty = _write(tmp_path, "reads.sam", "@HD\tVN:1.6\n")
+    bad = _write(tmp_path, "bad.sam", "@HD\tVN:1.6\nr1\t0\t17\t5\n")
+    request = {"readGroupSetIds": ["reads"], "referenceName": "17", "start": 0, "end": 100}
+    for module in (files, ref_files):
+        assert list(module.FileGenomicsSource([empty]).client().search_reads(request)) == []
+        with pytest.raises(ValueError, match="malformed SAM"):
+            module.FileGenomicsSource([bad]).client()
 
 
 def test_directory_without_parts_raises_like_reference(tmp_path):

@@ -63,16 +63,20 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.analyses.base",
     "spark_examples_tpu_torch.analyses.grm",
     "spark_examples_tpu_torch.analyses.ld",
+    "spark_examples_tpu_torch.analyses.reads_examples",
+    "spark_examples_tpu_torch.analyses.variants_examples",
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.hostmem",
     "spark_examples_tpu_torch.experiments.cli_wall",
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
+    "spark_examples_tpu_torch.models.read",
     "spark_examples_tpu_torch.models.variant",
     "spark_examples_tpu_torch.obs.heartbeat",
     "spark_examples_tpu_torch.obs.manifest",
     "spark_examples_tpu_torch.obs.metrics",
     "spark_examples_tpu_torch.ops.contracts",
+    "spark_examples_tpu_torch.ops.depth",
     "spark_examples_tpu_torch.ops.devicegen",
     "spark_examples_tpu_torch.ops.gramian",
     "spark_examples_tpu_torch.ops.ld",
@@ -155,7 +159,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert "Matrix size: 8." in out and "Variants API stats:" in out
 
 
-@pytest.mark.parametrize("verb", ["graftcheck", "serve", "search-variants-brca1"])
+@pytest.mark.parametrize("verb", ["graftcheck", "serve", "trace"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
     from spark_examples_tpu_torch.cli import main
 

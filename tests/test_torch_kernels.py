@@ -431,3 +431,94 @@ def test_ld_window_product_equals_plain_version_on_the_card(sites, n):
     C_host, k = ld.ld_window_stats(rows, dev)
     X = rows.astype(np.int64)
     assert np.array_equal(C_host, X @ X.T) and np.array_equal(k, X.sum(axis=1))
+
+
+#: Depth-kernel cases: (reads, read length, window, max_read_length or
+#: code/mask mode). The first two are ``chip_smoke.py``'s shapes: a
+#: whole-chr21 shard of example 3 and an example-4 shard.
+DEPTH_CASES = {
+    "chr21-shard": (26194, 100, 327414 + 128, 128),
+    "edges": (997, 300, 5000, 256),
+    "long-reads": (64, 400, 3000, 128),
+    "one-read": (1, 100, 64, 128),
+    "no-reads": (0, 100, 64, 128),
+}
+BASE_CASES = {
+    "example4-shard": (4210, 128, 52631 + 128, "random"),
+    "edges": (997, 192, 5000, "random"),
+    "all-unknown": (300, 128, 2000, "unknown"),
+    "mask-false": (300, 128, 2000, "masked"),
+    "one-read": (1, 64, 64, "random"),
+    "no-reads": (0, 64, 64, "random"),
+}
+
+
+def _read_starts(rng, rows, window, span):
+    """Starts spread from ``span`` before the window to past its end, so
+    reads begin before it, straddle both edges and lie beyond it."""
+    import numpy as np
+
+    return rng.integers(1_000_000 - span, 1_000_000 + window + 50, rows).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(DEPTH_CASES))
+def test_depth_counts_kernel_equals_plain_version_on_the_card(case):
+    """``depth_counts`` against its plain version, exactly: reads before the
+    window start and past its end, zero and negative lengths, lengths above
+    ``max_read_length`` (cut there), one read and none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import depth
+
+    rows, length, window, max_len = DEPTH_CASES[case]
+    rng = np.random.default_rng(rows + window)
+    dev = torch.device("cuda")
+    starts = _read_starts(rng, rows, window, length)
+    lengths = np.full(rows, length, dtype=np.int32)
+    if case == "edges":
+        lengths = rng.integers(-3, 2 * max_len, rows).astype(np.int32)
+    pos_t, len_t = torch.from_numpy(starts).to(dev), torch.from_numpy(lengths).to(dev)
+    depth.reset_launch_counts()
+    got = depth.depth_counts(pos_t, len_t, 1_000_000, window, max_len)
+    want = depth.depth_counts_plain(pos_t, len_t, 1_000_000, window, max_len)
+    assert depth.depth_counts.launches == (1 if rows else 0)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == int(depth.depth_counts_plain(
+        pos_t.cpu(), len_t.cpu(), 1_000_000, window, max_len).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(BASE_CASES))
+def test_base_counts_kernel_equals_plain_version_on_the_card(case):
+    """``base_counts`` against its plain version, exactly: codes -1…5 (a
+    code above 3 counts as 3, as the reference clips it), all-unknown codes,
+    an all-false mask (bool and uint8), one read and none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import depth
+
+    rows, length, window, mode = BASE_CASES[case]
+    rng = np.random.default_rng(rows + window + length)
+    dev = torch.device("cuda")
+    starts = _read_starts(rng, rows, window, length)
+    codes = rng.integers(-1, 6 if case == "edges" else 4, (rows, length)).astype(np.int8)
+    ok = rng.random((rows, length)) < 0.8
+    if mode == "unknown":
+        codes[:] = -1
+    if mode == "masked":
+        ok[:] = False
+    pos_t = torch.from_numpy(starts).to(dev)
+    codes_t, ok_t = torch.from_numpy(codes).to(dev), torch.from_numpy(ok).to(dev)
+    depth.reset_launch_counts()
+    got = depth.base_counts(pos_t, codes_t, ok_t, 1_000_000, window)
+    got_u8 = depth.base_counts(pos_t, codes_t, ok_t.to(torch.uint8), 1_000_000, window)
+    want = depth.base_counts_plain(pos_t, codes_t, ok_t, 1_000_000, window)
+    assert depth.base_counts.launches == (2 if rows else 0)
+    assert torch.equal(got, want) and torch.equal(got_u8, want)
+    if mode != "random":
+        assert int(got.sum()) == 0
