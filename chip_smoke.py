@@ -28,18 +28,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    16,384 rows, each followed by the product; the association counts
    (``case_counts``) at 2,504 samples × 1,024 and 16,384 rows, 13 and 130
    samples and a ragged block, and the LD window product at 256 sites ×
-   2,504 samples and on a 37-site tail window; the six u32 op chains at
+   2,504 samples and on a 37-site tail window, at its split of the
+   samples and at splits 1, 2, 4, 5 and 10; the six u32 op chains at
    (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
    the card's limit; the read depth (``depth_counts``) at a whole-chr21
    shard of example 3 (26,194 reads, W = 327,414 + 128) and the base counts
    (``base_counts``) at an example-4 shard (4,210 reads × 128, W = 52,631
    + 128), both also at edge shapes (reads before and past the window,
    zero, negative and over-long lengths, unknown codes, an all-false mask,
-   one read, none). Then CUDA-event times of each kernel, its plain
-   version and, where one exists, the PyTorch library call computing the
-   same function (the generation and the product at both depths, with
-   their launches' blocks and waves; ``torch.bincount`` for the depth
-   kernels); the op chains also at ragged lengths and off a 16-byte
+   one read, none, a window of 1, max_read_length 0, reads over the whole
+   window, a window of 586 scan tiles). Then CUDA-event times of
+   each kernel, its plain version and, where one exists, the PyTorch
+   library call computing the same function (the generation and the
+   product at both depths, with their launches' blocks, split and waves;
+   the LD window product at each split, in turns; ``torch.bincount`` for
+   the depth kernels, and the designs ``depth_counts`` was chosen over,
+   from ``experiments/depth_variants.py``); the op chains also at ragged
+   lengths and off a 16-byte
    boundary, with their SASS split by pipe;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
@@ -218,6 +223,9 @@ LD_THRESHOLD = 0.2
 LD_LOW_THRESHOLD = 0.002
 #: Sites of the LD tail window the kernels phase checks.
 LD_TAIL = 37
+#: Splits of the LD window product's 20 steps of 128 samples that the
+#: kernels phase checks and times (1 is the unsplit launch).
+LD_SPLITS = (1, 2, 4, 5, 10)
 #: u32 operations of the association counts per 32-bit word of a row: an
 #: and and two popc.
 CASE_COUNT_OPS_PER_WORD = 3
@@ -247,13 +255,19 @@ DEPTH_WINDOW_START = 1_000_000
 #: example's 30.
 QUALITY_PASS_SHARE = 11 / 21
 #: Edge shapes of the depth kernels: (reads, read length, window,
-#: max_read_length, mode of ``depth_inputs``).
+#: max_read_length, mode of ``depth_inputs``); the last four are edges of
+#: ``depth_counts``' difference array and scan (its tiles are 1,024
+#: positions).
 DEPTH_EDGE_CASES = {
     "edges": (997, 192, 5000, 256, "edges"),
     "all-unknown codes": (300, 100, 2000, 128, "unknown"),
     "all-false mask": (300, 100, 2000, 128, "masked"),
     "one read": (1, 100, 64, 128, "random"),
     "no reads": (0, 100, 64, 128, "random"),
+    "a window of 1": (200, 100, 1, 128, "random"),
+    "max_read_length 0": (300, 100, 2000, 0, "long"),
+    "reads over the whole window": (64, 3000, 2000, 4096, "random"),
+    "a window of 586 scan tiles": (3000, 100, 600_000, 128, "random"),
 }
 #: The Klotho example's second, wider run: 2 kb around the SNP.
 KLOTHO_WIDE = 2_000
@@ -375,7 +389,10 @@ def phase_kernels(torch, devicegen):
     depths = {}
     for sites, block in ((BLOCK, xt), (CLI_BLOCK, xt_cli)):
         xt_n = block[:n] if n % 8 == 0 else block  # _int_mm wants widths that are multiples of 8
-        blocks, resident = devicegen.gram_accumulate_grid(block.shape[0], dev)
+        blocks, resident, split, sms = devicegen.gram_accumulate_grid(*block.shape, dev)
+        if split != 1:
+            raise AssertionError(f"gram_accumulate at {n} samples x {sites} sites splits its "
+                                 f"sites over {split} blocks: the Gramian's launch must not")
         depths[sites] = dict(
             ms=cuda_ms(lambda: devicegen.gram_accumulate(g_k, block), 20),
             plain_ms=cuda_ms(lambda: devicegen.gram_accumulate_plain(g_k, block), 5, 1),
@@ -386,8 +403,8 @@ def phase_kernels(torch, devicegen):
         log(f"kernels: gram_accumulate at {sites} sites: {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f} ms, torch._int_mm {r['library_ms']:.4f} ms, bound "
             f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of "
-            f"it); launch: {blocks} blocks over every site, {resident} resident, "
-            f"{blocks / resident:.2f} waves")
+            f"it); launch: {blocks} blocks (split {split}: each over every site), {resident} "
+            f"resident on {sms} SMs, {blocks / resident:.2f} waves")
     rows["gram_accumulate"].update(depths[BLOCK])
     for name, r in rows.items():
         log(f"kernels: {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, library "
@@ -521,15 +538,24 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
         packed = torch.from_numpy(ld.pack_window(window)).to(dev)
         C = ld.window_counts(packed, sites)
         C_p = torch.zeros_like(C)
-        devicegen.gram_accumulate_plain(C_p, gramian.unpack_rows_t_plain(packed, sites))
+        xt = gramian.unpack_rows_t_plain(packed, sites)
+        devicegen.gram_accumulate_plain(C_p, xt)
         torch.cuda.synchronize()
         if not torch.equal(C, C_p):
             raise AssertionError(f"LD window product != plain at {sites} sites")
         X = window.astype(np.float64)
         if not np.array_equal(C.cpu().numpy(), (X @ X.T).astype(np.int64)):
             raise AssertionError(f"LD window product != float64 BLAS at {sites} sites")
-        log(f"kernels: LD window product (unpack_rows_t, gram_accumulate) == plain at {sites} "
-            f"sites x {N_SAMPLES} samples: trace {int(C.diagonal().long().sum())}")
+        for split in LD_SPLITS:
+            C_s = torch.zeros_like(C)
+            devicegen.gram_accumulate(C_s, xt, split)
+            torch.cuda.synchronize()
+            if not torch.equal(C_s, C_p):
+                raise AssertionError(f"LD window product != plain at {sites} sites, split {split}")
+        _, _, split, sms = devicegen.gram_accumulate_grid(*xt.shape, dev)
+        log(f"kernels: LD window product (unpack_rows_t, gram_accumulate) == plain and float64 "
+            f"BLAS at {sites} sites x {N_SAMPLES} samples (split {split} on {sms} SMs, and at "
+            f"splits {LD_SPLITS}): trace {int(C.diagonal().long().sum())}")
 
     # Times at the main paths' shapes: the CLI's 1,024-row block at 2,504
     # samples, and one full window of 256 sites.
@@ -562,8 +588,16 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
     packed = torch.from_numpy(ld.pack_window(window)).to(dev)
     xt = gramian.unpack_rows_t(packed, LD_WINDOW)
     C = torch.zeros((LD_WINDOW, LD_WINDOW), dtype=torch.int32, device=dev)
-    blocks_, resident = devicegen.gram_accumulate_grid(xt.shape[0], dev)
+    blocks_, resident, split, sms = devicegen.gram_accumulate_grid(*xt.shape, dev)
+    if split == 1:
+        raise AssertionError(f"the LD window's product ({tuple(xt.shape)}) does not split")
     operand = xt.numel()
+    # Each split in turns (s1 s2 ... s2 s1), the rule's own among them.
+    split_ms = {s: [] for s in LD_SPLITS}
+    for order in (LD_SPLITS, LD_SPLITS[::-1]):
+        for s in order:
+            split_ms[s].append(cuda_ms(lambda: devicegen.gram_accumulate(C, xt, s), 50))
+    split_ms = {s: sum(t) / len(t) for s, t in split_ms.items()}
     window_row = dict(
         max_abs_err=0,
         ms=cuda_ms(lambda: devicegen.gram_accumulate(C, xt), 50),
@@ -580,9 +614,10 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
     log(f"kernels: gram_accumulate at the LD window ({LD_WINDOW} sites x {n} samples, operand "
         f"{tuple(xt.shape)}): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch._int_mm "
         f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, "
-        f"{100 * r['bound'][0] / r['ms']:.2f} % of it); launch: {blocks_} blocks, {resident} "
-        f"resident, on {torch.cuda.get_device_properties(0).multi_processor_count} SMs; "
-        f"unpack_rows_t of the transposed packing {unpack_ms:.4f} ms; the program (unpack, "
+        f"{100 * r['bound'][0] / r['ms']:.2f} % of it); launch: {blocks_} blocks (split "
+        f"{split}), {resident} resident, on {sms} SMs; by split: "
+        + ", ".join(f"{s} {t:.4f} ms" for s, t in split_ms.items())
+        + f"; unpack_rows_t of the transposed packing {unpack_ms:.4f} ms; the program (unpack, "
         f"zeroed C, product) {program_ms:.4f} ms; the host's transposed packing "
         f"{pack_ms:.4f} ms")
     return counts_row, window_row
@@ -1400,11 +1435,12 @@ def depth_inputs(rng, rows, length, window, max_len, mode="random"):
     """(starts, lengths, codes, quality mask) of ``rows`` synthetic-geometry
     reads around a window at ``DEPTH_WINDOW_START``: starts from a read
     length before the window to past its end. ``mode`` "edges" adds zero,
-    negative and over-``max_len`` lengths and codes up to 5; "unknown"
-    makes every code -1, "masked" every mask bit false."""
+    negative and over-``max_len`` lengths and codes up to 5; "long" keeps
+    lengths past ``max_len`` (cut there); "unknown" makes every code -1,
+    "masked" every mask bit false."""
     starts = rng.integers(DEPTH_WINDOW_START - length, DEPTH_WINDOW_START + window + 50,
                           rows).astype(np.int32)
-    lengths = np.full(rows, min(length, max_len), dtype=np.int32)
+    lengths = np.full(rows, length if mode == "long" else min(length, max_len), dtype=np.int32)
     codes = rng.integers(0, 4, (rows, max_len)).astype(np.int8)
     codes[:, length:] = -1
     ok = rng.random((rows, max_len)) < QUALITY_PASS_SHARE
@@ -1499,6 +1535,18 @@ def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
         f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch.bincount of the valid "
         f"flattened indices {r['library_ms']:.4f} ms; bound {r['bound'][0]:.6f} ms by "
         f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+    # The designs depth_counts was chosen over, on the same shard.
+    from spark_examples_tpu_torch.experiments import depth_variants
+
+    designs = depth_variants.designs(depth_variants.build())
+    want = depth.depth_counts_plain(pos, lens, DEPTH_WINDOW_START, W, READ_PAD)
+    design_ms = {}
+    for name, fn in designs.items():
+        if not torch.equal(fn(pos, lens, W, READ_PAD), want):
+            raise AssertionError(f"depth design {name!r} != plain at the chr21 shard")
+        design_ms[name] = cuda_ms(lambda: fn(pos, lens, W, READ_PAD), 50)
+    log("kernels: depth_counts designs at the chr21 shard, each == plain: "
+        + ", ".join(f"{name} {t:.4f} ms" for name, t in design_ms.items()))
     R, W = EX4_SHARD_READS, EX4_SHARD_SPAN + READ_PAD
     pos = torch.from_numpy(ex4_starts).to(dev)
     codes_t, ok_t = torch.from_numpy(ex4_codes).to(dev), torch.from_numpy(ex4_ok).to(dev)

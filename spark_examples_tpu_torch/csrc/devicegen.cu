@@ -90,14 +90,31 @@
 //   A's rows are one of B's boxes (the diagonal) A is not loaded and its
 //   descriptors point into B. One producer thread keeps the loads in
 //   flight; two consumer warpgroups own 64 rows each (128 int32
-//   accumulators a thread, no spills). One block per unit walks every
-//   site: at 2,504 samples the 110 units fill 110 of 132 SMs, and splitting
-//   the sites measured slower at both depths, as each split adds a whole
-//   epilogue into G. The epilogue stages
-//   the block's output in shared memory (reusing the ring) and adds it to
-//   G with red.global.add, a warp on 32 neighbouring int32 of a row of G,
-//   for each tile and for the transpose of each tile above the diagonal;
-//   the L2 does the adds, so no load waits in the SM.
+//   accumulators a thread, no spills). A unit whose row holds a diagonal
+//   tile's right neighbour stores that tile only: the unit of the next
+//   tile row computes its mirror anyway (the tile left of its diagonal)
+//   and stores it.
+//   Where the units fill half the card (every Gramian at the 1000 Genomes
+//   width and above: 110 units at 2,504 samples) a block walks every site
+//   of its unit: there splitting the sites measured slower, as each split
+//   adds a whole partial tile into G. Where they do not (the LD window's
+//   C = X·Xᵀ, 2 units over 2,560 samples; a cohort of a few tile rows),
+//   one block walked all 20 steps of a unit alone on 2 of 132 SMs. There
+//   ops/devicegen.py:gram_split splits the contracted axis over `split`
+//   blocks a unit (gridDim.y; block y walks steps [y·S/split,
+//   (y + 1)·S/split), its ring counting from 0, only the TMA coordinate
+//   offset), and each half of a unit's rows takes a block of its own (one
+//   consumer warpgroup; the other exits): a block's partial tile streams
+//   into G from its SM at a rate no split raises (the times by split
+//   flatten out; PERF.md), so half tiles halve the longest block.
+//   Epilogue: the block's output is staged in shared memory (reusing the
+//   ring). Where G's rows are 16-byte aligned (N a multiple of 4) each row
+//   of the tile is one bulk reduction (cp.reduce.async.bulk .add.s32): the
+//   TMA unit streams it into G and L2 does the adds; then the tile's
+//   columns are staged as rows (8-byte and 4-byte stores that meet no bank
+//   twice) and reduced into the mirror's rows. Elsewhere each warp adds 32
+//   neighbouring int32 of a row with red.global.add. The adds are int32
+//   sums of exact partials, so any order and any split give the same G.
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). Each launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch;
@@ -155,10 +172,16 @@ constexpr int G_STAGE_BYTES = (1 + G_BOXES) * G_BOX_BYTES;  // the A box, then B
 constexpr int G_CONSUMERS = 256;                     // two warpgroups
 constexpr int GRAM_THREADS = G_CONSUMERS + 32;       // and one producer warp
 constexpr int G_STRIDE = G_BN + 1;  // staged int32 row: odd, so columns read conflict-free
+// Staged rows of the bulk epilogue: 16-byte aligned, as a bulk copy needs.
+constexpr int G_BULK_STRIDE = G_BN + 8;  // a tile row: 8 mod 32, so 8-byte stores are conflict-free
+constexpr int G_BULK_TSTRIDE = GT + 4;   // a tile column (the adds to its mirror's rows)
 // Ring (1024-byte aligned for the swizzle, hence the slack), then the
 // full and empty barriers.
 constexpr int G_SMEM_BYTES = 1024 + G_STAGES * G_STAGE_BYTES + 2 * G_STAGES * 8;
 static_assert(GT * G_STRIDE * 4 <= G_STAGES * G_STAGE_BYTES, "the staged tile reuses the ring");
+static_assert(GT * G_BULK_STRIDE * 4 <= G_STAGES * G_STAGE_BYTES &&
+                  G_BN * G_BULK_TSTRIDE * 4 <= G_STAGES * G_STAGE_BYTES,
+              "the bulk epilogue's staged tile reuses the ring");
 constexpr int G_MAX_DEVICES = 64;  // devices whose kernel attributes are cached
 
 // Where a launch keeps each block's tables (GEN_SITES words a row: n_pops
@@ -500,23 +523,32 @@ __device__ __forceinline__ void fence_accumulators(int32_t (&d)[128]) {
 
 // G[gi0 + i, gj0 + j] += src[i·si + j·sj] for i < rows, j < cols, both
 // inside G, with red.global.add (the L2 adds; no load waits in the SM):
-// consumer warp w takes rows w, w + 8, ..., a lane 32 neighbouring int32
-// of a row an instruction.
+// consumer warp w of `warps` takes rows w, w + warps, ..., a lane 32
+// neighbouring int32 of a row an instruction.
 __device__ __forceinline__ void red_rows(int32_t* __restrict__ g, int n, int gi0, int gj0,
                                          const int32_t* src, int si, int sj, int rows,
-                                         int cols) {
+                                         int cols, int warps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < rows && gi0 + i < n; i += G_CONSUMERS / 32) {
+  for (int i = warp; i < rows && gi0 + i < n; i += warps) {
     int32_t* row = g + static_cast<int64_t>(gi0 + i) * n + gj0;
     for (int j = lane; j < cols && gj0 + j < n; j += 32)
       atomicAdd(row + j, src[i * si + j * sj]);  // result unused: red.global.add.s32
   }
 }
 
+// G[row, col : col + bytes / 4] += the int32 at shared address `src`: one
+// bulk reduction, its adds done in L2 by the TMA unit (dst, src and bytes
+// multiples of 16).
+__device__ __forceinline__ void bulk_add(int32_t* dst, uint32_t src, int bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.s32 [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+}
+
 // Work units, row-major: tile row bi takes the column groups (of G_BOXES
 // tiles) from the one holding its diagonal tile on. Where bi is the
 // group's second tile row, the unit also computes the tile left of the
-// diagonal and drops it.
+// diagonal and stores it: it is the mirror of the tile right of the
+// diagonal in the row above, which that unit then need not mirror.
 int gram_units(int n_tiles) {
   const int groups = (n_tiles + G_BOXES - 1) / G_BOXES;
   int units = 0;
@@ -524,10 +556,12 @@ int gram_units(int n_tiles) {
   return units;
 }
 
-// One block per work unit (tile row bi, column group), over every site.
+// One block per work unit (tile row bi, column group), or per half of its
+// rows in a split launch (blockIdx.x), and part of the sites (blockIdx.y of
+// gridDim.y = split).
 __global__ void __launch_bounds__(GRAM_THREADS, 1)
 gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __restrict__ g,
-                       int n, int n_tiles, int steps) {
+                       int n, int n_tiles, int total_steps, int halves, bool bulk) {
   constexpr int W = G_BOXES;
   extern __shared__ unsigned char g_smem[];
   const uint32_t raw = smem_u32(g_smem);
@@ -536,7 +570,7 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   const uint32_t empty = full + G_STAGES * 8;
 
   const int groups = (n_tiles + W - 1) / W;
-  int bi = 0, idx = blockIdx.x;
+  int bi = 0, idx = blockIdx.x / halves;
   while (idx >= groups - bi / W) {
     idx -= groups - bi / W;
     ++bi;
@@ -544,15 +578,25 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   const int b0 = (bi / W + idx) * W;  // the group's first column tile
   const bool a_in_b = bi >= b0;       // A's rows are one of B's boxes (the diagonal)
   const int b_boxes = n_tiles - b0 < W ? n_tiles - b0 : W;
+  // The ring's arithmetic counts this block's steps from 0; only the TMA
+  // coordinate is offset by the first.
+  const int first = static_cast<int>(int64_t(blockIdx.y) * total_steps / gridDim.y);
+  const int steps = static_cast<int>(int64_t(blockIdx.y + 1) * total_steps / gridDim.y) - first;
 
+  // A split launch gives each half of a unit's rows a block of its own:
+  // one consumer warpgroup, half the partial sums to add into G.
+  const int h = blockIdx.x % halves;
+  const int consumers = G_CONSUMERS / halves;
+  const int rows_out = GT / halves;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < G_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, G_CONSUMERS / 32);  // lane 0 of each consumer warp
+      mbar_init(empty + 8 * s, consumers / 32);  // lane 0 of each consumer warp
     }
   }
   __syncthreads();
+  if (tid >= consumers && tid < G_CONSUMERS) return;  // a half unit's idle warpgroup
 
   if (tid >= G_CONSUMERS) {
     // Producer: one thread keeps up to G_STAGES stages in flight. B's boxes
@@ -564,7 +608,7 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
         const uint32_t round = t / G_STAGES;
         if (t >= G_STAGES) mbar_wait(empty + 8 * s, (round & 1) ^ 1);
         const uint32_t stage = ring + s * G_STAGE_BYTES;
-        const int k = t * GK;
+        const int k = (first + t) * GK;
         mbar_expect_tx(full + 8 * s, bytes);
         if (!a_in_b) tma_load_box(stage, &xt_map, full + 8 * s, k, bi * GT);
         for (int w = 0; w < b_boxes; ++w)
@@ -574,8 +618,9 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
     return;
   }
 
-  // Consumers: warpgroup wg owns rows 64·wg.. of the block's output.
-  const int wg = tid / 128;
+  // Consumers: warpgroup wg owns rows 64·wg.. of the unit's output (rows
+  // 64·h.. in a half unit).
+  const int wg = halves == 2 ? h : tid / 128;
   int32_t d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0;
@@ -600,14 +645,58 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
   fence_accumulators(d);
 
-  // Epilogue. Both warpgroups' MMAs are done before the ring is reused.
-  asm volatile("bar.sync 1, %0;" ::"n"(G_CONSUMERS) : "memory");
+  // Epilogue. Every consumer's MMAs are done before the ring is reused.
+  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
   int32_t* staged = reinterpret_cast<int32_t*>(g_smem + (ring - raw));
   const int warp = tid / 32, lane = tid & 31;
   // Accumulator layout: register 4j+q of lane l in warp w holds row
   // 16·(w % 4) + l/4 + 8·(q/2), column 8j + 2·(l % 4) + q % 2.
-  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int r0 = (tid / 128) * 64 + (warp % 4) * 16 + lane / 4;  // the staged row
   const int c0 = 2 * (lane % 4);
+  // The unit's rows, then, for a unit above the diagonal's column group,
+  // its columns as rows of their mirror.
+  const int i0 = bi * GT + h * rows_out, j0 = b0 * GT;  // G's first row and column
+  const bool mirrored = bi < b0;
+  if (bulk) {
+    // One bulk reduction a row of G (G's rows 16-byte aligned): the TMA
+    // unit adds, so no thread issues an add. Rows first, then the ring
+    // takes the tile's columns for the mirror.
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      *reinterpret_cast<int2*>(staged + r0 * G_BULK_STRIDE + 8 * j + c0) =
+          make_int2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<int2*>(staged + (r0 + 8) * G_BULK_STRIDE + 8 * j + c0) =
+          make_int2(d[4 * j + 2], d[4 * j + 3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+    const int row_bytes = 4 * min(G_BN, n - j0);
+    if (tid < rows_out && i0 + tid < n && row_bytes > 0)
+      bulk_add(g + static_cast<int64_t>(i0 + tid) * n + j0, smem_u32(staged + tid * G_BULK_STRIDE),
+               row_bytes);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    if (mirrored) {
+      asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+#pragma unroll
+      for (int j = 0; j < G_BN / 8; ++j) {
+        int32_t* col = staged + (8 * j + c0) * G_BULK_TSTRIDE + r0;
+        col[0] = d[4 * j];
+        col[G_BULK_TSTRIDE] = d[4 * j + 1];
+        col[8] = d[4 * j + 2];
+        col[G_BULK_TSTRIDE + 8] = d[4 * j + 3];
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+      const int col_bytes = 4 * min(rows_out, n - i0);
+      for (int c = tid; c < G_BN && j0 + c < n && col_bytes > 0; c += consumers)
+        bulk_add(g + static_cast<int64_t>(j0 + c) * n + i0,
+                 smem_u32(staged + c * G_BULK_TSTRIDE), col_bytes);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    return;
+  }
 #pragma unroll
   for (int j = 0; j < G_BN / 8; ++j) {
     staged[r0 * G_STRIDE + 8 * j + c0] = d[4 * j];
@@ -615,15 +704,9 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
     staged[(r0 + 8) * G_STRIDE + 8 * j + c0] = d[4 * j + 2];
     staged[(r0 + 8) * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 3];
   }
-  asm volatile("bar.sync 1, %0;" ::"n"(G_CONSUMERS) : "memory");
-
-  // The rows of the tiles on and above the diagonal, then the columns of
-  // those above it as rows of their mirror.
-  const int i0 = bi * GT, j0 = b0 * GT;
-  const int direct = (bi > b0 ? bi - b0 : 0) * GT;          // first staged column stored
-  const int mirror = (bi + 1 > b0 ? bi + 1 - b0 : 0) * GT;  // first staged column mirrored
-  red_rows(g, n, i0, j0 + direct, staged + direct, G_STRIDE, 1, GT, G_BN - direct);
-  red_rows(g, n, j0 + mirror, i0, staged + mirror, 1, G_STRIDE, G_BN - mirror, GT);
+  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+  red_rows(g, n, i0, j0, staged, G_STRIDE, 1, rows_out, G_BN, consumers / 32);
+  if (mirrored) red_rows(g, n, j0, i0, staged, 1, G_STRIDE, G_BN, rows_out, consumers / 32);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -862,8 +945,9 @@ int gen_genotypes_grid(int ld, int n_cols_pad, int n_pops, int n_sets, int* grid
 }
 
 // The launch shape of one product over Xᵀ with n_pad rows on the current
-// card: grid[0] blocks (one per unit), grid[1] blocks resident at once
-// (SMs × blocks an SM holds). A diagnostic: the launcher does not need it.
+// card: grid[0] work units, grid[1] blocks resident at once (SMs × blocks
+// an SM holds), grid[2] the card's SMs. A launch is units × its split
+// blocks. A diagnostic: the launcher does not need it.
 int gram_accumulate_grid(int n_pad, int* grid) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t status = gram_prepare(&device);
@@ -874,13 +958,16 @@ int gram_accumulate_grid(int n_pad, int* grid) {
                                                            GRAM_THREADS, G_SMEM_BYTES);
   grid[0] = gram_units(n_pad / GT);
   grid[1] = sms * per_sm;
+  grid[2] = sms;
   return static_cast<int>(status);
 }
 
 // G[:n, :n] += (Xᵀ·X)[:n, :n] for the (n_pad, ldx) int8 Xᵀ at `xt`
-// (n_pad and ldx multiples of 128, `xt` 16-byte aligned).
-int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int ldx,
+// (n_pad and ldx multiples of 128, `xt` 16-byte aligned), the sites split
+// over `split` blocks a unit (ops/devicegen.py:gram_split chooses it).
+int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int ldx, int split,
                            void* stream) {
+  if (split < 1) return static_cast<int>(cudaErrorInvalidValue);
   int device = 0;
   const cudaError_t prepared = gram_prepare(&device);
   if (prepared != cudaSuccess) return static_cast<int>(prepared);
@@ -899,8 +986,11 @@ int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int l
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (encoded != CUDA_SUCCESS) return -static_cast<int>(encoded);
-  gram_accumulate_kernel<<<gram_units(n_pad / GT), GRAM_THREADS, G_SMEM_BYTES,
-                           static_cast<cudaStream_t>(stream)>>>(map, g, n, n_pad / GT, ldx / GK);
+  const int halves = split > 1 ? 2 : 1;
+  const dim3 blocks(gram_units(n_pad / GT) * halves, split);
+  const bool bulk = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  gram_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      map, g, n, n_pad / GT, ldx / GK, halves, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 

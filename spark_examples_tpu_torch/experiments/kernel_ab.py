@@ -1,0 +1,121 @@
+"""Kernel times of two or more source trees in turns on one card.
+
+    python -m spark_examples_tpu_torch.experiments.kernel_ab \\
+        --tree build/parent --tree . --rounds 2
+
+Each tree is a checkout of the repository (a parent unpacked with ``git
+archive``, say). For every tree, in turns (A B B A each round, after one
+untimed run per tree that builds its kernels), a fresh process imports
+that tree's ``spark_examples_tpu_torch`` and times, with CUDA events, the
+same inputs made from fixed seeds:
+
+- ``gram_accumulate`` at the Gramian's shapes: 2,504 samples × 16,384 and
+  1,024 sites (the device path's and the CLI's blocks), and 17 samples
+  (the platinum cohort) × the same;
+- the LD window product: ``gram_accumulate`` into a (256, 256) C from the
+  unpacked 256-site × 2,504-sample window, and the program
+  (``ld.window_counts``: unpack, zeroed C, product);
+- ``depth_counts`` at a whole-chr21 shard of example 3 (26,194 reads,
+  W = 327,542) and ``base_counts`` at an example-4 shard (4,210 reads ×
+  128, W = 52,759);
+- in every process, ``torch._int_mm`` on the LD window's operand and
+  ``torch.bincount`` of the chr21 shard's covered positions, the same
+  calls in every tree (a gauge of the card between processes).
+
+Prints the card line, one JSON line per run and one with each tree's
+medians. The worker calls each wrapper as a tree without the product's
+``split`` argument calls it, so an older tree runs the same code. Runs on
+a CUDA card only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+#: Run in each tree's own process; prints one JSON object of milliseconds.
+WORKER = r'''
+import json
+import numpy as np
+import torch
+from spark_examples_tpu_torch.ops import depth, devicegen, gramian, ld
+from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+dev = torch.device("cuda")
+rng = np.random.default_rng(2504)
+out = {}
+for n in (2504, 17):
+    rows = -(-n // 128) * 128
+    G = torch.zeros((n, n), dtype=torch.int32, device=dev)
+    for sites in (16384, 1024):
+        bits = (rng.random((rows, sites)) < 0.3).astype(np.int8)
+        xt = torch.from_numpy(bits).to(dev)
+        out[f"gram_accumulate {n}x{sites}"] = cuda_ms(lambda: devicegen.gram_accumulate(G, xt), 50)
+window = (rng.random((256, 2504)) < 0.3).astype(np.uint8)
+packed = torch.from_numpy(ld.pack_window(window)).to(dev)
+xt = gramian.unpack_rows_t(packed, 256)
+C = torch.zeros((256, 256), dtype=torch.int32, device=dev)
+out["ld window product"] = cuda_ms(lambda: devicegen.gram_accumulate(C, xt), 50)
+out["ld window program"] = cuda_ms(lambda: ld.window_counts(packed, 256), 50)
+out["torch._int_mm ld window"] = cuda_ms(lambda: torch._int_mm(xt, xt.t()), 50)
+start, span = 1_000_000, 327_414
+starts = np.array(sorted(p for p, _ in SyntheticGenomicsSource(num_samples=1).read_starts(
+    start, start + span)), dtype=np.int32)
+W = span + 128
+pos = torch.from_numpy(starts).to(dev)
+lens = torch.full((len(starts),), 100, dtype=torch.int32, device=dev)
+out["depth_counts chr21 shard"] = cuda_ms(
+    lambda: depth.depth_counts(pos, lens, start, W, 128), 50)
+idx = (pos.long() - start)[:, None] + torch.arange(100, device=dev)[None, :]
+flat = idx[(idx >= 0) & (idx < W)]
+out["torch.bincount chr21 shard"] = cuda_ms(lambda: torch.bincount(flat, minlength=W), 50)
+R, W4 = 4210, 52_631 + 128
+pos4 = torch.from_numpy(rng.integers(start - 100, start + W4 + 50, R).astype(np.int32)).to(dev)
+codes = torch.from_numpy(rng.integers(-1, 4, (R, 128)).astype(np.int8)).to(dev)
+ok = torch.from_numpy((rng.random((R, 128)) < 11 / 21).astype(np.uint8)).to(dev)
+out["base_counts example-4 shard"] = cuda_ms(
+    lambda: depth.base_counts(pos4, codes, ok, start, W4), 50)
+print(json.dumps(out))
+'''
+
+
+def run_once(tree: Path) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-c", WORKER], cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode:
+        raise RuntimeError(f"{tree}: rc {proc.returncode}: {proc.stderr[-3000:]}")
+    return {"tree": str(tree), "ms": json.loads(proc.stdout.strip().splitlines()[-1])}
+
+
+def main(args=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tree", action="append", required=True, type=Path)
+    parser.add_argument("--rounds", type=int, default=2)
+    ns = parser.parse_args(args)
+    trees = [t.resolve() for t in ns.tree]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    for tree in trees:
+        run_once(tree)
+    runs = {str(t): [] for t in trees}
+    for _ in range(ns.rounds):
+        for tree in trees + trees[::-1]:
+            result = run_once(tree)
+            runs[str(tree)].append(result["ms"])
+            print(json.dumps(result), flush=True)
+    print(json.dumps({tree: {name: statistics.median(r[name] for r in rs) for name in rs[0]}
+                      for tree, rs in runs.items()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

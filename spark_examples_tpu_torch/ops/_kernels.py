@@ -38,8 +38,10 @@ _U64 = ctypes.c_uint64
 #: C signatures of each source's functions: source → name → argtypes.
 _SIGNATURES = {
     "depth.cu": {
-        # positions, lengths, rows, window_start, window_size, max_read_length, out, stream
-        "depth_counts_launch": (_P, _P, _I32, _I64, _I32, _I32, _P, _P),
+        # positions, lengths, rows, window_start, window_size, max_read_length, out,
+        # zeroed difference buffer, zeroed tile totals, the next launch's, their words, stream
+        "depth_counts_launch": (_P, _P, _I32, _I64, _I32, _I32, _P, _P, _P, _P, _I32, _P),
+        "depth_scan_tile": (),
         # positions, codes, quality_ok, rows, read_len, window_start, window_size, out, stream
         "base_counts_launch": (_P, _P, _P, _I32, _I32, _I64, _I32, _P, _P),
     },
@@ -52,10 +54,10 @@ _SIGNATURES = {
             _I32, _I32, _I32, _I32, _I32,  # n_pops, n_sets, n_cols, n_cols_pad, ld
             _P,  # stream
         ),
-        "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _P),
+        "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _I32, _P),  # ..., ldx, split, stream
         "gen_genotypes_table_words": (_I32, _I32, _I32, _I32, _P),  # ld, n_cols_pad, pops, sets, words
         "gen_genotypes_grid": (_I32, _I32, _I32, _I32, _P),  # ld, n_cols_pad, pops, sets, grid (5 ints)
-        "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (2 ints)
+        "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (3 ints)
         "devicegen_site_tile": (),
         "devicegen_col_tile": (),
     },

@@ -5,10 +5,12 @@ computes per-base depth and base frequencies with flatMap +
 ``reduceByKey``/``groupByKey`` shuffles over (position, x) pairs
 (``SearchReadsExample.scala:140-167, 219-244``); the JAX package turns them
 into scatter-adds into a dense coordinate window, vectorized over all reads
-of a shard. Here each is a hand-written kernel (``csrc/depth.cu``): one
-warp per read, its lanes adding the read's (read, offset) pairs into the
-int32 window with atomics, so the counts are exactly the reference's in
-any order.
+of a shard. Here each is hand-written CUDA (``csrc/depth.cu``): read depth
+is a difference array (+1 where a read's clipped interval starts, -1
+where it ends) and its prefix sum, tile by tile; the base counts one warp
+a read adding its (offset, base) pairs into the int32 window with
+atomics. Integer sums, so the counts are exactly the reference's in any
+order.
 
 As for every kernel wrapper of the port: a CPU tensor takes the plain
 PyTorch version beside it (the reference's scatter-add with
@@ -38,6 +40,34 @@ def encode_bases(sequence: str) -> list:
 @functools.lru_cache(maxsize=None)
 def _library():
     return _kernels.library("depth.cu")
+
+
+class _DepthScratch:
+    """``depth_counts``' buffers on one (device, stream), zeroed once:
+    the difference buffer, which every launch leaves zeroed, and two tile
+    totals buffers, which launches take in turns, each clearing the other
+    for the next. Launches on one stream run in order, so none overlaps
+    another's use."""
+
+    def __init__(self, device: torch.device, window_size: int, tile: int):
+        self.diff = torch.zeros(window_size, dtype=torch.int32, device=device)
+        self.totals = torch.zeros((2, -(-window_size // tile)), dtype=torch.int32, device=device)
+        self.turn = 0
+
+    def buffers(self):
+        """(difference buffer, this launch's totals, the next launch's)."""
+        return self.diff, self.totals[self.turn], self.totals[1 - self.turn]
+
+
+_SCRATCH: dict = {}
+
+
+def _depth_scratch(device: torch.device, stream: int, window_size: int, tile: int):
+    key = (device.index, stream)
+    scratch = _SCRATCH.get(key)
+    if scratch is None or scratch.diff.numel() < window_size:
+        scratch = _SCRATCH[key] = _DepthScratch(device, window_size, tile)
+    return scratch
 
 
 def _check_window(window_size: int) -> None:
@@ -85,7 +115,9 @@ def depth_counts(
 
     Replaces ``spark_examples_tpu/ops/depth.py:depth_counts``. CPU tensors
     take :func:`depth_counts_plain`; CUDA tensors launch
-    ``depth_counts_kernel`` (``csrc/depth.cu``)."""
+    ``depth_adds_kernel`` then ``depth_scan_kernel`` (``csrc/depth.cu``):
+    a difference array and its prefix sum, over buffers kept per device and
+    stream."""
     _check_positions(positions)
     _require(lengths, "lengths", torch.int32, positions.shape, positions.device)
     _check_window(window_size)
@@ -93,17 +125,25 @@ def depth_counts(
         raise ValueError(f"max_read_length must be >= 0, got {max_read_length}")
     if positions.device.type == "cpu":
         return depth_counts_plain(positions, lengths, window_start, window_size, max_read_length)
-    out = torch.zeros(int(window_size), dtype=torch.int32, device=positions.device)
     rows = int(positions.shape[0])
     if rows == 0:
-        return out
+        return torch.zeros(int(window_size), dtype=torch.int32, device=positions.device)
+    out = torch.empty(int(window_size), dtype=torch.int32, device=positions.device)
+    lib = _library()
     with torch.cuda.device(positions.device):
-        status = _library().depth_counts_launch(
+        stream = torch.cuda.current_stream(positions.device).cuda_stream
+        scratch = _depth_scratch(positions.device, stream, int(window_size),
+                                 lib.depth_scan_tile())
+        diff, totals, next_totals = scratch.buffers()
+        status = lib.depth_counts_launch(
             positions.data_ptr(), lengths.data_ptr(), rows, int(window_start),
-            int(window_size), int(max_read_length), out.data_ptr(),
-            torch.cuda.current_stream(positions.device).cuda_stream,
+            int(window_size), int(max_read_length), out.data_ptr(), diff.data_ptr(),
+            totals.data_ptr(), next_totals.data_ptr(), totals.numel(), stream,
         )
+    if status:  # the buffers' state is unknown: the next call starts from zeroed ones
+        _SCRATCH.pop((positions.device.index, stream), None)
     _kernels.check(status, "depth_counts")
+    scratch.turn = 1 - scratch.turn
     depth_counts.launches += 1
     return out
 

@@ -466,9 +466,50 @@ def gram_accumulate_plain(G: torch.Tensor, xt: torch.Tensor) -> None:
     G += (Xw @ Xw.T).to(G.dtype)
 
 
-def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
+#: Output tiles of G a ``gram_accumulate`` block computes: one tile row of
+#: this many 128 × 128 tiles (``csrc/devicegen.cu:G_BOXES``).
+GRAM_UNIT_TILES = 2
+#: The fewest steps of ``SITE_TILE`` along the contracted axis that a block
+#: of a split product walks (measured on the card: PERF.md).
+GRAM_SPLIT_MIN_STEPS = 2
+
+
+def gram_units(rows: int) -> int:
+    """Work units of a product over an Xᵀ of ``rows`` rows (a multiple of
+    ``COL_TILE``): tile row ``bi`` of the upper triangle takes the column
+    groups of ``GRAM_UNIT_TILES`` tiles from the one holding its diagonal
+    tile on (``csrc/devicegen.cu:gram_units``)."""
+    tiles = rows // COL_TILE
+    groups = -(-tiles // GRAM_UNIT_TILES)
+    return sum(groups - bi // GRAM_UNIT_TILES for bi in range(tiles))
+
+
+def gram_split(rows: int, ld: int, sms: int) -> int:
+    """Blocks a unit of the product splits its contracted axis (``ld``
+    columns of Xᵀ, ``ld / SITE_TILE`` steps) over, on a card of ``sms``
+    SMs: 1 where the units alone fill half the card (every Gramian at the
+    1000 Genomes width and above: 110 units at 2,504 samples), else the
+    most that keeps one wave and ``GRAM_SPLIT_MIN_STEPS`` steps a block.
+    A split launch also gives each half of a unit's 128 rows a block of its
+    own, so one wave is ``2 · units · split ≤ sms`` blocks (the LD window,
+    2 units of 20 steps: 10 splits, 40 blocks). Each block adds its
+    partial sums into G."""
+    units = gram_units(rows)
+    if 2 * units >= sms:
+        return 1
+    return max(1, min(sms // (2 * units), (ld // SITE_TILE) // GRAM_SPLIT_MIN_STEPS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def gram_accumulate(G: torch.Tensor, xt: torch.Tensor, split: Optional[int] = None) -> None:
     """``G += (Xᵀ·X)[:n, :n]`` in place, for the int32 (n, n) Gramian and a
-    block's int8 Xᵀ from :func:`gen_genotypes`.
+    block's int8 Xᵀ from :func:`gen_genotypes`. ``split`` (blocks a unit
+    splits the contracted axis over) defaults to :func:`gram_split` on
+    this card; any split gives the same G.
 
     Replaces the product half of ``experiments/pallas_fused_gramian.py:
     pallas_gram`` (the ``dot_general`` into the resident G) and the einsum of
@@ -488,6 +529,10 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
         )
     if xt.data_ptr() % 16:
         raise ValueError("xt must start on a 16-byte boundary (its tensor map needs it)")
+    if split is None:
+        split = gram_split(rows, ld, _sms(G.device.index))
+    if not 1 <= split <= max(1, ld // SITE_TILE):
+        raise ValueError(f"split must be in [1, {max(1, ld // SITE_TILE)}], got {split}")
     lib = _library()
     with torch.cuda.device(G.device):
         status = lib.gram_accumulate_launch(
@@ -496,20 +541,26 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor) -> None:
             xt.data_ptr(),
             rows,
             ld,
+            split,
             torch.cuda.current_stream(G.device).cuda_stream,
         )
     _kernels.check(status, "gram_accumulate")
     gram_accumulate.launches += 1
 
 
-def gram_accumulate_grid(rows: int, device: torch.device) -> tuple[int, int]:
+def gram_accumulate_grid(rows: int, ld: int, device: torch.device) -> tuple[int, int, int, int]:
     """``gram_accumulate_kernel``'s launch on ``device`` for an Xᵀ of
-    ``rows`` rows: (blocks, blocks resident at once). One block computes
-    128 × 256 of G on or above the diagonal, over every site."""
-    grid = (ctypes.c_int * 2)()
+    ``rows`` × ``ld``: (blocks, blocks resident at once, the split, the
+    card's SMs). A block computes 128 × 256 of G on or above the diagonal
+    (64 × 256 where split) over ``ld / split`` of the columns."""
+    grid = (ctypes.c_int * 3)()
     with torch.cuda.device(device):
         _kernels.check(_library().gram_accumulate_grid(rows, grid), "gram_accumulate_grid")
-    return grid[0], grid[1]
+    if grid[0] != gram_units(rows):
+        raise RuntimeError(f"csrc/devicegen.cu has {grid[0]} units at {rows} rows, "
+                           f"ops/devicegen.py:gram_units {gram_units(rows)}")
+    split = gram_split(rows, ld, grid[2])
+    return grid[0] * split * (2 if split > 1 else 1), grid[1], split, grid[2]
 
 
 gram_accumulate.launches = 0  # type: ignore[attr-defined]
@@ -696,6 +747,8 @@ __all__ = [
     "gram_accumulate",
     "gram_accumulate_grid",
     "gram_accumulate_plain",
+    "gram_split",
+    "gram_units",
     "load_reference_state",
     "make_gen_plan",
     "mix64",

@@ -433,6 +433,46 @@ def test_ld_window_product_equals_plain_version_on_the_card(sites, n):
     assert np.array_equal(C_host, X @ X.T) and np.array_equal(k, X.sum(axis=1))
 
 
+#: The LD window product's (sites, samples) on the card, and the splits of
+#: its samples timed there (``chip_smoke.py:LD_SPLITS``).
+LD_SPLIT_SHAPES = [(256, 2504), (37, 2504), (256, 13), (129, 130), (256, 25000)]
+LD_SPLITS = (None, 1, 2, 4, 5, 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sites, n", LD_SPLIT_SHAPES)
+def test_split_product_equals_plain_and_numpy_on_the_card(sites, n):
+    """The LD window's C = X·Xᵀ with its samples split over blocks, at the
+    rule's split (``None``) and each measured split the steps allow,
+    exactly equal to the plain version and to numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import gramian, ld
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(sites * n)
+    rows = (rng.random((sites, n)) < 0.3).astype(np.uint8)
+    rows[0] = 1
+    xt = gramian.unpack_rows_t(torch.from_numpy(ld.pack_window(rows)).to(dev), sites)
+    steps = xt.shape[1] // port.SITE_TILE
+    X = rows.astype(np.float64)  # exact: every sum is below 2^53
+    want = (X @ X.T).astype(np.int64)
+    C_plain = torch.zeros((sites, sites), dtype=torch.int32, device=dev)
+    port.gram_accumulate_plain(C_plain, xt)
+    splits = [s for s in LD_SPLITS if s is None or s <= steps]
+    port.reset_launch_counts()
+    for split in splits:
+        C = torch.zeros((sites, sites), dtype=torch.int32, device=dev)
+        port.gram_accumulate(C, xt, split)
+        assert torch.equal(C, C_plain), split
+        assert np.array_equal(C.cpu().numpy().astype(np.int64), want), split
+    assert port.gram_accumulate.launches == len(splits)
+    _, _, split, sms = port.gram_accumulate_grid(*xt.shape, dev)
+    assert split == port.gram_split(*xt.shape, sms)
+
+
 #: Depth-kernel cases: (reads, read length, window, max_read_length or
 #: code/mask mode). The first two are ``chip_smoke.py``'s shapes: a
 #: whole-chr21 shard of example 3 and an example-4 shard.
@@ -442,6 +482,11 @@ DEPTH_CASES = {
     "long-reads": (64, 400, 3000, 128),
     "one-read": (1, 100, 64, 128),
     "no-reads": (0, 100, 64, 128),
+    "window-of-1": (200, 100, 1, 128),
+    "max-read-length-0": (300, 100, 2000, 0),
+    "reads-over-the-whole-window": (64, 3000, 2000, 4096),
+    "wide-window": (3000, 100, 600_000, 128),
+    "more-tiles-than-resident-blocks": (2000, 100, 10_000_000, 128),
 }
 BASE_CASES = {
     "example4-shard": (4210, 128, 52631 + 128, "random"),
@@ -466,7 +511,10 @@ def _read_starts(rng, rows, window, span):
 def test_depth_counts_kernel_equals_plain_version_on_the_card(case):
     """``depth_counts`` against its plain version, exactly: reads before the
     window start and past its end, zero and negative lengths, lengths above
-    ``max_read_length`` (cut there), one read and none."""
+    ``max_read_length`` (cut there, also at 0), reads over the whole
+    window, a window of 1, windows of 586 scan tiles and of 9,766 (more
+    blocks than the card holds at once), one read and none; twice, so the
+    second call finds the buffers the first left zeroed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import numpy as np
@@ -483,9 +531,10 @@ def test_depth_counts_kernel_equals_plain_version_on_the_card(case):
     pos_t, len_t = torch.from_numpy(starts).to(dev), torch.from_numpy(lengths).to(dev)
     depth.reset_launch_counts()
     got = depth.depth_counts(pos_t, len_t, 1_000_000, window, max_len)
+    again = depth.depth_counts(pos_t, len_t, 1_000_000, window, max_len)
     want = depth.depth_counts_plain(pos_t, len_t, 1_000_000, window, max_len)
-    assert depth.depth_counts.launches == (1 if rows else 0)
-    assert torch.equal(got, want)
+    assert depth.depth_counts.launches == (2 if rows else 0)
+    assert torch.equal(got, want) and torch.equal(again, want)
     assert int(got.sum()) == int(depth.depth_counts_plain(
         pos_t.cpu(), len_t.cpu(), 1_000_000, window, max_len).sum())
 
