@@ -12,7 +12,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with g++; the build's SASS (``cuobjdump``) must show 16-byte stores
    in the generation and unpack kernels, int8 warpgroup MMAs and TMA loads
    in the product's kernel, bulk copies in the scratch copy's, 16-byte
-   loads and stores in the op chains' and POPC in the association counts';
+   loads and stores in the op chains', 16-byte loads and POPC in the
+   association counts', atomic adds and 16-byte stores in the base
+   counts';
    then chr17 through the CLI in a
    process of its own (started here, while this one is small), whose
    manifest's ``hostmem`` pair must hold: that process's peak RSS within
@@ -27,7 +29,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    blocks, bit-packed and count-valued, at 2,504 samples × 1,024 and
    16,384 rows, each followed by the product; the association counts
    (``case_counts``) at 2,504 samples × 1,024 and 16,384 rows, 13 and 130
-   samples and a ragged block, and the LD window product at 256 sites ×
+   samples, a ragged block and a block one byte past a 16-byte boundary
+   (byte loads), and the LD window product at 256 sites ×
    2,504 samples and on a 37-site tail window, at its split of the
    samples and at splits 1, 2, 4, 5 and 10; the six u32 op chains at
    (1024, 2560) after 21 chained calls; the shared-memory scratch copy at
@@ -37,15 +40,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    + 128), both also at edge shapes (reads before and past the window,
    zero, negative and over-long lengths, unknown codes, an all-false mask,
    one read, none, a window of 1, max_read_length 0, reads over the whole
-   window, a window of 586 scan tiles). Then CUDA-event times of
-   each kernel, its plain version and, where one exists, the PyTorch
-   library call computing the same function (the generation and the
-   product at both depths, with their launches' blocks, split and waves;
-   the LD window product at each split, in turns; ``torch.bincount`` for
-   the depth kernels, and the designs ``depth_counts`` was chosen over,
-   from ``experiments/depth_variants.py``); the op chains also at ragged
-   lengths and off a 16-byte
-   boundary, with their SASS split by pipe;
+   window, a window of 586 scan tiles, reads in position order, rows of
+   99 bytes), ``base_counts`` called twice at each. Then the launch
+   floor (``torch.cuda._sleep(0)`` in the same harness) and CUDA-event
+   times of each kernel, its plain version and, where one exists, the
+   PyTorch library call computing the same function (the generation and
+   the product at both depths, with their launches' blocks, split and
+   waves; the LD window product at each split, in turns;
+   ``torch.bincount`` for the depth kernels, and the designs
+   ``depth_counts`` was chosen over, from
+   ``experiments/depth_variants.py``; those ``case_counts`` and
+   ``base_counts`` were chosen over, from
+   ``experiments/count_variants.py``, each == plain); the op chains also
+   at ragged lengths and off a 16-byte boundary, with their SASS split by
+   pipe;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
@@ -182,14 +190,18 @@ UNPACK_ROWS = (CLI_BLOCK, BLOCK)
 #: SASS opcodes each redesigned kernel must contain, in this run's build:
 #: 16-byte stores (the generation's staged Xᵀ chunks and the unpack's
 #: rows); int8 warpgroup MMAs and TMA tensor loads; bulk copies; 16-byte
-#: loads and stores (the op chains' vectors). IMMA is mma.sync.
+#: loads and stores (the op chains' vectors); 16-byte loads of the packed
+#: rows (the association counts); atomic adds into device memory and the
+#: next buffer's 16-byte zeroing stores (the base counts). IMMA is
+#: mma.sync.
 HOPPER_SASS = {
     "gen_genotypes_kernel": ("devicegen.cu", ("STG.E.128",), ()),
     "unpack_rows_t_kernel": ("gramian.cu", ("STG.E.128",), ()),
     "gram_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
     "scratch_copy_kernel": ("probes.cu", ("UBLKCP",), ()),
     "probe_op_chain_kernel": ("probes.cu", ("LDG.E.128", "STG.E.128"), ()),
-    "case_counts_kernel": ("ld.cu", ("POPC",), ()),
+    "case_counts_kernel": ("ld.cu", ("LDG.E.128", "POPC"), ()),
+    "base_counts_kernel": ("depth.cu", ("REDG", "STG.E.128"), ()),
 }
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -255,9 +267,13 @@ DEPTH_WINDOW_START = 1_000_000
 #: example's 30.
 QUALITY_PASS_SHARE = 11 / 21
 #: Edge shapes of the depth kernels: (reads, read length, window,
-#: max_read_length, mode of ``depth_inputs``); the last four are edges of
-#: ``depth_counts``' difference array and scan (its tiles are 1,024
-#: positions).
+#: max_read_length, mode of ``depth_inputs``); the four before the sorted
+#: shard are edges of ``depth_counts``' difference array and scan (its
+#: tiles are 1,024 positions); the last two are ``base_counts``' (reads in
+#: position order; rows of 99 bytes, no whole number of words). The codes
+#: are max_read_length wide, and the windows grow and shrink from case to
+#: case, so ``base_counts``' kept zeroed buffer is taken at its size,
+#: wider and narrower.
 DEPTH_EDGE_CASES = {
     "edges": (997, 192, 5000, 256, "edges"),
     "all-unknown codes": (300, 100, 2000, 128, "unknown"),
@@ -268,6 +284,8 @@ DEPTH_EDGE_CASES = {
     "max_read_length 0": (300, 100, 2000, 0, "long"),
     "reads over the whole window": (64, 3000, 2000, 4096, "random"),
     "a window of 586 scan tiles": (3000, 100, 600_000, 128, "random"),
+    "position-sorted reads": (EX4_SHARD_READS, 100, EX4_SHARD_SPAN + READ_PAD, 100, "sorted"),
+    "read length 99": (300, 90, 2000, 99, "random"),
 }
 #: The Klotho example's second, wider run: 2 kb around the SNP.
 KLOTHO_WIDE = 2_000
@@ -304,6 +322,17 @@ def bound(bytes_moved: float, ops: float, ops_rate: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def launch_floor_ms(torch) -> float:
+    """The time of a near-empty launch in the kernels' timing harness
+    (``torch.cuda._sleep(0)``, 50 calls queued behind a device sleep): what
+    no kernel of a single launch can go under."""
+    from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), 50)
+    log(f"kernels: launch floor (torch.cuda._sleep(0), 50 calls): {floor:.4f} ms")
+    return floor
 
 
 def phase_kernels(torch, devicegen):
@@ -504,7 +533,7 @@ def phase_unpack(torch, devicegen, gramian, int32_rate):
     return row, times
 
 
-def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
+def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate, floor_ms):
     """The two device programs of ``ld-prune`` and ``assoc-scan`` against
     their plain versions, exactly: ``case_counts`` on blocks shipped as the
     scan ships them (16-byte pitch) at 2,504 samples × 1,024 and 16,384
@@ -516,18 +545,29 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
     from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(11)
-    for n, rows in ((N_SAMPLES, CLI_BLOCK), (N_SAMPLES, BLOCK), (130, CLI_BLOCK),
-                    (13, CLI_BLOCK), (N_SAMPLES, 937)):
+    for n, rows, shifted in ((N_SAMPLES, CLI_BLOCK, False), (N_SAMPLES, BLOCK, False),
+                             (130, CLI_BLOCK, False), (13, CLI_BLOCK, False),
+                             (N_SAMPLES, 937, False), (N_SAMPLES, CLI_BLOCK, True)):
         values = (rng.random((rows, n)) < 0.3).astype(np.uint8)
         case = (np.arange(n) % 2).astype(np.uint8)
         block, case_t = ld.pack_rows(values, dev), ld.pack_case(case, dev)
+        if shifted:  # the same rows one byte past a 16-byte boundary: byte loads
+            pitch = block.stride(0)
+            flat = torch.zeros(rows * pitch + 1, dtype=torch.uint8, device=dev)
+            flat[1:].view(rows, pitch)[:, :block.shape[1]] = block
+            block = flat[1:].view(rows, pitch)[:, :block.shape[1]]
+        if ld.case_counts_vectors(block, case_t) == shifted:
+            raise AssertionError(f"case_counts takes the wrong loads at N={n}, {rows} rows")
         a, t = ld.case_counts(block, case_t, n)
         a_p, t_p = ld.case_counts_plain(block, case_t, n)
         torch.cuda.synchronize()
         if not (torch.equal(a, a_p) and torch.equal(t, t_p)):
             raise AssertionError(f"case_counts != plain at N={n}, {rows} rows")
-        log(f"kernels: case_counts == plain (N={n}, {rows} rows, pitch {block.stride(0)}): "
+        log(f"kernels: case_counts == plain (N={n}, {rows} rows, pitch {block.stride(0)}, "
+            f"{'byte' if shifted else '16-byte'} loads from byte {block.data_ptr() % 16} of a "
+            f"16-byte vector, {ld.case_counts_lanes(block.shape[1], rows, sms)} lanes a row): "
             f"{int(a.long().sum())} case carriers of {int(t.long().sum())}")
 
     # The packed cell's first window (real cohort rows) and a tail window.
@@ -558,7 +598,8 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
             f"splits {LD_SPLITS}): trace {int(C.diagonal().long().sum())}")
 
     # Times at the main paths' shapes: the CLI's 1,024-row block at 2,504
-    # samples, and one full window of 256 sites.
+    # samples (and the device path's 16,384), and one full window of 256
+    # sites.
     n, width = N_SAMPLES, -(-N_SAMPLES // 8)
     values = (rng.random((CLI_BLOCK, n)) < 0.3).astype(np.uint8)
     case = (np.arange(n) % 2).astype(np.uint8)
@@ -566,8 +607,11 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
     Xf = torch.from_numpy(values).to(dev).float()
     M = torch.stack([torch.from_numpy(case).to(dev).float(), torch.ones(n, device=dev)], dim=1)
     words = CLI_BLOCK * -(-width // 4)
+    big = ld.pack_rows((rng.random((BLOCK, n)) < 0.3).astype(np.uint8), dev)
+    big_ms = cuda_ms(lambda: ld.case_counts(big, case_t, n), 50)
+    big_bound = bound(BLOCK * width + width + 8 * BLOCK, 0, int32_rate)[0]
     counts_row = dict(
-        max_abs_err=0,
+        max_abs_err=0, floor_ms=floor_ms,
         ms=cuda_ms(lambda: ld.case_counts(block, case_t, n), 50),
         plain_ms=cuda_ms(lambda: ld.case_counts_plain(block, case_t, n), 5, 1),
         library_ms=cuda_ms(lambda: torch.matmul(Xf, M), 50),
@@ -576,10 +620,14 @@ def phase_ld_kernels(torch, devicegen, gramian, ld, int32_rate):
                     words * CASE_COUNT_OPS_PER_WORD, int32_rate),
     )
     r = counts_row
-    log(f"kernels: case_counts at {CLI_BLOCK} rows x {n} samples: {r['ms']:.4f} ms (plain "
-        f"{r['plain_ms']:.4f} ms, torch.matmul of the unpacked float32 block by [case, 1] "
-        f"{r['library_ms']:.4f} ms, reading 8x the bytes; bound {r['bound'][0]:.6f} ms by "
-        f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+    log(f"kernels: case_counts at {CLI_BLOCK} rows x {n} samples "
+        f"({ld.case_counts_lanes(width, CLI_BLOCK, sms)} lanes a row, 16-byte loads): "
+        f"{r['ms']:.4f} ms (launch floor {floor_ms:.4f} ms; plain {r['plain_ms']:.4f} ms, "
+        f"torch.matmul of the unpacked float32 block by [case, 1] {r['library_ms']:.4f} ms, "
+        f"reading 8x the bytes; bound {r['bound'][0]:.6f} ms by {r['bound'][1]}, "
+        f"{100 * r['bound'][0] / r['ms']:.2f} % of it); at {BLOCK} rows {big_ms:.4f} ms "
+        f"({ld.case_counts_lanes(width, BLOCK, sms)} lanes a row; bound {big_bound:.6f} ms by "
+        f"bytes, {100 * big_bound / big_ms:.2f} % of it)")
     window = first[:LD_WINDOW]
     t0 = time.perf_counter()
     for _ in range(20):
@@ -646,7 +694,7 @@ def check_hopper_sass(libs) -> None:
             raise AssertionError(f"SASS of {source} has no function named {kernel}")
         for name, opcodes in functions.items():
             found = sorted({op.split(".")[0] if "MMA" in op else op for op in opcodes
-                            if re.search(r"MMA|UTMA|UBLK|POPC|(LDG|STG).*\.128", op)})
+                            if re.search(r"MMA|UTMA|UBLK|POPC|REDG|(LDG|STG).*\.128", op)})
             log(f"sass: {name}: "
                 f"{', '.join(found) or 'no MMA, TMA, bulk-copy, POPC or 16-byte store opcode'}")
             missing = [op for op in wanted if not has(opcodes, op)]
@@ -1437,7 +1485,8 @@ def depth_inputs(rng, rows, length, window, max_len, mode="random"):
     length before the window to past its end. ``mode`` "edges" adds zero,
     negative and over-``max_len`` lengths and codes up to 5; "long" keeps
     lengths past ``max_len`` (cut there); "unknown" makes every code -1,
-    "masked" every mask bit false."""
+    "masked" every mask bit false; "sorted" puts the reads in position
+    order."""
     starts = rng.integers(DEPTH_WINDOW_START - length, DEPTH_WINDOW_START + window + 50,
                           rows).astype(np.int32)
     lengths = np.full(rows, length if mode == "long" else min(length, max_len), dtype=np.int32)
@@ -1451,6 +1500,8 @@ def depth_inputs(rng, rows, length, window, max_len, mode="random"):
         codes[:] = -1
     if mode == "masked":
         ok[:] = False
+    if mode == "sorted":
+        starts.sort()
     return starts, lengths, codes, ok
 
 
@@ -1465,7 +1516,7 @@ def chr21_shard_reads():
                     dtype=np.int32)
 
 
-def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
+def phase_depth_kernels(torch, depth, int32_rate, floor_ms, dev="cuda"):
     """``depth_counts`` at a whole-chr21 shard (26,194 reads, W = 327,414 +
     128) and ``base_counts`` at an example-4 shard (4,210 reads x 128, W =
     52,631 + 128), and both at edge shapes, each exactly equal to its
@@ -1501,13 +1552,15 @@ def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
                 f"max_read_length {max_len}): {int(got.long().sum())} pairs counted")
         if codes is not None:
             codes_t, ok_t = torch.from_numpy(codes).to(dev), torch.from_numpy(ok).to(dev)
-            got = depth.base_counts(pos, codes_t, ok_t, DEPTH_WINDOW_START, window)
             want = depth.base_counts_plain(pos, codes_t, ok_t, DEPTH_WINDOW_START, window)
-            sync(torch, dev)
-            if not torch.equal(got, want):
-                raise AssertionError(f"base_counts != plain at {label}")
+            # Twice: the second call adds into the buffer the first zeroed.
+            for call in (1, 2):
+                got = depth.base_counts(pos, codes_t, ok_t, DEPTH_WINDOW_START, window)
+                sync(torch, dev)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"base_counts != plain at {label}, call {call}")
             log(f"kernels: base_counts == plain ({label}: {codes.shape[0]} reads x "
-                f"{codes.shape[1]}, W {window}): {int(got.long().sum())} bases counted")
+                f"{codes.shape[1]}, W {window}, twice): {int(want.long().sum())} bases counted")
     if torch.device(dev).type != "cuda":
         return rows
 
@@ -1556,7 +1609,7 @@ def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
     flat = (idx * 4 + codes_t.long().clamp(0, 3))[valid]
     pairs = int(flat.numel())
     rows["base_counts"] = dict(
-        max_abs_err=0,
+        max_abs_err=0, floor_ms=floor_ms,
         ms=cuda_ms(lambda: depth.base_counts(pos, codes_t, ok_u8, DEPTH_WINDOW_START, W), 50),
         plain_ms=cuda_ms(lambda: depth.base_counts_plain(
             pos, codes_t, ok_u8, DEPTH_WINDOW_START, W), 10, 1),
@@ -1567,10 +1620,37 @@ def phase_depth_kernels(torch, depth, int32_rate, dev="cuda"):
     )
     r = rows["base_counts"]
     log(f"kernels: base_counts at an example-4 shard ({R} reads x {READ_PAD}, W {W}, "
-        f"{pairs} bases): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, torch.bincount of "
-        f"position x 4 + base over the valid bases {r['library_ms']:.4f} ms; bound "
-        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of it)")
+        f"{pairs} bases): {r['ms']:.4f} ms, one launch into the zeroed buffer the last one "
+        f"left (launch floor {floor_ms:.4f} ms; plain {r['plain_ms']:.4f} ms, torch.bincount "
+        f"of position x 4 + base over the valid bases {r['library_ms']:.4f} ms; bound "
+        f"{r['bound'][0]:.6f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.2f} % of "
+        f"it)")
     return rows
+
+
+def phase_count_variants(floor_ms) -> dict:
+    """The designs ``case_counts`` and ``base_counts`` were chosen over
+    (``experiments/count_variants.py``), each held exactly against the
+    plain version at its timed shapes, then timed in turns: one line a
+    design, and the first port's ``base_counts`` apart (its zero-fill
+    alone, its kernel alone). Returns the measurements."""
+    from spark_examples_tpu_torch.experiments import count_variants
+
+    found = count_variants.measure(count_variants.build())
+    for rows, designs in found["case_counts"].items():
+        for name, ms in designs.items():
+            log(f"kernels: case_counts design {name!r} at {rows} rows x "
+                f"{count_variants.N_SAMPLES} samples, == plain: {ms:.4f} ms "
+                f"(launch floor {floor_ms:.4f} ms)")
+    for width, designs in found["base_counts"].items():
+        for name, ms in designs.items():
+            log(f"kernels: base_counts design {name!r} at an example-4 shard "
+                f"({count_variants.EX4_READS} reads x {width}, W {count_variants.EX4_WINDOW}), "
+                f"== plain: {ms:.4f} ms (launch floor {floor_ms:.4f} ms)")
+    log("kernels: base_counts apart (the zero-fills, the first port's kernel and this one's, "
+        "each alone): " + ", ".join(f"{name} {ms:.4f} ms"
+                                    for name, ms in found["pieces"].items()))
+    return found
 
 
 class RecordingSource:
@@ -1925,13 +2005,15 @@ def main() -> int:
     phase_standalone_run()
 
     int32_rate = int32_ops_per_s(torch)
+    floor_ms = launch_floor_ms(torch)
     rows = phase_kernels(torch, devicegen)
     rows["unpack_rows_t"], _ = phase_unpack(torch, devicegen, gramian, int32_rate)
     rows["case_counts"], rows["gram_accumulate_ld_window"] = phase_ld_kernels(
-        torch, devicegen, gramian, ld, int32_rate)
+        torch, devicegen, gramian, ld, int32_rate, floor_ms)
     per_op, rows["scratch_copy"] = phase_probe_kernels(
         torch, probe_ops, vmem_capacity, int32_rate, libs["probes.cu"])
-    rows.update(phase_depth_kernels(torch, depth, int32_rate))
+    rows.update(phase_depth_kernels(torch, depth, int32_rate, floor_ms))
+    phase_count_variants(floor_ms)
 
     path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS
     # The first run in a process also pays the CUDA libraries' lazy set-up
@@ -2012,6 +2094,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {}),
         })
     if any(not math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError("a kernel time is not finite")

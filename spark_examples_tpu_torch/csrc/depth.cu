@@ -44,14 +44,29 @@
 //   Every sum is an int32 count, so the result equals the reference's
 //   exactly in any order.
 //
-// base_counts_kernel — one warp per read, 8 reads a block of 256 threads.
-//   A warp loads its read's position once, clips the offsets to the window
-//   and to the read, and its lanes walk the offsets 32 apart, so the
-//   atomics of a warp land on 32 neighbouring positions (each one of 4
-//   counters) and the code and mask bytes load coalesced. Bound: bytes at
-//   an example-4 shard (4,210 reads into a 52,759-position window), so the
-//   kernel reads each input once and the window takes the atomics in L2.
-//   Integer atomics give the same sums in any order.
+// base_counts_kernel — a warp a read, lane l taking the read's offsets
+//   l, l + 32, ...: its position, then the code and mask bytes of up to
+//   BASE_UNROLL offsets a lane loaded together (one trip for a read of up
+//   to 128 bases), then their bases added with int32 atomics into the
+//   (W, 4) window; a warp's atomics land on 32 neighbouring positions. At
+//   an example-4 shard (4,210 reads × 100 bases into a 52,759-position
+//   window, 219 K counted bases) the bytes take 0.6 µs, so the time is
+//   launches, trips to memory and the atomics. The first port spent a
+//   launch of its own zero-filling the window (torch.zeros) and its loop
+//   loaded each offset's bytes after the atomics before them. Here the
+//   window a launch adds into was zeroed by the launch before it on the
+//   same stream: the wrapper keeps one zeroed buffer per device and stream
+//   (ops/depth.py:_BASE_SPARE), hands it out as this call's result and
+//   passes a fresh one as `next`, which this launch's threads zero with
+//   16-byte stores beside their adds. One launch a call. A block-private
+//   histogram would not cut the atomics (a window counter takes about one
+//   base at depth 8). Integer atomics give the same sums in any order of
+//   reads, sorted or not, so the counts equal the reference exactly.
+//   Measured against the first port's kernel, a thread a 32-bit word,
+//   16-byte vectors, a zero-fill by torch.zeros or cudaMemsetAsync, one
+//   launch zeroing the window behind a grid barrier, and two tile kernels
+//   in which a block owns a tile of the window
+//   (experiments/count_variants.py).
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). The launchers
 // return cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -61,8 +76,8 @@
 
 namespace {
 
-constexpr int THREADS = 256;  // base_counts
-constexpr int READS_PER_BLOCK = THREADS / 32;
+constexpr int BASE_THREADS = 256;
+constexpr int BASE_UNROLL = 4;  // a lane's offsets of a read loaded together: 128 a warp
 constexpr int DEPTH_THREADS = 128;  // the depth kernels
 constexpr int SCAN_ITEMS = 8;       // two 16-byte vectors a thread
 constexpr int SCAN_TILE = DEPTH_THREADS * SCAN_ITEMS;
@@ -171,21 +186,32 @@ depth_scan_kernel(int32_t* __restrict__ diff, int window_size,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BASE_THREADS)
 base_counts_kernel(const int32_t* __restrict__ positions, const int8_t* __restrict__ codes,
                    const uint8_t* __restrict__ quality_ok, int rows, int read_len,
-                   int64_t window_start, int window_size, int32_t* __restrict__ out) {
-  const int r = blockIdx.x * READS_PER_BLOCK + threadIdx.x / 32;
+                   int64_t window_start, int window_size, int32_t* __restrict__ out,
+                   int4* __restrict__ next, int64_t next_vectors) {
+  const int64_t thread = static_cast<int64_t>(blockIdx.x) * BASE_THREADS + threadIdx.x;
+  if (thread < next_vectors) next[thread] = make_int4(0, 0, 0, 0);
+  const int r = static_cast<int>(thread / 32), lane = threadIdx.x % 32;
   if (r >= rows) return;  // warp-uniform
-  const int lane = threadIdx.x % 32;
   const int64_t rel = static_cast<int64_t>(positions[r]) - window_start;
-  const int64_t lo = max64(0, -rel);
-  const int64_t hi = min64(read_len, window_size - rel);
   const int8_t* row_codes = codes + static_cast<int64_t>(r) * read_len;
   const uint8_t* row_ok = quality_ok + static_cast<int64_t>(r) * read_len;
-  for (int64_t off = lo + lane; off < hi; off += 32) {
-    const int code = row_codes[off];
-    if (row_ok[off] && code >= 0) atomicAdd(out + 4 * (rel + off) + min(code, 3), 1);
+  for (int first = 0; first < read_len; first += 32 * BASE_UNROLL) {
+    int code[BASE_UNROLL], ok[BASE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < BASE_UNROLL; ++u) {
+      const int off = first + 32 * u + lane;
+      code[u] = off < read_len ? row_codes[off] : -1;
+      ok[u] = off < read_len ? row_ok[off] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < BASE_UNROLL; ++u) {
+      const int64_t p = rel + first + 32 * u + lane;
+      if (ok[u] && code[u] >= 0 && p >= 0 && p < window_size)
+        atomicAdd(out + 4 * p + min(code[u], 3), 1);
+    }
   }
 }
 
@@ -221,15 +247,22 @@ int depth_counts_launch(const int32_t* positions, const int32_t* lengths, int ro
   return static_cast<int>(cudaGetLastError());
 }
 
+// out: the (window_size, 4) int32 counts, zeroed (by the previous launch
+// on this stream, as `next`). next: next_vectors int4 (16-byte aligned)
+// that this launch zeroes, the next launch's `out` (may be 0).
 int base_counts_launch(const int32_t* positions, const int8_t* codes, const uint8_t* quality_ok,
                        int rows, int read_len, int64_t window_start, int window_size,
-                       int32_t* out, void* stream) {
-  if (rows < 1 || read_len < 0 || window_size < 1) {
+                       int32_t* out, int4* next, int64_t next_vectors, void* stream) {
+  if (rows < 1 || read_len < 0 || window_size < 1 || next_vectors < 0 ||
+      reinterpret_cast<uintptr_t>(next) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (rows + READS_PER_BLOCK - 1) / READS_PER_BLOCK;
-  base_counts_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      positions, codes, quality_ok, rows, read_len, window_start, window_size, out);
+  const int64_t reads = static_cast<int64_t>(rows) * 32;
+  const int64_t threads = reads > next_vectors ? reads : next_vectors;
+  base_counts_kernel<<<static_cast<int>((threads + BASE_THREADS - 1) / BASE_THREADS),
+                       BASE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      positions, codes, quality_ok, rows, read_len, window_start, window_size, out, next,
+      next_vectors);
   return static_cast<int>(cudaGetLastError());
 }
 

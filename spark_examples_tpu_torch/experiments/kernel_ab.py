@@ -15,9 +15,12 @@ same inputs made from fixed seeds:
 - the LD window product: ``gram_accumulate`` into a (256, 256) C from the
   unpacked 256-site × 2,504-sample window, and the program
   (``ld.window_counts``: unpack, zeroed C, product);
+- ``case_counts`` at 1,024 and 16,384 rows × 2,504 samples, shipped by
+  ``ld.pack_rows`` and ``ld.pack_case`` as the scan ships them;
 - ``depth_counts`` at a whole-chr21 shard of example 3 (26,194 reads,
   W = 327,542) and ``base_counts`` at an example-4 shard (4,210 reads ×
   128, W = 52,759);
+- the launch floor: ``torch.cuda._sleep(0)`` in the same harness;
 - in every process, ``torch._int_mm`` on the LD window's operand and
   ``torch.bincount`` of the chr21 shard's covered positions, the same
   calls in every tree (a gauge of the card between processes).
@@ -64,6 +67,11 @@ C = torch.zeros((256, 256), dtype=torch.int32, device=dev)
 out["ld window product"] = cuda_ms(lambda: devicegen.gram_accumulate(C, xt), 50)
 out["ld window program"] = cuda_ms(lambda: ld.window_counts(packed, 256), 50)
 out["torch._int_mm ld window"] = cuda_ms(lambda: torch._int_mm(xt, xt.t()), 50)
+crng = np.random.default_rng(313)
+case_t = ld.pack_case((np.arange(2504) % 2).astype(np.uint8), dev)
+for rows in (1024, 16384):
+    block = ld.pack_rows((crng.random((rows, 2504)) < 0.3).astype(np.uint8), dev)
+    out[f"case_counts {rows}x2504"] = cuda_ms(lambda: ld.case_counts(block, case_t, 2504), 50)
 start, span = 1_000_000, 327_414
 starts = np.array(sorted(p for p, _ in SyntheticGenomicsSource(num_samples=1).read_starts(
     start, start + span)), dtype=np.int32)
@@ -81,6 +89,7 @@ codes = torch.from_numpy(rng.integers(-1, 4, (R, 128)).astype(np.int8)).to(dev)
 ok = torch.from_numpy((rng.random((R, 128)) < 11 / 21).astype(np.uint8)).to(dev)
 out["base_counts example-4 shard"] = cuda_ms(
     lambda: depth.base_counts(pos4, codes, ok, start, W4), 50)
+out["launch floor"] = cuda_ms(lambda: torch.cuda._sleep(0), 50)
 print(json.dumps(out))
 '''
 

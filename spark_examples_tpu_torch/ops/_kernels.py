@@ -42,8 +42,9 @@ _SIGNATURES = {
         # zeroed difference buffer, zeroed tile totals, the next launch's, their words, stream
         "depth_counts_launch": (_P, _P, _I32, _I64, _I32, _I32, _P, _P, _P, _P, _I32, _P),
         "depth_scan_tile": (),
-        # positions, codes, quality_ok, rows, read_len, window_start, window_size, out, stream
-        "base_counts_launch": (_P, _P, _P, _I32, _I32, _I64, _I32, _P, _P),
+        # positions, codes, quality_ok, rows, read_len, window_start, window_size,
+        # zeroed out, next out (zeroed here), its 16-byte vectors, stream
+        "base_counts_launch": (_P, _P, _P, _I32, _I32, _I64, _I32, _P, _P, _I64, _P),
     },
     "devicegen.cu": {
         "gen_genotypes_launch": (
@@ -67,9 +68,8 @@ _SIGNATURES = {
         "gramian_tile_sites": (),
     },
     "ld.cu": {
-        # in, rows, width, pitch, words, case, n_cols, a, t, stream
-        "case_counts_launch": (_P, _I32, _I32, _I64, _I32, _P, _I32, _P, _P, _P),
-        "case_counts_max_width": (),
+        # in, rows, width, pitch, vectors, case, n_cols, lanes, a, t, stream
+        "case_counts_launch": (_P, _I32, _I32, _I64, _I32, _P, _I32, _I32, _P, _P, _P),
     },
     "probes.cu": {
         "probe_op_chain_launch": (_P, _P, _I64, _I32, _P),  # in, out, n, op, stream

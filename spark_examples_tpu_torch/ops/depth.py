@@ -7,9 +7,9 @@ computes per-base depth and base frequencies with flatMap +
 into scatter-adds into a dense coordinate window, vectorized over all reads
 of a shard. Here each is hand-written CUDA (``csrc/depth.cu``): read depth
 is a difference array (+1 where a read's clipped interval starts, -1
-where it ends) and its prefix sum, tile by tile; the base counts one warp
-a read adding its (offset, base) pairs into the int32 window with
-atomics. Integer sums, so the counts are exactly the reference's in any
+where it ends) and its prefix sum, tile by tile; the base counts a warp
+a read, adding its bases with atomics into a window the previous launch
+zeroed. Integer sums, so the counts are exactly the reference's in any
 order.
 
 As for every kernel wrapper of the port: a CPU tensor takes the plain
@@ -171,6 +171,31 @@ def base_counts_plain(
     return out.index_put_((rows, cols), torch.ones_like(rows, dtype=torch.int32), accumulate=True)
 
 
+class _ZeroedSpares:
+    """One zeroed ``(rows, 4)`` int32 buffer per key (a device and a
+    stream): ``base_counts``' next result. :meth:`take` hands the key's
+    buffer out (a zeroed one from ``zeros`` when there is none or it has
+    fewer than ``rows`` rows) with an empty ``rows``-row buffer, which the
+    launch zeroes and :meth:`put` keeps for the next call: a window like
+    this call's, as a shard's next is. A launch that fails puts nothing
+    back, so the next call starts from ``zeros``."""
+
+    def __init__(self):
+        self._spares: dict = {}
+
+    def take(self, key, rows: int, zeros, empty):
+        spare = self._spares.pop(key, None)
+        if spare is None or spare.shape[0] < rows:
+            spare = zeros(rows)
+        return spare, empty(rows)
+
+    def put(self, key, spare: torch.Tensor) -> None:
+        self._spares[key] = spare
+
+
+_BASE_SPARE = _ZeroedSpares()
+
+
 def base_counts(
     positions: torch.Tensor,
     base_codes: torch.Tensor,
@@ -187,7 +212,11 @@ def base_counts(
 
     Replaces ``spark_examples_tpu/ops/depth.py:base_counts``. CPU tensors
     take :func:`base_counts_plain`; CUDA tensors launch
-    ``base_counts_kernel`` (``csrc/depth.cu``)."""
+    ``base_counts_kernel`` (``csrc/depth.cu``) once, into the buffer the
+    previous launch on this device and stream zeroed at that launch's
+    window size (the first call there, or one with a wider window than the
+    last, zero-fills a buffer first). The result may be a view of a buffer
+    with more rows, when the last call's window was wider."""
     _check_positions(positions)
     if base_codes.ndim != 2 or base_codes.shape[0] != positions.shape[0]:
         raise ValueError(
@@ -201,19 +230,25 @@ def base_counts(
     _check_window(window_size)
     if positions.device.type == "cpu":
         return base_counts_plain(positions, base_codes, quality_ok, window_start, window_size)
-    out = torch.zeros((int(window_size), len(BASES)), dtype=torch.int32, device=positions.device)
-    rows = int(positions.shape[0])
+    rows, read_len, dev = int(positions.shape[0]), int(base_codes.shape[1]), positions.device
     if rows == 0:
-        return out
-    with torch.cuda.device(positions.device):
+        return torch.zeros((int(window_size), len(BASES)), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out, spare = _BASE_SPARE.take(
+            (dev.index, stream), int(window_size),
+            lambda n: torch.zeros((n, len(BASES)), dtype=torch.int32, device=dev),
+            lambda n: torch.empty((n, len(BASES)), dtype=torch.int32, device=dev),
+        )
         status = _library().base_counts_launch(
-            positions.data_ptr(), base_codes.data_ptr(), quality_ok.data_ptr(), rows,
-            int(base_codes.shape[1]), int(window_start), int(window_size), out.data_ptr(),
-            torch.cuda.current_stream(positions.device).cuda_stream,
+            positions.data_ptr(), base_codes.data_ptr(), quality_ok.data_ptr(), rows, read_len,
+            int(window_start), int(window_size), out.data_ptr(), spare.data_ptr(),
+            spare.shape[0], stream,
         )
     _kernels.check(status, "base_counts")
+    _BASE_SPARE.put((dev.index, stream), spare)
     base_counts.launches += 1
-    return out
+    return out[: int(window_size)]
 
 
 base_counts.launches = 0  # type: ignore[attr-defined]

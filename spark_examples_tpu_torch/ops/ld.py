@@ -31,7 +31,8 @@ real rows is the same).
 among the cases ``a = X·case`` and in all ``t = X·1``, the two numbers the
 allelic 2×2 chi-square needs (``analyses/assoc.py:chi2_from_counts``).
 The block ships bit-packed (:func:`pack_rows`) and one hand-written
-kernel, ``case_counts_kernel`` (``csrc/ld.cu``), counts with ``popc``.
+kernel, ``case_counts_kernel`` (``csrc/ld.cu``), counts with ``popc``
+over 16-byte vectors, a few lanes a row.
 
 As for every kernel wrapper of the port: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the kernel or raises.
@@ -46,14 +47,21 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch.ops import _kernels
-from spark_examples_tpu_torch.ops.devicegen import _require, _round_up, gram_accumulate
+from spark_examples_tpu_torch.ops.devicegen import _require, _round_up, _sms, gram_accumulate
 from spark_examples_tpu_torch.ops.gramian import _packed_width, unpack_bits, unpack_rows_t
 from spark_examples_tpu_torch.utils.af import variance_counts
 from spark_examples_tpu_torch.utils.device import DeviceLike
 
 #: Row pitch of the shipped packed blocks: rows start on 16-byte
-#: boundaries, so the kernel's lanes load whole aligned words.
+#: boundaries, so the kernel's lanes load whole aligned vectors.
 ROW_PITCH = 16
+#: Bytes of one load of ``case_counts_kernel``.
+VECTOR_BYTES = 16
+#: The most 16-byte vectors of a row one lane of ``case_counts_kernel``
+#: loads: a lane's loads issue together, one trip to memory.
+MAX_VECTORS_PER_LANE = 4
+#: Threads of ``case_counts_kernel`` an SM holds (16 blocks of 128).
+CASE_THREADS_PER_SM = 2048
 
 
 # ------------------------------------------------------------ windowed LD
@@ -162,8 +170,64 @@ def pack_rows(rows: np.ndarray, device: DeviceLike = "cpu") -> torch.Tensor:
 
 def pack_case(case: np.ndarray, device: DeviceLike = "cpu") -> torch.Tensor:
     """The ``(N,)`` {0,1} case mask bit-packed the same way, ``(⌈N/8⌉,)``
-    uint8 on ``device``."""
-    return torch.from_numpy(np.packbits(np.asarray(case, dtype=np.uint8))).to(device)
+    uint8 on ``device``: the view of a zero-padded buffer of
+    :data:`ROW_PITCH`-rounded bytes, so the kernel reads it in whole
+    16-byte vectors as it reads the rows."""
+    packed = np.packbits(np.asarray(case, dtype=np.uint8))
+    host = np.zeros(_round_up(packed.size, ROW_PITCH), dtype=np.uint8)
+    host[: packed.size] = packed
+    return torch.from_numpy(host).to(device)[: packed.size]
+
+
+def case_counts_lanes(width: int, rows: int, sms: int) -> int:
+    """Lanes of ``case_counts_kernel`` a row of ``width`` packed bytes, in
+    a launch of ``rows`` rows on a card of ``sms`` SMs: a power of two,
+    as many as give the launch half the threads the card holds
+    (:data:`CASE_THREADS_PER_SM` an SM), at least as many as leave a lane
+    at most :data:`MAX_VECTORS_PER_LANE` of the row's 16-byte vectors, at
+    most a warp and at most the row's vectors. At 2,504 samples (20
+    vectors) on 132 SMs: 32 at the CLI's 1,024 rows, 8 at 16,384."""
+    vectors = -(-int(width) // VECTOR_BYTES)
+    most = min(32, _pow2_at_least(vectors))
+    least = min(most, _pow2_at_least(-(-vectors // MAX_VECTORS_PER_LANE)))
+    fill = max(1, int(sms) * CASE_THREADS_PER_SM // 2 // max(int(rows), 1))
+    return max(least, min(most, 1 << (fill.bit_length() - 1)))
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def case_counts_vector_path(
+    pitch: int, rows: int, width: int, block_ptr: int, block_bytes: int,
+    case_ptr: int, case_bytes: int,
+) -> bool:
+    """Whether ``case_counts`` takes 16-byte loads (``case_counts_kernel``)
+    or assembles its vectors from bytes (``case_counts_bytes_kernel``):
+    vectors where the pitch and both pointers are multiples of 16 and every
+    row's and the case mask's ``width`` bytes, rounded up to 16, lie inside
+    their storages (``*_bytes``: what the storage holds from the pointer
+    on). :func:`pack_rows` and :func:`pack_case` ship such buffers."""
+    span = _round_up(width, VECTOR_BYTES)
+    return (
+        pitch % VECTOR_BYTES == 0
+        and block_ptr % VECTOR_BYTES == 0
+        and case_ptr % VECTOR_BYTES == 0
+        and (rows - 1) * pitch + span <= block_bytes
+        and span <= case_bytes
+    )
+
+
+def case_counts_vectors(block: torch.Tensor, case: torch.Tensor) -> bool:
+    """:func:`case_counts_vector_path` for these tensors (a ``(B, W)``
+    block, its rows ``block.stride(0)`` bytes apart, and a ``(W,)`` case
+    mask)."""
+    rows, width = block.shape
+    return case_counts_vector_path(
+        int(block.stride(0)), int(rows), int(width),
+        block.data_ptr(), block.untyped_storage().nbytes() - block.storage_offset(),
+        case.data_ptr(), case.untyped_storage().nbytes() - case.storage_offset(),
+    )
 
 
 def case_counts_plain(
@@ -195,7 +259,10 @@ def case_counts(
 
     Replaces ``spark_examples_tpu/ops/ld.py:build_case_counts``. CPU
     tensors take :func:`case_counts_plain`; CUDA tensors launch
-    ``case_counts_kernel`` (``csrc/ld.cu``)."""
+    ``case_counts_kernel`` (``csrc/ld.cu``: 16-byte loads, where
+    :func:`case_counts_vector_path` allows them) or
+    ``case_counts_bytes_kernel`` (byte loads), with
+    :func:`case_counts_lanes` lanes a row."""
     width = _packed_width(num_columns)
     if block.dtype != torch.uint8:
         raise TypeError(f"block: expected {torch.uint8}, got {block.dtype}")
@@ -212,23 +279,12 @@ def case_counts(
     t = torch.empty(rows, dtype=torch.int32, device=block.device)
     if rows == 0:
         return a, t
-    lib = _library()
-    if width > lib.case_counts_max_width():
-        raise ValueError(f"{num_columns} columns exceed the kernel's staged case mask")
-    pitch = int(block.stride(0))
-    # Whole aligned words where every row's word-rounded bytes lie inside
-    # the buffer: its pitch a multiple of 4 and the last row's words
-    # before the storage's end.
-    available = block.untyped_storage().nbytes() - block.storage_offset()
-    words = (
-        pitch % 4 == 0
-        and block.data_ptr() % 4 == 0
-        and (rows - 1) * pitch + _round_up(width, 4) <= available
-    )
     with torch.cuda.device(block.device):
-        status = lib.case_counts_launch(
-            block.data_ptr(), rows, width, pitch, int(words), case.data_ptr(),
-            int(num_columns), a.data_ptr(), t.data_ptr(),
+        status = _library().case_counts_launch(
+            block.data_ptr(), rows, width, int(block.stride(0)),
+            int(case_counts_vectors(block, case)), case.data_ptr(),
+            int(num_columns), case_counts_lanes(width, rows, _sms(block.device.index)),
+            a.data_ptr(), t.data_ptr(),
             torch.cuda.current_stream(block.device).cuda_stream,
         )
     _kernels.check(status, "case_counts")
@@ -269,8 +325,11 @@ __all__ = [
     "KERNELS",
     "block_case_counts",
     "case_counts",
+    "case_counts_lanes",
     "case_counts_plain",
     "case_counts_reference",
+    "case_counts_vector_path",
+    "case_counts_vectors",
     "greedy_prune",
     "ld_window_stats",
     "ld_window_stats_reference",

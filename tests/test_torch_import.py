@@ -68,6 +68,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.hostmem",
     "spark_examples_tpu_torch.experiments.cli_wall",
+    "spark_examples_tpu_torch.experiments.count_variants",
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
     "spark_examples_tpu_torch.models.read",

@@ -363,14 +363,15 @@ def test_probe_kernels_equal_plain_versions_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pitch", ["16-byte", "odd", "contiguous"])
+@pytest.mark.parametrize("pitch", ["16-byte", "odd", "contiguous", "unaligned view"])
 @pytest.mark.parametrize("rows", [1, 37, 1024, 16384])
 @pytest.mark.parametrize("n", [13, 130, 2504])
 def test_case_counts_kernel_equals_plain_version_on_the_card(n, rows, pitch):
     """The association counts against the plain version and numpy, exactly,
-    with junk in the unused bits of the last byte and in the pitch's
-    padding: the shipped 16-byte pitch, a pitch that is not a multiple of 4
-    (byte loads) and contiguous rows."""
+    with junk in the unused bits of the last byte, in the pitch's padding
+    and past the case mask: the shipped 16-byte pitch (16-byte loads), a
+    pitch that is not a multiple of 4, contiguous rows and the 16-byte
+    pitch one byte past a 16-byte boundary (byte loads)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import numpy as np
@@ -385,15 +386,21 @@ def test_case_counts_kernel_equals_plain_version_on_the_card(n, rows, pitch):
     width = packed.shape[1]
     # The odd pitch: the first length past the width that is not a multiple of 4.
     odd = width + 1 if (width + 1) % 4 else width + 2
-    stride = {"16-byte": -(-width // 16) * 16, "odd": odd, "contiguous": width}[pitch]
-    host = np.full((rows, stride), 0xA5, dtype=np.uint8)
-    host[:, :width] = packed
-    case_packed = np.packbits(case)
+    vector_pitch = -(-width // 16) * 16
+    stride = {"16-byte": vector_pitch, "odd": odd, "contiguous": width,
+              "unaligned view": vector_pitch}[pitch]
+    shift = int(pitch == "unaligned view")
+    host = np.full(rows * stride + shift, 0xA5, dtype=np.uint8)
+    rows_host = host[shift:].reshape(rows, stride)
+    rows_host[:, :width] = packed
+    case_host = np.full(vector_pitch, 0xA5, dtype=np.uint8)
+    case_host[:width] = np.packbits(case)
     if n % 8:
-        host[:, width - 1] |= 0xFF >> (8 - (-n % 8))
-        case_packed[-1] |= 0xFF >> (8 - (-n % 8))
-    block = torch.from_numpy(host).to(dev)[:, :width]
-    case_t = torch.from_numpy(case_packed).to(dev)
+        rows_host[:, width - 1] |= 0xFF >> (8 - (-n % 8))
+        case_host[width - 1] |= 0xFF >> (8 - (-n % 8))
+    block = torch.from_numpy(host).to(dev)[shift:].view(rows, stride)[:, :width]
+    case_t = torch.from_numpy(case_host).to(dev)[:width]
+    assert ld.case_counts_vectors(block, case_t) == (pitch == "16-byte")
     ld.reset_launch_counts()
     a, t = ld.case_counts(block, case_t, n)
     a_plain, t_plain = ld.case_counts_plain(block, case_t, n)
@@ -495,6 +502,8 @@ BASE_CASES = {
     "mask-false": (300, 128, 2000, "masked"),
     "one-read": (1, 64, 64, "random"),
     "no-reads": (0, 64, 64, "random"),
+    "position-sorted": (4210, 100, 52631 + 128, "sorted"),
+    "read-length-99": (300, 99, 2000, "random"),
 }
 
 
@@ -544,7 +553,9 @@ def test_depth_counts_kernel_equals_plain_version_on_the_card(case):
 def test_base_counts_kernel_equals_plain_version_on_the_card(case):
     """``base_counts`` against its plain version, exactly: codes -1…5 (a
     code above 3 counts as 3, as the reference clips it), all-unknown codes,
-    an all-false mask (bool and uint8), one read and none."""
+    an all-false mask (bool and uint8), one read and none, reads in
+    position order and rows of 99 bytes; three calls, each adding into the
+    buffer the call before it zeroed."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     import numpy as np
@@ -561,13 +572,48 @@ def test_base_counts_kernel_equals_plain_version_on_the_card(case):
         codes[:] = -1
     if mode == "masked":
         ok[:] = False
+    if mode == "sorted":
+        starts.sort()
     pos_t = torch.from_numpy(starts).to(dev)
     codes_t, ok_t = torch.from_numpy(codes).to(dev), torch.from_numpy(ok).to(dev)
     depth.reset_launch_counts()
     got = depth.base_counts(pos_t, codes_t, ok_t, 1_000_000, window)
     got_u8 = depth.base_counts(pos_t, codes_t, ok_t.to(torch.uint8), 1_000_000, window)
+    again = depth.base_counts(pos_t, codes_t, ok_t, 1_000_000, window)
     want = depth.base_counts_plain(pos_t, codes_t, ok_t, 1_000_000, window)
-    assert depth.base_counts.launches == (2 if rows else 0)
-    assert torch.equal(got, want) and torch.equal(got_u8, want)
-    if mode != "random":
+    assert depth.base_counts.launches == (3 if rows else 0)
+    assert torch.equal(got, want) and torch.equal(got_u8, want) and torch.equal(again, want)
+    if mode in ("unknown", "masked"):
         assert int(got.sum()) == 0
+
+
+@pytest.mark.gpu
+def test_base_counts_windows_that_grow_and_shrink_on_the_card():
+    """Calls whose windows grow and shrink in turn, on the default stream
+    and on a side stream, each equal to the plain version: a narrower
+    window adds into the first rows of the kept buffer, a wider one starts
+    from a zero-filled buffer of its size, and every result stays its
+    caller's when later calls run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import depth
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    kept = []
+    side = torch.cuda.Stream()
+    for i, window in enumerate((2000, 64, 52_759, 1, 52_759, 9000, 2000)):
+        rows = 300 + 10 * i
+        starts = torch.from_numpy(_read_starts(rng, rows, window, 100)).to(dev)
+        codes = torch.from_numpy(rng.integers(-1, 4, (rows, 100)).astype(np.int8)).to(dev)
+        ok = torch.from_numpy(rng.random((rows, 100)) < 0.6).to(dev)
+        with torch.cuda.stream(side if i % 3 == 2 else torch.cuda.current_stream()):
+            got = depth.base_counts(starts, codes, ok, 1_000_000, window)
+            torch.cuda.synchronize()
+        want = depth.base_counts_plain(starts, codes, ok, 1_000_000, window)
+        assert got.shape == (window, 4) and torch.equal(got, want)
+        kept.append((got, want))
+    torch.cuda.synchronize()
+    assert all(torch.equal(got, want) for got, want in kept)
