@@ -53,7 +53,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``base_counts`` were chosen over, from
    ``experiments/count_variants.py``, each == plain); the op chains also
    at ragged lengths and off a 16-byte boundary, with their SASS split by
-   pipe;
+   pipe; the ring's two kernels: ``cross_accumulate`` (one ring step's
+   product into a strided column slice of a row tile) at 632 × 632 ×
+   1,024 and 16,384 sites and at 6,250 × 6,250 × 1,024, with
+   ``torch._int_mm`` plus the slice add as the library call, and
+   ``pack_rows_t`` on a generated 632-column slice (also against
+   ``np.packbits``), and ``gen_genotypes`` on one position's cut tables;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
@@ -65,7 +70,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    rows) over 5 kb. For each: launch counts, wall-clock, stage spans, peak
    device memory (its own: earlier runs' results are dropped first), and
    the PCs checked against a full ``eigh`` of the same run's centered
-   Gramian;
+   Gramian; then the mesh over four positions of one card
+   (``devices=[cuda:0] * 4``): the device-generation ring over chr17 at
+   ``--mesh-shape 1,4`` (flat, and hierarchical with 2 hosts) and ``2,2``,
+   the dense data axis at ``4,1``, and the host-fed ring on the packed
+   cell, packed and ``--ring-pack-bits off`` — each Gramian byte-equal to
+   the one-device run's, the ring's measured bytes equal to its
+   projection, the PCs checked as above, with the launch counts, spans and
+   peak device memory; and ``bench.py``'s large-cohort-sharded cell,
+   25,000 samples over chr17 through the ring at 1,4, its Gramian
+   byte-equal to the one-device dense run's;
 5. files: the packed window's synthetic cohort written as a VCF (GT from
    ``has_variation``, AF in INFO; about 180 MB) and a gzip copy, the wire
    window's as a small VCF, under ``chip_smoke_data/``; then the file
@@ -202,6 +216,9 @@ HOPPER_SASS = {
     "probe_op_chain_kernel": ("probes.cu", ("LDG.E.128", "STG.E.128"), ()),
     "case_counts_kernel": ("ld.cu", ("LDG.E.128", "POPC"), ()),
     "base_counts_kernel": ("depth.cu", ("REDG", "STG.E.128"), ()),
+    "cross_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
+    # The length prefix of the mangled name keeps unpack_rows_t_kernel out.
+    "18pack_rows_t_kernel": ("gramian.cu", ("LDG.E.128",), ()),
 }
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -227,6 +244,28 @@ GEN_OPS_PER_GENOTYPE = 12
 #: its SASS count is printed beside the bound.
 PROBE_OPS_PER_ITERATION = {"xor": 2, "shiftxor": 3, "cmp": 2, "mul": 1, "mul_i32": 1,
                            "fmix32": 9}
+#: The ring kernels' shapes: (rows of A, rows of B, sites) of one ring step
+#: at 2,504 samples over 4 positions (632 columns each) at the CLI's block
+#: and chr17's, and at 25,000 over 4 (6,250).
+CROSS_SHAPES = ((632, 632, CLI_BLOCK), (632, 632, BLOCK), (6250, 6250, CLI_BLOCK))
+#: The sharded runs: the samples-sharded ring over positions of one card
+#: (``devices=[cuda:0] * 4``), each Gramian byte-equal to the one-device
+#: run's on the same sites. (label, base argv, extra flags, hosts of the
+#: hierarchical schedule, the one-device Gramian it equals).
+MESH_FLAGS = ["--mesh-shape", "1,4", "--similarity-strategy", "sharded"]
+SHARDED_RUNS = (
+    ("ring 1,4", "chr17", MESH_FLAGS, None),
+    ("ring 1,4 hier 2 hosts", "chr17", MESH_FLAGS + ["--reduce-schedule", "hier"], 2),
+    ("ring 2,2", "chr17", ["--mesh-shape", "2,2", "--similarity-strategy", "sharded"], None),
+    ("data axis 4,1", "chr17", ["--mesh-shape", "4,1"], None),
+    ("packed ring 1,4", "packed", MESH_FLAGS, None),
+    ("packed ring 1,4 unpacked wire", "packed", MESH_FLAGS + ["--ring-pack-bits", "off"], None),
+)
+#: ``bench.py``'s large-cohort-sharded cell: 25,000 samples over the ring at
+#: 1,4, on the whole of chr17 (bench.py's references, 50 blocks of 16,384
+#: sites), against the one-device Gramian of the same sites.
+LARGE_COHORT = 25_000
+LARGE_WINDOW = "17:0:81195210"
 #: The LD prune's defaults (--ld-window-sites, --ld-r2-threshold).
 LD_WINDOW = 256
 LD_THRESHOLD = 0.2
@@ -1963,6 +2002,218 @@ def phase_reads_sam(torch, kernels, kernel_ms, ex3_reads, ex3_text, normal, tumo
             f"synthetic run's")
 
 
+def phase_ring_kernels(torch, devicegen, gramian):
+    """The ring's two kernels against their plain versions, exactly:
+    ``cross_accumulate`` at ``CROSS_SHAPES`` into a column slice of a row
+    tile of 4 positions' width (so C's rows are strided), ``pack_rows_t``
+    on a generated slice's Xᵀ (also against ``np.packbits``); then their
+    times beside the bound, the plain version and, for the product,
+    ``torch._int_mm`` on the same (row-padded) operands plus the slice add.
+    Also times ``gen_genotypes`` on one position's cut tables (632 columns
+    of 2,504). Returns the JSON rows (the product at chr17's 16,384 sites,
+    the pack at 632 columns × 16,384) and the times by shape."""
+    from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+    from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(13)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, times = {}, {}
+    for m, n, sites in CROSS_SHAPES:
+        m_pad, n_pad = -(-m // 128) * 128, -(-n // 128) * 128
+        a = torch.from_numpy((rng.random((m_pad, sites)) < 0.3).astype(np.int8)).to(dev)
+        b = torch.from_numpy((rng.random((n_pad, sites)) < 0.3).astype(np.int8)).to(dev)
+        tile = torch.from_numpy(rng.integers(-9, 9, (m, 4 * n), dtype=np.int32)).to(dev)
+        want = tile.clone()
+        devicegen.cross_accumulate(tile[:, n : 2 * n], a, b)
+        devicegen.cross_accumulate_plain(want[:, n : 2 * n], a, b)
+        torch.cuda.synchronize()
+        err = int((tile.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"cross_accumulate != plain at {m} x {n} x {sites}: max err {err}")
+        split = devicegen.cross_split(m_pad, n_pad, sites, sms)
+        units = devicegen.cross_units(m_pad, n_pad)
+        blocks = units * split * (2 if split > 1 else 1)
+        C = tile[:, n : 2 * n]
+        r = times[(m, n, sites)] = dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: devicegen.cross_accumulate(C, a, b), 20),
+            plain_ms=cuda_ms(lambda: devicegen.cross_accumulate_plain(C, a, b), 3, 1),
+            library_ms=cuda_ms(lambda: C.add_(torch._int_mm(a, b.t())[:m, :n]), 20),
+            bound=bound(m * sites + n * sites + 2 * 4 * m * n, 2.0 * m * n * sites,
+                        PEAK_INT8_OPS_PER_S),
+        )
+        log(f"kernels: cross_accumulate == plain at {m} x {n} x {sites} sites (C a column slice "
+            f"of a {m} x {4 * n} row tile): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+            f"torch._int_mm + add {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of it); launch: {blocks} "
+            f"blocks ({units} units, split {split})")
+    rows["cross_accumulate"] = times[(632, 632, BLOCK)]
+
+    source = SyntheticGenomicsSource(num_samples=N_SAMPLES)
+    plan = devicegen.make_gen_plan(
+        [source.genotype_stream_key("chip-smoke")], [source.populations],
+        source.site_key, source.variant_spacing, source.ref_block_fraction,
+        None, source.n_pops, dev,
+    )
+    cut = devicegen.slice_gen_plan(plan, 632, 1264)
+    kept, vrows = (torch.zeros(s, dtype=torch.int64, device=dev) for s in ((), (1,)))
+    xt = devicegen.gen_genotypes(cut, 400_000, BLOCK, BLOCK, kept, vrows)
+    kept_p, vrows_p = torch.zeros_like(kept), torch.zeros_like(vrows)
+    if not torch.equal(xt, devicegen.gen_genotypes_plain(cut, 400_000, BLOCK, BLOCK, kept_p, vrows_p)):
+        raise AssertionError("gen_genotypes on a samples slice != plain")
+    kept_n = int(kept)
+    r = dict(
+        ms=cuda_ms(lambda: devicegen.gen_genotypes(cut, 400_000, BLOCK, BLOCK, kept, vrows), 50),
+        plain_ms=cuda_ms(lambda: devicegen.gen_genotypes_plain(cut, 400_000, BLOCK, BLOCK, kept, vrows), 3, 1),
+        library_ms=None,
+        bound=bound(632 * BLOCK, 632 * kept_n * GEN_OPS_PER_GENOTYPE, int32_ops_per_s(torch)),
+    )
+    log(f"kernels: gen_genotypes == plain on a samples slice (columns 632..1263 of 2,504, "
+        f"{BLOCK} sites, {kept_n} kept): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
+    times["gen_genotypes slice"] = r
+
+    xt = xt[:640]
+    got = gramian.pack_rows_t(xt, 632, BLOCK)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, gramian.pack_rows_t_plain(xt, 632, BLOCK)) and np.array_equal(
+        got.cpu().numpy(), np.packbits(xt[:632].cpu().numpy().T, axis=-1))
+    if not ok:
+        raise AssertionError("pack_rows_t != plain or np.packbits")
+    r = rows["pack_rows_t"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: gramian.pack_rows_t(xt, 632, BLOCK), 50),
+        plain_ms=cuda_ms(lambda: gramian.pack_rows_t_plain(xt, 632, BLOCK), 5, 1),
+        library_ms=None,
+        bound=bound(632 * BLOCK + BLOCK * 79, 0, int32_ops_per_s(torch)),
+    )
+    log(f"kernels: pack_rows_t == plain == np.packbits (632 columns x {BLOCK} sites of a "
+        f"generated slice): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.4f} ms by bytes, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
+    return rows, times
+
+
+def run_sharded(torch, kernels, argv, label, devices, expect, want_g, check_pcs=True):
+    """One ``variants-pca`` run through ``run_pipeline`` over ``devices``
+    (positions of one card), every launch count set to zero just before;
+    fails unless each kernel of ``expect`` launched, the Gramian (the row
+    tiles gathered, or the data axis's sum) equals ``want_g`` (a CUDA
+    tensor of the one-device run) byte for byte, the ring's measured bytes
+    equal its projection, and (``check_pcs``) the PCs agree with a full
+    ``eigh`` of the centred Gramian. Returns the launch counts."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.ops.centering import gower_center
+    from spark_examples_tpu_torch.ops.pca import principal_components
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+    conf = PcaConf.parse(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts(kernels)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        result = run_pipeline(conf, devices=devices)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    driver = result.driver
+    stages = {s["path"]: s["seconds"] for s in driver.spans.flat()}
+    missing = [k for k in expect if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"sharded {label} never launched {missing}")
+    acc = driver.accumulator
+    n = len(driver.indexes)
+    if hasattr(acc, "layout"):
+        equal, start = True, 0
+        for tile in acc.layout.finalize_tiles().tiles:
+            rows = max(0, min(tile.shape[0], n - start))
+            equal = equal and torch.equal(tile[:rows, :n].to(want_g.dtype), want_g[start : start + rows])
+            equal = equal and not tile[rows:].any() and not tile[:, n:].any()
+            start += tile.shape[0]
+    else:
+        equal = torch.equal(acc.G.to(want_g.dtype), want_g)
+    if not equal:
+        raise AssertionError(f"sharded {label}: Gramian != the one-device run's")
+    sched = driver.sched_block
+    if sched is not None and sched["measured_ring_bytes"] != sched["predicted_ring_bytes"]:
+        raise AssertionError(f"sharded {label}: measured ring bytes != predicted: {sched}")
+    gap = float("nan")
+    if check_pcs:
+        got = np.array([[float(v) for v in line.split("\t")[2:]] for line in result.lines])
+        if got.shape != (n, conf.num_pc) or not np.isfinite(got).all():
+            raise AssertionError(f"sharded {label}: PCs of shape {got.shape} or not finite")
+        full, _ = principal_components(gower_center(want_g), conf.num_pc)
+        full = full.cpu().numpy()
+        by_name = {driver.names[cs]: full[i] for cs, i in driver.indexes.items()}
+        gap = float(np.abs(got - np.array([by_name[k] for k in sorted(by_name)])).max())
+        if gap > PC_TOLERANCE:
+            raise AssertionError(f"sharded {label}: PCs differ from the full eigh by {gap}")
+    log(f"sharded {label}: wall {wall:.4f} s, stages {json.dumps(stages)}, launches "
+        f"{json.dumps(launches)}, peak device memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} "
+        f"MiB held before), Gramian == one-device run's, schedule {json.dumps(sched)}, "
+        f"max |PC - eigh PC| {gap:.3e}")
+    return launches
+
+
+def phase_sharded(torch, kernels, one_device):
+    """``SHARDED_RUNS`` over four positions of cuda:0 against the one-device
+    Gramians (``one_device``: chr17's and the packed cell's). Returns the
+    launch counts of the first device-generation ring."""
+    from spark_examples_tpu_torch.parallel.mesh import HIER_HOSTS_ENV
+
+    dev = torch.device("cuda", 0)
+    argvs = {"chr17": CHR17_ARGV, "packed": PACKED_ARGV}
+    expects = {
+        "chr17": ("gen_genotypes", "pack_rows_t", "unpack_rows_t", "cross_accumulate"),
+        "packed": ("unpack_rows_t", "cross_accumulate"),
+    }
+    first = None
+    for label, base, flags, hosts in SHARDED_RUNS:
+        expect = expects[base]
+        if "off" in flags:
+            expect = ("unpack_rows_t", "cross_accumulate")
+        if "--similarity-strategy" not in flags:
+            expect = ("gen_genotypes", "gram_accumulate")
+        if hosts:
+            os.environ[HIER_HOSTS_ENV] = str(hosts)
+        try:
+            launches = run_sharded(torch, kernels, argvs[base] + flags, label, [dev] * 4, expect,
+                                   one_device[base])
+        finally:
+            os.environ.pop(HIER_HOSTS_ENV, None)
+        first = first or launches
+    return first
+
+
+def phase_large_cohort(torch, kernels):
+    """``bench.py``'s large-cohort-sharded cell on one card: 25,000 samples
+    over ``LARGE_WINDOW``, the ring at 1,4 on four positions against the
+    one-device dense run of the same window (its Gramian kept on the card
+    for the comparison)."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+    argv = ["--references", LARGE_WINDOW, "--num-samples", str(LARGE_COHORT),
+            "--ingest", "device", "--block-size", str(BLOCK)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        dense = run_pipeline(PcaConf.parse(argv))
+    torch.cuda.synchronize()
+    log(f"large cohort: dense one-device run of {LARGE_WINDOW} at {LARGE_COHORT} samples: "
+        f"wall {time.perf_counter() - t0:.4f} s")
+    want = dense.driver.accumulator.G
+    del dense
+    run_sharded(torch, kernels, argv + MESH_FLAGS, f"large cohort {LARGE_COHORT} 1,4",
+                [torch.device("cuda", 0)] * 4,
+                ("gen_genotypes", "pack_rows_t", "unpack_rows_t", "cross_accumulate"), want,
+                check_pcs=False)
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -2013,6 +2264,8 @@ def main() -> int:
     per_op, rows["scratch_copy"] = phase_probe_kernels(
         torch, probe_ops, vmem_capacity, int32_rate, libs["probes.cu"])
     rows.update(phase_depth_kernels(torch, depth, int32_rate, floor_ms))
+    ring_rows, _ = phase_ring_kernels(torch, devicegen, gramian)
+    rows.update(ring_rows)
     phase_count_variants(floor_ms)
 
     path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS
@@ -2021,7 +2274,9 @@ def main() -> int:
     device_path = ("gen_genotypes", "gram_accumulate")
     host_fed = ("unpack_rows_t", "gram_accumulate")
     run_main_path(torch, path_kernels, CHR17_ARGV, "chr17 cold", device_path)
-    launches = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)[0]
+    launches, chr17_run = run_main_path(torch, path_kernels, CHR17_ARGV, "chr17", device_path)
+    chr17_g = chr17_run.driver.accumulator.G.clone()
+    del chr17_run
     run_main_path(torch, path_kernels, CHR17_CLI_ARGV, "chr17 default block", device_path)
     run_main_path(torch, path_kernels, BRCA1_ARGV, "brca1", device_path)
     phase_many_sets(torch, devicegen, path_kernels)
@@ -2029,6 +2284,7 @@ def main() -> int:
     # with are kept on the host), so its peak device memory is its own.
     packed, packed_run = run_main_path(torch, path_kernels, PACKED_ARGV, "packed", host_fed)
     packed_g = packed_run.driver.accumulator.G.cpu()
+    packed_g_dev = packed_run.driver.accumulator.G.clone()
     del packed_run
     _, wire_run = run_main_path(torch, path_kernels, WIRE_ARGV, "wire", host_fed)
     wire_g = wire_run.driver.accumulator.G.cpu()
@@ -2038,6 +2294,10 @@ def main() -> int:
                      "--variant-set-id", f"{set_id},{set_id}"]
     run_main_path(torch, path_kernels, same_set_argv, "same-set wire", host_fed)
     launches["unpack_rows_t"] = packed["unpack_rows_t"]
+    ring = phase_sharded(torch, path_kernels, {"chr17": chr17_g, "packed": packed_g_dev})
+    launches["cross_accumulate"], launches["pack_rows_t"] = ring["cross_accumulate"], ring["pack_rows_t"]
+    del chr17_g, packed_g_dev
+    phase_large_cohort(torch, path_kernels)
     phase_files(torch, path_kernels, host_fed, packed_g, wire_g)
     phase_grm(torch, path_kernels)
     launches["gram_accumulate_ld_window"] = phase_ld(torch, path_kernels)["gram_accumulate"]
@@ -2087,6 +2347,10 @@ def main() -> int:
          "spark_examples_tpu/ops/depth.py:30"),
         ("base_counts", "spark_examples_tpu_torch/csrc/depth.cu",
          "spark_examples_tpu/ops/depth.py:61"),
+        ("cross_accumulate", "spark_examples_tpu_torch/csrc/devicegen.cu",
+         "spark_examples_tpu/ops/gramian.py:651"),
+        ("pack_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
+         "spark_examples_tpu/ops/gramian.py:377"),
     ):
         r = rows[name]
         kernels.append({

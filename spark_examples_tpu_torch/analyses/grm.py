@@ -150,7 +150,9 @@ def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None) -> GrmResult:
     arm on ``device`` (default ``conf.device``), so the GRM inherits its
     accumulator, flush telemetry and launch accounting."""
     check_analysis_conf(conf, "grm")
-    driver = VariantsPcaDriver(conf, device=conf.device if device is None else device)
+    # One device: the analyses do not run on the mesh yet.
+    device = conf.device if device is None else device
+    driver = VariantsPcaDriver(conf, device=device, devices=[device])
     n = len(driver.indexes)
     moments = GrmMoments(n)
     times = StageTimes(recorder=driver.spans)

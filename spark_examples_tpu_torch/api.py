@@ -107,13 +107,19 @@ def perform_pca(centered: torch.Tensor, num_pc: int = 2) -> np.ndarray:
     return components.cpu().numpy().astype(np.float64)
 
 
-def pca(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> List[str]:
+def pca(
+    argv: Optional[Sequence[str]] = None,
+    device: DeviceLike = None,
+    devices: Optional[Sequence[DeviceLike]] = None,
+) -> List[str]:
     """The full flag-driven pipeline (``variants_pca.py:pca``, ``:154-201``):
     parses the reference's flag grammar, runs the driver end to end, returns
-    the emitted TSV lines. ``device`` overrides ``--device``."""
+    the emitted TSV lines. ``device`` overrides ``--device``; ``devices``
+    are the positions ``--mesh-shape`` resolves over (the reference
+    driver's ``devices=``; a device may repeat)."""
     from spark_examples_tpu_torch.pipeline.pca_driver import run
 
-    return run(list(argv) if argv is not None else [], device=device)
+    return run(list(argv) if argv is not None else [], device=device, devices=devices)
 
 
 __all__ = [

@@ -45,6 +45,16 @@ faults:
     python -m spark_examples_tpu_torch variants-pca --ingest packed \
         --gramian-checkpoint-dir ck --resume-from ck
 
+A mesh of this process's devices: ``--mesh-shape data,samples`` (every
+card by default, the data axis capped by ``--num-reduce-partitions``);
+``--similarity-strategy sharded`` keeps the Gramian as row tiles over the
+samples axis through a ring (``--ring-pack-bits``, ``--reduce-schedule``).
+On ``--device cpu`` the positions are CPU positions:
+
+    python -m spark_examples_tpu_torch variants-pca --device cpu \
+        --num-samples 21 --references 17:0:20000 --mesh-shape 1,4 \
+        --similarity-strategy sharded
+
 The JAX package's other verbs are not ported yet; they exit with code 2.
 """
 

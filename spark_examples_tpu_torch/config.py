@@ -19,8 +19,10 @@ source's (wire), variant checkpoints (``--save-variants``,
 ``--input-path``), Gramian checkpoints and resume
 (``--gramian-checkpoint-dir``, ``--checkpoint-every-sites``,
 ``--resume-from``), fault plans (``--fault-plan``) and the run's telemetry
-(``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), dense
-strategy, one device; :class:`GrmConf` adds the ``grm`` verb's
+(``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), the
+dense and sharded strategies on a mesh of this process's devices
+(``--mesh-shape``, ``--num-reduce-partitions``, ``--similarity-strategy``,
+``--ring-pack-bits``, ``--reduce-schedule``); :class:`GrmConf` adds the ``grm`` verb's
 ``--grm-out``, :class:`LdConf` the ``ld-prune`` verb's ``--ld-*`` flags and
 :class:`AssocConf` the ``assoc-scan`` verb's ``--phenotypes`` and
 ``--assoc-*``. A flag that belongs to any other path raises
@@ -68,7 +70,8 @@ def _build_base_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--client-secrets", default="client_secrets.json")
     p.add_argument("--input-path", default=None)
     p.add_argument("--num-reduce-partitions", type=int, default=10,
-                   help="Reference flag; one device needs no reduce partitions.")
+                   help="Caps the data axis of the default mesh (every card, "
+                   "data-major) when no --mesh-shape is given.")
     p.add_argument("--output-path", default=None)
     p.add_argument("--references", default=BRCA1,
                    help="Comma separated tuples of reference:start:end,... one "
@@ -155,7 +158,9 @@ def build_pca_parser(
     p.add_argument("--pca-backend", choices=["gpu", "host"], default="gpu",
                    help="PCA compute path: the device pipeline or the NumPy "
                    "oracle of the reference algorithm.")
-    p.add_argument("--mesh-shape", default=None)
+    p.add_argument("--mesh-shape", default=None,
+                   help="'data,samples': the mesh of positions over this "
+                   "process's cards (on --device cpu, CPU positions).")
     p.add_argument("--block-size", type=int, default=1024,
                    help="Sites per device block: one generation block, or one "
                    "host-fed flush of variant rows.")
@@ -362,29 +367,40 @@ _UNPORTED = (
     ("coordinator_address", "--coordinator-address", None),
     ("num_processes", "--num-processes", None),
     ("process_id", "--process-id", None),
+    ("check_ranges", "--check-ranges", False),
+)
+
+#: The mesh's flags, which the analysis verbs (``grm``, ``ld-prune``,
+#: ``assoc-scan``) do not take yet: they run on one device.
+_UNPORTED_IN_ANALYSES = (
     ("mesh_shape", "--mesh-shape", None),
     ("ring_pack_bits", "--ring-pack-bits", "auto"),
     ("reduce_schedule", "--reduce-schedule", "auto"),
-    ("check_ranges", "--check-ranges", False),
 )
 
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet (the flight recorder, multi-host, meshes and rings)."""
-    for name, flag, unused in _UNPORTED:
+    does not run yet: the flight recorder, several processes,
+    ``--check-ranges``, and the mesh in the analysis verbs."""
+    refused = _UNPORTED
+    if isinstance(conf, (GrmConf, LdConf, AssocConf)):
+        refused = refused + _UNPORTED_IN_ANALYSES
+        if conf.similarity_strategy == "sharded":
+            raise NotImplementedError(
+                "--similarity-strategy sharded: the analyses do not run on "
+                "the mesh in the port yet (use dense or auto)"
+            )
+    for name, flag, unused in refused:
         value = getattr(conf, name)
         if value != unused:
             raise NotImplementedError(
                 f"{flag} {value!r}: this path is not ported to PyTorch yet "
                 "(the port runs the synthetic, file and REST sources' device, "
-                "packed, streamed and wire ingest, dense strategy, one device)"
+                "packed, streamed and wire ingest, dense and sharded "
+                "strategies on the devices of one process; the analyses on "
+                "one device)"
             )
-    if conf.similarity_strategy == "sharded":
-        raise NotImplementedError(
-            "--similarity-strategy sharded: the sharded ring is not ported "
-            "to PyTorch yet (use dense or auto)"
-        )
 
 
 def build_grm_parser(

@@ -116,6 +116,23 @@
 //   neighbouring int32 of a row with red.global.add. The adds are int32
 //   sums of exact partials, so any order and any split give the same G.
 //
+// cross_accumulate_kernel — C[i, j] += Σ_s A[i, s]·B[j, s] for two int8
+//   operands in the Xᵀ layout (rows × sites, sites innermost, rows padded to
+//   128) into an int32 C of any leading dimension, written only in
+//   [:m, :n]: one step of the samples-sharded ring, a position's row tile
+//   G_local[:, owner's columns] += X_mineᵀ·X_owner (the jnp.matmul of
+//   spark_examples_tpu/ops/gramian.py:_ring_tiles and _hier_ring_tiles).
+//   Bound: the int8 tensor-core rate (2·m·n·sites operations) at 16,384
+//   sites; at 1,024 the int32 read-modify-write of C.
+//   Design: gram_accumulate_kernel's unit, stages, producer and consumers
+//   over two tensor maps (A's box from A's map, B's two from B's), every
+//   128 × 256 unit of C (no symmetry: the tile is not symmetric, and step
+//   0, where A is B, is one more call). The same split of the sites where
+//   the units do not fill half the card (ops/devicegen.py:cross_split: at
+//   632 × 632, 15 units, 4 splits of half units, 120 blocks). The epilogue
+//   is the bulk reduction a row where C's rows and n allow 16-byte rows,
+//   else red.global.add; no mirror.
+//
 // Plain C interface, bound with ctypes (ops/_kernels.py). Each launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch;
 // gram_accumulate_launch returns minus the CUresult when the CUDA driver
@@ -521,19 +538,26 @@ __device__ __forceinline__ void fence_accumulators(int32_t (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// G[gi0 + i, gj0 + j] += src[i·si + j·sj] for i < rows, j < cols, both
-// inside G, with red.global.add (the L2 adds; no load waits in the SM):
-// consumer warp w of `warps` takes rows w, w + warps, ..., a lane 32
-// neighbouring int32 of a row an instruction.
-__device__ __forceinline__ void red_rows(int32_t* __restrict__ g, int n, int gi0, int gj0,
-                                         const int32_t* src, int si, int sj, int rows,
-                                         int cols, int warps) {
+// G[gi0 + i, gj0 + j] += src[i·si + j·sj] for i < rows, j < cols, inside
+// the (m, n) G of leading dimension ldg, with red.global.add (the L2 adds;
+// no load waits in the SM): consumer warp w of `warps` takes rows w,
+// w + warps, ..., a lane 32 neighbouring int32 of a row an instruction.
+__device__ __forceinline__ void red_tile(int32_t* __restrict__ g, int64_t ldg, int m, int n,
+                                         int gi0, int gj0, const int32_t* src, int si, int sj,
+                                         int rows, int cols, int warps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < rows && gi0 + i < n; i += warps) {
-    int32_t* row = g + static_cast<int64_t>(gi0 + i) * n + gj0;
+  for (int i = warp; i < rows && gi0 + i < m; i += warps) {
+    int32_t* row = g + static_cast<int64_t>(gi0 + i) * ldg + gj0;
     for (int j = lane; j < cols && gj0 + j < n; j += 32)
       atomicAdd(row + j, src[i * si + j * sj]);  // result unused: red.global.add.s32
   }
+}
+
+// red_tile over the (n, n) G.
+__device__ __forceinline__ void red_rows(int32_t* __restrict__ g, int n, int gi0, int gj0,
+                                         const int32_t* src, int si, int sj, int rows,
+                                         int cols, int warps) {
+  red_tile(g, n, n, n, gi0, gj0, src, si, sj, rows, cols, warps);
 }
 
 // G[row, col : col + bytes / 4] += the int32 at shared address `src`: one
@@ -709,6 +733,119 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   if (mirrored) red_rows(g, n, j0, i0, staged, 1, G_STRIDE, G_BN, rows_out, consumers / 32);
 }
 
+// One block per unit of C (tile row bi of A, column group of G_BOXES tiles
+// of B), or per half of its rows in a split launch (blockIdx.x), and part of
+// the sites (blockIdx.y). gram_accumulate_kernel's ring, producer and
+// consumers, with A's box loaded from its own map.
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
+cross_accumulate_kernel(const __grid_constant__ CUtensorMap a_map,
+                        const __grid_constant__ CUtensorMap b_map, int32_t* __restrict__ c,
+                        int64_t ldc, int m, int n, int n_tiles, int total_steps, int halves,
+                        bool bulk) {
+  constexpr int W = G_BOXES;
+  extern __shared__ unsigned char g_smem[];
+  const uint32_t raw = smem_u32(g_smem);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t full = ring + G_STAGES * G_STAGE_BYTES;
+  const uint32_t empty = full + G_STAGES * 8;
+
+  const int groups = (n_tiles + W - 1) / W;
+  const int unit = blockIdx.x / halves;
+  const int bi = unit / groups;
+  const int b0 = (unit % groups) * W;
+  const int b_boxes = n_tiles - b0 < W ? n_tiles - b0 : W;
+  const int first = static_cast<int>(int64_t(blockIdx.y) * total_steps / gridDim.y);
+  const int steps = static_cast<int>(int64_t(blockIdx.y + 1) * total_steps / gridDim.y) - first;
+
+  const int h = blockIdx.x % halves;
+  const int consumers = G_CONSUMERS / halves;
+  const int rows_out = GT / halves;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, consumers / 32);
+    }
+  }
+  __syncthreads();
+  if (tid >= consumers && tid < G_CONSUMERS) return;
+
+  if (tid >= G_CONSUMERS) {
+    if (tid == G_CONSUMERS) {
+      const uint32_t bytes = (1 + b_boxes) * G_BOX_BYTES;
+      for (int t = 0; t < steps; ++t) {
+        const int s = t % G_STAGES;
+        const uint32_t round = t / G_STAGES;
+        if (t >= G_STAGES) mbar_wait(empty + 8 * s, (round & 1) ^ 1);
+        const uint32_t stage = ring + s * G_STAGE_BYTES;
+        const int k = (first + t) * GK;
+        mbar_expect_tx(full + 8 * s, bytes);
+        tma_load_box(stage, &a_map, full + 8 * s, k, bi * GT);
+        for (int w = 0; w < b_boxes; ++w)
+          tma_load_box(stage + (1 + w) * G_BOX_BYTES, &b_map, full + 8 * s, k, (b0 + w) * GT);
+      }
+    }
+    return;
+  }
+
+  const int wg = halves == 2 ? h : tid / 128;
+  int32_t d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0;
+  fence_accumulators(d);
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % G_STAGES;
+    mbar_wait(full + 8 * s, (t / G_STAGES) & 1);
+    const uint32_t stage = ring + s * G_STAGE_BYTES;
+    const uint64_t da = sw128_desc(stage + wg * 64 * GK);
+    const uint64_t db = sw128_desc(stage + G_BOX_BYTES);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < GK / 32; ++kk) wgmma_m64n256k32_s8(d, da + 2 * kk, db + 2 * kk);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    if (t > 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      if ((tid & 31) == 0) mbar_arrive(empty + 8 * ((t - 1) % G_STAGES));
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_accumulators(d);
+
+  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+  int32_t* staged = reinterpret_cast<int32_t*>(g_smem + (ring - raw));
+  const int warp = tid / 32, lane = tid & 31;
+  const int r0 = (tid / 128) * 64 + (warp % 4) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const int i0 = bi * GT + h * rows_out, j0 = b0 * GT;
+  if (bulk) {
+#pragma unroll
+    for (int j = 0; j < G_BN / 8; ++j) {
+      *reinterpret_cast<int2*>(staged + r0 * G_BULK_STRIDE + 8 * j + c0) =
+          make_int2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<int2*>(staged + (r0 + 8) * G_BULK_STRIDE + 8 * j + c0) =
+          make_int2(d[4 * j + 2], d[4 * j + 3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+    const int row_bytes = 4 * min(G_BN, n - j0);
+    if (tid < rows_out && i0 + tid < m && row_bytes > 0)
+      bulk_add(c + static_cast<int64_t>(i0 + tid) * ldc + j0,
+               smem_u32(staged + tid * G_BULK_STRIDE), row_bytes);
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < G_BN / 8; ++j) {
+    staged[r0 * G_STRIDE + 8 * j + c0] = d[4 * j];
+    staged[r0 * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 1];
+    staged[(r0 + 8) * G_STRIDE + 8 * j + c0] = d[4 * j + 2];
+    staged[(r0 + 8) * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 3];
+  }
+  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
+  red_tile(c, ldc, m, n, i0, j0, staged, G_STRIDE, 1, rows_out, G_BN, consumers / 32);
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -736,7 +873,7 @@ cudaError_t encoder(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// Sets gram_accumulate_kernel's dynamic shared-memory size on the current
+// Sets the product kernels' dynamic shared-memory size on the current
 // device, once per device; writes the device's ordinal.
 cudaError_t gram_prepare(int* device) {
   static std::atomic<bool> ready[G_MAX_DEVICES];
@@ -744,8 +881,30 @@ cudaError_t gram_prepare(int* device) {
   if (status != cudaSuccess || (*device < G_MAX_DEVICES && ready[*device])) return status;
   status = cudaFuncSetAttribute(gram_accumulate_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
+  if (status == cudaSuccess)
+    status = cudaFuncSetAttribute(cross_accumulate_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
   if (status == cudaSuccess && *device < G_MAX_DEVICES) ready[*device] = true;
   return status;
+}
+
+// The tensor map of an int8 Xᵀ of `rows` rows of `ld` sites at `xt`: sites
+// innermost, rows ld bytes apart, boxes of GK sites × GT rows with the
+// 128-byte swizzle. There is no signed 8-bit map type; the bytes are the
+// same. Returns minus the CUresult when the driver refuses it.
+int encode_xt_map(CUtensorMap* map, const int8_t* xt, int rows, int ld) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t found = encoder(&encode);
+  if (found != cudaSuccess) return static_cast<int>(found);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ld), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {GK, GT};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult encoded = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xt), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encoded == CUDA_SUCCESS ? 0 : -static_cast<int>(encoded);
 }
 
 using GenKernel = void (*)(GenParams, const uint64_t*, const uint32_t*, const int32_t*,
@@ -971,26 +1130,39 @@ int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int l
   int device = 0;
   const cudaError_t prepared = gram_prepare(&device);
   if (prepared != cudaSuccess) return static_cast<int>(prepared);
-  EncodeTiled encode = nullptr;
-  const cudaError_t found = encoder(&encode);
-  if (found != cudaSuccess) return static_cast<int>(found);
-  // Xᵀ as a 2-D tensor: sites innermost, rows ldx bytes apart. There is no
-  // signed 8-bit map type; the bytes are the same.
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ldx), static_cast<cuuint64_t>(n_pad)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldx)};
-  const cuuint32_t box[2] = {GK, GT};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult encoded = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xt), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (encoded != CUDA_SUCCESS) return -static_cast<int>(encoded);
+  const int encoded = encode_xt_map(&map, xt, n_pad, ldx);
+  if (encoded != 0) return encoded;
   const int halves = split > 1 ? 2 : 1;
   const dim3 blocks(gram_units(n_pad / GT) * halves, split);
   const bool bulk = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
   gram_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       map, g, n, n_pad / GT, ldx / GK, halves, bulk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C[:m, :n] += (A·Bᵀ)[:m, :n] into the int32 C of leading dimension ldc,
+// for the int8 A (m_pad, ld) and B (n_pad, ld) at `a` and `b` (m_pad,
+// n_pad and ld multiples of 128, both 16-byte aligned), the sites split
+// over `split` blocks a unit (ops/devicegen.py:cross_split chooses it).
+int cross_accumulate_launch(int32_t* c, int64_t ldc, int m, int n, const int8_t* a, int m_pad,
+                            const int8_t* b, int n_pad, int ld, int split, void* stream) {
+  if (split < 1 || m > m_pad || n > n_pad || m_pad % GT || n_pad % GT || ld % GK || ldc < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  const cudaError_t prepared = gram_prepare(&device);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  CUtensorMap a_map, b_map;
+  int encoded = encode_xt_map(&a_map, a, m_pad, ld);
+  if (encoded == 0) encoded = encode_xt_map(&b_map, b, n_pad, ld);
+  if (encoded != 0) return encoded;
+  const int halves = split > 1 ? 2 : 1;
+  const int n_tiles = n_pad / GT;
+  const int units = (m_pad / GT) * ((n_tiles + G_BOXES - 1) / G_BOXES);
+  const dim3 blocks(units * halves, split);
+  const bool bulk = n % 4 == 0 && ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  cross_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      a_map, b_map, c, ldc, m, n, n_tiles, ld / GK, halves, bulk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,6 +38,20 @@
 //   Columns past N (the unused low bits of the last packed byte included)
 //   and sites past B come out zero.
 //
+// pack_rows_t_kernel — the exact inverse of the packed mode: an int8 {0,1}
+//   Xᵀ (rows × sites, sites innermost, n_pad × ld) back into bit-packed
+//   rows, (B, n_cols / 8) uint8 in np.packbits' big-endian order (bit 7 of
+//   byte j is column 8j), a nonzero byte a 1 as np.packbits takes it.
+//   Replaces spark_examples_tpu/ops/gramian.py:_pack_bits_device, which the
+//   device-generation ring runs on its generated columns before the first
+//   transfer, so the ring circulates ⅛ of the bytes.
+//   Bound: bytes (it reads n_cols × B int8 and writes an eighth of that).
+//   One block of 256 threads a tile of 128 sites × 128 columns: 16-byte
+//   loads of the tile's rows into shared memory (a row padded by 16 bytes,
+//   so a warp's column-wise reads of one site meet distinct banks), then a
+//   thread packs 8 output bytes of one site, reading its 64 columns, and
+//   stores them; sites past B and bytes past n_cols / 8 are not written.
+//
 // Plain C interface, bound with ctypes (ops/_kernels.py). The launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -170,6 +184,42 @@ unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int
   }
 }
 
+constexpr int PACK_STRIDE = TILE_SITES + 16;  // a staged column row, bytes
+
+__global__ void __launch_bounds__(THREADS)
+pack_rows_t_kernel(const int8_t* __restrict__ xt, int ld, int rows, int out_width,
+                   uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint8_t tile[TILE_COLS * PACK_STRIDE];
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * TILE_SITES;
+  const int c0 = blockIdx.y * TILE_COLS;
+  // Loads: column row c, 16 sites a lane (the tile lies inside Xᵀ: both
+  // of its dimensions are multiples of 128).
+#pragma unroll
+  for (int i = 0; i < TILE_COLS * SEGMENTS / THREADS; ++i) {
+    const int u = tid + i * THREADS;
+    const int seg = u % SEGMENTS, c = u / SEGMENTS;
+    *reinterpret_cast<uint4*>(&tile[c * PACK_STRIDE + 16 * seg]) =
+        *reinterpret_cast<const uint4*>(xt + static_cast<int64_t>(c0 + c) * ld + s0 + 16 * seg);
+  }
+  __syncthreads();
+  // Thread (group, site): output bytes 8·group .. 8·group + 7 of the tile's
+  // 16 at one site.
+  const int site = tid % TILE_SITES, group = tid / TILE_SITES;
+  const int s = s0 + site;
+  if (s >= rows) return;
+  uint8_t* row = out + static_cast<int64_t>(s) * out_width;
+#pragma unroll
+  for (int j = 8 * group; j < 8 * group + 8; ++j) {
+    const int byte = c0 / 8 + j;
+    if (byte >= out_width) break;
+    uint32_t v = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v |= (tile[(8 * j + k) * PACK_STRIDE + site] != 0 ? 1u : 0u) << (7 - k);
+    row[byte] = static_cast<uint8_t>(v);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -191,6 +241,22 @@ int unpack_rows_t_launch(const uint8_t* in, int rows, int in_width, int n_cols,
     const int words = in_width % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 4 == 0;
     unpack_rows_t_kernel<false><<<grid, THREADS, 0, s>>>(in, rows, in_width, n_cols, words, xt, ld);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (rows, n_cols / 8) uint8 = the bit-packed rows of the int8 Xᵀ
+// (n_pad, ld) at `xt` (16-byte aligned; n_pad and ld multiples of 128,
+// n_cols a multiple of 8 and at most n_pad, rows at most ld).
+int pack_rows_t_launch(const int8_t* xt, int n_pad, int ld, int n_cols, int rows, uint8_t* out,
+                       void* stream) {
+  if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || n_cols % 8 != 0 || n_cols > n_pad ||
+      rows > ld || reinterpret_cast<uintptr_t>(xt) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows == 0 || n_cols == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((rows + TILE_SITES - 1) / TILE_SITES, (n_cols + TILE_COLS - 1) / TILE_COLS);
+  pack_rows_t_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(xt, ld, rows,
+                                                                             n_cols / 8, out);
   return static_cast<int>(cudaGetLastError());
 }
 

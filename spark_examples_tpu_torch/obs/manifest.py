@@ -102,6 +102,7 @@ def build_manifest(
     conformance: Optional[Dict] = None,
     resume: Optional[Dict] = None,
     analysis: Optional[Dict] = None,
+    schedule: Optional[Dict] = None,
 ) -> Dict:
     """Assemble a manifest from already-snapshotted parts (the low-level
     form; :func:`build_run_manifest` snapshots a live driver)."""
@@ -119,7 +120,7 @@ def build_manifest(
         "gramian_exactness": None,
         "resume": resume,
         "analysis": analysis,
-        "schedule": None,
+        "schedule": schedule,
         "conformance": conformance,
         "cost": None,
         "compile_cache": None,
@@ -129,14 +130,16 @@ def build_manifest(
 
 
 def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
-                       overlap=None, resume=None, analysis=None) -> Dict:
+                       overlap=None, resume=None, analysis=None, schedule=None) -> Dict:
     """Snapshot a live run: ``conf`` (dataclass or mapping), the run's
     :class:`~spark_examples_tpu_torch.obs.spans.SpanRecorder` and
     :class:`~spark_examples_tpu_torch.obs.metrics.MetricsRegistry`, the
     driver's ``VariantsDatasetStats`` (or ``None`` when stats are disabled,
     as under ``--input-path``) and the structured overlap dict of
     ``PrefetchIterator.overlap_stats()``; ``resume`` and ``analysis`` are
-    the blocks of a checkpointed run and of an analysis verb."""
+    the blocks of a checkpointed run and of an analysis verb; ``schedule``
+    the sharded strategy's ring block (``schedule_block()`` of its
+    accumulator)."""
     config = (
         dataclasses.asdict(conf)
         if dataclasses.is_dataclass(conf)
@@ -152,6 +155,7 @@ def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
         conformance=conformance_block(registry) if registry is not None else None,
         resume=resume,
         analysis=analysis,
+        schedule=schedule,
     )
 
 

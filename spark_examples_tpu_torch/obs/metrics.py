@@ -72,6 +72,11 @@ HOST_BASELINE_RSS_BYTES = "host_baseline_rss_bytes"
 #: cursor of the newest published snapshot, and the saves counter.
 GRAMIAN_CHECKPOINT_SITES = "gramian_checkpoint_sites"
 GRAMIAN_CHECKPOINT_SAVES = "gramian_checkpoint_saves_total"
+#: The sharded strategy's ring (``ops/gramian.py:ring_pass``): bytes its
+#: transfers moved, by the wire format's formula
+#: (``parallel/mesh.py:ring_traffic_bytes``), and host seconds per flush.
+GRAMIAN_RING_BYTES = "gramian_ring_bytes"
+GRAMIAN_RING_FLUSH_SECONDS = "gramian_ring_flush_seconds"
 #: Per-site analyses (``analyses/``): sites tested and kept.
 ANALYSIS_SITES_TESTED = "analysis_sites_tested"
 ANALYSIS_SITES_KEPT = "analysis_sites_kept"
@@ -127,6 +132,11 @@ _WELL_KNOWN_GAUGE_HELP = {
 }
 
 _WELL_KNOWN_COUNTER_HELP = {
+    GRAMIAN_RING_BYTES: (
+        "Total bytes moved by the samples-sharded ring's tile transfers "
+        "(sharded Gramian); the bit-packed wire format cuts this 8x vs "
+        "unpacked uint8 tiles."
+    ),
     GRAMIAN_CHECKPOINT_SAVES: (
         "Atomic Gramian accumulator snapshots published by this run "
         "(--gramian-checkpoint-dir)."
@@ -717,6 +727,8 @@ __all__ = [
     "GRAMIAN_CHECKPOINT_SAVES",
     "GRAMIAN_CHECKPOINT_SITES",
     "GRAMIAN_INFLIGHT_DISPATCHES",
+    "GRAMIAN_RING_BYTES",
+    "GRAMIAN_RING_FLUSH_SECONDS",
     "Gauge",
     "HOST_BASELINE_RSS_BYTES",
     "HOST_PEAK_RSS_BYTES",

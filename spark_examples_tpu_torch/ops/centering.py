@@ -6,12 +6,17 @@ The reference centers row-by-row against broadcast row sums
 count N. The port computes it in float64 — the reference centers in Double,
 and whole-genome counts pass 2^24, where float32 arithmetic would round the
 counts themselves — and returns float32 for the eigensolve (float64 when
-float64 came in), as ``spark_examples_tpu/ops/centering.py`` does under x64.
+float64 came in), as ``spark_examples_tpu/ops/centering.py`` does under x64;
+:func:`gower_center_sharded` does the same over the sharded strategy's row
+tiles.
 """
 
 from __future__ import annotations
 
 import torch
+
+from spark_examples_tpu_torch.parallel.collectives import all_reduce_sum
+from spark_examples_tpu_torch.parallel.mesh import RowSharded
 
 
 def gower_center(S: torch.Tensor) -> torch.Tensor:
@@ -23,4 +28,31 @@ def gower_center(S: torch.Tensor) -> torch.Tensor:
     return (Sw - row_mean - col_mean + Sw.mean()).to(out)
 
 
-__all__ = ["gower_center"]
+def gower_center_sharded(S: RowSharded, n_true: int | None = None) -> RowSharded:
+    """Centering of a row-sharded Gramian (``spark_examples_tpu/ops/
+    centering.py:gower_center_sharded``): row means are local to a tile,
+    column and matrix means come from one sum of the tiles' column sums
+    over the positions (the reference's ``psum``). Means divide by the true
+    cohort ``n_true`` (default ``S.n_true``): padded rows and columns are
+    zero, so sums over the padded extent are sums over the true one, and
+    they are zeroed again after centring — the dense result embedded in a
+    zero block. Float64 arithmetic in the reference's order (integer sums
+    are exact in any order), float32 tiles out."""
+    n = S.n_true if n_true is None else int(n_true)
+    wide = [tile.to(torch.float64) for tile in S.tiles]
+    col_sums = all_reduce_sum([w.sum(dim=0, keepdim=True) for w in wide])
+    out, row_start = [], 0
+    for w, col_sum in zip(wide, col_sums):
+        n_local = w.shape[0]
+        row_mean = w.sum(dim=1, keepdim=True) / n
+        col_mean = col_sum / n
+        total_mean = col_sum.sum() / (n * n)
+        centred = w - row_mean - col_mean + total_mean
+        rows = torch.arange(row_start, row_start + n_local, device=w.device) < n
+        cols = torch.arange(w.shape[1], device=w.device) < n
+        out.append(torch.where(rows[:, None] & cols[None, :], centred, 0.0).to(torch.float32))
+        row_start += n_local
+    return RowSharded(out, S.positions, n)
+
+
+__all__ = ["gower_center", "gower_center_sharded"]

@@ -31,6 +31,7 @@ set-local sample index and population, so one kernel covers them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch.ops import _kernels
+from spark_examples_tpu_torch.parallel.mesh import run_on
 from spark_examples_tpu_torch.sources.synthetic import (
     _AF_BASE_Q32,
     _AF_SPAN_Q16,
@@ -244,6 +246,9 @@ class GenPlan:
     col_set: torch.Tensor  # (C,) int32
     col_pop: torch.Tensor  # (C,) int32
     col_fsamp: torch.Tensor  # (C,) int32 holding u32 bits
+    #: The cohort column of the plan's first column: 0, or a samples
+    #: position's first column in a plan cut by :func:`slice_gen_plan`.
+    col_start: int = 0
 
     @property
     def n_sets(self) -> int:
@@ -302,6 +307,59 @@ def make_gen_plan(
     )
 
 
+def slice_gen_plan(plan: GenPlan, lo: int, hi: int) -> GenPlan:
+    """``plan`` cut to its cohort columns ``[lo, hi)``: the column tables of
+    one samples position, which ``gen_genotypes`` draws exactly as it draws
+    those columns of the whole cohort (a column's draw is keyed by its set
+    and set-local sample index, which the tables carry)."""
+    if not 0 <= lo <= hi <= plan.n_cols:
+        raise ValueError(f"columns [{lo}, {hi}) outside the plan's {plan.n_cols}")
+    return dataclasses.replace(
+        plan,
+        col_set=plan.col_set[lo:hi].contiguous(),
+        col_pop=plan.col_pop[lo:hi].contiguous(),
+        col_fsamp=plan.col_fsamp[lo:hi].contiguous(),
+        col_start=plan.col_start + lo,
+    )
+
+
+def generate_column_block(
+    positions: torch.Tensor,  # (B,) int64
+    thresholds: torch.Tensor,  # (B, P) int64 Q32 thresholds, 0 = dropped
+    vs_keys: Union[Sequence[int], torch.Tensor],  # per-set genotype stream keys
+    pops_local: torch.Tensor,  # (N_local,) the slice's column populations
+    col_start: int,  # the slice's first cohort column
+    num_samples: int,  # cohort columns (the sum of the per-set sizes)
+    set_sizes: Optional[Tuple[int, ...]] = None,
+) -> torch.Tensor:
+    """(B, N_local) bool has-variation of one column slice of the cohort,
+    bitwise-equal to those columns of :func:`generate_has_variation`
+    (a draw is keyed by the set-local sample index); columns past
+    ``num_samples`` come out zero. ``pops_local`` slices the concatenated
+    per-set population vector; ``set_sizes`` ``None`` is one set. The
+    counterpart of ``spark_examples_tpu/ops/devicegen.py:
+    generate_column_block``, each set's draws computed only over its own
+    columns of the slice."""
+    n_local = int(pops_local.shape[0])
+    sizes = (int(num_samples),) if set_sizes is None else tuple(int(v) for v in set_sizes)
+    pos_term = positions * _i64(_P2)
+    t_full = thresholds[:, pops_local.long()]
+    hv = torch.zeros((positions.shape[0], n_local), dtype=torch.bool, device=positions.device)
+    offset = 0
+    for s, size in enumerate(sizes):
+        lo = max(offset, int(col_start))
+        hi = min(offset + size, int(col_start) + n_local, int(num_samples))
+        if lo < hi:
+            key = vs_keys[s] if isinstance(vs_keys[s], torch.Tensor) else _i64(int(vs_keys[s]))
+            h2 = mix64(mix64(pos_term ^ key) ^ _i64(_S_GENOTYPE * _P3))[:, None]
+            samples = torch.arange(lo - offset, hi - offset, device=positions.device) * _i64(_P4)
+            d1, d2 = _allele_pair(h2, samples[None, :])
+            tf = t_full[:, lo - col_start : hi - col_start]
+            hv[:, lo - col_start : hi - col_start] = (d1 < tf) | (d2 < tf)
+        offset += size
+    return hv
+
+
 def gen_genotypes_plain(
     plan: GenPlan,
     grid_offset: int,
@@ -311,7 +369,7 @@ def gen_genotypes_plain(
     rows: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of :func:`gen_genotypes`: the same Xᵀ, and the same
-    in-place counter increments, through :func:`generate_has_variation`
+    in-place counter increments, through :func:`generate_column_block`
     (the draws without the kernel's per-column fold tables)."""
     device = kept.device
     ld = _round_up(block_sites, SITE_TILE)
@@ -325,7 +383,10 @@ def gen_genotypes_plain(
         plan.ref_block_fraction,
         plan.min_af_micro,
     )
-    hv = generate_has_variation(positions, T, plan.vs_keys, plan.col_pop, plan.set_sizes)
+    hv = generate_column_block(
+        positions, T, plan.vs_keys, plan.col_pop, plan.col_start,
+        sum(plan.set_sizes), plan.set_sizes,
+    )
     xt = torch.zeros((plan.n_cols_pad, ld), dtype=torch.int8, device=device)
     xt[: plan.n_cols] = hv.T.to(torch.int8)
     kept += (T > 0).any(dim=1).sum()
@@ -494,10 +555,30 @@ def gram_split(rows: int, ld: int, sms: int) -> int:
     own, so one wave is ``2 · units · split ≤ sms`` blocks (the LD window,
     2 units of 20 steps: 10 splits, 40 blocks). Each block adds its
     partial sums into G."""
-    units = gram_units(rows)
+    return _split(gram_units(rows), ld, sms)
+
+
+def _split(units: int, ld: int, sms: int) -> int:
+    """Blocks a unit of ``units`` splits ``ld`` sites over on ``sms`` SMs:
+    1 where the units fill half the card, else the most that keeps one
+    wave of half units and ``GRAM_SPLIT_MIN_STEPS`` steps a block."""
     if 2 * units >= sms:
         return 1
     return max(1, min(sms // (2 * units), (ld // SITE_TILE) // GRAM_SPLIT_MIN_STEPS))
+
+
+def cross_units(m_pad: int, n_pad: int) -> int:
+    """Work units of a :func:`cross_accumulate` over A of ``m_pad`` rows and
+    B of ``n_pad`` (multiples of ``COL_TILE``): every tile row of A against
+    every group of ``GRAM_UNIT_TILES`` tiles of B."""
+    return (m_pad // COL_TILE) * -(-(n_pad // COL_TILE) // GRAM_UNIT_TILES)
+
+
+def cross_split(m_pad: int, n_pad: int, ld: int, sms: int) -> int:
+    """:func:`gram_split`'s rule for :func:`cross_accumulate`: at 632 × 632
+    (2,504 samples over 4 positions) 15 units, so 4 splits of half units
+    (120 blocks on 132 SMs); at 6,256 × 6,256, 1,225 units, no split."""
+    return _split(cross_units(m_pad, n_pad), ld, sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -565,8 +646,76 @@ def gram_accumulate_grid(rows: int, ld: int, device: torch.device) -> tuple[int,
 
 gram_accumulate.launches = 0  # type: ignore[attr-defined]
 
+
+def cross_accumulate_plain(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Plain version of :func:`cross_accumulate`: an int64 product on the
+    CPU, float64 on the card (exact below 2^53)."""
+    m, n = C.shape
+    wide = torch.int64 if C.device.type == "cpu" else torch.float64
+    C += (a[:m].to(wide) @ b[:n].to(wide).T).to(C.dtype)
+
+
+def cross_accumulate(
+    C: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split: Optional[int] = None
+) -> None:
+    """``C += (A·Bᵀ)[:m, :n]`` in place, for an int32 (m, n) ``C`` whose
+    rows may be strided (a column slice of a position's row tile) and two
+    int8 operands in Xᵀ layout, ``a`` (m_pad, ld) and ``b`` (n_pad, ld):
+    one ring step's product ``G_local[:, owner] += X_mineᵀ·X_owner``.
+    ``a`` may be ``b``. ``split`` defaults to :func:`cross_split`.
+
+    Replaces the ``jnp.matmul`` of ``spark_examples_tpu/ops/gramian.py:
+    _ring_tiles`` and ``_hier_ring_tiles``. CPU tensors take
+    :func:`cross_accumulate_plain`; CUDA tensors launch
+    ``cross_accumulate_kernel`` (``csrc/devicegen.cu``)."""
+    if C.ndim != 2:
+        raise ValueError(f"C must be 2-D, got {tuple(C.shape)}")
+    if C.device.type == "cpu":
+        cross_accumulate_plain(C, a, b)
+        return
+    m, n = C.shape
+    if C.dtype != torch.int32 or C.stride(1) != 1 or (m > 1 and C.stride(0) < n):
+        raise ValueError("C must be int32 with unit column stride and rows of at least n")
+    for name, t, need in (("a", a, m), ("b", b, n)):
+        _require(t, name, torch.int8, None, C.device)
+        if t.ndim != 2 or t.shape[0] < need or t.shape[0] % COL_TILE or t.shape[1] % SITE_TILE:
+            raise ValueError(
+                f"{name} must be ({COL_TILE}k ≥ {need}, {SITE_TILE}j), got {tuple(t.shape)}"
+            )
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (its tensor map needs it)")
+    if a.shape[1] != b.shape[1]:
+        raise ValueError(f"a and b must hold the same sites, got {a.shape[1]} and {b.shape[1]}")
+    if m == 0 or n == 0:
+        return
+    ld = int(a.shape[1])
+    if split is None:
+        split = cross_split(a.shape[0], b.shape[0], ld, _sms(C.device.index))
+    if not 1 <= split <= max(1, ld // SITE_TILE):
+        raise ValueError(f"split must be in [1, {max(1, ld // SITE_TILE)}], got {split}")
+    lib = _library()
+    with torch.cuda.device(C.device):
+        status = lib.cross_accumulate_launch(
+            C.data_ptr(),
+            C.stride(0),
+            m,
+            n,
+            a.data_ptr(),
+            a.shape[0],
+            b.data_ptr(),
+            b.shape[0],
+            ld,
+            split,
+            torch.cuda.current_stream(C.device).cuda_stream,
+        )
+    _kernels.check(status, "cross_accumulate")
+    cross_accumulate.launches += 1
+
+
+cross_accumulate.launches = 0  # type: ignore[attr-defined]
+
 #: Every kernel wrapper of this module, for launch accounting.
-KERNELS = (gen_genotypes, gram_accumulate)
+KERNELS = (gen_genotypes, gram_accumulate, cross_accumulate)
 
 
 def reset_launch_counts() -> None:
@@ -574,18 +723,91 @@ def reset_launch_counts() -> None:
         kernel.launches = 0  # type: ignore[attr-defined]
 
 
-class DeviceGenGramianAccumulator:
-    """Fused on-device ingest and similarity for the synthetic source, on
-    one device: the host walks the site grid in dispatch groups of
-    ``blocks_per_dispatch`` blocks of ``block_size`` sites and sends only
-    ``(grid_offset, n_valid)``; the card generates each block's genotypes
-    and accumulates the int32 Gramian (exact: int8×int8→int32), a kept-site
-    counter and per-set variant-row counters. Nothing is fetched until
+class _GridWalk:
+    """The site-grid walk both device-generation accumulators share: groups
+    of ``blocks_per_dispatch`` blocks, then the remainder in tail groups of
+    ``blocks_per_dispatch // 8``, dealt round-robin over the ``data``
+    slices, ``data`` groups a round (one slice: a round a group). A round
+    counts as one dispatch of ``data`` groups' capacity, idle slices
+    included — the reference's ``_GridDispatchAccumulator`` accounting.
+    Subclasses give ``_blocks(d, grid_offset, n_valid, blocks)``: slice
+    d's work for one group."""
+
+    data_parallel = 1
+
+    def _init_walk(self, block_size: int, blocks_per_dispatch: int) -> None:
+        self.block_size = int(block_size)
+        self.blocks_per_dispatch = int(blocks_per_dispatch)
+        self.sites_per_dispatch = self.block_size * self.blocks_per_dispatch
+        self._tail_blocks = max(1, self.blocks_per_dispatch // 8)
+        self.dispatches = 0
+        #: dispatched site-grid capacity (padding included) vs the valid
+        #: sites inside it — the dispatch padding waste.
+        self.sites_capacity = 0
+        self.sites_valid = 0
+
+    def _blocks(self, d: int, grid_offset: int, n_valid: int, blocks: int) -> None:
+        raise NotImplementedError
+
+    def _round_robin(self, starts: Sequence[int], last_index: int, blocks: int) -> None:
+        cap = blocks * self.block_size
+        D = self.data_parallel
+        for i in range(0, len(starts), D):
+            valid = 0
+            for d, start in enumerate(starts[i : i + D]):
+                n_valid = min(cap, last_index - start)
+                self._blocks(d, start, n_valid, blocks)
+                valid += n_valid
+            self.dispatches += 1
+            self.sites_capacity += cap * D
+            self.sites_valid += valid
+
+    def add_range(self, grid_offset: int, n_valid: int) -> None:
+        """Dispatch one group covering grid indices
+        ``[grid_offset, grid_offset + n_valid)`` (positions ``index ·
+        spacing``); indices past ``n_valid`` are padding. With a data axis
+        the group is a round of its own, on the first slice."""
+        if not 0 < n_valid <= self.sites_per_dispatch:
+            raise ValueError(
+                f"n_valid must be in (0, {self.sites_per_dispatch}], got {n_valid}"
+            )
+        if grid_offset < 0:
+            raise ValueError("grid_offset must be non-negative")
+        self._round_robin([grid_offset], grid_offset + n_valid, self.blocks_per_dispatch)
+
+    def add_grid(self, first_index: int, last_index: int) -> None:
+        """Dispatch every group of the grid range ``[first_index,
+        last_index)``: full groups, then the remainder in tail groups."""
+        main = self.sites_per_dispatch
+        n_main = max(0, last_index - first_index) // main
+        rem = first_index + n_main * main
+        self._round_robin(
+            [first_index + i * main for i in range(n_main)], last_index, self.blocks_per_dispatch
+        )
+        tail = self.block_size * self._tail_blocks
+        self._round_robin(list(range(rem, last_index, tail)), last_index, self._tail_blocks)
+
+
+class DeviceGenGramianAccumulator(_GridWalk):
+    """Fused on-device ingest and similarity for the synthetic source: the
+    host walks the site grid in dispatch groups of ``blocks_per_dispatch``
+    blocks of ``block_size`` sites and sends only ``(grid_offset,
+    n_valid)``; the card generates each block's genotypes and accumulates
+    the int32 Gramian (exact: int8×int8→int32), a kept-site counter and
+    per-set variant-row counters. Nothing is fetched until
     :meth:`ingest_counters` / :meth:`finalize`.
 
     Blocks past a group's valid count are skipped rather than computed as
     padding (they add nothing); ``sites_capacity`` still counts the whole
     group, as the reference accumulator's does.
+
+    ``mesh`` adds the reference's ``data`` axis (``_fused_update_mesh``):
+    groups go round-robin over the data slices (:class:`_GridWalk`), each
+    generating and accumulating a different span of the grid into its own
+    Gramian and counters on its position (the first of the slice) and
+    stream. :meth:`finalize_device` sums the slices
+    (:func:`~spark_examples_tpu_torch.ops.gramian.data_axis_sum`, int64
+    past one).
     """
 
     def __init__(
@@ -603,8 +825,12 @@ class DeviceGenGramianAccumulator:
         set_sizes: Optional[Sequence[int]] = None,
         pops_per_set: Optional[Sequence[np.ndarray]] = None,
         device: DeviceLike = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._slices = [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
+        self.device = self._slices[0].device if mesh is not None else resolve_device(device)
+        self.data_parallel = len(self._slices)
         self.num_samples = int(num_samples)
         self.n_sets = len(vs_keys)
         if set_sizes is not None:
@@ -623,85 +849,272 @@ class DeviceGenGramianAccumulator:
             self.set_sizes = None
             per_set = [np.asarray(pops)] * self.n_sets
         self.total_columns = sum(len(p) for p in per_set)
-        self.block_size = int(block_size)
-        self.blocks_per_dispatch = int(blocks_per_dispatch)
-        self.sites_per_dispatch = self.block_size * self.blocks_per_dispatch
-        self._tail_blocks = max(1, self.blocks_per_dispatch // 8)
-        self.plan = make_gen_plan(
-            vs_keys,
-            per_set,
-            site_key,
-            spacing,
-            ref_block_fraction,
-            min_af_micro,
-            int(n_pops) if n_pops is not None else int(np.max(pops)) + 1,
-            self.device,
-        )
+        self._init_walk(block_size, blocks_per_dispatch)
+        n_pops = int(n_pops) if n_pops is not None else int(np.max(pops)) + 1
         C = self.total_columns
-        self.G = torch.zeros((C, C), dtype=torch.int32, device=self.device)
-        self.variant_rows = torch.zeros(
-            (self.n_sets,), dtype=torch.int64, device=self.device
-        )
-        self.kept_sites = torch.zeros((), dtype=torch.int64, device=self.device)
-        self.dispatches = 0
-        #: dispatched site-grid capacity (padding included) vs the valid
-        #: sites inside it — the dispatch padding waste.
-        self.sites_capacity = 0
-        self.sites_valid = 0
+        self._plans, self._G, self._rows, self._kept = [], [], [], []
+        for position in self._slices:
+            device = self.device if position is None else position.device
+            with run_on(position):
+                self._plans.append(make_gen_plan(
+                    vs_keys, per_set, site_key, spacing, ref_block_fraction,
+                    min_af_micro, n_pops, device,
+                ))
+                self._G.append(torch.zeros((C, C), dtype=torch.int32, device=device))
+                self._rows.append(torch.zeros((self.n_sets,), dtype=torch.int64, device=device))
+                self._kept.append(torch.zeros((), dtype=torch.int64, device=device))
+        self.plan = self._plans[0]
 
-    def _dispatch(self, grid_offset: int, n_valid: int, blocks: int) -> None:
+    @property
+    def G(self) -> torch.Tensor:
+        """The Gramian so far: the one slice's, or the data axis's sum."""
+        from spark_examples_tpu_torch.ops.gramian import data_axis_sum
+
+        self._join()
+        return data_axis_sum(self._G)
+
+    @property
+    def variant_rows(self) -> torch.Tensor:
+        """(n_sets,) int64 per-set variant rows, summed over data slices."""
+        from spark_examples_tpu_torch.ops.gramian import data_axis_sum
+
+        self._join()
+        return data_axis_sum(self._rows)
+
+    @property
+    def kept_sites(self) -> torch.Tensor:
+        """0-dim int64 kept sites, summed over data slices."""
+        from spark_examples_tpu_torch.ops.gramian import data_axis_sum
+
+        self._join()
+        return data_axis_sum(self._kept)
+
+    def _join(self) -> None:
+        if self.mesh is not None:
+            self.mesh.join(self._G + self._rows + self._kept)
+
+    def _blocks(self, d: int, grid_offset: int, n_valid: int, blocks: int) -> None:
+        """Slice ``d``'s share of one dispatch: its valid blocks."""
+        B = self.block_size
+        with run_on(self._slices[d]):
+            for k in range(blocks):
+                valid = min(B, n_valid - k * B)
+                if valid <= 0:
+                    break
+                xt = gen_genotypes(
+                    self._plans[d], grid_offset + k * B, valid, B, self._kept[d], self._rows[d],
+                )
+                gram_accumulate(self._G[d], xt)
+
+    def ingest_counters(self) -> Tuple[np.ndarray, int]:
+        """``(per-set variant-row totals, kept-site total)``, fetched
+        synchronously in one copy (so an ingest stage's wall-clock ends
+        with its work); data slices hold disjoint spans, so they sum."""
+        from spark_examples_tpu_torch.parallel.mesh import packed_host_fetch
+
+        self._join()
+        flat = packed_host_fetch([self._rows, self._kept])
+        D, S = self.data_parallel, self.n_sets
+        return flat[: D * S].reshape(D, S).sum(axis=0), int(flat[D * S :].sum())
+
+    def finalize_device(self) -> torch.Tensor:
+        """The accumulated Gramian, still on the device: int32 on one
+        slice, int64 summed over a data axis."""
+        return self.G
+
+    def finalize(self) -> np.ndarray:
+        return self.G.cpu().numpy().astype(np.float64)
+
+
+class DeviceGenRingGramianAccumulator(_GridWalk):
+    """Sharded device ingest: on-device generation composed with the ring
+    Gramian (the port of ``spark_examples_tpu/ops/devicegen.py:
+    DeviceGenRingGramianAccumulator`` and its ``_ring_update``).
+
+    Each samples position generates only its own columns of the cohort —
+    ``gen_genotypes`` on its cut column tables (:func:`slice_gen_plan`),
+    padded to the ring's tile — packs them (``ops/gramian.py:
+    pack_rows_t``, under the packed wire) and ``ops/gramian.py:ring_pass``
+    accumulates its row tile, so no position holds the N×N Gramian and no
+    host→device data moves. A ``data`` axis adds grid parallelism on top:
+    each slice runs its own ring over its own spans (:class:`_GridWalk`).
+
+    Counters: a site is kept by its metadata alone, so the first position
+    of a slice counts kept sites; a site counts for set s when any column
+    of set s on any position varies, so each position takes its slice's
+    per-set flags from its Xᵀ (one ``amax`` over a set's rows) and the
+    first position ORs them and counts (the reference sums the flags over
+    the samples axis, ``psum``, and counts ``> 0``); the kernel's own
+    per-set counts cover one slice and are not summed.
+
+    Multi-set cohorts (``set_sizes`` with ``pops_per_set``, or several
+    ``vs_key`` sharing one cohort) concatenate per-set columns, as the
+    dense accumulator does; a position's slice may span sets.
+    """
+
+    def __init__(
+        self,
+        num_samples: int,
+        vs_key,
+        pops: np.ndarray,
+        site_key: int,
+        spacing: int,
+        ref_block_fraction: float,
+        mesh,
+        min_af_micro: Optional[int] = None,
+        block_size: int = 1024,
+        blocks_per_dispatch: int = 8,
+        n_pops: Optional[int] = None,
+        set_sizes: Optional[Sequence[int]] = None,
+        pops_per_set: Optional[Sequence[np.ndarray]] = None,
+        pack_bits: str = "auto",
+        reduce_schedule: str = "auto",
+        hier_hosts: Optional[int] = None,
+    ):
+        from spark_examples_tpu_torch.ops.gramian import RingLayout
+        from spark_examples_tpu_torch.parallel.mesh import SAMPLES_AXIS
+
+        if mesh.shape.get(SAMPLES_AXIS, 1) < 2:
+            raise ValueError("ring device ingest needs a samples axis >= 2")
+        self.num_samples = int(num_samples)
+        vs_keys = tuple(int(k) for k in vs_key) if isinstance(vs_key, (list, tuple)) else (int(vs_key),)
+        self.n_sets = len(vs_keys)
+        if set_sizes is not None:
+            self.set_sizes: Optional[Tuple[int, ...]] = tuple(int(v) for v in set_sizes)
+            if len(self.set_sizes) != self.n_sets:
+                raise ValueError(
+                    f"set_sizes has {len(self.set_sizes)} entries for {self.n_sets} variant sets"
+                )
+            if pops_per_set is None or len(pops_per_set) != self.n_sets:
+                raise ValueError("set_sizes needs matching pops_per_set")
+            if any(len(p) != v for p, v in zip(pops_per_set, self.set_sizes)):
+                raise ValueError("pops_per_set lengths must match set_sizes")
+            per_set = [np.asarray(p) for p in pops_per_set]
+        else:
+            per_set = [np.asarray(pops)] * self.n_sets
+            self.set_sizes = (self.num_samples,) * self.n_sets if self.n_sets > 1 else None
+        self.total_columns = sum(len(p) for p in per_set)
+        self.layout = layout = RingLayout(
+            mesh, self.total_columns, pack_bits, reduce_schedule, hier_hosts
+        )
+        self.mesh, self.pack, self.padded, self.n_local = mesh, layout.pack, layout.padded, layout.n_local
+        self.samples_parallel, self.data_parallel = layout.samples_parallel, layout.data_parallel
+        self.reduce_schedule, self.hier_hosts = layout.reduce_schedule, layout.hier_hosts
+        self.device = layout.device
+        self._init_walk(block_size, blocks_per_dispatch)
+        n_pops = int(n_pops) if n_pops is not None else int(np.concatenate(per_set).max()) + 1
+        col_set = np.concatenate([np.full(len(p), s) for s, p in enumerate(per_set)])
+        self._plans, self._ranges, self._kept, self._rows, self._scratch = [], [], [], [], []
+        for ring in layout.rings:
+            plans, ranges, scratch = [], [], []
+            for s, position in enumerate(ring):
+                lo = s * self.n_local
+                hi = min(lo + self.n_local, self.total_columns)
+                with position.run():
+                    plan = None
+                    if lo < hi:
+                        plan = slice_gen_plan(make_gen_plan(
+                            vs_keys, per_set, site_key, spacing, ref_block_fraction,
+                            min_af_micro, n_pops, position.device,
+                        ), lo, hi)
+                    scratch.append((
+                        torch.zeros((), dtype=torch.int64, device=position.device),
+                        torch.zeros((self.n_sets,), dtype=torch.int64, device=position.device),
+                    ))
+                plans.append(plan)
+                # Each set's rows of this position's Xᵀ.
+                sets = col_set[lo:hi]
+                ranges.append([
+                    (int(v), int(np.argmax(sets == v)), int(len(sets) - np.argmax(sets[::-1] == v)))
+                    for v in np.unique(sets)
+                ])
+            lead = ring[0]
+            with lead.run():
+                self._kept.append(torch.zeros((), dtype=torch.int64, device=lead.device))
+                self._rows.append(torch.zeros((self.n_sets,), dtype=torch.int64, device=lead.device))
+            self._plans.append(plans)
+            self._ranges.append(ranges)
+            self._scratch.append(scratch)
+
+    @property
+    def ring_bytes_total(self) -> int:
+        """Bytes the ring moved so far by the reference's formula: every
+        dispatched site (padding included) costs one circulation of its
+        row's column tiles (``parallel/mesh.py:ring_traffic_bytes``)."""
+        from spark_examples_tpu_torch.parallel.mesh import ring_traffic_bytes
+
+        return ring_traffic_bytes(self.sites_capacity, self.samples_parallel, self.n_local, self.pack)
+
+    def schedule_block(self) -> dict:
+        """The manifest's ``schedule`` block; this path has no per-flush
+        accounting, so measured is the projection (as in the reference)."""
+        return self.layout.schedule(self.sites_capacity)
+
+    def _blocks(self, d: int, grid_offset: int, n_valid: int, blocks: int) -> None:
         B = self.block_size
         for k in range(blocks):
             valid = min(B, n_valid - k * B)
             if valid <= 0:
                 break
-            xt = gen_genotypes(
-                self.plan, grid_offset + k * B, valid, B,
-                self.kept_sites, self.variant_rows,
-            )
-            gram_accumulate(self.G, xt)
-        self.dispatches += 1
-        self.sites_capacity += blocks * B
-        self.sites_valid += int(n_valid)
+            self._ring_block(d, grid_offset + k * B, valid)
+            self.layout.in_flight.mark()
 
-    def add_range(self, grid_offset: int, n_valid: int) -> None:
-        """Dispatch one group covering grid indices
-        ``[grid_offset, grid_offset + n_valid)`` (positions ``index ·
-        spacing``); indices past ``n_valid`` are padding."""
-        if not 0 < n_valid <= self.sites_per_dispatch:
-            raise ValueError(
-                f"n_valid must be in (0, {self.sites_per_dispatch}], got {n_valid}"
-            )
-        if grid_offset < 0:
-            raise ValueError("grid_offset must be non-negative")
-        self._dispatch(grid_offset, n_valid, self.blocks_per_dispatch)
+    def _ring_block(self, d: int, grid_offset: int, valid: int) -> None:
+        from spark_examples_tpu_torch.ops.gramian import pack_rows_t, ring_pass
+        from spark_examples_tpu_torch.parallel.collectives import fetch, record
 
-    def add_grid(self, first_index: int, last_index: int) -> None:
-        """Dispatch every group of the grid range ``[first_index,
-        last_index)``: full groups, then the remainder in tail groups of
-        ``blocks_per_dispatch // 8`` blocks."""
-        main = self.sites_per_dispatch
-        off = first_index
-        while last_index - off >= main:
-            self.add_range(off, main)
-            off += main
-        tail = self.block_size * self._tail_blocks
-        while off < last_index:
-            self._dispatch(off, min(tail, last_index - off), self._tail_blocks)
-            off += tail
+        B, n_local = self.block_size, self.n_local
+        ring = self.layout.rings[d]
+        ld, rows_pad = _round_up(B, SITE_TILE), _round_up(n_local, COL_TILE)
+        own, ready, mine, flags = [], [], [], []
+        for s, position in enumerate(ring):
+            plan = self._plans[d][s]
+            with position.run():
+                if plan is None:
+                    xt = torch.zeros((rows_pad, ld), dtype=torch.int8, device=position.device)
+                else:
+                    kept, rows = self._scratch[d][s]
+                    xt = gen_genotypes(
+                        plan, grid_offset, valid, B, self._kept[d] if s == 0 else kept, rows
+                    )
+                    if xt.shape[0] < rows_pad:  # a last slice of fewer tiles
+                        xt = torch.cat([xt, xt.new_zeros((rows_pad - xt.shape[0], ld))])
+                f = torch.zeros((self.n_sets, ld), dtype=torch.int8, device=position.device)
+                for v, lo, hi in self._ranges[d][s]:
+                    f[v] = xt[lo:hi].amax(dim=0)
+                flags.append(f)
+                mine.append(xt)
+                own.append(pack_rows_t(xt, n_local, rows=B) if self.pack else xt)
+                ready.append(record(position))
+        lead = ring[0]
+        gathered = [fetch(lead, f, e) for f, e in zip(flags, ready)]
+        with lead.run():
+            union = torch.stack(gathered).amax(dim=0)
+            self._rows[d] += (union != 0).sum(dim=1)
+        ring_pass(ring, own, ready, mine, self.layout.G_local[d], n_local, self.pack,
+                  self.layout.ring_hosts)
 
     def ingest_counters(self) -> Tuple[np.ndarray, int]:
-        """``(per-set variant-row totals, kept-site total)``, fetched
-        synchronously (so an ingest stage's wall-clock ends with its work)."""
-        counters = torch.cat([self.variant_rows, self.kept_sites[None]]).cpu()
-        return counters[:-1].numpy(), int(counters[-1])
+        """``(per-set variant-row totals, kept-site total)`` in one host
+        copy; data slices hold disjoint spans, so they sum."""
+        from spark_examples_tpu_torch.parallel.mesh import packed_host_fetch
 
-    def finalize_device(self) -> torch.Tensor:
-        """The accumulated int32 Gramian, still on the device."""
-        return self.G
+        self.layout.in_flight.drain()
+        self.mesh.join(self._rows + self._kept)
+        flat = packed_host_fetch([self._rows, self._kept])
+        D, S = self.data_parallel, self.n_sets
+        return flat[: D * S].reshape(D, S).sum(axis=0), int(flat[D * S :].sum())
+
+    def finalize_sharded(self):
+        """The (padded, padded) Gramian as row tiles over ``samples``
+        (``parallel/mesh.py:RowSharded``), int64 past one data slice."""
+        return self.layout.finalize_tiles()
 
     def finalize(self) -> np.ndarray:
-        return self.G.cpu().numpy().astype(np.float64)
+        from spark_examples_tpu_torch.parallel.mesh import host_value
+
+        full = host_value(self.finalize_sharded())
+        return full[: self.total_columns, : self.total_columns].astype(np.float64)
 
 
 def load_reference_state(
@@ -723,9 +1136,11 @@ def load_reference_state(
     if np.abs(G).max(initial=0) >= 2**31:
         raise ValueError("G entries exceed the int32 accumulator")
     rows = np.asarray(variant_rows, dtype=np.int64).reshape(acc.n_sets)
-    acc.G.copy_(torch.from_numpy(G.astype(np.int32)))
-    acc.variant_rows.copy_(torch.from_numpy(rows))
-    acc.kept_sites.fill_(int(np.asarray(kept_sites)))
+    if acc.data_parallel != 1:
+        raise ValueError("reference state seeds a one-slice accumulator")
+    acc._G[0].copy_(torch.from_numpy(G.astype(np.int32)))
+    acc._rows[0].copy_(torch.from_numpy(rows))
+    acc._kept[0].fill_(int(np.asarray(kept_sites)))
     acc.dispatches = int(dispatches)
     acc.sites_capacity = int(sites_capacity)
     acc.sites_valid = int(sites_valid)
@@ -734,6 +1149,7 @@ def load_reference_state(
 __all__ = [
     "COL_TILE",
     "DeviceGenGramianAccumulator",
+    "DeviceGenRingGramianAccumulator",
     "GenPlan",
     "KERNELS",
     "SITE_TILE",

@@ -31,6 +31,21 @@ int8 × int8 → int32 is the reference's own exact path
 the dtype differs from its default float32. Its f32 → int32 switch
 (``_maybe_switch_accumulator``) therefore has nothing to switch; the
 accumulator instead raises before a flush could carry an entry past int32.
+
+On a mesh (``parallel/mesh.py``) two more strategies run here, the port of
+the reference's mesh half:
+
+- the dense accumulator with a ``data`` axis: each data slice takes its
+  share of every flush into its own partial Gramian, summed at finalize by
+  :func:`data_axis_sum` (int64 past one slice, as the reference promotes);
+- :class:`ShardedGramianAccumulator`: the Gramian as row tiles over the
+  ``samples`` axis. Each flush's column tiles circulate around the ring
+  (:func:`ring_pass`), bit-packed by default, and every position adds its
+  ``X_mineᵀ·X_owner`` into its row tile with ``cross_accumulate``
+  (``ops/devicegen.py``). The device-generation ring
+  (``ops/devicegen.py:DeviceGenRingGramianAccumulator``) packs its
+  generated columns with the second kernel of this module,
+  :func:`pack_rows_t`, the exact inverse of :func:`unpack_rows_t`.
 """
 
 from __future__ import annotations
@@ -38,12 +53,19 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Iterable, List, Optional
+from collections import deque
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from spark_examples_tpu_torch.obs.metrics import GRAMIAN_INFLIGHT_DISPATCHES, well_known_gauge
+from spark_examples_tpu_torch.obs.metrics import (
+    GRAMIAN_INFLIGHT_DISPATCHES,
+    GRAMIAN_RING_BYTES,
+    GRAMIAN_RING_FLUSH_SECONDS,
+    well_known_counter,
+    well_known_gauge,
+)
 from spark_examples_tpu_torch.ops import _kernels
 from spark_examples_tpu_torch.ops.contracts import flush_entry_increment
 from spark_examples_tpu_torch.ops.devicegen import (
@@ -51,7 +73,25 @@ from spark_examples_tpu_torch.ops.devicegen import (
     SITE_TILE,
     _require,
     _round_up,
+    cross_accumulate,
     gram_accumulate,
+)
+from spark_examples_tpu_torch.parallel.collectives import consume, record, ring_shift
+from spark_examples_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SAMPLES_AXIS,
+    Mesh,
+    Position,
+    RowSharded,
+    Topology,
+    flat_traffic_split,
+    hierarchical_traffic_bytes,
+    host_value,
+    padded_cohort,
+    resolve_hier_hosts,
+    resolve_reduce_schedule,
+    ring_traffic_bytes,
+    run_on,
 )
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
 
@@ -190,8 +230,60 @@ def unpack_rows_t(
 
 unpack_rows_t.launches = 0  # type: ignore[attr-defined]
 
+
+def pack_rows_t_plain(
+    xt: torch.Tensor, num_columns: int, rows: Optional[int] = None
+) -> torch.Tensor:
+    """Plain version of :func:`pack_rows_t`: the bits of the transposed
+    columns shifted into place and summed, in PyTorch."""
+    rows = int(xt.shape[1]) if rows is None else int(rows)
+    bits = (xt[:num_columns, :rows] != 0).T.to(torch.int32)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=xt.device)
+    grouped = bits.reshape(rows, num_columns // 8, 8) << shifts
+    return grouped.sum(dim=-1).to(torch.uint8)
+
+
+def pack_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) -> torch.Tensor:
+    """The first ``num_columns`` columns of an int8 {0,1} Xᵀ (``(n_pad,
+    ld)``, columns × sites) as bit-packed rows: ``(rows, num_columns / 8)``
+    uint8 in np.packbits' big-endian order, a nonzero entry a 1, for the
+    first ``rows`` sites (default all ``ld``). ``num_columns`` is a
+    multiple of 8 (a position's column width on the packed ring wire):
+    :func:`unpack_rows_t` of the result gives the Xᵀ back.
+
+    Replaces ``spark_examples_tpu/ops/gramian.py:_pack_bits_device``. CPU
+    tensors take :func:`pack_rows_t_plain`; CUDA tensors launch
+    ``pack_rows_t_kernel`` (``csrc/gramian.cu``)."""
+    _require(xt, "xt", torch.int8)
+    num_columns = int(num_columns)
+    rows = int(xt.shape[1]) if rows is None else int(rows)
+    if num_columns % 8 or xt.ndim != 2 or xt.shape[0] < num_columns or not 0 <= rows <= xt.shape[1]:
+        raise ValueError(
+            f"pack_rows_t takes a multiple of 8 columns of an Xᵀ that holds them "
+            f"and at most its sites: {num_columns} columns, {rows} rows of {tuple(xt.shape)}"
+        )
+    if xt.device.type == "cpu":
+        return pack_rows_t_plain(xt, num_columns, rows)
+    n_pad, ld = xt.shape
+    if n_pad % COL_TILE or ld % SITE_TILE or xt.data_ptr() % 16:
+        raise ValueError(
+            f"xt must be ({COL_TILE}k, {SITE_TILE}j) on a 16-byte boundary, got {tuple(xt.shape)}"
+        )
+    out = torch.empty((rows, num_columns // 8), dtype=torch.uint8, device=xt.device)
+    with torch.cuda.device(xt.device):
+        status = _library().pack_rows_t_launch(
+            xt.data_ptr(), n_pad, ld, num_columns, rows, out.data_ptr(),
+            torch.cuda.current_stream(xt.device).cuda_stream,
+        )
+    _kernels.check(status, "pack_rows_t")
+    pack_rows_t.launches += 1
+    return out
+
+
+pack_rows_t.launches = 0  # type: ignore[attr-defined]
+
 #: Every kernel wrapper of this module, for launch accounting.
-KERNELS = (unpack_rows_t,)
+KERNELS = (unpack_rows_t, pack_rows_t)
 
 
 def reset_launch_counts() -> None:
@@ -216,22 +308,82 @@ def dense_update_counts(
     )
 
 
+def resolve_ring_pack(pack_bits: str) -> bool:
+    """``--ring-pack-bits`` → whether the ring circulates bit-packed tiles:
+    ``off`` keeps the int8 tiles (the unpacked wire), ``on`` and ``auto``
+    pack."""
+    if pack_bits not in ("auto", "on", "off"):
+        raise ValueError(f"--ring-pack-bits must be one of auto/on/off, got {pack_bits!r}")
+    return pack_bits != "off"
+
+
+def data_axis_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of a data axis's partial accumulators, on the first one's
+    device. Past one slice an integer sum is int64: each slice's int32 is
+    bounded by its own sites, the total is not (the reference's rule). One
+    slice is returned as it is."""
+    parts = list(parts)
+    if len(parts) == 1:
+        return parts[0]
+    dtype = parts[0].dtype if parts[0].is_floating_point() else torch.int64
+    total = parts[0].to(dtype=dtype, copy=True)
+    for part in parts[1:]:
+        total += part.to(device=total.device, dtype=dtype)
+    return total
+
+
+class _InFlight:
+    """Bounds the work a host loop leaves queued on a mesh's streams: after
+    each unit (a flush, a block) it records an event on every position and
+    waits for the events of the unit ``depth`` units back, so tiles and
+    transient buffers cannot pile up on the card."""
+
+    def __init__(self, positions: Sequence[Position], depth: int = 2):
+        self.positions = [p for p in positions if p.cuda]
+        self.depth = int(depth)
+        self._events: deque = deque()
+
+    def mark(self) -> None:
+        if not self.positions:
+            return
+        self._events.append([record(p) for p in self.positions])
+        while len(self._events) > self.depth:
+            for event in self._events.popleft():
+                event.synchronize()
+
+    def drain(self) -> None:
+        for events in self._events:
+            for event in events:
+                event.synchronize()
+        self._events.clear()
+
+
 # ------------------------------------------------------------ accumulator
 
 
 class _AccumulatorTelemetry:
     """Flush instrumentation: unlabeled ``gramian_flushes_total`` /
-    ``gramian_rows_total`` counters (one strategy, so the reference's
-    ``strategy`` label is left out), the ``gramian_flush_seconds``
-    histogram of host time per flush and the in-flight gauge the heartbeat
-    reads; at finalize the accumulated host-side flush time attaches to the
-    open span tree as one ``dispatch`` span, and the drain of the card runs
-    under ``reduce-flush``."""
+    ``gramian_rows_total`` counters (a run has one strategy, so the
+    reference's ``strategy`` label is left out), the
+    ``gramian_flush_seconds`` histogram of host time per flush and the
+    in-flight gauge the heartbeat reads; with ``ring``, the
+    ``gramian_ring_bytes`` counter and ``gramian_ring_flush_seconds``
+    histogram. At finalize the accumulated host-side flush time attaches to
+    the open span tree as one ``dispatch`` span, and the drain of the card
+    runs under ``reduce-flush``."""
 
-    def __init__(self, registry, spans):
+    def __init__(self, registry, spans, ring: bool = False):
         self.spans = spans
         self.flush_seconds_total = 0.0
         self._flushes = self._rows = self._seconds = self._inflight = None
+        self._ring_bytes = self._ring_seconds = None
+        if registry is not None and ring:
+            self._ring_bytes = well_known_counter(registry, GRAMIAN_RING_BYTES)
+            self._ring_seconds = registry.histogram(
+                GRAMIAN_RING_FLUSH_SECONDS,
+                "Host-side seconds per ring-exchange flush (pack + copies to "
+                "the card + ring launches).",
+            )
         if registry is not None:
             self._flushes = registry.counter(
                 "gramian_flushes_total",
@@ -254,6 +406,11 @@ class _AccumulatorTelemetry:
             self._seconds.observe(seconds)
             self._inflight.set(in_flight)
 
+    def record_ring(self, nbytes: int, seconds: float) -> None:
+        if self._ring_bytes is not None:
+            self._ring_bytes.inc(nbytes)
+            self._ring_seconds.observe(seconds)
+
     def finalize_span(self, sync):
         if self.spans is None:
             return contextlib.nullcontext()
@@ -261,13 +418,47 @@ class _AccumulatorTelemetry:
         return self.spans.span("reduce-flush", sync=sync)
 
 
-class GramianAccumulator:
-    """Dense strategy on one device: the resident int32 N×N Gramian.
+class _Staging:
+    """Host staging shared by the host-fed accumulators: rows land in a
+    reused ``(data × block_size, width)`` uint8 buffer (``width`` at least
+    ``num_samples``: the sharded cohort is padded) and a full buffer
+    flushes."""
+
+    def add_rows(self, rows: np.ndarray) -> None:
+        """Stage host rows; flush full blocks to the device."""
+        rows = np.asarray(rows, dtype=np.uint8)
+        if rows.ndim != 2 or rows.shape[1] != self.num_samples:
+            raise ValueError(
+                f"expected (b, {self.num_samples}) rows, got {rows.shape}"
+            )
+        self.rows_seen += rows.shape[0]
+        offset = 0
+        capacity = self._staging.shape[0]
+        while offset < rows.shape[0]:
+            take = min(capacity - self._fill, rows.shape[0] - offset)
+            self._staging[self._fill : self._fill + take, : self.num_samples] = rows[
+                offset : offset + take
+            ]
+            self._fill += take
+            offset += take
+            if self._fill == capacity:
+                self._flush()
+
+
+class GramianAccumulator(_Staging):
+    """Dense strategy: the resident int32 N×N Gramian, one per data slice.
 
     Feed host ``(b, N)`` uint8 rows with :meth:`add_rows`; full blocks of
-    ``block_size`` rows flush to the device, bit-packed when every entry is
-    0/1 and count-valued otherwise. :meth:`finalize_device` flushes the
-    ragged tail and returns G on the device.
+    ``block_size`` rows a data slice flush to the device, bit-packed when
+    every entry is 0/1 and count-valued otherwise. :meth:`finalize_device`
+    flushes the ragged tail and returns G on the device.
+
+    ``mesh`` adds the reference's ``data`` axis: a flush stages
+    ``data × block_size`` rows and slice d takes rows ``[d·B, (d+1)·B)``
+    into its own partial on its position (the first of each data slice; a
+    samples axis holds replicas in the reference, so only one of them works
+    here), summed by :func:`data_axis_sum` at finalize. Without a mesh the
+    work runs on ``device``'s current stream.
 
     ``pipeline_depth`` bounds the flushes in flight: ``None`` waits for
     each flush's work before the next (the reference's default
@@ -286,8 +477,14 @@ class GramianAccumulator:
         pipeline_depth: Optional[int] = None,
         registry=None,
         spans=None,
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._slices: List[Optional[Position]] = (
+            [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
+        )
+        self.device = self._slices[0].device if mesh is not None else resolve_device(device)
+        self.data_parallel = len(self._slices)
         self.telemetry = _AccumulatorTelemetry(registry, spans)
         self.num_samples = int(num_samples)
         self.block_size = int(block_size)
@@ -296,42 +493,38 @@ class GramianAccumulator:
         self.pipeline_depth = (
             None if pipeline_depth is None else max(1, int(pipeline_depth))
         )
-        self._in_flight: List[torch.cuda.Event] = []
+        self._in_flight: List[List[torch.cuda.Event]] = []
         self._entry_bound = 0
-        self._staging = np.zeros((self.block_size, self.num_samples), dtype=np.uint8)
+        self._staging = np.zeros(
+            (self.data_parallel * self.block_size, self.num_samples), dtype=np.uint8
+        )
         self._fill = 0
         self._flushes = 0
         self.rows_seen = 0
-        self.G = torch.zeros(
-            (self.num_samples, self.num_samples), dtype=torch.int32, device=self.device
-        )
+        self._parts: List[torch.Tensor] = []
+        for position in self._slices:
+            with run_on(position):
+                self._parts.append(torch.zeros(
+                    (self.num_samples, self.num_samples), dtype=torch.int32,
+                    device=self.device if position is None else position.device,
+                ))
 
-    def add_rows(self, rows: np.ndarray) -> None:
-        """Stage host rows; flush full blocks to the device."""
-        rows = np.asarray(rows, dtype=np.uint8)
-        if rows.ndim != 2 or rows.shape[1] != self.num_samples:
-            raise ValueError(
-                f"expected (b, {self.num_samples}) rows, got {rows.shape}"
-            )
-        self.rows_seen += rows.shape[0]
-        offset = 0
-        capacity = self._staging.shape[0]
-        while offset < rows.shape[0]:
-            take = min(capacity - self._fill, rows.shape[0] - offset)
-            self._staging[self._fill : self._fill + take] = rows[offset : offset + take]
-            self._fill += take
-            offset += take
-            if self._fill == capacity:
-                self._flush()
+    @property
+    def G(self) -> torch.Tensor:
+        """The Gramian so far: the one slice's, or the data axis's sum."""
+        if len(self._parts) > 1:
+            self._join()
+        return data_axis_sum(self._parts)
 
-    def _ship(self, host: np.ndarray) -> torch.Tensor:
-        """``host`` on the device. On the card through a fresh pinned copy
-        and an asynchronous transfer; on the CPU the plain versions consume
-        it before the staging buffer is written again."""
+    def _ship(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``host`` on ``device``. On the card through a fresh pinned copy
+        and an asynchronous transfer on the current stream; on the CPU the
+        plain versions consume it before the staging buffer is written
+        again."""
         tensor = torch.from_numpy(host)
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return tensor
-        return tensor.pin_memory().to(self.device, non_blocking=True)
+        return tensor.pin_memory().to(device, non_blocking=True)
 
     def _flush(self) -> None:
         if self._fill == 0:
@@ -348,27 +541,48 @@ class GramianAccumulator:
                 f"{self._entry_bound + increment})"
             )
         self._entry_bound += increment
-        if max_count > 1:
-            # Count-valued rows (same-set joins) cannot be bit-packed.
-            dense_update_counts(self.G, self._ship(block), max_count=max_count)
-        else:
-            dense_update(
-                self.G, self._ship(np.packbits(block, axis=-1)), self.num_samples
-            )
+        B = self.block_size
+        for d, position in enumerate(self._slices):
+            rows = block[d * B : (d + 1) * B]
+            if rows.shape[0] == 0:
+                break
+            device = self.device if position is None else position.device
+            with run_on(position):
+                if max_count > 1:
+                    # Count-valued rows (same-set joins) cannot be bit-packed.
+                    dense_update_counts(self._parts[d], self._ship(rows, device), max_count=max_count)
+                else:
+                    dense_update(
+                        self._parts[d], self._ship(np.packbits(rows, axis=-1), device),
+                        self.num_samples,
+                    )
         self._fill = 0
         self._flushes += 1
         if self.device.type == "cuda":
+            done = self._record()
             if self.pipeline_depth is None:
-                torch.cuda.current_stream(self.device).synchronize()
+                for event in done:
+                    event.synchronize()
             else:
-                done = torch.cuda.Event()
-                done.record(torch.cuda.current_stream(self.device))
                 self._in_flight.append(done)
                 if len(self._in_flight) > self.pipeline_depth:
-                    self._in_flight.pop(0).synchronize()
+                    for event in self._in_flight.pop(0):
+                        event.synchronize()
         self.telemetry.record_flush(
             flush_rows, time.perf_counter() - flush_start, len(self._in_flight)
         )
+
+    def _record(self) -> List[torch.cuda.Event]:
+        """An event after the work queued so far on each slice's stream."""
+        if self.mesh is None:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            return [done]
+        return [record(position) for position in self._slices]
+
+    def _join(self) -> None:
+        if self.mesh is not None:
+            self.mesh.join(self._parts)
 
     def snapshot_state(self) -> dict:
         """Crash-consistent checkpoint state: flush the staged tail, drain
@@ -376,34 +590,36 @@ class GramianAccumulator:
         Gramian with the accumulator's bookkeeping — what
         :meth:`restore_state` needs to rebuild it mid-stream in a fresh
         process. G is saved as the reference's ``(data_parallel, N, N)``
-        stack of one slice, int32 (the reference climbs to int32 on resume).
-        The fetch is periodic (``--checkpoint-every-sites``), not a hot-path
-        sync."""
+        stack, int32 (the reference climbs to int32 on resume). The fetch
+        is periodic (``--checkpoint-every-sites``), not a hot-path sync."""
         self._flush()
+        self._join()
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            for part in self._parts:
+                torch.cuda.synchronize(part.device)
         self._in_flight.clear()
         return {
             "strategy": "dense",
-            "G": self.G.cpu().numpy()[None],
+            "G": np.stack([part.cpu().numpy() for part in self._parts]),
             "accum_dtype": "int32",
             "exact_int": True,
             "entry_bound": self._entry_bound,
             "rows_seen": self.rows_seen,
             "flushes": self._flushes,
             "num_samples": self.num_samples,
-            "data_parallel": 1,
+            "data_parallel": self.data_parallel,
             "padded": self.num_samples,
         }
 
     def restore_state(self, checkpoint: dict) -> None:
         """Merge a persisted partial into this (fresh, empty) accumulator:
-        load the saved G and restore the cursor bookkeeping. A reference
-        artifact may hold one partial per data-parallel device (summed here:
-        G is additive over any split of the rows) and float32 entries
-        (exact integers below 2^24, cast to int32 without loss). Geometry
-        mismatches fail loudly — the conf fingerprint should have caught
-        them already; this is the shape check behind it."""
+        load the saved G and restore the cursor bookkeeping. An artifact may
+        hold one partial per data-parallel slice of the run that wrote it
+        (summed here into the first slice: G is additive over any split of
+        the rows) and float32 entries (exact integers below 2^24, cast to
+        int32 without loss). Geometry mismatches fail loudly — the conf
+        fingerprint should have caught them already; this is the shape
+        check behind it."""
         meta, G = checkpoint["meta"], np.asarray(checkpoint["G"])
         if meta["strategy"] != "dense":
             raise ValueError(
@@ -417,19 +633,20 @@ class GramianAccumulator:
                 f"checkpoint Gramian shape {tuple(G.shape)} != this run's "
                 f"(data_parallel, {n}, {n}) (the cohort width changed)"
             )
-        if G.dtype.kind == "f" and not np.array_equal(G, np.trunc(G)):
-            raise ValueError("checkpoint Gramian entries are not exact integers")
-        total = G.astype(np.int64).sum(axis=0)
-        if np.abs(total).max(initial=0) > _INT32_MAX:
-            raise ValueError("checkpoint Gramian entries do not fit int32")
-        self.G = torch.from_numpy(total.astype(np.int32)).to(self.device)
+        total = _exact_int32_sum(G)
+        for position, part, values in zip(
+            self._slices, self._parts, [total] + [np.zeros_like(total)] * (len(self._parts) - 1)
+        ):
+            with run_on(position):
+                part.copy_(torch.from_numpy(values))
         self._entry_bound = int(meta["entry_bound"])
         self.rows_seen = int(meta["rows_seen"])
         self._flushes = int(meta["flushes"])
 
     def finalize_device(self) -> torch.Tensor:
-        """Flush the ragged tail and return the int32 Gramian, still on the
-        device. Under the ``reduce-flush`` span the card drains its queue."""
+        """Flush the ragged tail and return the Gramian, still on the
+        device: int32 on one slice, int64 summed over a data axis. Under the
+        ``reduce-flush`` span the card drains its queue."""
         self._flush()
         self._in_flight.clear()
         with self.telemetry.finalize_span(synchronizer(self.device)):
@@ -438,6 +655,342 @@ class GramianAccumulator:
     def finalize(self) -> np.ndarray:
         """Host float64 copy of :meth:`finalize_device` (tests, host use)."""
         return self.finalize_device().cpu().numpy().astype(np.float64)
+
+
+def _exact_int32_sum(G: np.ndarray) -> np.ndarray:
+    """A checkpoint's stack of partial Gramians summed exactly into one
+    int32 matrix (float partials must hold exact integers)."""
+    if G.dtype.kind == "f" and not np.array_equal(G, np.trunc(G)):
+        raise ValueError("checkpoint Gramian entries are not exact integers")
+    total = G.astype(np.int64).sum(axis=0)
+    if np.abs(total).max(initial=0) > _INT32_MAX:
+        raise ValueError("checkpoint Gramian entries do not fit int32")
+    return total.astype(np.int32)
+
+
+# ------------------------------------------------------------------- ring
+
+
+def ring_pass(
+    positions: Sequence[Position],
+    own: Sequence[torch.Tensor],
+    ready: Sequence,
+    mine: Sequence[torch.Tensor],
+    G_local: Sequence[torch.Tensor],
+    n_local: int,
+    packed: bool,
+    hosts: int = 1,
+) -> None:
+    """One block's ring over one data slice's samples positions: the
+    counterpart of ``spark_examples_tpu/ops/gramian.py:_ring_tiles``
+    (``hosts`` 1) and ``_hier_ring_tiles``.
+
+    Position p holds ``mine[p]``, its own columns' int8 Xᵀ (the product's A
+    operand), and ``own[p]``, the tile it sends: the same Xᵀ on the
+    unpacked wire, its bit-packed rows on the packed wire (``ready[p]``:
+    the event after which it is whole). At every step each position adds
+    ``Xᵀ_mine · X_owner`` into its row tile's owner columns
+    (``cross_accumulate``), unpacking a received packed tile first
+    (``unpack_rows_t``); its own step uses ``mine[p]`` as both operands.
+
+    The samples axis is factored host-major into ``hosts × D``: an outer
+    ring over hosts (``hosts - 1`` shifts of the tile a position started
+    the outer step with) around inner rings over the ``D`` positions of a
+    host (``D - 1`` shifts an outer step). At outer step k and inner step j
+    position (h, d) holds the tile of ``((h + k) mod H)·D + (d + j) mod
+    D``. ``hosts`` 1 is the flat ring. Each shift is issued before the
+    products of the step before it, so on a card the transfer runs behind
+    them."""
+    S = len(positions)
+    H = int(hosts)
+    D = S // H
+
+    def step(tiles, events, k, j):
+        for p, pos in enumerate(positions):
+            h, d = divmod(p, D)
+            owner = ((h + k) % H) * D + (d + j) % D
+            cols = G_local[p][:, owner * n_local : (owner + 1) * n_local]
+            with pos.run():
+                if owner == p:
+                    cross_accumulate(cols, mine[p], mine[p])
+                    continue
+                consume(pos, tiles[p], events[p])
+                b = unpack_rows_t(tiles[p], n_local) if packed else tiles[p]
+                cross_accumulate(cols, mine[p], b)
+
+    outer, outer_ready = list(own), list(ready)
+    for k in range(H):
+        if k < H - 1:
+            nxt_outer = ring_shift(
+                outer, outer_ready, positions,
+                [((p // D + 1) % H) * D + p % D for p in range(S)],
+            )
+        cur, cur_ready = outer, outer_ready
+        for j in range(D):
+            if j < D - 1:
+                nxt = ring_shift(
+                    cur, cur_ready, positions,
+                    [(p // D) * D + (p % D + 1) % D for p in range(S)],
+                )
+            step(cur, cur_ready, k, j)
+            if j < D - 1:
+                cur, cur_ready = nxt
+        if k < H - 1:
+            outer, outer_ready = nxt_outer
+
+
+class RingLayout:
+    """What the two ring accumulators share (this one and
+    ``ops/devicegen.py:DeviceGenRingGramianAccumulator``): the
+    ``--reduce-schedule`` resolution, the cohort padding, the row tiles
+    (one ``(n_local, padded)`` int32 a position, made on its stream), the
+    manifest's ``schedule`` block and the finalize. ``auto`` is ``hier``
+    when the samples axis spans more than one host (never in one process,
+    unless the rehearsal override names hosts); an explicit ``hier`` whose
+    host factor does not divide the samples axis raises, ``auto``/``flat``
+    then run the flat ring."""
+
+    def __init__(self, mesh: Mesh, columns: int, pack_bits: str, reduce_schedule: str,
+                 hier_hosts: Optional[int]):
+        if SAMPLES_AXIS not in mesh.shape:
+            raise ValueError(f"mesh must have a {SAMPLES_AXIS!r} axis")
+        self.mesh = mesh
+        self.columns = int(columns)
+        self.pack = resolve_ring_pack(pack_bits)
+        self.samples_parallel = mesh.shape[SAMPLES_AXIS]
+        self.data_parallel = mesh.shape.get(DATA_AXIS, 1)
+        resolve_reduce_schedule(reduce_schedule, 1)  # validate the spelling
+        try:
+            self.hier_hosts = resolve_hier_hosts(self.samples_parallel, hier_hosts)
+        except ValueError:
+            if reduce_schedule == "hier":
+                raise
+            self.hier_hosts = 1
+        self.reduce_schedule = resolve_reduce_schedule(reduce_schedule, self.hier_hosts)
+        self.ring_hosts = self.hier_hosts if self.reduce_schedule == "hier" else 1
+        self.padded = padded_cohort(columns, self.samples_parallel, pack=self.pack)
+        self.n_local = self.padded // self.samples_parallel
+        self.rings = mesh.data_slices()
+        self.G_local: List[List[torch.Tensor]] = []
+        for ring in self.rings:
+            tiles = []
+            for position in ring:
+                with position.run():
+                    tiles.append(torch.zeros(
+                        (self.n_local, self.padded), dtype=torch.int32, device=position.device
+                    ))
+            self.G_local.append(tiles)
+        self.device = self.rings[0][0].device
+        self.in_flight = _InFlight(mesh.flat())
+
+    def schedule(self, rows: int, measured: Optional[int] = None) -> dict:
+        """The ``schedule`` block of a ring that circulated ``rows`` rows
+        (capacity, padding included): the projected bytes, split by link
+        class (the two-level schedule's, or the flat ring's, which a
+        multi-host ring cannot prove intra-host), beside ``measured``
+        (default: the projection)."""
+        per_host = self.samples_parallel // self.hier_hosts
+        predicted = ring_traffic_bytes(rows, self.samples_parallel, self.n_local, self.pack)
+        if self.reduce_schedule == "hier":
+            level = hierarchical_traffic_bytes(rows, self.hier_hosts, per_host, self.n_local, self.pack)
+        else:
+            level = flat_traffic_split(rows, Topology(self.hier_hosts, per_host), self.n_local, self.pack)
+        return {
+            "kind": self.reduce_schedule,
+            "hosts": int(self.hier_hosts),
+            "devices_per_host": int(per_host),
+            "predicted_ring_bytes": int(predicted),
+            "measured_ring_bytes": int(predicted if measured is None else measured),
+            "predicted_ici_bytes": int(level.ici_bytes),
+            "predicted_dcn_bytes": int(level.dcn_bytes),
+        }
+
+    def host_stack(self) -> np.ndarray:
+        """The row tiles on the host as the reference's ``(data_parallel,
+        padded, padded)`` stack, after every position's work."""
+        self.in_flight.drain()
+        self.mesh.join([t for tiles in self.G_local for t in tiles])
+        return np.stack([np.concatenate([t.cpu().numpy() for t in tiles]) for tiles in self.G_local])
+
+    def load(self, total: np.ndarray) -> None:
+        """Set the first data slice's row tiles to the (padded, padded)
+        ``total`` and the other slices' to zero, on the positions' streams."""
+        for d, (ring, tiles) in enumerate(zip(self.rings, self.G_local)):
+            for s, (position, tile) in enumerate(zip(ring, tiles)):
+                with position.run():
+                    if d:
+                        tile.zero_()
+                    else:
+                        rows = total[s * self.n_local : (s + 1) * self.n_local]
+                        tile.copy_(torch.from_numpy(np.ascontiguousarray(rows)))
+
+    def finalize_tiles(self) -> RowSharded:
+        """The row tiles summed over the data axis (int64 past one slice),
+        on the first data slice's positions, after every position's work."""
+        self.in_flight.drain()
+        self.mesh.join([t for tiles in self.G_local for t in tiles])
+        tiles = [
+            data_axis_sum([self.G_local[d][s] for d in range(len(self.rings))])
+            for s in range(self.samples_parallel)
+        ]
+        return RowSharded(tiles, self.rings[0], self.columns)
+
+
+class ShardedGramianAccumulator(_Staging):
+    """Sharded strategy on host-fed rows: the Gramian as row tiles over the
+    ``samples`` axis, a ring per block, an optional ``data`` axis on top
+    (the port of ``spark_examples_tpu/ops/gramian.py:
+    ShardedGramianAccumulator``).
+
+    A flush of ``data × block_size`` staged rows gives data slice d rows
+    ``[d·B, (d+1)·B)``; each position ships its own columns (bit-packed
+    under ``pack_bits``, ``np.packbits`` of the padded block, whose byte
+    boundaries fall on the position boundaries) and unpacks them as its
+    Xᵀ, then :func:`ring_pass` circulates the tiles. Count-valued rows
+    (same-set joins) cannot pack and ride the unpacked wire for that flush.
+    Ring bytes are counted per flush with the reference's formula over the
+    staged capacity (``ring_traffic_bytes``), the wire format of that
+    flush. Entries are exact int32, as the dense accumulator's.
+    """
+
+    def __init__(
+        self,
+        num_samples: int,
+        mesh: Mesh,
+        block_size: int = 1024,
+        registry=None,
+        spans=None,
+        pack_bits: str = "auto",
+        reduce_schedule: str = "auto",
+        hier_hosts: Optional[int] = None,
+    ):
+        self.num_samples = int(num_samples)
+        self.layout = layout = RingLayout(mesh, self.num_samples, pack_bits, reduce_schedule, hier_hosts)
+        self.mesh, self.pack, self.padded, self.n_local = mesh, layout.pack, layout.padded, layout.n_local
+        self.samples_parallel, self.data_parallel = layout.samples_parallel, layout.data_parallel
+        self.reduce_schedule, self.hier_hosts = layout.reduce_schedule, layout.hier_hosts
+        self.device = layout.device
+        self.telemetry = _AccumulatorTelemetry(registry, spans, ring=True)
+        self.block_size = int(block_size)
+        if self.block_size <= 0:
+            raise ValueError(f"block_size must be positive, got {block_size}")
+        self._entry_bound = 0
+        self.ring_bytes_total = 0
+        self._staging = np.zeros(
+            (self.data_parallel * self.block_size, self.padded), dtype=np.uint8
+        )
+        self._fill = 0
+        self._flushes = 0
+        self.rows_seen = 0
+
+    def schedule_block(self) -> dict:
+        """The manifest's ``schedule`` block: the schedule that ran, its
+        host factorisation, the static projection of ring bytes over the
+        flushes next to the per-flush accounted total (a counts flush on
+        the packed ring moves ``measured`` away from ``predicted``)."""
+        return self.layout.schedule(
+            self.data_parallel * self.block_size * self._flushes, self.ring_bytes_total
+        )
+
+    def _flush(self) -> None:
+        if self._fill == 0:
+            return
+        flush_rows, flush_start = self._fill, time.perf_counter()
+        block = self._staging[: self._fill]
+        max_count = int(block.max(initial=0))
+        increment = flush_entry_increment(self._fill, max_count)
+        if self._entry_bound + increment > _INT32_MAX:
+            raise OverflowError(
+                f"a Gramian entry could pass int32 after this flush (bound "
+                f"{self._entry_bound + increment})"
+            )
+        self._entry_bound += increment
+        use_packed = self.pack and max_count <= 1
+        n_local, B = self.n_local, self.block_size
+        width = n_local // 8 if use_packed else n_local
+        layout = self.layout
+        for d, ring in enumerate(layout.rings):
+            rows = block[d * B : (d + 1) * B]
+            if rows.shape[0] == 0:
+                break
+            host = np.packbits(rows, axis=-1) if use_packed else rows
+            own, ready, mine = [], [], []
+            for s, position in enumerate(ring):
+                shard = torch.from_numpy(np.ascontiguousarray(host[:, s * width : (s + 1) * width]))
+                with position.run():
+                    if position.cuda:
+                        shard = shard.pin_memory().to(position.device, non_blocking=True)
+                    xt = unpack_rows_t(shard, n_local, counts=not use_packed, max_count=max_count)
+                    mine.append(xt)
+                    own.append(shard if use_packed else xt)
+                    ready.append(record(position))
+            ring_pass(ring, own, ready, mine, layout.G_local[d], n_local, use_packed, layout.ring_hosts)
+        self._fill = 0
+        self._flushes += 1
+        layout.in_flight.mark()
+        seconds = time.perf_counter() - flush_start
+        nbytes = ring_traffic_bytes(
+            self.data_parallel * B, self.samples_parallel, n_local, use_packed
+        )
+        self.ring_bytes_total += nbytes
+        self.telemetry.record_ring(nbytes, seconds)
+        self.telemetry.record_flush(flush_rows, seconds, 0)
+
+    def snapshot_state(self) -> dict:
+        """Checkpoint state of the sharded strategy: the padded row tiles
+        fetched whole as the reference's ``(data_parallel, padded,
+        padded)`` int32 stack, with the bookkeeping and the ring accounting
+        (so a resumed run's ``schedule`` block keeps predicted ==
+        measured)."""
+        self._flush()
+        return {
+            "strategy": "sharded",
+            "G": self.layout.host_stack(),
+            "accum_dtype": "int32",
+            "exact_int": True,
+            "entry_bound": self._entry_bound,
+            "rows_seen": self.rows_seen,
+            "flushes": self._flushes,
+            "num_samples": self.num_samples,
+            "data_parallel": self.data_parallel,
+            "padded": self.padded,
+            "ring_bytes_total": self.ring_bytes_total,
+        }
+
+    def restore_state(self, checkpoint: dict) -> None:
+        """Load a persisted sharded partial (either package's): its stack of
+        data-slice partials is summed exactly into this run's first data
+        slice and cut into its row tiles. The padded width must match."""
+        meta, G = checkpoint["meta"], np.asarray(checkpoint["G"])
+        if meta["strategy"] != "sharded":
+            raise ValueError(
+                f"checkpoint was written by the {meta['strategy']!r} "
+                "strategy; this run resolved sharded — the similarity "
+                "strategy is part of the checkpoint geometry"
+            )
+        if G.ndim != 3 or G.shape[1:] != (self.padded, self.padded):
+            raise ValueError(
+                f"checkpoint Gramian shape {tuple(G.shape)} != this run's "
+                f"(data_parallel, {self.padded}, {self.padded}) (cohort width, "
+                "padding or the samples-axis tile count changed)"
+            )
+        self.layout.load(_exact_int32_sum(G))
+        self._entry_bound = int(meta["entry_bound"])
+        self.rows_seen = int(meta["rows_seen"])
+        self._flushes = int(meta["flushes"])
+        self.ring_bytes_total = int(meta.get("ring_bytes_total", 0))
+
+    def finalize_sharded(self) -> RowSharded:
+        """The (padded, padded) Gramian as row tiles over ``samples``, still
+        on the positions (int64 past one data slice)."""
+        self._flush()
+        with self.telemetry.finalize_span(synchronizer(self.device)):
+            return self.layout.finalize_tiles()
+
+    def finalize(self) -> np.ndarray:
+        """Host float64 copy of the true (N, N) Gramian."""
+        full = host_value(self.finalize_sharded()).astype(np.float64)
+        return full[: self.num_samples, : self.num_samples]
 
 
 def accumulate_index_rows(
@@ -488,13 +1041,20 @@ __all__ = [
     "GramianAccumulator",
     "KERNELS",
     "MAX_INT8_COUNT",
+    "RingLayout",
+    "ShardedGramianAccumulator",
     "accumulate_index_rows",
+    "data_axis_sum",
     "dense_strategy_fits",
     "dense_update",
     "dense_update_counts",
     "gramian_reference",
+    "pack_rows_t",
+    "pack_rows_t_plain",
     "per_device_memory_bytes",
     "reset_launch_counts",
+    "resolve_ring_pack",
+    "ring_pass",
     "unpack_rows_t",
     "unpack_rows_t_plain",
 ]

@@ -14,6 +14,11 @@ JAX package's within the iteration's convergence, not bit for bit. Sign
 convention: each component's largest-|entry| is positive.
 
 Float32 products run in full float32: TF32 is switched off explicitly.
+
+Under the sharded strategy the centred matrix is row tiles
+(``parallel/mesh.py:RowSharded``): :func:`principal_components_subspace_sharded`
+multiplies each tile by the skinny iterate and gathers the results, so no
+position holds the N×N matrix.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from spark_examples_tpu_torch.parallel.collectives import all_gather_rows
+from spark_examples_tpu_torch.parallel.mesh import RowSharded
 
 
 def _full_float32() -> None:
@@ -82,6 +90,40 @@ def _rayleigh_ritz(V: torch.Tensor, W: torch.Tensor, num_pc: int):
     return _fix_signs(V @ Wk[:, order]), evals[order]
 
 
+def principal_components_subspace_sharded(
+    centered: RowSharded,
+    num_pc: int = 2,
+    iterations: int = 80,
+    oversample: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Subspace iteration on a row-sharded centred matrix
+    (``spark_examples_tpu/ops/pca.py:principal_components_subspace_sharded``):
+    per iteration each tile computes ``B_local @ V`` (its true columns
+    against the skinny iterate) and the (N, k) results are gathered; QR and
+    Rayleigh–Ritz run once on the gathered iterate. The start is the dense
+    solve's (the same seeded draw of the true ``N × k``), so the two agree
+    within the dense solve's tolerance; padded rows come back zero.
+    Returns ``(components (padded, num_pc), eigenvalues (num_pc,))`` on the
+    first position's device."""
+    _full_float32()
+    n, padded = centered.n_true, centered.padded
+    k = min(num_pc + oversample, n)
+    device = centered.tiles[0].device
+    generator = torch.Generator(device=device).manual_seed(0)
+    V = torch.randn((n, k), generator=generator, dtype=torch.float32, device=device)
+    V, _ = torch.linalg.qr(V)
+
+    def gathered_bv(V: torch.Tensor) -> torch.Tensor:
+        W = [tile[:, :n] @ V.to(tile.device) for tile in centered.tiles]
+        return all_gather_rows(W)[0][:n]
+
+    for _ in range(iterations):
+        V, _ = torch.linalg.qr(gathered_bv(V))
+    components, evals = _rayleigh_ritz(V, gathered_bv(V), num_pc)
+    pad = torch.zeros((padded - n, num_pc), dtype=components.dtype, device=device)
+    return torch.cat([components, pad]), evals
+
+
 def mllib_reference_pca(centered, num_pc: int = 2):
     """NumPy oracle replicating MLlib ``computePrincipalComponents``
     literally: column covariance of the rows, then eigh, descending
@@ -99,4 +141,5 @@ __all__ = [
     "mllib_reference_pca",
     "principal_components",
     "principal_components_subspace",
+    "principal_components_subspace_sharded",
 ]

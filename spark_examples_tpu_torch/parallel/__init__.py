@@ -1,1 +1,1 @@
-"""Device-mesh arithmetic (multi-GPU comes later)."""
+"""The device mesh of one process, its collectives and its arithmetic."""

@@ -7,6 +7,15 @@ eigensolve (``ops/pca.py``) → the TSV rows and the "Variants API stats"
 epilogue. Every printed line but the PC values is identical to the JAX
 package's on the same argv.
 
+On a mesh of this process's devices (``--mesh-shape``, or every card
+capped by ``--num-reduce-partitions``; ``parallel/mesh.py``) the dense
+strategy gains a ``data`` axis and ``--similarity-strategy sharded`` (or
+``auto`` past the device's memory) keeps the Gramian as row tiles over the
+``samples`` axis through a ring (``ops/gramian.py``,
+``ops/devicegen.py:DeviceGenRingGramianAccumulator``), the sharded
+centring and the sharded eigensolve; the ring's ``schedule`` block goes
+into the manifest.
+
 Three ingest arms, resolved from ``--ingest`` exactly as the reference
 resolves them (:func:`resolve_ingest`):
 
@@ -64,6 +73,7 @@ from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_mani
 from spark_examples_tpu_torch.obs.metrics import (
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
+    GRAMIAN_RING_BYTES,
     HOST_BASELINE_RSS_BYTES,
     HOST_PEAK_RSS_BYTES,
     HOST_STATIC_BOUND_BYTES,
@@ -73,17 +83,33 @@ from spark_examples_tpu_torch.obs.metrics import (
     VCF_NATIVE_PARSE,
     read_host_peak_rss_bytes,
     record_prover_conformance,
+    well_known_counter,
     well_known_gauge,
 )
-from spark_examples_tpu_torch.ops.centering import gower_center
+from spark_examples_tpu_torch.ops.centering import gower_center, gower_center_sharded
 from spark_examples_tpu_torch.ops.devicegen import (
     DeviceGenGramianAccumulator,
+    DeviceGenRingGramianAccumulator,
     auto_blocks_per_dispatch,
 )
-from spark_examples_tpu_torch.ops.gramian import GramianAccumulator, accumulate_index_rows
+from spark_examples_tpu_torch.ops.gramian import (
+    GramianAccumulator,
+    ShardedGramianAccumulator,
+    accumulate_index_rows,
+    dense_strategy_fits,
+)
 from spark_examples_tpu_torch.ops.pca import (
     mllib_reference_pca,
     principal_components_subspace,
+    principal_components_subspace_sharded,
+)
+from spark_examples_tpu_torch.parallel.mesh import (
+    SAMPLES_AXIS,
+    Mesh,
+    RowSharded,
+    packed_host_fetch,
+    resolve_run_mesh,
+    run_devices,
 )
 from spark_examples_tpu_torch.pipeline.checkpoint import (
     CheckpointWriter,
@@ -116,8 +142,9 @@ from spark_examples_tpu_torch.utils.af import af_filter_micro, af_passes
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
 from spark_examples_tpu_torch.utils.tracing import StageTimes, device_trace
 
-#: A similarity matrix: on the device (gpu backend) or a host array (host).
-Similarity = Union[torch.Tensor, np.ndarray]
+#: A similarity matrix: on the device (gpu backend), as row tiles over the
+#: samples axis (sharded strategy), or a host array (host).
+Similarity = Union[torch.Tensor, RowSharded, np.ndarray]
 
 
 @dataclass(frozen=True)
@@ -159,16 +186,21 @@ def make_source(conf: PcaConf) -> GenomicsSource:
 
 
 class VariantsPcaDriver:
-    """Reusable driver (``VariantsPca.scala:89-336``) on one device."""
+    """Reusable driver (``VariantsPca.scala:89-336``). Its meshes resolve
+    over ``devices`` (the reference's argument: a caller may name a device
+    several times) or, by default, every card (``--device cuda``) or CPU
+    positions (``--device cpu``); without a mesh it runs on ``device``."""
 
     def __init__(
         self,
         conf: PcaConf,
         source: Optional[GenomicsSource] = None,
         device: DeviceLike = None,
+        devices: Optional[Sequence[DeviceLike]] = None,
     ):
         self.conf = conf
-        self.device = resolve_device(device)
+        self.devices = [torch.device(d) for d in devices] if devices is not None else None
+        self.device = resolve_device(self.devices[0] if self.devices else device)
         self.source = source if source is not None else make_source(conf)
         self.registry = MetricsRegistry()
         self.spans = SpanRecorder()
@@ -185,6 +217,9 @@ class VariantsPcaDriver:
         #: The checkpoint feeder between the host-fed rows and the
         #: accumulator (``_wrap_accumulator``); ``None`` without the flags.
         self.feeder: Optional[GramianFeeder] = None
+        #: The manifest's ``schedule`` block, from the sharded accumulator
+        #: when one ran; ``None`` on dense and host runs.
+        self.sched_block: Optional[Dict] = None
         # The resume artifact loads here, before any ingest, so a
         # fingerprint mismatch or a corrupt artifact fails in milliseconds
         # instead of after a re-ingest pass.
@@ -215,8 +250,9 @@ class VariantsPcaDriver:
         """The host-memory pair the heartbeat and the manifest show: the
         peak-RSS gauge (every read samples the OS's mark) and the static
         bound of this configuration, ``check/hostmem.py:
-        conf_host_peak_bytes`` on the port's one device and one process,
-        as the reference's ``_register_host_memory_gauges`` resolves it,
+        conf_host_peak_bytes`` on this process's devices (the data axis
+        the run resolves), as the reference's ``_register_host_memory_gauges``
+        resolves it,
         over this device's runtime baseline (``runtime_baseline_bytes``:
         measured here on the card, before any data is staged). Telemetry
         never takes down a run: if the resolver raises, the runtime
@@ -229,7 +265,7 @@ class VariantsPcaDriver:
         try:
             bound = conf_host_peak_bytes(
                 self.conf,
-                device_count=1,
+                device_count=len(self._mesh_devices()),
                 num_samples=len(self.indexes) or None,
                 num_hosts=1,
                 baseline_bytes=baseline,
@@ -373,17 +409,69 @@ class VariantsPcaDriver:
 
     # ------------------------------------------------------------ similarity
 
-    def _dense_accumulator(self, pipeline_depth: Optional[int] = None) -> GramianAccumulator:
-        acc = GramianAccumulator(
-            len(self.indexes),
-            device=self.device,
-            block_size=self.conf.block_size,
-            pipeline_depth=pipeline_depth,
-            registry=self.registry,
-            spans=self.spans,
+    def _mesh_devices(self) -> List[torch.device]:
+        return self.devices if self.devices is not None else run_devices(self.device)
+
+    def _make_mesh(self) -> Optional[Mesh]:
+        """The run's mesh (``parallel/mesh.py:resolve_run_mesh``): explicit
+        ``--mesh-shape``, else every device capped by
+        ``--num-reduce-partitions``; ``None`` on one device."""
+        return resolve_run_mesh(
+            self.conf.mesh_shape, self.conf.num_reduce_partitions, devices=self._mesh_devices()
         )
+
+    def _resolve_sharded(self, mesh: Optional[Mesh]) -> bool:
+        """``--similarity-strategy``: explicit dense/sharded, or auto from
+        the device's memory (the reference's ~50K-samples/~20GB in-memory
+        guidance, ``VariantsPca.scala:216-217,296-297``, restated in bytes,
+        ``ops/gramian.py:dense_strategy_fits``)."""
+        strategy = self.conf.similarity_strategy
+        if strategy == "sharded":
+            sharded = True
+        elif strategy == "dense":
+            sharded = False
+        else:
+            sharded = not dense_strategy_fits(len(self.indexes), device=self.device)
+        if sharded and (mesh is None or SAMPLES_AXIS not in mesh.shape or mesh.shape[SAMPLES_AXIS] < 2):
+            if strategy == "sharded":
+                raise ValueError(
+                    "--similarity-strategy sharded needs a mesh with a "
+                    "samples axis of at least 2 (use --mesh-shape data,samples)"
+                )
+            sharded = False
+        return sharded
+
+    def _host_fed_accumulator(self, pipeline_depth: Optional[int] = None):
+        """The host-fed arms' accumulator: the sharded ring, or the dense
+        Gramian (with the mesh's data axis)."""
+        mesh = self._make_mesh()
+        if self._resolve_sharded(mesh):
+            acc = ShardedGramianAccumulator(
+                len(self.indexes), mesh, block_size=self.conf.block_size,
+                registry=self.registry, spans=self.spans,
+                pack_bits=self.conf.ring_pack_bits,
+                reduce_schedule=self.conf.reduce_schedule,
+            )
+        else:
+            acc = GramianAccumulator(
+                len(self.indexes),
+                device=self.device,
+                block_size=self.conf.block_size,
+                pipeline_depth=pipeline_depth,
+                registry=self.registry,
+                spans=self.spans,
+                mesh=mesh,
+            )
         self.accumulator = acc
         return acc
+
+    def _finish_similarity(self, acc) -> Similarity:
+        """The accumulated Gramian, on the device: row tiles for the ring
+        (its ``schedule`` block kept for the manifest), G otherwise."""
+        if isinstance(acc, ShardedGramianAccumulator):
+            self.sched_block = acc.schedule_block()
+            return acc.finalize_sharded()
+        return acc.finalize_device()
 
     def _wrap_accumulator(self, acc):
         """Interpose the checkpoint feeder between the ingest stream and a
@@ -420,7 +508,7 @@ class VariantsPcaDriver:
         the host replication under ``--pca-backend host``."""
         if self.conf.pca_backend == "host":
             return self._host_similarity(calls)
-        acc = self._dense_accumulator()
+        acc = self._host_fed_accumulator()
         # Duplicate callset indices only arise when a variant set is joined
         # with itself; only then do rows carry counts (the reference's
         # pair-loop multiplicity, ``VariantsPca.scala:224-229``).
@@ -430,7 +518,7 @@ class VariantsPcaDriver:
             accumulate_duplicates=len(set(ids)) != len(ids),
         )
         self._finish_checkpointing()
-        return acc.finalize_device()
+        return self._finish_similarity(acc)
 
     def get_similarity_rows(
         self, blocks: Iterable[np.ndarray], pipeline_depth: Optional[int] = None
@@ -444,19 +532,21 @@ class VariantsPcaDriver:
                 X = np.asarray(block, dtype=np.int64)
                 matrix += X.T @ X
             return matrix.astype(np.float64)
-        acc = self._dense_accumulator(pipeline_depth)
+        acc = self._host_fed_accumulator(pipeline_depth)
         feed = self._wrap_accumulator(acc)
         for block in blocks:
             feed.add_rows(block)
         self._finish_checkpointing()
-        return acc.finalize_device()
+        return self._finish_similarity(acc)
 
-    def get_similarity_device_gen(self, contigs) -> torch.Tensor:
+    def get_similarity_device_gen(self, contigs) -> Similarity:
         """Fused on-device ingest and similarity: per dispatch group the host
         sends two scalars, the device generates genotypes and accumulates
-        the int32 ``G += XᵀX``. Multi-set cohorts (shared site grid) are
-        per-set column blocks of one matrix, so the reference's join and
-        merge (``VariantsPca.scala:155-188``) need no join machinery here."""
+        the int32 ``G += XᵀX`` — on one device, over the mesh's data axis,
+        or, sharded, as the ring where each samples position generates its
+        own columns. Multi-set cohorts (shared site grid) are per-set column
+        blocks of one matrix, so the reference's join and merge
+        (``VariantsPca.scala:155-188``) need no join machinery here."""
         source, conf = self.source, self.conf
         sets = conf.variant_set_id
         blocks_per_dispatch = (
@@ -466,9 +556,7 @@ class VariantsPcaDriver:
         )
         sizes = [source.num_samples_for(v) for v in sets]
         asymmetric = any(s != source.num_samples for s in sizes)
-        acc = DeviceGenGramianAccumulator(
-            num_samples=source.num_samples,
-            vs_keys=[source.genotype_stream_key(v) for v in sets],
+        common = dict(
             pops=source.populations,
             site_key=source.site_key,
             spacing=source.variant_spacing,
@@ -477,21 +565,51 @@ class VariantsPcaDriver:
             block_size=conf.block_size,
             blocks_per_dispatch=blocks_per_dispatch,
             n_pops=source.n_pops,
-            set_sizes=sizes if asymmetric else None,
-            pops_per_set=[source.populations_for(v) for v in sets] if asymmetric else None,
-            device=self.device,
         )
+        mesh = self._make_mesh()
+        use_ring = self._resolve_sharded(mesh)
+        if use_ring:
+            # Each samples position generates its own column block and the
+            # tiles ring-exchange: no host traffic, no position holding N×N.
+            multi = len(sets) > 1
+            common["pops"] = source.populations if multi else source.populations_for(sets[0])
+            acc = DeviceGenRingGramianAccumulator(
+                num_samples=source.num_samples if multi else sizes[0],
+                vs_key=[source.genotype_stream_key(v) for v in sets],
+                mesh=mesh,
+                set_sizes=sizes if multi else None,
+                pops_per_set=[source.populations_for(v) for v in sets] if multi else None,
+                pack_bits=conf.ring_pack_bits,
+                reduce_schedule=conf.reduce_schedule,
+                **common,
+            )
+        else:
+            acc = DeviceGenGramianAccumulator(
+                num_samples=source.num_samples,
+                vs_keys=[source.genotype_stream_key(v) for v in sets],
+                set_sizes=sizes if asymmetric else None,
+                pops_per_set=[source.populations_for(v) for v in sets] if asymmetric else None,
+                device=self.device,
+                mesh=mesh,
+                **common,
+            )
         partitioner = VariantsPartitioner(contigs, conf.bases_per_partition)
         partitions = [p for v in sets for p in partitioner.get_partitions(v)]
         well_known_gauge(self.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
         sites_gauge = well_known_gauge(self.registry, INGEST_SITES_SCANNED)
-        scanned = 0
+        # The ring's traffic, by the formula over the dispatched capacity,
+        # published per contig so the heartbeat's segment is live.
+        ring_counter = well_known_counter(self.registry, GRAMIAN_RING_BYTES) if use_ring else None
+        scanned = published = 0
         for contig in contigs:
             k0, k1 = source.site_grid_range(contig)
             if k1 > k0:
                 acc.add_grid(k0, k1)
             scanned += k1 - k0
             sites_gauge.set(scanned)
+            if ring_counter is not None:
+                ring_counter.inc(acc.ring_bytes_total - published)
+                published = acc.ring_bytes_total
         # Wire-equivalent accounting: per shard, per variant set
         # (``SyntheticGenomicsSource.page_requests``).
         for partition in partitions:
@@ -505,6 +623,9 @@ class VariantsPcaDriver:
         # The synchronous counter fetch ends the ingest stage with its work.
         per_set, _kept = acc.ingest_counters()
         self.io_stats.add_variants(int(per_set.sum()))
+        if use_ring:
+            self.sched_block = acc.schedule_block()
+            return acc.finalize_sharded()
         return acc.finalize_device()
 
     def _host_similarity(self, calls: Iterable[List[int]]) -> np.ndarray:
@@ -531,6 +652,23 @@ class VariantsPcaDriver:
             nonzero = int((S.sum(axis=1) > 0).sum())
             print(f"Non zero rows in matrix: {nonzero} / {n}.")
             components, _ = mllib_reference_pca(self._host_center(S), self.conf.num_pc)
+        elif isinstance(similarity, RowSharded):
+            # The sharded strategy end to end: the padded Gramian stays row
+            # tiles through the centring and the eigensolve.
+            with self.spans.span("center"):
+                centered = gower_center_sharded(similarity, n)
+            with self.spans.span("eigh"):
+                device_components, _ = principal_components_subspace_sharded(
+                    centered, self.conf.num_pc
+                )
+            nz = sum(
+                (tile != 0).any(dim=1).sum().to(device_components.device)
+                for tile in similarity.tiles
+            )
+            # One host copy for the components and the nonzero-row count.
+            flat = packed_host_fetch([device_components, nz])
+            components = flat[:-1].reshape(-1, self.conf.num_pc)[:n].astype(np.float64)
+            print(f"Non zero rows in matrix: {int(flat[-1])} / {n}.")
         else:
             with self.spans.span("center"):
                 centered = gower_center(similarity)
@@ -829,7 +967,10 @@ def _similarity_stage(
 
 
 def run_pipeline(
-    conf: PcaConf, device: DeviceLike = None, source: Optional[GenomicsSource] = None
+    conf: PcaConf,
+    device: DeviceLike = None,
+    source: Optional[GenomicsSource] = None,
+    devices: Optional[Sequence[DeviceLike]] = None,
 ) -> PipelineResult:
     """The analysis, CLI-free: config in, result out, in the reference's
     order (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): the
@@ -839,7 +980,10 @@ def run_pipeline(
     epilogue printed. Runs on ``device`` (default ``conf.device``); raises
     when a CUDA device is asked for and none is present. ``source``
     replaces the one ``--source`` names (a REST source with its own
-    transport, say)."""
+    transport, say). ``devices`` are the positions the run's mesh resolves
+    over (the reference's argument; a device may repeat, so
+    ``[torch.device("cuda", 0)] * 4`` runs a four-position ring on one
+    card); by default every card, or CPU positions on ``--device cpu``."""
     check_ported(conf)
     if conf.fault_plan is not None:
         # The flag wins over the environment variable; configuring resets
@@ -853,7 +997,7 @@ def run_pipeline(
         source = make_source(conf)
     use_device, use_packed = resolve_ingest(conf, source)
     driver = VariantsPcaDriver(
-        conf, source, device=conf.device if device is None else device
+        conf, source, device=conf.device if device is None else device, devices=devices
     )
     times = StageTimes(recorder=driver.spans)
     heartbeat = None
@@ -896,6 +1040,7 @@ def run_pipeline(
             io_stats=driver.io_stats,
             overlap=driver.overlap,
             resume=resume,
+            schedule=driver.sched_block,
         )
         try:
             write_manifest(conf.metrics_json, manifest)
@@ -910,12 +1055,13 @@ def run_pipeline(
 
 
 def _register_prover_conformance(driver: VariantsPcaDriver) -> None:
-    """The run's ``hostmem`` conformance pair (the manifest's
-    ``conformance`` block): the peak RSS measured against the bound the
-    driver registered at set-up, as the reference's epilogue records it.
-    The ``sched`` and ``ranges`` pairs belong to flags the port does not
-    take yet (the sharded schedule, ``--check-ranges``), so they stay
-    absent. Telemetry never takes down a completed run."""
+    """The run's conformance pairs (the manifest's ``conformance`` block),
+    as the reference's epilogue records them: ``hostmem``, the peak RSS
+    measured against the bound the driver registered at set-up, and, when
+    the sharded ring ran, ``sched``, its accounted ring bytes against the
+    schedule's projection. The ``ranges`` pair belongs to
+    ``--check-ranges``, which the port does not take yet. Telemetry never
+    takes down a completed run."""
     registry = driver.registry
     try:
         measured = registry.value(HOST_PEAK_RSS_BYTES)
@@ -925,14 +1071,24 @@ def _register_prover_conformance(driver: VariantsPcaDriver) -> None:
                 registry, "hostmem", measured,
                 bound if bound is not None and bound == bound else None,
             )
+        sched = driver.sched_block
+        if sched is not None:
+            record_prover_conformance(
+                registry, "sched", sched["measured_ring_bytes"], sched["predicted_ring_bytes"]
+            )
     except Exception:
         pass
 
 
-def run(argv: Sequence[str], device: DeviceLike = None) -> List[str]:
+def run(
+    argv: Sequence[str],
+    device: DeviceLike = None,
+    devices: Optional[Sequence[DeviceLike]] = None,
+) -> List[str]:
     """``VariantsPcaDriver.main`` (``VariantsPca.scala:47-59``): parse the
-    flags and run. ``device`` overrides ``--device``."""
-    return run_pipeline(PcaConf.parse(argv), device=device).lines
+    flags and run. ``device`` overrides ``--device``; ``devices`` are the
+    mesh's positions (:func:`run_pipeline`)."""
+    return run_pipeline(PcaConf.parse(argv), device=device, devices=devices).lines
 
 
 __all__ = [

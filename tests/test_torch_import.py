@@ -173,10 +173,10 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
     [
         (["--num-processes", "2"], "--num-processes"),
         (["--coordinator-address", "h:1"], "--coordinator-address"),
-        (["--similarity-strategy", "sharded"], "--similarity-strategy sharded"),
-        (["--mesh-shape", "1,2"], "--mesh-shape"),
+        (["--process-id", "0"], "--process-id"),
+        (["--check-ranges"], "--check-ranges"),
         (["--trace-dir", "t"], "--trace-dir"),
-        (["--reduce-schedule", "flat"], "--reduce-schedule"),
+        (["--mesh-shape", "1,2", "--check-ranges"], "--check-ranges"),
     ],
 )
 def test_unported_flags_raise_naming_the_flag(flags, named):
@@ -184,6 +184,29 @@ def test_unported_flags_raise_naming_the_flag(flags, named):
 
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         PcaConf.parse(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "flags, shape",
+    [
+        (["--similarity-strategy", "sharded"], None),
+        (["--mesh-shape", "1,2"], {"data": 1, "samples": 2}),
+        (["--reduce-schedule", "flat"], None),
+    ],
+)
+def test_mesh_flags_parse_and_resolve_a_mesh_of_cpu_positions(flags, shape):
+    """The mesh's flags, refused before the mesh was ported, now parse; the
+    run's mesh resolves over CPU positions (none on one position)."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.parallel.mesh import resolve_run_mesh, run_devices
+
+    conf = PcaConf.parse(flags + ["--device", "cpu"])
+    mesh = resolve_run_mesh(conf.mesh_shape, conf.num_reduce_partitions, run_devices(conf.device))
+    if shape is None:
+        assert mesh is None
+    else:
+        assert mesh.shape == shape
+        assert all(p.device.type == "cpu" for p in mesh.flat())
 
 
 @pytest.mark.parametrize(

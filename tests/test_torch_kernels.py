@@ -176,7 +176,7 @@ def test_kernels_equal_plain_versions_on_the_card(case):
     port.gram_accumulate(G, got)
     port.gram_accumulate_plain(G_plain, got)
     assert torch.equal(G, G_plain)
-    assert [k.launches for k in port.KERNELS] == [1, 1]
+    assert [k.launches for k in port.KERNELS] == [1, 1, 0]
 
 
 #: (sets, samples a set, populations, grid offset, valid sites, block
@@ -617,3 +617,90 @@ def test_base_counts_windows_that_grow_and_shrink_on_the_card():
         kept.append((got, want))
     torch.cuda.synchronize()
     assert all(torch.equal(got, want) for got, want in kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("split", [None, 1, 2])
+@pytest.mark.parametrize(
+    "m,n,sites,ldc,offset",
+    [(632, 632, 1024, 2528, 632), (632, 632, 16384, 2528, 1896), (13, 130, 256, 200, 7),
+     (130, 13, 256, 150, 3), (600, 517, 384, 1201, 1), (6250, 6250, 1024, 25000, 6250)],
+)
+def test_cross_accumulate_equals_plain_on_the_card(m, n, sites, ldc, offset, split):
+    """The ring step's product into a strided column slice of a row tile,
+    at ragged ``m``, ``n`` and ``ldc`` (the bulk epilogue where C's rows
+    allow it, single adds elsewhere) and every split, exactly; its rows
+    and columns outside the slice untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(m + n + sites)
+    a = torch.from_numpy((rng.random((-(-m // 128) * 128, sites)) < 0.3).astype(np.int8)).to(dev)
+    b = torch.from_numpy((rng.random((-(-n // 128) * 128, sites)) < 0.3).astype(np.int8)).to(dev)
+    tile = torch.from_numpy(rng.integers(-9, 9, (m, ldc), dtype=np.int32)).to(dev)
+    want = tile.clone()
+    port.reset_launch_counts()
+    port.cross_accumulate(tile[:, offset : offset + n], a, b, split=split)
+    port.cross_accumulate_plain(want[:, offset : offset + n], a, b)
+    assert torch.equal(tile, want) and port.cross_accumulate.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,sites,columns,rows", [(640, 1024, 632, 1024), (640, 16384, 632, 16384),
+                                                      (6272, 1024, 6256, 1000), (128, 128, 8, 5)])
+def test_pack_rows_t_equals_plain_and_packbits_on_the_card(n_pad, sites, columns, rows):
+    """The pack of a generated Xᵀ's columns, against the plain version and
+    np.packbits; the unpack of the result gives the columns back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import gramian
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(sites + columns)
+    xt = torch.from_numpy((rng.random((n_pad, sites)) < 0.3).astype(np.int8)).to(dev)
+    gramian.reset_launch_counts()
+    got = gramian.pack_rows_t(xt, columns, rows)
+    assert torch.equal(got, gramian.pack_rows_t_plain(xt, columns, rows))
+    assert np.array_equal(got.cpu().numpy(), np.packbits(xt[:columns, :rows].cpu().numpy().T, axis=-1))
+    assert gramian.pack_rows_t.launches == 1
+    back = gramian.unpack_rows_t(got, columns)
+    assert torch.equal(back[:columns, :rows], xt[:columns, :rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack,schedule,shape", [("on", "flat", (1, 4)), ("off", "flat", (1, 4)),
+                                                 ("on", "hier", (1, 4)), ("on", "flat", (2, 2))])
+def test_ring_of_four_positions_on_one_card_equals_the_dense_gramian(pack, schedule, shape, monkeypatch):
+    """Four positions of one card run the device-generation ring (their own
+    streams, device copies for the transfers): its Gramian and counters are
+    byte-equal to the one-device run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import gramian
+    from spark_examples_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setenv(pmesh.HIER_HOSTS_ENV, "2" if schedule == "hier" else "1")
+    dev = torch.device("cuda")
+    source = SyntheticGenomicsSource(num_samples=300, seed=6)
+    kw = dict(pops=source.populations, site_key=source.site_key, spacing=source.variant_spacing,
+              ref_block_fraction=source.ref_block_fraction, n_pops=source.n_pops,
+              block_size=1024, blocks_per_dispatch=8)
+    key = source.genotype_stream_key("vs")
+    dense = port.DeviceGenGramianAccumulator(300, [key], device=dev, **kw)
+    dense.add_grid(0, 20_000)
+    mesh = pmesh.make_mesh({"data": shape[0], "samples": shape[1]}, [dev] * 4)
+    gramian.reset_launch_counts()
+    ring = port.DeviceGenRingGramianAccumulator(300, key, mesh=mesh, pack_bits=pack,
+                                                reduce_schedule=schedule, **kw)
+    ring.add_grid(0, 20_000)
+    assert np.array_equal(ring.finalize(), dense.finalize())
+    rows, kept = ring.ingest_counters()
+    want_rows, want_kept = dense.ingest_counters()
+    assert rows.tolist() == want_rows.tolist() and kept == want_kept
+    assert (gramian.pack_rows_t.launches > 0) == (pack == "on")
