@@ -54,11 +54,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``experiments/count_variants.py``, each == plain); the op chains also
    at ragged lengths and off a 16-byte boundary, with their SASS split by
    pipe; the ring's two kernels: ``cross_accumulate`` (one ring step's
-   product into a strided column slice of a row tile) at 632 × 632 ×
-   1,024 and 16,384 sites and at 6,250 × 6,250 × 1,024, with
-   ``torch._int_mm`` plus the slice add as the library call, and
-   ``pack_rows_t`` on a generated 632-column slice (also against
-   ``np.packbits``), and ``gen_genotypes`` on one position's cut tables;
+   product into a strided column slice of a row tile) at 632 × 632 and
+   6,250 × 6,250 × 1,024 and 16,384 sites, with ``torch._int_mm`` plus the
+   slice add as the library call and each launch's clusters, split and
+   items, and ``pack_rows_t`` on a generated 632-column slice and on a
+   6,256-column Xᵀ (also against ``np.packbits``) with ``unpack_rows_t``
+   of each packed tile back, and ``gen_genotypes`` on one position's cut
+   tables;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
@@ -203,11 +205,13 @@ CLI_BLOCK = 1024
 UNPACK_ROWS = (CLI_BLOCK, BLOCK)
 #: SASS opcodes each redesigned kernel must contain, in this run's build:
 #: 16-byte stores (the generation's staged Xᵀ chunks and the unpack's
-#: rows); int8 warpgroup MMAs and TMA tensor loads; bulk copies; 16-byte
+#: rows); int8 warpgroup MMAs and TMA tensor loads (and the ring product's
+#: bulk reductions into C); bulk copies; 16-byte
 #: loads and stores (the op chains' vectors); 16-byte loads of the packed
 #: rows (the association counts); atomic adds into device memory and the
-#: next buffer's 16-byte zeroing stores (the base counts). IMMA is
-#: mma.sync.
+#: next buffer's 16-byte zeroing stores (the base counts); 16-byte loads
+#: of the column rows that ask L2 for 128-byte lines, warp votes and
+#: 16-byte stores of the packed rows (the ring's pack). IMMA is mma.sync.
 HOPPER_SASS = {
     "gen_genotypes_kernel": ("devicegen.cu", ("STG.E.128",), ()),
     "unpack_rows_t_kernel": ("gramian.cu", ("STG.E.128",), ()),
@@ -216,9 +220,9 @@ HOPPER_SASS = {
     "probe_op_chain_kernel": ("probes.cu", ("LDG.E.128", "STG.E.128"), ()),
     "case_counts_kernel": ("ld.cu", ("LDG.E.128", "POPC"), ()),
     "base_counts_kernel": ("depth.cu", ("REDG", "STG.E.128"), ()),
-    "cross_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG"), ("IMMA",)),
+    "cross_accumulate_kernel": ("devicegen.cu", ("IGMMA", "UTMALDG", "UBLKRED"), ("IMMA",)),
     # The length prefix of the mangled name keeps unpack_rows_t_kernel out.
-    "18pack_rows_t_kernel": ("gramian.cu", ("LDG.E.128",), ()),
+    "18pack_rows_t_kernel": ("gramian.cu", ("LDG.E.LTC128B.128", "VOTE", "STG.E.128"), ()),
 }
 #: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
 PEAK_BYTES_PER_S = 3.35e12
@@ -246,8 +250,12 @@ PROBE_OPS_PER_ITERATION = {"xor": 2, "shiftxor": 3, "cmp": 2, "mul": 1, "mul_i32
                            "fmix32": 9}
 #: The ring kernels' shapes: (rows of A, rows of B, sites) of one ring step
 #: at 2,504 samples over 4 positions (632 columns each) at the CLI's block
-#: and chr17's, and at 25,000 over 4 (6,250).
-CROSS_SHAPES = ((632, 632, CLI_BLOCK), (632, 632, BLOCK), (6250, 6250, CLI_BLOCK))
+#: and chr17's, and at 25,000 over 4 (6,250) at both.
+CROSS_SHAPES = ((632, 632, CLI_BLOCK), (632, 632, BLOCK), (6250, 6250, CLI_BLOCK),
+                (6250, 6250, BLOCK))
+#: Columns of a position's packed ring tile at 2,504 and 25,000 samples
+#: over 4 positions (the bit-packed wire pads 25,000 to 25,024).
+RING_TILE_COLUMNS = (632, 6256)
 #: The sharded runs: the samples-sharded ring over positions of one card
 #: (``devices=[cuda:0] * 4``), each Gramian byte-equal to the one-device
 #: run's on the same sites. (label, base argv, extra flags, hosts of the
@@ -2006,24 +2014,26 @@ def phase_ring_kernels(torch, devicegen, gramian):
     """The ring's two kernels against their plain versions, exactly:
     ``cross_accumulate`` at ``CROSS_SHAPES`` into a column slice of a row
     tile of 4 positions' width (so C's rows are strided), ``pack_rows_t``
-    on a generated slice's Xᵀ (also against ``np.packbits``); then their
-    times beside the bound, the plain version and, for the product,
-    ``torch._int_mm`` on the same (row-padded) operands plus the slice add.
-    Also times ``gen_genotypes`` on one position's cut tables (632 columns
-    of 2,504). Returns the JSON rows (the product at chr17's 16,384 sites,
-    the pack at 632 columns × 16,384) and the times by shape."""
+    on a generated slice's Xᵀ and on a 6,256-column one (also against
+    ``np.packbits``), and ``unpack_rows_t`` of each packed tile back (the
+    receiver's); then their times beside the bound, the plain version and,
+    for the product, ``torch._int_mm`` on the same (row-padded) operands
+    plus the slice add, with each launch's shape. Also times
+    ``gen_genotypes`` on one position's cut tables (632 columns of 2,504).
+    Returns the JSON rows (the product at chr17's 16,384 sites, the pack at
+    632 columns × 16,384) and the times by shape."""
     from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
     from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(13)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
     rows, times = {}, {}
     for m, n, sites in CROSS_SHAPES:
         m_pad, n_pad = -(-m // 128) * 128, -(-n // 128) * 128
-        a = torch.from_numpy((rng.random((m_pad, sites)) < 0.3).astype(np.int8)).to(dev)
-        b = torch.from_numpy((rng.random((n_pad, sites)) < 0.3).astype(np.int8)).to(dev)
-        tile = torch.from_numpy(rng.integers(-9, 9, (m, 4 * n), dtype=np.int32)).to(dev)
+        a = (torch.rand((m_pad, sites), device=dev, generator=gen) < 0.3).to(torch.int8)
+        b = (torch.rand((n_pad, sites), device=dev, generator=gen) < 0.3).to(torch.int8)
+        tile = torch.randint(-9, 9, (m, 4 * n), device=dev, generator=gen, dtype=torch.int32)
         want = tile.clone()
         devicegen.cross_accumulate(tile[:, n : 2 * n], a, b)
         devicegen.cross_accumulate_plain(want[:, n : 2 * n], a, b)
@@ -2031,14 +2041,15 @@ def phase_ring_kernels(torch, devicegen, gramian):
         err = int((tile.long() - want.long()).abs().max())
         if err:
             raise AssertionError(f"cross_accumulate != plain at {m} x {n} x {sites}: max err {err}")
-        split = devicegen.cross_split(m_pad, n_pad, sites, sms)
-        units = devicegen.cross_units(m_pad, n_pad)
-        blocks = units * split * (2 if split > 1 else 1)
+        del want
+        schedule, resident = devicegen.cross_accumulate_grid(m_pad, n_pad, sites, dev)
         C = tile[:, n : 2 * n]
+        big = m * sites > 10**8
         r = times[(m, n, sites)] = dict(
             max_abs_err=0,
             ms=cuda_ms(lambda: devicegen.cross_accumulate(C, a, b), 20),
-            plain_ms=cuda_ms(lambda: devicegen.cross_accumulate_plain(C, a, b), 3, 1),
+            # The float64 product of the largest shape is timed once.
+            plain_ms=cuda_ms(lambda: devicegen.cross_accumulate_plain(C, a, b), *((1, 0) if big else (3, 1))),
             library_ms=cuda_ms(lambda: C.add_(torch._int_mm(a, b.t())[:m, :n]), 20),
             bound=bound(m * sites + n * sites + 2 * 4 * m * n, 2.0 * m * n * sites,
                         PEAK_INT8_OPS_PER_S),
@@ -2046,8 +2057,11 @@ def phase_ring_kernels(torch, devicegen, gramian):
         log(f"kernels: cross_accumulate == plain at {m} x {n} x {sites} sites (C a column slice "
             f"of a {m} x {4 * n} row tile): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
             f"torch._int_mm + add {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by "
-            f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of it); launch: {blocks} "
-            f"blocks ({units} units, split {split})")
+            f"{r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of it); launch: "
+            f"{schedule.blocks} blocks in clusters of {schedule.cluster} ({resident} clusters "
+            f"resident), {schedule.rows}-row blocks, split {schedule.split}, {schedule.units} "
+            f"units, {schedule.items} items")
+        del tile, C, a, b
     rows["cross_accumulate"] = times[(632, 632, BLOCK)]
 
     source = SyntheticGenomicsSource(num_samples=N_SAMPLES)
@@ -2074,23 +2088,45 @@ def phase_ring_kernels(torch, devicegen, gramian):
         f"{r['bound'][0]:.4f} ms by {r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
     times["gen_genotypes slice"] = r
 
-    xt = xt[:640]
-    got = gramian.pack_rows_t(xt, 632, BLOCK)
-    torch.cuda.synchronize()
-    ok = torch.equal(got, gramian.pack_rows_t_plain(xt, 632, BLOCK)) and np.array_equal(
-        got.cpu().numpy(), np.packbits(xt[:632].cpu().numpy().T, axis=-1))
-    if not ok:
-        raise AssertionError("pack_rows_t != plain or np.packbits")
-    r = rows["pack_rows_t"] = dict(
-        max_abs_err=0,
-        ms=cuda_ms(lambda: gramian.pack_rows_t(xt, 632, BLOCK), 50),
-        plain_ms=cuda_ms(lambda: gramian.pack_rows_t_plain(xt, 632, BLOCK), 5, 1),
-        library_ms=None,
-        bound=bound(632 * BLOCK + BLOCK * 79, 0, int32_ops_per_s(torch)),
-    )
-    log(f"kernels: pack_rows_t == plain == np.packbits (632 columns x {BLOCK} sites of a "
-        f"generated slice): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound "
-        f"{r['bound'][0]:.4f} ms by bytes, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
+    xts = {632: xt[:640]}
+    wide = RING_TILE_COLUMNS[1]
+    xts[wide] = (torch.rand((-(-wide // 128) * 128, BLOCK), device=dev, generator=gen)
+                 < 0.3).to(torch.int8)
+    for cols, x in xts.items():
+        got = gramian.pack_rows_t(x, cols, BLOCK)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, gramian.pack_rows_t_plain(x, cols, BLOCK)) and np.array_equal(
+                got.cpu().numpy(), np.packbits(x[:cols].cpu().numpy().T, axis=-1))):
+            raise AssertionError(f"pack_rows_t != plain or np.packbits at {cols} columns")
+        schedule = gramian.pack_rows_t_grid(BLOCK, cols)
+        r = times[f"pack_rows_t {cols}"] = dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: gramian.pack_rows_t(x, cols, BLOCK), 50),
+            plain_ms=cuda_ms(lambda: gramian.pack_rows_t_plain(x, cols, BLOCK), 5, 1),
+            library_ms=None,
+            bound=bound(cols * BLOCK + BLOCK * cols // 8, 0, int32_ops_per_s(torch)),
+        )
+        log(f"kernels: pack_rows_t == plain == np.packbits ({cols} columns x {BLOCK} sites"
+            f"{' of a generated slice' if cols == 632 else ''}): {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by bytes, "
+            f"{100 * r['bound'][0] / r['ms']:.1f} % of it); launch: {schedule.site_blocks} x "
+            f"{schedule.row_blocks} blocks of {schedule.sites} sites x {schedule.share} bytes")
+        # The receiver's unpack of the same packed tile (the ring's).
+        back = gramian.unpack_rows_t(got, cols)
+        torch.cuda.synchronize()
+        if not torch.equal(back[:cols, :BLOCK], x[:cols, :BLOCK]) or back[cols:].any():
+            raise AssertionError(f"unpack_rows_t of a packed ring tile != its Xᵀ at {cols} columns")
+        r = times[f"unpack_rows_t ring {cols}"] = dict(
+            max_abs_err=0,
+            ms=cuda_ms(lambda: gramian.unpack_rows_t(got, cols), 50),
+            plain_ms=cuda_ms(lambda: gramian.unpack_rows_t_plain(got, cols), 5, 1),
+            library_ms=None,
+            bound=bound(BLOCK * cols // 8 + -(-cols // 128) * 128 * BLOCK, 0, int32_ops_per_s(torch)),
+        )
+        log(f"kernels: unpack_rows_t of a packed ring tile == its Xᵀ ({cols} columns x {BLOCK} "
+            f"sites): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
+            f"ms by bytes, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
+    rows["pack_rows_t"] = times["pack_rows_t 632"]
     return rows, times
 
 

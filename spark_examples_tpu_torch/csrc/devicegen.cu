@@ -52,8 +52,7 @@
 //   them; it also counts kept sites. A split cluster barrier (arrive at the
 //   start, wait before the ORs) orders the leader's zeroing before them at
 //   no cost, and a last cluster barrier keeps the leader alive until its
-//   peers are done. No mbarrier is used, so hopper.cuh's no-cluster
-//   assumption holds.
+//   peers are done. No mbarrier is used.
 //   Any number of sets, populations and sites: the stream keys are read
 //   from device memory, and a block's tables ((populations + 1 + sets)
 //   rows of 64 words, and the set-bit rows) are sized at launch (GenPath).
@@ -124,15 +123,68 @@
 //   spark_examples_tpu/ops/gramian.py:_ring_tiles and _hier_ring_tiles).
 //   Bound: the int8 tensor-core rate (2·m·n·sites operations) at 16,384
 //   sites; at 1,024 the int32 read-modify-write of C.
-//   Design: gram_accumulate_kernel's unit, stages, producer and consumers
-//   over two tensor maps (A's box from A's map, B's two from B's), every
-//   128 × 256 unit of C (no symmetry: the tile is not symmetric, and step
-//   0, where A is B, is one more call). The same split of the sites where
-//   the units do not fill half the card (ops/devicegen.py:cross_split: at
-//   632 × 632, 15 units, 4 splits of half units, 120 blocks). The epilogue
-//   is the bulk reduction a row where C's rows and n allow 16-byte rows,
-//   else red.global.add; no mirror.
-//
+//   Design: gram_accumulate_kernel's wgmma m64n256k32 consumers over TMA
+//   stages, every 128 × 256 unit of C (no symmetry), redesigned for what
+//   held the first version back (times: PERF.md, from
+//   experiments/ring_variants.py, which builds this source with the
+//   CROSS_* switches below set otherwise):
+//   - L2 → shared-memory bytes. A block of 128 rows loaded A's box and B's
+//     two (48 KiB a stage for 8.4 M operations), and no block shared a
+//     load. Unsplit launches now run clusters of two blocks on
+//     neighbouring row tiles that share B's column group: block r loads
+//     B's box r into both (.multicast::cluster), so a block reads 32 KiB a
+//     stage from L2. Each stage goes back to both producers (the consumer
+//     warps arrive on both blocks' empty barriers, with the default
+//     CTA-scope release: a cluster-scope release there stalled the MMAs,
+//     1.6 times the time at 6,250 × 6,250 × 16,384), so the two rings run
+//     in step.
+//   - The epilogue. One block a unit left the SM loading nothing while it
+//     staged its tile in the ring and reduced it into C. Unsplit clusters
+//     are now persistent (as many as the items, at most one block an SM)
+//     and stage into a buffer of their own, so the producer loads the next
+//     item's stages meanwhile. The leader's producer takes items from a
+//     device counter (an atomic add) and hands each to its peer through
+//     a slot of shared memory (two slots, full and empty barriers across
+//     the cluster); the stage carries its item to the consumers, and a
+//     stage without data ends the walk. A static walk would leave the
+//     blocks that cannot be resident to the end: the ring runs four
+//     positions' products at once on one card, each on its own stream.
+//     Each cluster's claims end with one past the items, so the launch's
+//     last claim (items + clusters - 1) resets the counter: the next
+//     launch on the stream finds zero, with no launch to zero it.
+//     Consecutive items share B's group, for L2 reuse. Items of 32 steps
+//     or more (16,384 sites; the MMAs bound them) keep 4 stages beside a
+//     small buffer, 32 columns leaving at a time; shorter ones (the CLI's
+//     1,024 sites; the reductions into C bound them) keep 3 stages beside
+//     a buffer of 128 columns, and the producer brings the item's rows of
+//     C into L2 behind its first loads. The first MMA of an item
+//     overwrites the accumulators (wgmma's scale-d): zeroing them with
+//     instructions between the MMAs made ptxas serialize every wgmma.
+//   - A group of one B box (an odd tile count: 5 at 632 columns) took
+//     m64n256k32 over stale stage bytes; it now takes m64n128k32.
+//   - Small shapes. Where the units do not fill half the card
+//     (ops/devicegen.py:cross_split: 632 × 632, 15 units) the sites split
+//     and a block owns 64 rows (one consumer warpgroup) of one item,
+//     loading only those rows of A (a 64-row tensor map box, 8 KiB) and
+//     B's group (40 KiB a stage against 48), staging its tile in the ring
+//     when its MMAs are done: 4 parts at 16,384 sites (120 blocks), 2 at
+//     1,024 (60), where each part's partial tile costs more to add into C
+//     than its MMAs save. The items run part by part, so the blocks that
+//     read one group of B at the same sites are neighbours in the grid,
+//     which the card spreads over its SMs. Measured slower there
+//     (experiments/ring_variants.py): a tile's halves in a cluster sharing
+//     B, walking clusters, a tile's parts together in the grid, a launch
+//     with a cluster attribute of one, 3 or 5 stages, and the first
+//     version's whole 128-row box of A.
+//   Epilogue: C's rows are 16-byte aligned only at some columns (a slice
+//   of a row tile at an odd owner offset), so the staged row starts at the
+//   same offset from a 16-byte boundary as its place in C (`shift`, 0..3
+//   words): where ldc % 4 == 0 each row is a few single adds up to the
+//   boundary, one bulk reduction (cp.reduce.async.bulk .add.s32) and the
+//   ragged tail; elsewhere each warp adds 32 neighbouring int32 of a row
+//   with red.global.add. The adds are int32 sums of exact partials, so
+//   any order, split or cluster gives the same C.
+
 // Plain C interface, bound with ctypes (ops/_kernels.py). Each launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch;
 // gram_accumulate_launch returns minus the CUresult when the CUDA driver
@@ -143,6 +195,7 @@
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -200,6 +253,109 @@ static_assert(GT * G_BULK_STRIDE * 4 <= G_STAGES * G_STAGE_BYTES &&
                   G_BN * G_BULK_TSTRIDE * 4 <= G_STAGES * G_STAGE_BYTES,
               "the bulk epilogue's staged tile reuses the ring");
 constexpr int G_MAX_DEVICES = 64;  // devices whose kernel attributes are cached
+
+// cross_accumulate: blocks in clusters that share B's column group,
+// persistent, their items taken from a device counter. The kept design's
+// switches: experiments/ring_variants.py builds this source with others
+// (-D) to time the designs it was chosen over.
+#ifndef CROSS_MULTICAST
+#define CROSS_MULTICAST 1  // block r loads B's box r into both blocks (else each loads both)
+#endif
+#ifndef CROSS_DYNAMIC
+#define CROSS_DYNAMIC 1  // items from the counter (else a static walk: cluster c takes c, c + clusters, ...)
+#endif
+#ifndef CROSS_NARROW_ONE_BOX
+#define CROSS_NARROW_ONE_BOX 1  // a group of one box takes m64n128k32 (else m64n256k32 over the stage)
+#endif
+#ifndef CROSS_RELEASE_CLUSTER
+#define CROSS_RELEASE_CLUSTER 0  // consumers hand a stage to the peer with a cluster-scope release
+#endif
+#ifndef CROSS_PREFETCH_C
+#define CROSS_PREFETCH_C 1  // the producer brings the item's rows of C into L2 behind its loads
+#endif
+#ifndef CROSS_DEEP_STEPS
+#define CROSS_DEEP_STEPS 32  // an unsplit item of at least this many steps takes the deep shape
+#endif
+#ifndef CROSS_SPLIT_PAIR
+#define CROSS_SPLIT_PAIR 0  // a split tile's two halves, one cluster, share B's loads (multicast)
+#endif
+#ifndef CROSS_PART_MAJOR
+#define CROSS_PART_MAJOR 1  // a split launch's items run part by part (else a tile's parts together)
+#endif
+#ifndef CROSS_LONE_CLUSTER_ATTR
+#define CROSS_LONE_CLUSTER_ATTR 0  // a block alone launches with a cluster attribute (of 1)
+#endif
+#ifndef CROSS_HALF_WHOLE_A
+#define CROSS_HALF_WHOLE_A 0  // a 64-row block loads A's whole 128-row box and uses its half
+#endif
+#ifndef CROSS_SPLIT_WALK
+#define CROSS_SPLIT_WALK 0  // a split launch's blocks walk items in clusters of a row tile's halves
+#endif
+constexpr int X_DEEP_STEPS = CROSS_DEEP_STEPS;
+
+// A cross_accumulate block: R rows of C (two consumer warpgroups at 128,
+// one at 64, and a producer warp), STAGES stages (A's R rows, B's two
+// boxes), an epilogue that leaves CHUNK columns at a time, CL blocks a
+// cluster. WALK: the clusters are persistent and walk the items, the
+// epilogue staged in a buffer of its own (the producer loads the next
+// item meanwhile); else a cluster takes one item and stages in its ring.
+// PREFETCH: the producer brings the item's rows of C into L2. Then the
+// barriers, stage items and item slots.
+template <int R, int STAGES_, int CHUNK_, int CL, bool WALK_, bool PREFETCH_>
+struct CrossShape {
+  static constexpr int ROWS = R;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int CHUNK = CHUNK_;
+  static constexpr int CLUSTER = CL;
+  static constexpr bool WALK = WALK_;
+  static constexpr bool PREFETCH = PREFETCH_ && CROSS_PREFETCH_C;
+  static constexpr int CONSUMERS = 2 * R;
+  static constexpr int THREADS = CONSUMERS + 32;
+  static constexpr int A_BOX_ROWS = R < GT && CROSS_HALF_WHOLE_A ? GT : R;
+  static constexpr int A_BYTES = A_BOX_ROWS * GK;
+  static constexpr int STAGE_BYTES = A_BYTES + G_BOXES * G_BOX_BYTES;
+  // A staged row: 8 mod 32 words, so 8-byte stores meet no bank twice,
+  // with room for the shift of up to 3 words that matches C's 16-byte
+  // phase.
+  static constexpr int CHUNK_STRIDE = CHUNK + 8;
+  static constexpr int STAGING_BYTES = WALK ? R * CHUNK_STRIDE * 4 : 0;
+  static constexpr int SMEM_BYTES =
+      1024 + STAGES * STAGE_BYTES + STAGING_BYTES + 2 * STAGES * 8 + 4 * 8 + STAGES * 4 + 2 * 4;
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory on Hopper");
+  static_assert(WALK || R * CHUNK_STRIDE * 4 <= STAGES * STAGE_BYTES, "the staged tile fits the ring");
+  static_assert(G_BN % CHUNK == 0 && CHUNK % 8 == 0, "whole chunks of whole MMA columns");
+  static_assert(CL == 1 || CL == 2, "a block alone, or two sharing B");
+};
+
+// The kept shapes. Unsplit items of few steps (the CLI's 1,024 sites: the
+// epilogue's reductions into C bound them) keep 3 stages, leave in two
+// chunks and prefetch C; deep ones (16,384 sites: the MMAs bound them)
+// keep a fourth stage and leave in 32-column chunks. A split launch (one
+// wave of 64-row blocks) gives each block one item: no cluster, no walk.
+#ifndef CROSS_STAGES_FULL
+#define CROSS_STAGES_FULL 3
+#endif
+#ifndef CROSS_CHUNK_FULL
+#define CROSS_CHUNK_FULL 128
+#endif
+#ifndef CROSS_STAGES_DEEP
+#define CROSS_STAGES_DEEP 4
+#endif
+#ifndef CROSS_CHUNK_DEEP
+#define CROSS_CHUNK_DEEP 32
+#endif
+using CrossFull = CrossShape<GT, CROSS_STAGES_FULL, CROSS_CHUNK_FULL, 2, true, true>;
+using CrossDeep = CrossShape<GT, CROSS_STAGES_DEEP, CROSS_CHUNK_DEEP, 2, true, false>;
+#ifndef CROSS_STAGES_HALF
+#define CROSS_STAGES_HALF 4
+#endif
+#if CROSS_SPLIT_WALK
+using CrossHalf = CrossShape<GT / 2, 4, 128, 2, true, false>;
+#elif CROSS_SPLIT_PAIR
+using CrossHalf = CrossShape<GT / 2, CROSS_STAGES_HALF, G_BN, 2, false, false>;
+#else
+using CrossHalf = CrossShape<GT / 2, CROSS_STAGES_HALF, G_BN, 1, false, false>;
+#endif
 
 // Where a launch keeps each block's tables (GEN_SITES words a row: n_pops
 // threshold rows and a zero row for padding columns, n_sets rows of
@@ -510,8 +666,10 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
 #define G_ACC64(i) G_ACC16(i), G_ACC16((i) + 16), G_ACC16((i) + 32), G_ACC16((i) + 48)
 
 // d (64 × 256 int32, the warpgroup's registers: 128 a thread) +=
-// A (64 × 32) · B (256 × 32)ᵀ, int8, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n256k32_s8(int32_t (&d)[128], uint64_t a, uint64_t b) {
+// A (64 × 32) · B (256 × 32)ᵀ, int8, both K-major in shared memory; with
+// accumulate 0, d = A · Bᵀ (no instruction zeroes d between MMAs).
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int32_t (&d)[128], uint64_t a, uint64_t b,
+                                                    int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -528,7 +686,7 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int32_t (&d)[128], uint64_t 
       "%128, %129, p;\n"
       "}\n"
       : G_ACC64(0), G_ACC64(64)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // Keeps the compiler from moving accumulator reads or writes across the
@@ -733,117 +891,332 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   if (mirrored) red_rows(g, n, j0, i0, staged, 1, G_STRIDE, G_BN, rows_out, consumers / 32);
 }
 
-// One block per unit of C (tile row bi of A, column group of G_BOXES tiles
-// of B), or per half of its rows in a split launch (blockIdx.x), and part of
-// the sites (blockIdx.y). gram_accumulate_kernel's ring, producer and
-// consumers, with A's box loaded from its own map.
-__global__ void __launch_bounds__(GRAM_THREADS, 1)
+// d (64 × 128 int32, the warpgroup's registers d[0..63]) += A (64 × 32) ·
+// B (128 × 32)ᵀ: the narrow MMA of a column group of one box.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[128], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : G_ACC64(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// cross_accumulate's launch: which block takes which part of C (the
+// Python mirror is ops/devicegen.py:cross_schedule).
+struct CrossParams {
+  int64_t ldc;
+  int m, n;
+  int m_pad;         // A's rows (multiple of GT); rows past it are never loaded
+  int n_tiles;       // B's 128-row tiles
+  int groups;        // B's column groups of G_BOXES tiles
+  int cluster_rows;  // the clusters' row tiles of CLUSTER · R rows
+  int split;         // parts of the sites an item covers
+  int total_steps;   // ld / GK
+  int items;         // cluster_rows · groups · split
+  int clusters;      // gridDim.x / CLUSTER
+  int shift;         // C's address / 4 mod 4: where a staged row starts, so it meets C's 16-byte phase
+  int bulk;          // ldc % 4 == 0: bulk reductions, single adds at a row's ragged ends
+};
+
+// Item `item` of the launch: split part y of cluster row cr against column
+// group g. Items run part by part (the blocks that read the same sites of
+// B's group at once are neighbours in the grid, which spreads them over
+// the card); within a part consecutive items share B's group (L2 reuse).
+struct CrossItem {
+  int cr, g, first, steps;
+};
+
+__device__ __forceinline__ CrossItem cross_item(int item, const CrossParams& p) {
+  const int per_part = p.cluster_rows * p.groups;
+  const int y = CROSS_PART_MAJOR ? item / per_part : item % p.split;
+  const int t = CROSS_PART_MAJOR ? item % per_part : item / p.split;
+  const int first = static_cast<int>(int64_t(y) * p.total_steps / p.split);
+  const int last = static_cast<int>(int64_t(y + 1) * p.total_steps / p.split);
+  return {t % p.cluster_rows, t / p.cluster_rows, first, last - first};
+}
+
+// Asks L2 for rows [i0, i0 + rows) ∩ [0, m) of C at columns [j0, j0 + G_BN)
+// ∩ [0, n), each row rounded out to 16 bytes (inside C's allocation: C's
+// rows start and end inside it).
+__device__ __forceinline__ void prefetch_rows(const int32_t* c, const CrossParams& p, int i0,
+                                              int j0, int rows) {
+  const int cols = min(G_BN, p.n - j0);
+  if (cols <= 0) return;
+  for (int i = i0; i < min(i0 + rows, p.m); ++i) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(c + static_cast<int64_t>(i) * p.ldc + j0) & ~uintptr_t(15);
+    const uintptr_t hi = (reinterpret_cast<uintptr_t>(c + static_cast<int64_t>(i) * p.ldc + j0 + cols) + 15) & ~uintptr_t(15);
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(lo), "r"(static_cast<uint32_t>(hi - lo))
+                 : "memory");
+  }
+}
+
+// Persistent clusters of S::CLUSTER blocks of R rows (128: two consumer
+// warpgroups; 64: one) walk the launch's items, which the leader takes
+// from a device counter and hands to its peer. Block r of a cluster owns
+// rows [cr·CLUSTER·R + r·R, + R) of C and B's box r of the group, which
+// it loads into both blocks (multicast); a block alone loads both. See the
+// note at the top of the file.
+template <class S>
+__global__ void __launch_bounds__(S::THREADS, 1)
 cross_accumulate_kernel(const __grid_constant__ CUtensorMap a_map,
                         const __grid_constant__ CUtensorMap b_map, int32_t* __restrict__ c,
-                        int64_t ldc, int m, int n, int n_tiles, int total_steps, int halves,
-                        bool bulk) {
-  constexpr int W = G_BOXES;
+                        int* __restrict__ counter, const CrossParams p) {
+  constexpr int R = S::ROWS;
+  constexpr int STAGES = S::STAGES;
+  constexpr int CONSUMERS = S::CONSUMERS;
+  constexpr int CL = S::CLUSTER;
+  constexpr int X_CHUNK = S::CHUNK;
+  constexpr int X_CHUNK_STRIDE = S::CHUNK_STRIDE;
   extern __shared__ unsigned char g_smem[];
   const uint32_t raw = smem_u32(g_smem);
   const uint32_t ring = (raw + 1023) & ~1023u;
-  const uint32_t full = ring + G_STAGES * G_STAGE_BYTES;
-  const uint32_t empty = full + G_STAGES * 8;
-
-  const int groups = (n_tiles + W - 1) / W;
-  const int unit = blockIdx.x / halves;
-  const int bi = unit / groups;
-  const int b0 = (unit % groups) * W;
-  const int b_boxes = n_tiles - b0 < W ? n_tiles - b0 : W;
-  const int first = static_cast<int>(int64_t(blockIdx.y) * total_steps / gridDim.y);
-  const int steps = static_cast<int>(int64_t(blockIdx.y + 1) * total_steps / gridDim.y) - first;
-
-  const int h = blockIdx.x % halves;
-  const int consumers = G_CONSUMERS / halves;
-  const int rows_out = GT / halves;
+  const uint32_t staging = ring + STAGES * S::STAGE_BYTES;  // the ring itself where !S::WALK
+  const uint32_t full = staging + S::STAGING_BYTES;  // full[s] at full + 8·s
+  const uint32_t empty = full + STAGES * 8;
+  const uint32_t sched_full = empty + STAGES * 8;    // the peer's item slots: filled ...
+  const uint32_t sched_empty = sched_full + 2 * 8;   // ... and read (the leader's)
+  const uint32_t info = sched_empty + 2 * 8;         // int a stage: its item, or -1
+  const uint32_t sched_val = info + STAGES * 4;      // int a slot
+  volatile int* const info_at = reinterpret_cast<volatile int*>(g_smem + (info - raw));
+  volatile int* const slot_at = reinterpret_cast<volatile int*>(g_smem + (sched_val - raw));
+  const uint32_t rank = CL == 2 ? cluster_rank() : 0u;
+  const uint32_t peer = rank ^ 1u;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    for (int s = 0; s < G_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, consumers / 32);
+      mbar_init(empty + 8 * s, CL * CONSUMERS / 32);  // every block's consumer warps
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(sched_full + 8 * i, 1);
+      mbar_init(sched_empty + 8 * i, 1);
+    }
+    if (CL == 2) mbar_init_cluster_fence();
   }
-  __syncthreads();
-  if (tid >= consumers && tid < G_CONSUMERS) return;
+  if (CL == 2)
+    cluster_sync_all();
+  else
+    __syncthreads();
 
-  if (tid >= G_CONSUMERS) {
-    if (tid == G_CONSUMERS) {
-      const uint32_t bytes = (1 + b_boxes) * G_BOX_BYTES;
-      for (int t = 0; t < steps; ++t) {
-        const int s = t % G_STAGES;
-        const uint32_t round = t / G_STAGES;
-        if (t >= G_STAGES) mbar_wait(empty + 8 * s, (round & 1) ^ 1);
-        const uint32_t stage = ring + s * G_STAGE_BYTES;
-        const int k = (first + t) * GK;
-        mbar_expect_tx(full + 8 * s, bytes);
-        tma_load_box(stage, &a_map, full + 8 * s, k, bi * GT);
-        for (int w = 0; w < b_boxes; ++w)
-          tma_load_box(stage + (1 + w) * G_BOX_BYTES, &b_map, full + 8 * s, k, (b0 + w) * GT);
+  if (tid >= CONSUMERS) {
+    // Producer: one thread. The leader takes an item and hands it to the
+    // peer through a slot of two; both then push the item's stages, and a
+    // stage without data (item -1) once the items are gone.
+    if (tid == CONSUMERS) {
+      int pushed = 0;  // stages pushed so far: the ring's position
+      for (int k = 0;; ++k) {
+        const int slot = k & 1;
+        const uint32_t parity = (k >> 1) & 1;
+        int item;
+        if (!S::WALK) {
+          if (k > 0) break;
+          item = static_cast<int>(blockIdx.x / CL);
+        } else if (rank == 0) {
+#if CROSS_DYNAMIC
+          item = atomicAdd(counter, 1);
+          // Each cluster's claims end with one past the items, so this is
+          // the launch's last: the next launch on this stream finds zero.
+          if (item == p.items + p.clusters - 1) atomicExch(counter, 0);
+#else
+          item = static_cast<int>(blockIdx.x / CL) + k * p.clusters;
+#endif
+          if (CL == 2) {
+            if (k >= 2) mbar_wait_cluster(sched_empty + 8 * slot, parity ^ 1);
+            st_cluster_u32(cluster_map(sched_val + 4 * slot, peer), static_cast<uint32_t>(item));
+            mbar_arrive_cluster(cluster_map(sched_full + 8 * slot, peer));
+          }
+        } else {
+          mbar_wait_cluster(sched_full + 8 * slot, parity);
+          item = slot_at[slot];
+          mbar_arrive_cluster(cluster_map(sched_empty + 8 * slot, 0));
+        }
+        if (item >= p.items) {
+          const int s = pushed % STAGES;
+          if (pushed >= STAGES) mbar_wait(empty + 8 * s, ((pushed / STAGES) & 1) ^ 1);
+          info_at[s] = -1;
+          mbar_arrive(full + 8 * s);
+          break;
+        }
+        const CrossItem it = cross_item(item, p);
+        const int b0 = it.g * G_BOXES;
+        const int b_boxes = min(G_BOXES, p.n_tiles - b0);
+        // A block whose rows lie past A's (the second block of an odd row
+        // tile count's last cluster) multiplies A's first rows and stores
+        // nothing: its consumers then run the same loop as every other.
+        int row0 = it.cr * CL * R + static_cast<int>(rank) * R;
+        if (row0 >= p.m_pad) row0 = 0;
+        const uint32_t bytes = S::A_BYTES + b_boxes * G_BOX_BYTES;
+        bool prefetched = !S::PREFETCH;
+        for (int t = 0; t < it.steps; ++t, ++pushed) {
+          const int s = pushed % STAGES;
+          // Both blocks' consumers are done with the stage (its B boxes
+          // land in both).
+          if (pushed >= STAGES) mbar_wait(empty + 8 * s, ((pushed / STAGES) & 1) ^ 1);
+          info_at[s] = item;
+          const uint32_t stage = ring + s * S::STAGE_BYTES;
+          const int kx = (it.first + t) * GK;
+          mbar_expect_tx(full + 8 * s, bytes);
+          tma_load_box(stage, &a_map, full + 8 * s, kx, row0 - row0 % S::A_BOX_ROWS);
+          if (CL == 2 && CROSS_MULTICAST) {
+            if (static_cast<int>(rank) < b_boxes)
+              tma_load_box_multicast(stage + S::A_BYTES + rank * G_BOX_BYTES, &b_map,
+                                     full + 8 * s, kx, (b0 + static_cast<int>(rank)) * GT,
+                                     (1u << CL) - 1);
+          } else {
+            for (int w = 0; w < b_boxes; ++w)
+              tma_load_box(stage + S::A_BYTES + w * G_BOX_BYTES, &b_map, full + 8 * s, kx,
+                           (b0 + w) * GT);
+          }
+          if (!prefetched && (t == STAGES - 1 || t == it.steps - 1)) {
+            // The block's rows of C, behind the first stages' loads: the
+            // epilogue's reductions then find them in L2.
+            prefetch_rows(c, p, it.cr * CL * R + static_cast<int>(rank) * R, b0 * GT, R);
+            prefetched = true;
+          }
+        }
       }
     }
+    __syncwarp();
+    if (CL == 2) cluster_sync_all();  // no block leaves while its peer may still reach it
     return;
   }
 
-  const int wg = halves == 2 ? h : tid / 128;
+  // Consumers: warpgroup wg owns rows 64·wg.. of the block's R. A stage is
+  // handed back to both blocks' producers once its MMAs are done, one
+  // stage late (one MMA group stays in flight).
+  const int wg = tid / 128;
+  const int warp = tid / 32, lane = tid & 31;
+  auto release = [&](int s) {
+    if (lane == 0) {
+      mbar_arrive(empty + 8 * s);
+      if (CL == 2) {
+#if CROSS_RELEASE_CLUSTER
+        mbar_arrive_cluster(cluster_map(empty + 8 * s, peer));
+#else
+        mbar_arrive_remote(cluster_map(empty + 8 * s, peer));
+#endif
+      }
+    }
+  };
+  int32_t* const staged = reinterpret_cast<int32_t*>(g_smem + ((S::WALK ? staging : ring) - raw));
+  // Accumulator layout: register 4j+q of lane l in warp w holds row
+  // 16·(w % 4) + l/4 + 8·(q/2) of the warpgroup's 64, column 8j + 2·(l % 4)
+  // + q % 2.
+  const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
   int32_t d[128];
 #pragma unroll
   for (int i = 0; i < 128; ++i) d[i] = 0;
   fence_accumulators(d);
-  for (int t = 0; t < steps; ++t) {
-    const int s = t % G_STAGES;
-    mbar_wait(full + 8 * s, (t / G_STAGES) & 1);
-    const uint32_t stage = ring + s * G_STAGE_BYTES;
-    const uint64_t da = sw128_desc(stage + wg * 64 * GK);
-    const uint64_t db = sw128_desc(stage + G_BOX_BYTES);
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  int taken = 0;  // stages taken so far
+  for (int k = 0;; ++k) {
+    if (!S::WALK && k > 0) break;
+    mbar_wait(full + 8 * (taken % STAGES), (taken / STAGES) & 1);
+    const int item = S::WALK ? info_at[taken % STAGES] : static_cast<int>(blockIdx.x / CL);
+    if (item < 0) break;
+    const CrossItem it = cross_item(item, p);
+    const int b0 = it.g * G_BOXES;
+    const bool narrow = CROSS_NARROW_ONE_BOX && p.n_tiles - b0 < G_BOXES;
+    const int i0 = it.cr * CL * R + static_cast<int>(rank) * R;  // C's first row and column
+    const int j0 = b0 * GT;
+    // The item's MMAs: one wgmma width a loop, so no wgmma sits in a
+    // branch inside it; every MMA is done when the loop ends.
+    auto mma_item = [&](auto narrow_mma) {
+      int pending = -1;
+      for (int t = 0; t < it.steps; ++t, ++taken) {
+        const int s = taken % STAGES;
+        if (t > 0) mbar_wait(full + 8 * s, (taken / STAGES) & 1);
+        const uint32_t stage = ring + s * S::STAGE_BYTES;
+        const uint64_t da = sw128_desc(stage + (wg * 64 + i0 % S::A_BOX_ROWS) * GK);
+        const uint64_t db = sw128_desc(stage + S::A_BYTES);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        // The item's first MMA overwrites the last item's sums.
 #pragma unroll
-    for (int kk = 0; kk < GK / 32; ++kk) wgmma_m64n256k32_s8(d, da + 2 * kk, db + 2 * kk);
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    if (t > 0) {
-      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-      if ((tid & 31) == 0) mbar_arrive(empty + 8 * ((t - 1) % G_STAGES));
-    }
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_accumulators(d);
+        for (int kk = 0; kk < GK / 32; ++kk) {
+          const int accumulate = t > 0 || kk > 0;
+          if constexpr (decltype(narrow_mma)::value)
+            wgmma_m64n128k32_s8(d, da + 2 * kk, db + 2 * kk, accumulate);
+          else
+            wgmma_m64n256k32_s8(d, da + 2 * kk, db + 2 * kk, accumulate);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        if (pending >= 0) {
+          asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+          release(pending);
+        }
+        pending = s;
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      release(pending);
+    };
+    if (narrow)
+      mma_item(std::true_type{});
+    else
+      mma_item(std::false_type{});
+    fence_accumulators(d);
 
-  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
-  int32_t* staged = reinterpret_cast<int32_t*>(g_smem + (ring - raw));
-  const int warp = tid / 32, lane = tid & 31;
-  const int r0 = (tid / 128) * 64 + (warp % 4) * 16 + lane / 4;
-  const int c0 = 2 * (lane % 4);
-  const int i0 = bi * GT + h * rows_out, j0 = b0 * GT;
-  if (bulk) {
+    const int rows = min(R, p.m - i0), cols = min(G_BN, p.n - j0);
+    // Epilogue, while the producer loads the next item: the tile leaves in
+    // chunks of X_CHUNK columns through a staging buffer of its own.
+    if (i0 < p.m_pad && rows > 0 && cols > 0) {
 #pragma unroll
-    for (int j = 0; j < G_BN / 8; ++j) {
-      *reinterpret_cast<int2*>(staged + r0 * G_BULK_STRIDE + 8 * j + c0) =
-          make_int2(d[4 * j], d[4 * j + 1]);
-      *reinterpret_cast<int2*>(staged + (r0 + 8) * G_BULK_STRIDE + 8 * j + c0) =
-          make_int2(d[4 * j + 2], d[4 * j + 3]);
+      for (int chunk = 0; chunk < G_BN / X_CHUNK; ++chunk) {
+        const int lo = chunk * X_CHUNK;
+        if (lo >= cols) break;
+        // The buffer's last reductions have read it.
+        if (tid < R) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        asm volatile("bar.sync 1, %0;" ::"r"(CONSUMERS) : "memory");
+        if ((p.shift & 1) == 0) {
+#pragma unroll
+          for (int j = lo / 8; j < (lo + X_CHUNK) / 8; ++j) {
+            int32_t* at = staged + r0 * X_CHUNK_STRIDE + 8 * j - lo + c0 + p.shift;
+            *reinterpret_cast<int2*>(at) = make_int2(d[4 * j], d[4 * j + 1]);
+            *reinterpret_cast<int2*>(at + 8 * X_CHUNK_STRIDE) = make_int2(d[4 * j + 2], d[4 * j + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int j = lo / 8; j < (lo + X_CHUNK) / 8; ++j) {
+            int32_t* at = staged + r0 * X_CHUNK_STRIDE + 8 * j - lo + c0 + p.shift;
+            at[0] = d[4 * j];
+            at[1] = d[4 * j + 1];
+            at[8 * X_CHUNK_STRIDE] = d[4 * j + 2];
+            at[8 * X_CHUNK_STRIDE + 1] = d[4 * j + 3];
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("bar.sync 1, %0;" ::"r"(CONSUMERS) : "memory");
+        const int width = min(X_CHUNK, cols - lo);
+        if (p.bulk) {
+          // Thread r adds staged row r: single adds up to C's next 16-byte
+          // boundary, one bulk reduction, single adds for the rest.
+          if (tid < rows) {
+            int32_t* dst = c + static_cast<int64_t>(i0 + tid) * p.ldc + j0 + lo;
+            const int32_t* src = staged + tid * X_CHUNK_STRIDE + p.shift;
+            const int head = min(width, (4 - p.shift) & 3);
+            const int body = (width - head) & ~3;
+            for (int e = 0; e < head; ++e) atomicAdd(dst + e, src[e]);
+            if (body > 0) bulk_add(dst + head, smem_u32(src + head), 4 * body);
+            for (int e = head + body; e < width; ++e) atomicAdd(dst + e, src[e]);
+            asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+          }
+        } else {
+          red_tile(c, p.ldc, p.m, p.n, i0, j0 + lo, staged + p.shift, X_CHUNK_STRIDE, 1, R, width,
+                   CONSUMERS / 32);
+        }
+      }
     }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
-    const int row_bytes = 4 * min(G_BN, n - j0);
-    if (tid < rows_out && i0 + tid < m && row_bytes > 0)
-      bulk_add(c + static_cast<int64_t>(i0 + tid) * ldc + j0,
-               smem_u32(staged + tid * G_BULK_STRIDE), row_bytes);
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-    return;
   }
-#pragma unroll
-  for (int j = 0; j < G_BN / 8; ++j) {
-    staged[r0 * G_STRIDE + 8 * j + c0] = d[4 * j];
-    staged[r0 * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 1];
-    staged[(r0 + 8) * G_STRIDE + 8 * j + c0] = d[4 * j + 2];
-    staged[(r0 + 8) * G_STRIDE + 8 * j + c0 + 1] = d[4 * j + 3];
-  }
-  asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
-  red_tile(c, ldc, m, n, i0, j0, staged, G_STRIDE, 1, rows_out, G_BN, consumers / 32);
+  if (tid < R) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  if (CL == 2) cluster_sync_all();
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -882,23 +1255,29 @@ cudaError_t gram_prepare(int* device) {
   status = cudaFuncSetAttribute(gram_accumulate_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
   if (status == cudaSuccess)
-    status = cudaFuncSetAttribute(cross_accumulate_kernel,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
+    status = cudaFuncSetAttribute(cross_accumulate_kernel<CrossFull>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, CrossFull::SMEM_BYTES);
+  if (status == cudaSuccess)
+    status = cudaFuncSetAttribute(cross_accumulate_kernel<CrossDeep>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, CrossDeep::SMEM_BYTES);
+  if (status == cudaSuccess)
+    status = cudaFuncSetAttribute(cross_accumulate_kernel<CrossHalf>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, CrossHalf::SMEM_BYTES);
   if (status == cudaSuccess && *device < G_MAX_DEVICES) ready[*device] = true;
   return status;
 }
 
 // The tensor map of an int8 Xᵀ of `rows` rows of `ld` sites at `xt`: sites
-// innermost, rows ld bytes apart, boxes of GK sites × GT rows with the
-// 128-byte swizzle. There is no signed 8-bit map type; the bytes are the
-// same. Returns minus the CUresult when the driver refuses it.
-int encode_xt_map(CUtensorMap* map, const int8_t* xt, int rows, int ld) {
+// innermost, rows ld bytes apart, boxes of GK sites × box_rows rows with
+// the 128-byte swizzle. There is no signed 8-bit map type; the bytes are
+// the same. Returns minus the CUresult when the encoder refuses it.
+int encode_xt_map(CUtensorMap* map, const int8_t* xt, int rows, int ld, int box_rows = GT) {
   EncodeTiled encode = nullptr;
   const cudaError_t found = encoder(&encode);
   if (found != cudaSuccess) return static_cast<int>(found);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ld), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
-  const cuuint32_t box[2] = {GK, GT};
+  const cuuint32_t box[2] = {GK, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult encoded = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(xt), dims, strides, box, unit,
@@ -1030,6 +1409,96 @@ cudaError_t gen_config(int ld, int n_cols_pad, int n_pops, int n_sets, cudaStrea
   return status;
 }
 
+// The card's SMs, cached per device.
+cudaError_t device_sms(int device, int* sms) {
+  static std::atomic<int> cached[G_MAX_DEVICES];
+  if (device < G_MAX_DEVICES && cached[device] > 0) {
+    *sms = cached[device];
+    return cudaSuccess;
+  }
+  const cudaError_t status = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (status == cudaSuccess && device < G_MAX_DEVICES) cached[device] = *sms;
+  return status;
+}
+
+// One cross_accumulate launch (ops/devicegen.py:cross_schedule mirrors
+// it). Unsplit: blocks of 128 rows, a cluster on two row tiles, the deep
+// shape where an item walks X_DEEP_STEPS steps or more; as many clusters
+// as the items, at most one a block an SM: they walk the items. Split:
+// blocks of 64 rows (CrossHalf), an item taking 1/split of the sites; a
+// block an item.
+enum CrossKind { CROSS_FULL = 0, CROSS_DEEP = 1, CROSS_HALF = 2 };
+
+struct CrossPlan {
+  CrossParams params;
+  int kind;     // CrossKind
+  int rows;     // R
+  int cluster;  // blocks a cluster: they share B
+  int stages;
+  bool walk;    // persistent clusters walk the items
+  int a_box;    // rows of A's tensor map box
+  int blocks;   // gridDim.x
+};
+
+template <class S>
+void cross_fill(CrossPlan* plan, int kind) {
+  plan->kind = kind;
+  plan->rows = S::ROWS;
+  plan->cluster = S::CLUSTER;
+  plan->stages = S::STAGES;
+  plan->walk = S::WALK;
+  plan->a_box = S::A_BOX_ROWS;
+}
+
+CrossPlan cross_plan(int m_pad, int n_pad, int ld, int split, int sms) {
+  CrossPlan plan{};
+  CrossParams& p = plan.params;
+  p.total_steps = ld / GK;
+  if (split > 1)
+    cross_fill<CrossHalf>(&plan, CROSS_HALF);
+  else if (p.total_steps >= X_DEEP_STEPS)
+    cross_fill<CrossDeep>(&plan, CROSS_DEEP);
+  else
+    cross_fill<CrossFull>(&plan, CROSS_FULL);
+  p.m_pad = m_pad;
+  p.n_tiles = n_pad / GT;
+  p.groups = (p.n_tiles + G_BOXES - 1) / G_BOXES;
+  const int cluster_span = plan.cluster * plan.rows;
+  p.cluster_rows = (m_pad + cluster_span - 1) / cluster_span;
+  p.split = split;
+  p.items = p.cluster_rows * p.groups * split;
+  // Walking clusters: at most one a block an SM. Else a cluster an item.
+  p.clusters = plan.walk ? max(1, min(p.items, sms / plan.cluster)) : p.items;
+  plan.blocks = p.clusters * plan.cluster;
+  return plan;
+}
+
+template <class S>
+const void* cross_kernel_config(cudaLaunchConfig_t* config) {
+  config->blockDim = dim3(S::THREADS);
+  config->dynamicSmemBytes = S::SMEM_BYTES;
+  return reinterpret_cast<const void*>(cross_accumulate_kernel<S>);
+}
+
+// The launch configuration of `plan` on `stream` (its cluster attribute in
+// `cluster`), and the kernel it launches.
+const void* cross_config(const CrossPlan& plan, cudaStream_t stream, cudaLaunchConfig_t* config,
+                         cudaLaunchAttribute* cluster) {
+  *config = cudaLaunchConfig_t{};
+  const void* kernel = plan.kind == CROSS_HALF   ? cross_kernel_config<CrossHalf>(config)
+                       : plan.kind == CROSS_DEEP ? cross_kernel_config<CrossDeep>(config)
+                                                 : cross_kernel_config<CrossFull>(config);
+  config->gridDim = dim3(plan.blocks);
+  config->stream = stream;
+  cluster->id = cudaLaunchAttributeClusterDimension;
+  cluster->val.clusterDim.x = plan.cluster;
+  cluster->val.clusterDim.y = 1;
+  cluster->val.clusterDim.z = 1;
+  config->attrs = cluster;
+  config->numAttrs = plan.cluster > 1 || CROSS_LONE_CLUSTER_ATTR ? 1 : 0;
+  return kernel;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1141,28 +1610,70 @@ int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int l
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch shape of one cross_accumulate over A (m_pad, ld) and B
+// (n_pad, ld) at `split` on the current card: grid[0] blocks, grid[1] the
+// cluster size, grid[2] rows of C a block owns, grid[3] items, grid[4] the
+// card's SMs, grid[5] clusters the card holds at once, grid[6] stages. A
+// diagnostic: the launcher does not need it.
+int cross_accumulate_grid(int m_pad, int n_pad, int ld, int split, int* grid) {
+  int device = 0, sms = 0, resident = 0;
+  cudaError_t status = gram_prepare(&device);
+  if (status == cudaSuccess) status = device_sms(device, &sms);
+  const CrossPlan plan = cross_plan(m_pad, n_pad, ld, split, sms);
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  const void* kernel = cross_config(plan, nullptr, &config, &cluster);
+  if (status == cudaSuccess && plan.cluster > 1) {
+    status = cudaOccupancyMaxActiveClusters(&resident, kernel, &config);
+  } else if (status == cudaSuccess) {
+    status = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, config.blockDim.x,
+                                                           config.dynamicSmemBytes);
+    resident *= sms;  // blocks alone: clusters of one
+  }
+  grid[0] = plan.blocks;
+  grid[1] = plan.cluster;
+  grid[2] = plan.rows;
+  grid[3] = plan.params.items;
+  grid[4] = sms;
+  grid[5] = resident;
+  grid[6] = plan.stages;
+  return static_cast<int>(status);
+}
+
 // C[:m, :n] += (A·Bᵀ)[:m, :n] into the int32 C of leading dimension ldc,
 // for the int8 A (m_pad, ld) and B (n_pad, ld) at `a` and `b` (m_pad,
 // n_pad and ld multiples of 128, both 16-byte aligned), the sites split
-// over `split` blocks a unit (ops/devicegen.py:cross_split chooses it).
+// `split` ways (ops/devicegen.py:cross_split chooses it). `counter` is an
+// int the launch takes its items from: zero before it, zero after it (the
+// last claim resets it), so launches on one stream share one.
 int cross_accumulate_launch(int32_t* c, int64_t ldc, int m, int n, const int8_t* a, int m_pad,
-                            const int8_t* b, int n_pad, int ld, int split, void* stream) {
-  if (split < 1 || m > m_pad || n > n_pad || m_pad % GT || n_pad % GT || ld % GK || ldc < n)
+                            const int8_t* b, int n_pad, int ld, int split, int* counter,
+                            void* stream) {
+  if (split < 1 || split > ld / GK || m > m_pad || n > n_pad || m_pad % GT || n_pad % GT ||
+      ld % GK || ldc < n || counter == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0;
-  const cudaError_t prepared = gram_prepare(&device);
-  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  int device = 0, sms = 0;
+  cudaError_t status = gram_prepare(&device);
+  if (status == cudaSuccess) status = device_sms(device, &sms);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  CrossPlan plan = cross_plan(m_pad, n_pad, ld, split, sms);
   CUtensorMap a_map, b_map;
-  int encoded = encode_xt_map(&a_map, a, m_pad, ld);
+  int encoded = encode_xt_map(&a_map, a, m_pad, ld, plan.a_box);
   if (encoded == 0) encoded = encode_xt_map(&b_map, b, n_pad, ld);
   if (encoded != 0) return encoded;
-  const int halves = split > 1 ? 2 : 1;
-  const int n_tiles = n_pad / GT;
-  const int units = (m_pad / GT) * ((n_tiles + G_BOXES - 1) / G_BOXES);
-  const dim3 blocks(units * halves, split);
-  const bool bulk = n % 4 == 0 && ldc % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  cross_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      a_map, b_map, c, ldc, m, n, n_tiles, ld / GK, halves, bulk);
+  CrossParams& p = plan.params;
+  p.ldc = ldc;
+  p.m = m;
+  p.n = n;
+  const uintptr_t address = reinterpret_cast<uintptr_t>(c);
+  p.shift = static_cast<int>((address / 4) % 4);
+  p.bulk = ldc % 4 == 0 && address % 4 == 0;
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute cluster;
+  const void* kernel = cross_config(plan, static_cast<cudaStream_t>(stream), &config, &cluster);
+  void* args[] = {&a_map, &b_map, &c, &counter, &p};
+  status = cudaLaunchKernelExC(&config, kernel, args);
+  if (status != cudaSuccess) return static_cast<int>(status);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -46,11 +46,22 @@
 //   device-generation ring runs on its generated columns before the first
 //   transfer, so the ring circulates ⅛ of the bytes.
 //   Bound: bytes (it reads n_cols × B int8 and writes an eighth of that).
-//   One block of 256 threads a tile of 128 sites × 128 columns: 16-byte
-//   loads of the tile's rows into shared memory (a row padded by 16 bytes,
-//   so a warp's column-wise reads of one site meet distinct banks), then a
-//   thread packs 8 output bytes of one site, reading its 64 columns, and
-//   stores them; sites past B and bytes past n_cols / 8 are not written.
+//   The first version built each output byte from eight shared-memory
+//   byte loads and stored it alone: a warp's stores touched 32 rows
+//   out_width bytes apart. Now a block takes PACK_SITES sites × every
+//   column (up to PACK_MAX_BYTES of a row; wider rows take more blocks
+//   along y): warp w takes the 32-column groups w, w + 8, ..., a lane a
+//   column, and loads its 32 sites as one 32-byte sector (two 16-byte
+//   loads, each asking L2 for the whole 128-byte line, which the blocks of
+//   the next sites read; a warp of many groups keeps PACK_DEEP groups'
+//   loads in flight). A warp vote per site,
+//   __ballot_sync(byte != 0), is that site's 32 columns as one word (bit
+//   l: column 32·group + l); lane i keeps site i's, and __brev then a
+//   byte swap put it in np.packbits' order (byte j holds columns 8j..8j+7, the
+//   first in bit 7). The block's output is then one contiguous range of
+//   sites × out_width bytes (staged in shared memory as in the output)
+//   and leaves in 16-byte stores; where a row is wider than a block's
+//   share, each site's segment leaves byte by byte.
 //
 // Plain C interface, bound with ctypes (ops/_kernels.py). The launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -184,39 +195,106 @@ unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int
   }
 }
 
-constexpr int PACK_STRIDE = TILE_SITES + 16;  // a staged column row, bytes
+constexpr int PACK_SITES = 32;         // sites a block: one 32-byte sector of a column row
+constexpr int PACK_WARPS = 8;
+constexpr int PACK_MAX_BYTES = 1536;   // bytes of a row a block stages: 48 KiB over its sites
+static_assert(PACK_MAX_BYTES % 4 == 0, "a block's share of a row is whole 32-column groups");
+// A warp whose groups number at least this keeps PACK_DEEP groups' loads
+// in flight; one otherwise (ops/gramian.py:pack_schedule mirrors it).
+constexpr int PACK_DEEP_GROUPS = 4;
+// The kept design's switches: experiments/ring_variants.py builds this
+// source with others (-D) to time the designs it was chosen over.
+#ifndef PACK_DEEP
+#define PACK_DEEP 2
+#endif
+#ifndef PACK_L2_HINT
+#define PACK_L2_HINT 1  // loads ask L2 for the whole 128-byte line (the next blocks' sites)
+#endif
 
-__global__ void __launch_bounds__(THREADS)
-pack_rows_t_kernel(const int8_t* __restrict__ xt, int ld, int rows, int out_width,
-                   uint8_t* __restrict__ out) {
-  __shared__ __align__(16) uint8_t tile[TILE_COLS * PACK_STRIDE];
-  const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * TILE_SITES;
-  const int c0 = blockIdx.y * TILE_COLS;
-  // Loads: column row c, 16 sites a lane (the tile lies inside Xᵀ: both
-  // of its dimensions are multiples of 128).
+// 16 bytes of a column row, read-only.
+__device__ __forceinline__ uint4 load_sites(const int8_t* p) {
+  uint4 v;
+#if PACK_L2_HINT
+  asm volatile("ld.global.nc.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+#else
+  v = __ldg(reinterpret_cast<const uint4*>(p));
+#endif
+  return v;
+}
+
+template <int DEPTH>
+__global__ void __launch_bounds__(PACK_WARPS * 32)
+pack_rows_t_kernel(const int8_t* __restrict__ xt, int ld, int rows, int n_cols, int out_width,
+                   int share, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t packed[];  // [site][share], as in the output
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int s0 = blockIdx.x * PACK_SITES;
+  const int sites = min(PACK_SITES, rows - s0);
+  const int b0 = blockIdx.y * share;  // the block's first byte of a row
+  const int width = min(share, out_width - b0);
+  const int groups = (width + 3) / 4;
+  const bool words = share % 4 == 0;  // a group's word lands on a 4-byte boundary
+  // Group g's 32 sites of this lane's column (zeros past the columns).
+  auto load = [&](int group, uint4 (&v)[2]) {
+    const int col = 8 * b0 + 32 * group + lane;
+    v[0] = v[1] = make_uint4(0, 0, 0, 0);
+    if (group < groups && col < n_cols) {
+      const int8_t* src = xt + static_cast<int64_t>(col) * ld + s0;
+      v[0] = load_sites(src);
+      v[1] = load_sites(src + 16);
+    }
+  };
+  uint4 ring[DEPTH][2];
 #pragma unroll
-  for (int i = 0; i < TILE_COLS * SEGMENTS / THREADS; ++i) {
-    const int u = tid + i * THREADS;
-    const int seg = u % SEGMENTS, c = u / SEGMENTS;
-    *reinterpret_cast<uint4*>(&tile[c * PACK_STRIDE + 16 * seg]) =
-        *reinterpret_cast<const uint4*>(xt + static_cast<int64_t>(c0 + c) * ld + s0 + 16 * seg);
+  for (int i = 0; i < DEPTH; ++i) load(warp + i * PACK_WARPS, ring[i]);
+  for (int base = warp; base < groups; base += DEPTH * PACK_WARPS) {
+#pragma unroll
+    for (int i = 0; i < DEPTH; ++i) {
+      const int group = base + i * PACK_WARPS;
+      if (group >= groups) break;
+      const uint32_t v[8] = {ring[i][0].x, ring[i][0].y, ring[i][0].z, ring[i][0].w,
+                             ring[i][1].x, ring[i][1].y, ring[i][1].z, ring[i][1].w};
+      load(group + DEPTH * PACK_WARPS, ring[i]);
+      uint32_t mine = 0;
+#pragma unroll
+      for (int k = 0; k < PACK_SITES; ++k) {
+        const uint32_t vote = __ballot_sync(0xFFFFFFFFu, (v[k / 4] & (0xFFu << (8 * (k % 4)))) != 0);
+        if (lane == k) mine = vote;
+      }
+      // Bit l is column 32·group + l; np.packbits wants byte j to hold
+      // columns 8j..8j+7 with the first in bit 7.
+      const uint32_t word = __byte_perm(__brev(mine), 0, 0x0123);
+      if (lane < sites) {
+        uint8_t* dst = packed + lane * share + 4 * group;
+        const int bytes = min(4, width - 4 * group);
+        if (words && bytes == 4) {
+          *reinterpret_cast<uint32_t*>(dst) = word;
+        } else {
+          for (int q = 0; q < bytes; ++q) dst[q] = static_cast<uint8_t>(word >> (8 * q));
+        }
+      }
+    }
   }
   __syncthreads();
-  // Thread (group, site): output bytes 8·group .. 8·group + 7 of the tile's
-  // 16 at one site.
-  const int site = tid % TILE_SITES, group = tid / TILE_SITES;
-  const int s = s0 + site;
-  if (s >= rows) return;
-  uint8_t* row = out + static_cast<int64_t>(s) * out_width;
-#pragma unroll
-  for (int j = 8 * group; j < 8 * group + 8; ++j) {
-    const int byte = c0 / 8 + j;
-    if (byte >= out_width) break;
-    uint32_t v = 0;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) v |= (tile[(8 * j + k) * PACK_STRIDE + site] != 0 ? 1u : 0u) << (7 - k);
-    row[byte] = static_cast<uint8_t>(v);
+  if (gridDim.y == 1) {
+    // share == out_width: sites × out_width contiguous bytes, starting on
+    // a 16-byte boundary (PACK_SITES is a multiple of 16).
+    const int total = sites * out_width;
+    uint8_t* dst = out + static_cast<int64_t>(s0) * out_width;
+    for (int off = 16 * threadIdx.x; off < total; off += 16 * PACK_WARPS * 32) {
+      if (off + 16 <= total) {
+        *reinterpret_cast<uint4*>(dst + off) = *reinterpret_cast<const uint4*>(packed + off);
+      } else {
+        for (int e = off; e < total; ++e) dst[e] = packed[e];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < sites * width; e += PACK_WARPS * 32) {
+      const int i = e / width, j = e % width;
+      out[static_cast<int64_t>(s0 + i) * out_width + b0 + j] = packed[i * share + j];
+    }
   }
 }
 
@@ -244,20 +322,45 @@ int unpack_rows_t_launch(const uint8_t* in, int rows, int in_width, int n_cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A pack's launch: blocks along sites (grid[0]) and along a row
+// (grid[1]), the bytes of a row a block takes (grid[2]), and the groups
+// whose loads a warp keeps in flight (grid[4]).
+void pack_rows_t_shape(int rows, int out_width, int* grid) {
+  grid[2] = out_width <= PACK_MAX_BYTES ? out_width : PACK_MAX_BYTES;
+  grid[0] = (rows + PACK_SITES - 1) / PACK_SITES;
+  grid[1] = grid[2] > 0 ? (out_width + grid[2] - 1) / grid[2] : 0;
+  const int groups = (grid[2] + 3) / 4;
+  grid[4] = (groups + PACK_WARPS - 1) / PACK_WARPS >= PACK_DEEP_GROUPS ? PACK_DEEP : 1;
+}
+
 // out (rows, n_cols / 8) uint8 = the bit-packed rows of the int8 Xᵀ
 // (n_pad, ld) at `xt` (16-byte aligned; n_pad and ld multiples of 128,
-// n_cols a multiple of 8 and at most n_pad, rows at most ld).
+// n_cols a multiple of 8 and at most n_pad, rows at most ld; `out`
+// 16-byte aligned).
 int pack_rows_t_launch(const int8_t* xt, int n_pad, int ld, int n_cols, int rows, uint8_t* out,
                        void* stream) {
   if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || n_cols % 8 != 0 || n_cols > n_pad ||
-      rows > ld || reinterpret_cast<uintptr_t>(xt) % 16 != 0) {
+      rows > ld || reinterpret_cast<uintptr_t>(xt) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows == 0 || n_cols == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((rows + TILE_SITES - 1) / TILE_SITES, (n_cols + TILE_COLS - 1) / TILE_COLS);
-  pack_rows_t_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(xt, ld, rows,
-                                                                             n_cols / 8, out);
+  int grid[5];
+  pack_rows_t_shape(rows, n_cols / 8, grid);
+  auto kernel = grid[4] == 1 ? pack_rows_t_kernel<1> : pack_rows_t_kernel<PACK_DEEP>;
+  kernel<<<dim3(grid[0], grid[1]), PACK_WARPS * 32, PACK_SITES * grid[2],
+           static_cast<cudaStream_t>(stream)>>>(xt, ld, rows, n_cols, n_cols / 8, grid[2], out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// pack_rows_t's launch shape for `rows` sites of `n_cols` columns:
+// grid[0] blocks along the sites, grid[1] along a row, grid[2] the bytes of
+// a row a block takes, grid[3] sites a block, grid[4] groups in flight a
+// warp.
+int pack_rows_t_grid(int rows, int n_cols, int* grid) {
+  pack_rows_t_shape(rows, n_cols / 8, grid);
+  grid[3] = PACK_SITES;
+  return 0;
 }
 
 }  // extern "C"

@@ -13,6 +13,17 @@ process's wall-clock (host clock around the process, its start and
 run per tree first builds its kernels; then each round runs the trees in
 order and in reverse (A B B A). Prints the card line, one JSON line per
 run and one with each tree's medians. Runs on a CUDA card only.
+
+With ``--positions N`` the argv (flags, no verb) runs through
+``run_pipeline(conf, devices=[cuda:0] * N)`` instead, a mesh of N
+positions of one card (the CLI resolves a mesh over N cards), once untimed
+and once timed in each process: the wall-clock of the timed run (host
+clock around it, ending in a synchronise) and its spans::
+
+    python -m spark_examples_tpu_torch.experiments.cli_wall \
+        --tree build/parent --tree . --rounds 1 --positions 4 -- \
+        --references 17:0:81195210 --num-samples 25000 --ingest device \
+        --block-size 16384 --mesh-shape 1,4 --similarity-strategy sharded
 """
 
 from __future__ import annotations
@@ -26,6 +37,42 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+
+#: Run in each tree's own process for ``--positions``: the pipeline over
+#: positions of cuda:0, untimed then timed; prints one JSON object.
+WORKER = r'''
+import contextlib, io, json, sys, time
+import torch
+from spark_examples_tpu_torch.config import PcaConf
+from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+argv, positions = json.loads(sys.argv[1]), int(sys.argv[2])
+devices = [torch.device("cuda", 0)] * positions
+for timed in (False, True):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = run_pipeline(PcaConf.parse(argv), devices=devices)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = {s["path"]: s["seconds"] for s in result.driver.spans.flat()}
+    del result
+print(json.dumps({"wall_s": wall, "spans_s": spans}))
+'''
+
+
+def run_positions(tree: Path, argv, positions: int) -> dict:
+    """The pipeline over ``positions`` positions of one card in ``tree``'s
+    own process: the timed run's wall-clock and spans."""
+    proc = subprocess.run(
+        [sys.executable, "-c", WORKER, json.dumps(argv), str(positions)],
+        cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
+        capture_output=True, text=True, timeout=900,
+    )
+    if proc.returncode:
+        raise RuntimeError(f"{tree}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    return {"tree": str(tree), **json.loads(proc.stdout.strip().splitlines()[-1])}
 
 
 def run_once(tree: Path, argv, workdir: Path) -> dict:
@@ -48,6 +95,8 @@ def main(args=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tree", action="append", required=True, type=Path)
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--positions", type=int, default=0,
+                        help="run the flags through run_pipeline on this many positions of cuda:0")
     parser.add_argument("argv", nargs=argparse.REMAINDER)
     ns = parser.parse_args(args)
     argv = ns.argv[1:] if ns.argv[:1] == ["--"] else ns.argv
@@ -58,11 +107,17 @@ def main(args=None) -> int:
     runs = {str(t): [] for t in trees}
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
+
+        def run(tree):
+            if ns.positions:
+                return run_positions(tree, argv, ns.positions)
+            return run_once(tree, argv, workdir)
+
         for tree in trees:
-            run_once(tree, argv, workdir)
+            run(tree)
         for _ in range(ns.rounds):
             for tree in trees + trees[::-1]:
-                result = run_once(tree, argv, workdir)
+                result = run(tree)
                 runs[str(tree)].append(result)
                 print(json.dumps(result), flush=True)
     print(json.dumps({tree: {

@@ -20,6 +20,13 @@ same inputs made from fixed seeds:
 - ``depth_counts`` at a whole-chr21 shard of example 3 (26,194 reads,
   W = 327,542) and ``base_counts`` at an example-4 shard (4,210 reads ×
   128, W = 52,759);
+- the ring's kernels (trees that have them): ``cross_accumulate`` into a
+  column slice of a row tile 4 positions wide at 632 × 632 and 6,250 ×
+  6,250 × 1,024 and 16,384 sites (2,504 and 25,000 samples over 4
+  positions), beside ``torch._int_mm`` on the same operands plus the
+  slice add; ``pack_rows_t`` of a 632- and a 6,256-column Xᵀ × 16,384
+  sites (a position's packed tile at 2,504 and 25,000 samples) and
+  ``unpack_rows_t`` of the packed tile back;
 - the launch floor: ``torch.cuda._sleep(0)`` in the same harness;
 - in every process, ``torch._int_mm`` on the LD window's operand and
   ``torch.bincount`` of the chr21 shard's covered positions, the same
@@ -89,6 +96,32 @@ codes = torch.from_numpy(rng.integers(-1, 4, (R, 128)).astype(np.int8)).to(dev)
 ok = torch.from_numpy((rng.random((R, 128)) < 11 / 21).astype(np.uint8)).to(dev)
 out["base_counts example-4 shard"] = cuda_ms(
     lambda: depth.base_counts(pos4, codes, ok, start, W4), 50)
+if hasattr(devicegen, "cross_accumulate"):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+
+    def bits(rows, sites):
+        return (torch.rand((rows, sites), device=dev, generator=gen) < 0.3).to(torch.int8)
+
+    for m in (632, 6250):
+        pad = -(-m // 128) * 128
+        tile = torch.zeros((m, 4 * m), dtype=torch.int32, device=dev)
+        C = tile[:, m : 2 * m]
+        for sites in (1024, 16384):
+            a, b = bits(pad, sites), bits(pad, sites)
+            iters = 20 if m * sites > 10**7 else 50
+            out[f"cross_accumulate {m}x{m}x{sites}"] = cuda_ms(
+                lambda: devicegen.cross_accumulate(C, a, b), iters)
+            out[f"torch._int_mm + add {m}x{m}x{sites}"] = cuda_ms(
+                lambda: C.add_(torch._int_mm(a, b.t())[:m, :m]), iters)
+            del a, b
+        del tile, C
+    for cols in (632, 6256):
+        xt = bits(-(-cols // 128) * 128, 16384)
+        out[f"pack_rows_t {cols}x16384"] = cuda_ms(lambda: gramian.pack_rows_t(xt, cols), 50)
+        packed = gramian.pack_rows_t(xt, cols)
+        out[f"unpack_rows_t ring {cols}x16384"] = cuda_ms(
+            lambda: gramian.unpack_rows_t(packed, cols), 50)
 out["launch floor"] = cuda_ms(lambda: torch.cuda._sleep(0), 50)
 print(json.dumps(out))
 '''

@@ -56,8 +56,9 @@ _SIGNATURES = {
             _P,  # stream
         ),
         "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _I32, _P),  # ..., ldx, split, stream
-        # c, ldc, m, n, a, m_pad, b, n_pad, ld, split, stream
-        "cross_accumulate_launch": (_P, _I64, _I32, _I32, _P, _I32, _P, _I32, _I32, _I32, _P),
+        # c, ldc, m, n, a, m_pad, b, n_pad, ld, split, counter, stream
+        "cross_accumulate_launch": (_P, _I64, _I32, _I32, _P, _I32, _P, _I32, _I32, _I32, _P, _P),
+        "cross_accumulate_grid": (_I32, _I32, _I32, _I32, _P),  # m_pad, n_pad, ld, split, grid (7 ints)
         "gen_genotypes_table_words": (_I32, _I32, _I32, _I32, _P),  # ld, n_cols_pad, pops, sets, words
         "gen_genotypes_grid": (_I32, _I32, _I32, _I32, _P),  # ld, n_cols_pad, pops, sets, grid (5 ints)
         "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (3 ints)
@@ -69,6 +70,7 @@ _SIGNATURES = {
         "unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P),
         "gramian_tile_sites": (),
         "pack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _P),  # xt, n_pad, ld, n_cols, rows, out, stream
+        "pack_rows_t_grid": (_I32, _I32, _P),  # rows, n_cols, grid (5 ints)
     },
     "ld.cu": {
         # in, rows, width, pitch, vectors, case, n_cols, lanes, a, t, stream

@@ -35,7 +35,7 @@ import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple, Union
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -568,17 +568,123 @@ def _split(units: int, ld: int, sms: int) -> int:
 
 
 def cross_units(m_pad: int, n_pad: int) -> int:
-    """Work units of a :func:`cross_accumulate` over A of ``m_pad`` rows and
-    B of ``n_pad`` (multiples of ``COL_TILE``): every tile row of A against
-    every group of ``GRAM_UNIT_TILES`` tiles of B."""
+    """Units of 128 × 256 of C in a :func:`cross_accumulate` over A of
+    ``m_pad`` rows and B of ``n_pad`` (multiples of ``COL_TILE``): every
+    tile row of A against every group of ``GRAM_UNIT_TILES`` tiles of B."""
     return (m_pad // COL_TILE) * -(-(n_pad // COL_TILE) // GRAM_UNIT_TILES)
 
 
+#: The fewest steps of ``SITE_TILE`` sites a part of a split
+#: :func:`cross_accumulate` walks (measured on the card: PERF.md).
+CROSS_SPLIT_MIN_STEPS = 4
+
+
 def cross_split(m_pad: int, n_pad: int, ld: int, sms: int) -> int:
-    """:func:`gram_split`'s rule for :func:`cross_accumulate`: at 632 × 632
-    (2,504 samples over 4 positions) 15 units, so 4 splits of half units
-    (120 blocks on 132 SMs); at 6,256 × 6,256, 1,225 units, no split."""
-    return _split(cross_units(m_pad, n_pad), ld, sms)
+    """Parts of the sites a :func:`cross_accumulate` splits into: 1 where
+    its units fill half the card (6,256 × 6,256: 1,225 units), else the
+    most that keep one wave of 64-row blocks (two a unit a part) and
+    ``CROSS_SPLIT_MIN_STEPS`` steps a part. At 632 × 632 (2,504 samples
+    over 4 positions) 15 units: 4 parts at 16,384 sites (120 blocks on 132
+    SMs), 2 at the CLI's 1,024 (60 blocks), where each part's partial tile
+    costs more to add into C than its MMAs save."""
+    units = cross_units(m_pad, n_pad)
+    if 2 * units >= sms:
+        return 1
+    return max(1, min(sms // (2 * units), (ld // SITE_TILE) // CROSS_SPLIT_MIN_STEPS))
+
+
+#: Blocks of an unsplit ``cross_accumulate``'s cluster, which share B's
+#: column group (``csrc/devicegen.cu:CrossFull``; a split launch's blocks
+#: run alone).
+CROSS_CLUSTER = 2
+#: Steps of ``SITE_TILE`` sites from which an unsplit item takes the deep
+#: shape (``csrc/devicegen.cu:X_DEEP_STEPS``), and the stages of each shape.
+CROSS_DEEP_STEPS = 32
+CROSS_STAGES = {"full": 3, "deep": 4, "half": 4}
+
+
+class CrossSchedule(NamedTuple):
+    """One ``cross_accumulate`` launch (``csrc/devicegen.cu:cross_plan``)."""
+
+    blocks: int  #: persistent blocks: clusters × ``cluster``
+    cluster: int  #: blocks a cluster
+    split: int  #: parts of the sites
+    units: int  #: 128 × 256 units of C (:func:`cross_units`)
+    items: int  #: (cluster row, column group, part) items the clusters walk
+    rows: int  #: rows of C a block owns: 128 unsplit, 64 split
+    stages: int  #: TMA stages a block keeps
+    walk: bool  #: persistent clusters walk the items (unsplit); else a block an item
+
+
+def cross_schedule(
+    m_pad: int, n_pad: int, ld: int, sms: int, split: Optional[int] = None
+) -> CrossSchedule:
+    """The launch of a :func:`cross_accumulate` over A (``m_pad``, ``ld``)
+    and B (``n_pad``, ``ld``) on a card of ``sms`` SMs, at ``split``
+    (default :func:`cross_split`). An item is a cluster's rows against one
+    column group of B over 1/split of the sites. Unsplit, a block owns 128
+    rows and a cluster two row tiles, its blocks taking the same column
+    group (each loads one of its boxes into both); the launch holds as
+    many clusters as items, at most one an SM pair, and they take the
+    items from a device counter. Split (one wave), a block owns 64 rows
+    of one item, the items part by part."""
+    split = cross_split(m_pad, n_pad, ld, sms) if split is None else int(split)
+    walk = split == 1
+    if walk:
+        rows, cluster = COL_TILE, CROSS_CLUSTER
+        shape = "deep" if ld // SITE_TILE >= CROSS_DEEP_STEPS else "full"
+    else:
+        rows, cluster, shape = COL_TILE // 2, 1, "half"
+    cluster_rows = -(-m_pad // (cluster * rows))
+    groups = -(-(n_pad // COL_TILE) // GRAM_UNIT_TILES)
+    items = cluster_rows * groups * split
+    blocks = (max(1, min(items, sms // cluster)) if walk else items) * cluster
+    return CrossSchedule(blocks, cluster, split, cross_units(m_pad, n_pad), items, rows,
+                         CROSS_STAGES[shape], walk)
+
+
+class CrossWork(NamedTuple):
+    """One block's share of one item (``csrc/devicegen.cu:cross_item``)."""
+
+    item: int
+    rank: int  #: the block's rank in its cluster
+    row0: int  #: its first row of C (and of A)
+    col0: int  #: the column group's first column (and row of B)
+    boxes: int  #: B's 128-row boxes in the group: 1 takes the narrow MMA
+    first: int  #: the first step of ``SITE_TILE`` sites
+    steps: int
+
+    @property
+    def mma_n(self) -> int:
+        """Columns of the block's MMA: m64n256k32, or m64n128k32 for a
+        group of one box."""
+        return self.boxes * COL_TILE
+
+
+def cross_work(schedule: CrossSchedule, m_pad: int, n_pad: int, ld: int) -> Iterator[CrossWork]:
+    """Every block's share of every item of ``schedule``, as the kernel
+    decodes an item and a rank: split part ``item // (cluster_rows ·
+    groups)`` of cluster row ``t % cluster_rows`` against column group ``t
+    // cluster_rows``, ``t`` the item's place in its part (a split
+    launch's block ``item`` takes item ``item``). A block whose rows lie
+    past ``m_pad`` (the second of an odd row-tile count's last cluster)
+    stores nothing and is left out."""
+    steps = ld // SITE_TILE
+    n_tiles = n_pad // COL_TILE
+    span = schedule.cluster
+    cluster_rows = -(-m_pad // (span * schedule.rows))
+    per_part = cluster_rows * -(-n_tiles // GRAM_UNIT_TILES)
+    for item in range(schedule.items):
+        y, t = item // per_part, item % per_part
+        cr, g = t % cluster_rows, t // cluster_rows
+        first = y * steps // schedule.split
+        last = (y + 1) * steps // schedule.split
+        boxes = min(GRAM_UNIT_TILES, n_tiles - g * GRAM_UNIT_TILES)
+        for rank in range(span):
+            row0 = (cr * span + rank) * schedule.rows
+            if row0 < m_pad:
+                yield CrossWork(item, rank, row0, g * GRAM_UNIT_TILES * COL_TILE, boxes, first,
+                                last - first)
 
 
 @functools.lru_cache(maxsize=None)
@@ -655,6 +761,48 @@ def cross_accumulate_plain(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor) ->
     C += (a[:m].to(wide) @ b[:n].to(wide).T).to(C.dtype)
 
 
+#: The item counter of each (device, stream) that ``cross_accumulate``
+#: launches on: zeroed once, and every launch leaves it zero.
+_COUNTERS: dict = {}
+
+
+def _cross_counter(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    counter = _COUNTERS.get(key)
+    if counter is None:
+        counter = _COUNTERS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return counter
+
+
+def cross_accumulate_grid(
+    m_pad: int, n_pad: int, ld: int, device: torch.device, split: Optional[int] = None
+) -> Tuple[CrossSchedule, int]:
+    """``cross_accumulate_kernel``'s launch on ``device``: the
+    :func:`cross_schedule` (which must agree with the C launcher's, or this
+    raises) and the clusters the card holds at once."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    grid = (ctypes.c_int * 7)()
+    schedule = cross_schedule(m_pad, n_pad, ld, _sms(index), split)
+    with torch.cuda.device(index):
+        _kernels.check(_library().cross_accumulate_grid(m_pad, n_pad, ld, schedule.split, grid),
+                       "cross_accumulate_grid")
+    got = (grid[0], grid[1], grid[2], grid[3], grid[4], grid[6])
+    want = (schedule.blocks, schedule.cluster, schedule.rows, schedule.items, _sms(index),
+            schedule.stages)
+    if got != want:
+        raise RuntimeError(f"csrc/devicegen.cu launches (blocks, cluster, rows, items, SMs, "
+                           f"stages) {got} at {m_pad} x {n_pad} x {ld}, "
+                           f"ops/devicegen.py:cross_schedule {want}")
+    return schedule, grid[5]
+
+
+@functools.lru_cache(maxsize=None)
+def _checked_schedule(index: int, m_pad: int, n_pad: int, ld: int, split: int) -> None:
+    """:func:`cross_accumulate_grid` once for each launch shape."""
+    cross_accumulate_grid(m_pad, n_pad, ld, torch.device("cuda", index), split)
+
+
 def cross_accumulate(
     C: torch.Tensor, a: torch.Tensor, b: torch.Tensor, split: Optional[int] = None
 ) -> None:
@@ -662,12 +810,15 @@ def cross_accumulate(
     rows may be strided (a column slice of a position's row tile) and two
     int8 operands in Xᵀ layout, ``a`` (m_pad, ld) and ``b`` (n_pad, ld):
     one ring step's product ``G_local[:, owner] += X_mineᵀ·X_owner``.
-    ``a`` may be ``b``. ``split`` defaults to :func:`cross_split`.
+    ``a`` may be ``b``. ``split`` defaults to :func:`cross_split`; any
+    split gives the same C.
 
     Replaces the ``jnp.matmul`` of ``spark_examples_tpu/ops/gramian.py:
     _ring_tiles`` and ``_hier_ring_tiles``. CPU tensors take
     :func:`cross_accumulate_plain`; CUDA tensors launch
-    ``cross_accumulate_kernel`` (``csrc/devicegen.cu``)."""
+    ``cross_accumulate_kernel`` (``csrc/devicegen.cu``) as
+    :func:`cross_schedule` lays it out, its items taken from a counter kept
+    for the (device, stream)."""
     if C.ndim != 2:
         raise ValueError(f"C must be 2-D, got {tuple(C.shape)}")
     if C.device.type == "cpu":
@@ -689,25 +840,34 @@ def cross_accumulate(
     if m == 0 or n == 0:
         return
     ld = int(a.shape[1])
+    # Rows of the operands past C's are never read.
+    m_pad, n_pad = _round_up(m, COL_TILE), _round_up(n, COL_TILE)
+    index = C.device.index
     if split is None:
-        split = cross_split(a.shape[0], b.shape[0], ld, _sms(C.device.index))
+        split = cross_split(m_pad, n_pad, ld, _sms(index))
     if not 1 <= split <= max(1, ld // SITE_TILE):
         raise ValueError(f"split must be in [1, {max(1, ld // SITE_TILE)}], got {split}")
+    _checked_schedule(index, m_pad, n_pad, ld, split)
     lib = _library()
     with torch.cuda.device(C.device):
+        stream = torch.cuda.current_stream(C.device).cuda_stream
+        counter = _cross_counter(C.device, stream)
         status = lib.cross_accumulate_launch(
             C.data_ptr(),
             C.stride(0),
             m,
             n,
             a.data_ptr(),
-            a.shape[0],
+            m_pad,
             b.data_ptr(),
-            b.shape[0],
+            n_pad,
             ld,
             split,
-            torch.cuda.current_stream(C.device).cuda_stream,
+            counter.data_ptr(),
+            stream,
         )
+    if status:  # the counter's state is unknown: the next launch starts from a zeroed one
+        _COUNTERS.pop((index, stream), None)
     _kernels.check(status, "cross_accumulate")
     cross_accumulate.launches += 1
 
@@ -1148,6 +1308,9 @@ def load_reference_state(
 
 __all__ = [
     "COL_TILE",
+    "CROSS_CLUSTER",
+    "CrossSchedule",
+    "CrossWork",
     "DeviceGenGramianAccumulator",
     "DeviceGenRingGramianAccumulator",
     "GenPlan",
@@ -1155,6 +1318,13 @@ __all__ = [
     "SITE_TILE",
     "TABLE_PATHS",
     "auto_blocks_per_dispatch",
+    "cross_accumulate",
+    "cross_accumulate_grid",
+    "cross_accumulate_plain",
+    "cross_schedule",
+    "cross_split",
+    "cross_units",
+    "cross_work",
     "fmix32",
     "gen_genotypes",
     "gen_genotypes_grid",

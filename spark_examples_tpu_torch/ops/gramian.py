@@ -51,10 +51,11 @@ the reference's mesh half:
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import time
 from collections import deque
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -241,6 +242,54 @@ def pack_rows_t_plain(
     shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=xt.device)
     grouped = bits.reshape(rows, num_columns // 8, 8) << shifts
     return grouped.sum(dim=-1).to(torch.uint8)
+
+
+#: Sites a ``pack_rows_t`` block takes, the most bytes of an output row it
+#: stages, its warps, and the groups of 32 columns a warp takes from which
+#: it keeps ``PACK_DEEP`` groups' loads in flight, not one
+#: (``csrc/gramian.cu``).
+PACK_SITES = 32
+PACK_MAX_BYTES = 1536
+PACK_WARPS = 8
+PACK_DEEP_GROUPS = 4
+PACK_DEEP = 2
+
+
+class PackSchedule(NamedTuple):
+    """One ``pack_rows_t`` launch (``csrc/gramian.cu:pack_rows_t_shape``)."""
+
+    site_blocks: int  #: blocks along the sites, ``PACK_SITES`` each
+    row_blocks: int  #: blocks along an output row: 1 up to ``PACK_MAX_BYTES``
+    share: int  #: bytes of an output row a block takes
+    sites: int  #: sites a block takes
+    depth: int  #: groups of 32 columns whose loads a warp keeps in flight
+
+
+def pack_schedule(rows: int, num_columns: int) -> PackSchedule:
+    """The launch of a :func:`pack_rows_t` of ``rows`` sites and
+    ``num_columns`` columns: a block takes ``PACK_SITES`` sites × every byte
+    of their output rows (so its output is one contiguous range), or
+    ``PACK_MAX_BYTES`` of each where the rows are wider; a warp whose
+    groups of 32 columns number ``PACK_DEEP_GROUPS`` or more keeps
+    ``PACK_DEEP`` groups' loads in flight (6,256 columns: 25 groups a
+    warp), else one (632 columns: 3)."""
+    width = int(num_columns) // 8
+    share = min(width, PACK_MAX_BYTES)
+    per_warp = -(-(-(-share // 4)) // PACK_WARPS)
+    return PackSchedule(-(-int(rows) // PACK_SITES), -(-width // share) if share else 0, share,
+                        PACK_SITES, PACK_DEEP if per_warp >= PACK_DEEP_GROUPS else 1)
+
+
+def pack_rows_t_grid(rows: int, num_columns: int) -> PackSchedule:
+    """``pack_rows_t_kernel``'s launch from the C library; raises unless it
+    is :func:`pack_schedule`'s."""
+    grid = (ctypes.c_int * 5)()
+    _kernels.check(_library().pack_rows_t_grid(int(rows), int(num_columns), grid), "pack_rows_t_grid")
+    got = PackSchedule(*grid)
+    if got != pack_schedule(rows, num_columns):
+        raise RuntimeError(f"csrc/gramian.cu packs {rows} x {num_columns} as {got}, "
+                           f"ops/gramian.py:pack_schedule as {pack_schedule(rows, num_columns)}")
+    return got
 
 
 def pack_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) -> torch.Tensor:
@@ -1041,6 +1090,9 @@ __all__ = [
     "GramianAccumulator",
     "KERNELS",
     "MAX_INT8_COUNT",
+    "PACK_MAX_BYTES",
+    "PACK_SITES",
+    "PackSchedule",
     "RingLayout",
     "ShardedGramianAccumulator",
     "accumulate_index_rows",
@@ -1050,7 +1102,9 @@ __all__ = [
     "dense_update_counts",
     "gramian_reference",
     "pack_rows_t",
+    "pack_rows_t_grid",
     "pack_rows_t_plain",
+    "pack_schedule",
     "per_device_memory_bytes",
     "reset_launch_counts",
     "resolve_ring_pack",

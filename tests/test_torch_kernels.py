@@ -624,7 +624,8 @@ def test_base_counts_windows_that_grow_and_shrink_on_the_card():
 @pytest.mark.parametrize(
     "m,n,sites,ldc,offset",
     [(632, 632, 1024, 2528, 632), (632, 632, 16384, 2528, 1896), (13, 130, 256, 200, 7),
-     (130, 13, 256, 150, 3), (600, 517, 384, 1201, 1), (6250, 6250, 1024, 25000, 6250)],
+     (130, 13, 256, 150, 3), (600, 517, 384, 1201, 1), (6250, 6250, 1024, 25000, 6250),
+     (200, 100, 512, 400, 5), (383, 517, 640, 1204, 2), (1000, 1300, 256, 2600, 1)],
 )
 def test_cross_accumulate_equals_plain_on_the_card(m, n, sites, ldc, offset, split):
     """The ring step's product into a strided column slice of a row tile,
@@ -648,8 +649,51 @@ def test_cross_accumulate_equals_plain_on_the_card(m, n, sites, ldc, offset, spl
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("copies", [1, 2])
+def test_cross_accumulate_on_four_streams_of_one_card(copies):
+    """Four positions' products launched at once on four streams of one
+    card, as the ring launches them, ``copies`` times over (each stream
+    keeps its own item counter, which every launch leaves zero): every C
+    equals the plain version, and so does a launch on the default stream
+    afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4 + copies)
+    shapes = [(632, 632, 16384), (6250, 6250, 1024), (632, 632, 1024), (1000, 1300, 2048)]
+    jobs = []
+    for m, n, sites in shapes:
+        a = torch.from_numpy((rng.random((-(-m // 128) * 128, sites)) < 0.3).astype(np.int8)).to(dev)
+        b = torch.from_numpy((rng.random((-(-n // 128) * 128, sites)) < 0.3).astype(np.int8)).to(dev)
+        tile = torch.from_numpy(rng.integers(-9, 9, (m, 2 * n), dtype=np.int32)).to(dev)
+        want = tile.clone()
+        for _ in range(copies):
+            port.cross_accumulate_plain(want[:, n:], a, b)
+        jobs.append((tile, want, a, b, n))
+    streams = [torch.cuda.Stream() for _ in shapes]
+    torch.cuda.synchronize()
+    port.reset_launch_counts()
+    for _ in range(copies):
+        for stream, (tile, _, a, b, n) in zip(streams, jobs):
+            with torch.cuda.stream(stream):
+                port.cross_accumulate(tile[:, n:], a, b)
+    torch.cuda.synchronize()
+    assert port.cross_accumulate.launches == copies * len(shapes)
+    assert all(torch.equal(tile, want) for tile, want, *_ in jobs)
+    tile, want, a, b, n = jobs[0]
+    port.cross_accumulate(tile[:, n:], a, b)
+    port.cross_accumulate_plain(want[:, n:], a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(tile, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_pad,sites,columns,rows", [(640, 1024, 632, 1024), (640, 16384, 632, 16384),
-                                                      (6272, 1024, 6256, 1000), (128, 128, 8, 5)])
+                                                      (6272, 1024, 6256, 1000), (128, 128, 8, 5),
+                                                      (6272, 16384, 6256, 16384), (6272, 1152, 6256, 1101),
+                                                      (640, 384, 632, 257), (12800, 256, 12800, 200)])
 def test_pack_rows_t_equals_plain_and_packbits_on_the_card(n_pad, sites, columns, rows):
     """The pack of a generated Xᵀ's columns, against the plain version and
     np.packbits; the unpack of the result gives the columns back."""
