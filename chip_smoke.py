@@ -79,9 +79,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cell, packed and ``--ring-pack-bits off`` — each Gramian byte-equal to
    the one-device run's, the ring's measured bytes equal to its
    projection, the PCs checked as above, with the launch counts, spans and
-   peak device memory; and ``bench.py``'s large-cohort-sharded cell,
-   25,000 samples over chr17 through the ring at 1,4, its Gramian
-   byte-equal to the one-device dense run's;
+   peak device memory; then two processes sharing cuda:0 over gloo
+   (``parallel/multihost.py``'s harness, two positions each, chr17 at
+   2,504 samples): the data axis over the four positions, the ring at
+   1,4 flat and hierarchical (2 hosts) whose hops cross the processes
+   through host memory, each Gramian byte-equal to the one-device
+   Gramian in both processes, ring bytes measured == predicted, every
+   ring kernel launched in both; and the ``variants-pca`` CLI alone and
+   as a two-process fleet with host-sharded ingest over four 2 Mb
+   windows of chr17-20 (PC lines identical, per-process reference bases
+   summing to the solo run's), with wall-clock, spans, backend and the
+   bytes staged through host memory; and ``bench.py``'s
+   large-cohort-sharded cell, 25,000 samples over chr17 through the ring
+   at 1,4, its Gramian byte-equal to the one-device dense run's;
 5. files: the packed window's synthetic cohort written as a VCF (GT from
    ``has_variation``, AF in INFO; about 180 MB) and a gzip copy, the wire
    window's as a small VCF, under ``chip_smoke_data/``; then the file
@@ -94,8 +104,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. grm: the ``grm`` verb through the CLI's entry point over the packed
    window, synthetic and from its VCF, each kinship TSV byte-identical to
    the int64 oracle on the same rows, each manifest with its ``analysis``
-   block; then ``ld-prune`` (windows of 256 sites, r² thresholds 0.2 and,
-   synthetic only, 0.002) and
+   block; ``grm --similarity-strategy sharded --mesh-shape 1,4`` and
+   ``ld-prune --mesh-shape 1,4`` on four positions of the card, each
+   output byte-identical to the one-device run's; then ``ld-prune``
+   (windows of 256 sites, r² thresholds 0.2 and, synthetic only, 0.002) and
    ``assoc-scan`` (callset i a case when i is odd) the same way, each
    ``--ld-out``/``--assoc-out`` TSV (and the printed top 10) byte-identical
    to the oracle's walk over the same rows, the LD window product
@@ -274,6 +286,14 @@ SHARDED_RUNS = (
 #: sites), against the one-device Gramian of the same sites.
 LARGE_COHORT = 25_000
 LARGE_WINDOW = "17:0:81195210"
+#: The multiprocess phase: two processes on cuda:0 (gloo: NCCL refuses two
+#: ranks on one card), two positions each, chr17 at 2,504 samples in
+#: blocks of 16,384 sites, each child bounded by its timeout; the fleet
+#: over four 2 Mb windows of chr17-20.
+MP_PROCESSES = 2
+MP_POSITIONS = 2
+MP_TIMEOUT = 240
+FLEET_WINDOWS = ",".join(f"{ref}:41196311:43196311" for ref in ("17", "18", "19", "20"))
 #: The LD prune's defaults (--ld-window-sites, --ld-r2-threshold).
 LD_WINDOW = 256
 LD_THRESHOLD = 0.2
@@ -2250,6 +2270,100 @@ def phase_large_cohort(torch, kernels):
                 check_pcs=False)
 
 
+def phase_multiprocess():
+    """Two processes on cuda:0 through ``parallel/multihost.py``'s harness
+    (the port's ``verify_multihost``, ``--device cuda``): in each, the
+    data axis over the global 2 × 2 positions, the ring at 1,4 flat and
+    hierarchical (host factor 2) whose hops cross processes through host
+    memory, each Gramian byte-equal to the one-device Gramian the process
+    computes itself, the rings' measured bytes equal to their projection,
+    every ring kernel launched; then the ``variants-pca`` CLI alone and
+    across the two processes with host-sharded ingest over
+    ``FLEET_WINDOWS``: PC lines identical, per-process reference bases
+    summing to the solo run's, each strictly below it."""
+    from spark_examples_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    report = multihost.verify_multihost(
+        num_processes=MP_PROCESSES, local_devices=MP_POSITIONS, timeout=MP_TIMEOUT,
+        device="cuda", num_samples=N_SAMPLES, region=CHR17_ARGV[1], block_size=BLOCK,
+        blocks_per_dispatch=1, oracle="device", fleet_regions=FLEET_WINDOWS,
+    )
+    wall = time.perf_counter() - t0
+    for child in report["children"]:
+        if "error" in child:
+            raise AssertionError(f"multiprocess: a child failed (rc {child.get('returncode')}): "
+                                 f"{child['error']}")
+        launches = child["launches"]
+        log(f"multiprocess child {child['process_id']}: {child['device']}, backend "
+            f"{child['backend']}, data axis {child['mesh_shape']} spans processes "
+            f"{child['result_spans_processes']}, ring {child['ring_mesh_shape']}; seconds "
+            f"{json.dumps(child['seconds'])}; traffic {json.dumps(child['traffic'])}; "
+            f"launches {json.dumps(launches)}")
+        log(f"multiprocess child {child['process_id']}: ring schedule "
+            f"{json.dumps(child['ring_schedule'])}, hier schedule "
+            f"{json.dumps(child['hier_schedule'])}")
+        missing = [k for k in ("gen_genotypes", "gram_accumulate", "cross_accumulate",
+                               "pack_rows_t", "unpack_rows_t") if launches.get(k, 0) <= 0]
+        if missing or child["backend"] != "gloo":
+            raise AssertionError(f"multiprocess child {child['process_id']}: never launched "
+                                 f"{missing}, backend {child['backend']}")
+    bases = report.get("fleet_io_reference_bases", {})
+    log(f"multiprocess: checks in {report['check_wall_seconds']:.4f} s; fleet wall "
+        f"{json.dumps(report.get('fleet_wall_seconds'))}, ingest+similarity "
+        f"{json.dumps(report.get('fleet_stage_seconds'))}, backends "
+        f"{report.get('fleet_backend')}, reference bases {json.dumps(bases)}, "
+        f"{report.get('cli_pc_lines')} PC lines identical {report.get('cli_outputs_identical')}")
+    if not report["ok"] or not all(0 < b < bases["solo"] for b in bases["per_process"]):
+        brief = {k: v for k, v in report.items() if k != "children"}
+        raise AssertionError(f"multiprocess: {json.dumps(brief)}")
+    log(f"multiprocess: every Gramian == the one-device Gramian in both processes, ring bytes "
+        f"measured == predicted, fleet PC lines == solo; phase wall {wall:.1f} s")
+
+
+def phase_mesh_analyses(torch, kernels):
+    """The analyses on four positions of cuda:0: ``grm --similarity-strategy
+    sharded --mesh-shape 1,4`` on the packed cell, its kinship TSV
+    byte-equal to the dense one-device run's, and ``ld-prune --mesh-shape
+    1,4`` (each window's cohort cut over the four positions), its kept
+    mask equal to the one-device run's; every launch count set to 0 just
+    before each run."""
+    from spark_examples_tpu_torch.analyses import grm, ld
+    from spark_examples_tpu_torch.config import GrmConf, LdConf
+
+    four = [torch.device("cuda", 0)] * 4
+    argv = PACKED_ARGV[:4]
+    for label, run, conf_class, out_flag, mesh_flags, expect in (
+        ("grm", grm.run_grm_pipeline, GrmConf, "--grm-out", MESH_FLAGS,
+         ("unpack_rows_t", "cross_accumulate")),
+        ("ld-prune", ld.run_ld_pipeline, LdConf, "--ld-out", ["--mesh-shape", "1,4"],
+         ("unpack_rows_t", "gram_accumulate")),
+    ):
+        texts = {}
+        for arm, flags, devices in (("one device", [], None), ("mesh 1,4", mesh_flags, four)):
+            out = DATA_DIR / f"mesh_{label}_{arm.replace(' ', '_')}.tsv"
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            manifest = DATA_DIR / f"manifest_mesh_{label}.json"
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = run(conf_class.parse(argv + flags + [out_flag, str(out), "--metrics-json",
+                                                              str(manifest)]), devices=devices)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            spans = {span["name"]: span["seconds"] for span in result.manifest["spans"]}
+            missing = [k for k in expect if launches[k] <= 0] if devices else []
+            if missing:
+                raise AssertionError(f"mesh {label} {arm} never launched {missing}")
+            texts[arm] = out.read_text()
+            log(f"mesh {label} {arm}: wall {wall:.4f} s, spans {json.dumps(spans)}, launches "
+                f"{json.dumps(launches)}, output {len(texts[arm])} bytes")
+        if texts["mesh 1,4"] != texts["one device"]:
+            raise AssertionError(f"mesh {label}: the 1,4 output differs from the one-device run's")
+        log(f"mesh {label}: the 1,4 output is byte-identical to the one-device run's")
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -2333,9 +2447,12 @@ def main() -> int:
     ring = phase_sharded(torch, path_kernels, {"chr17": chr17_g, "packed": packed_g_dev})
     launches["cross_accumulate"], launches["pack_rows_t"] = ring["cross_accumulate"], ring["pack_rows_t"]
     del chr17_g, packed_g_dev
+    torch.cuda.empty_cache()
+    phase_multiprocess()
     phase_large_cohort(torch, path_kernels)
     phase_files(torch, path_kernels, host_fed, packed_g, wire_g)
     phase_grm(torch, path_kernels)
+    phase_mesh_analyses(torch, path_kernels)
     launches["gram_accumulate_ld_window"] = phase_ld(torch, path_kernels)["gram_accumulate"]
     launches["case_counts"] = phase_assoc(torch, path_kernels)["case_counts"]
     phase_checkpoint(torch, path_kernels)

@@ -264,8 +264,13 @@ def run_assoc_pipeline(conf: AssocConf, device: DeviceLike = None) -> AssocResul
 
 
 def run(argv: Sequence[str], device: DeviceLike = None) -> AssocResult:
-    """The ``assoc-scan`` CLI verb. ``device`` overrides ``--device``."""
-    return run_assoc_pipeline(AssocConf.parse(argv), device=device)
+    """The ``assoc-scan`` CLI verb: joins the run's processes when the
+    cluster flags name them, then scans on one device (the mesh's flags
+    are taken and, as in the reference, unused here). ``device``
+    overrides ``--device``."""
+    conf = AssocConf.parse(argv)
+    conf.init_distributed()
+    return run_assoc_pipeline(conf, device=device)
 
 
 __all__ = [

@@ -12,7 +12,8 @@ manifest epilogue:
 - :func:`iter_site_blocks` — the contig-ordered block stream with the
   standard ingest accounting;
 - :class:`AnalysisContext` — the LD prune's and association scan's
-  subset of the driver: source, cohort, telemetry and the run's device;
+  subset of the driver: source, cohort, telemetry, the run's device and
+  its mesh (:meth:`AnalysisContext.make_mesh`);
 - :func:`finish_analysis_run` — the manifest epilogue with the
   ``analysis`` block and the ``analysis.pre-manifest`` kill point.
 """
@@ -35,6 +36,7 @@ from spark_examples_tpu_torch.obs.metrics import (
     well_known_gauge,
 )
 from spark_examples_tpu_torch.pipeline.pca_driver import make_source
+from spark_examples_tpu_torch.parallel.mesh import resolve_run_mesh, run_devices
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
 from spark_examples_tpu_torch.sources import partition_page_requests
@@ -168,16 +170,18 @@ class AnalysisContext:
     The reference's ``AnalysisContext``: a subset of ``VariantsPcaDriver``,
     since LD and assoc have no N×N accumulator. They need the shared
     plumbing (cohort discovery, partitioning, registry, spans and stats)
-    but none of the similarity machinery. Where the reference resolves a
-    mesh, the port resolves the run's one ``torch.device`` (``device``,
-    default ``conf.device``; a CUDA request without a card raises).
+    but none of the similarity machinery. The run's ``torch.device``
+    (``device``, default ``conf.device``; a CUDA request without a card
+    raises) holds the work off the mesh; :meth:`make_mesh` resolves the
+    mesh over ``devices`` (default: the device's cards, or CPU positions).
     """
 
-    def __init__(self, conf, kind: str, device: DeviceLike = None):
+    def __init__(self, conf, kind: str, device: DeviceLike = None, devices=None):
         check_analysis_conf(conf, kind)
         self.conf = conf
         self.kind = kind
         self.device = resolve_device(conf.device if device is None else device)
+        self.devices = devices
         self.source = make_source(conf)
         self.registry = MetricsRegistry()
         self.spans = SpanRecorder()
@@ -205,6 +209,14 @@ class AnalysisContext:
         return iter_site_blocks(
             self.conf, self.source, self.partitions(), self.io_stats, self.registry
         )
+
+    def make_mesh(self):
+        """The run's mesh, by the PCA driver's rule
+        (``parallel/mesh.py:resolve_run_mesh``): ``--mesh-shape``, else
+        every place capped by ``--num-reduce-partitions``; ``None`` on one
+        place."""
+        devices = self.devices if self.devices is not None else run_devices(self.device)
+        return resolve_run_mesh(self.conf.mesh_shape, self.conf.num_reduce_partitions, devices)
 
 
 def finish_analysis_run(

@@ -44,6 +44,7 @@ from spark_examples_tpu_torch.analyses.base import (
 )
 from spark_examples_tpu_torch.config import GrmConf
 from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
+from spark_examples_tpu_torch.parallel.mesh import host_value
 from spark_examples_tpu_torch.pipeline.pca_driver import VariantsPcaDriver
 from spark_examples_tpu_torch.pipeline.sitewriter import SiteOutputWriter
 from spark_examples_tpu_torch.utils.af import carrier_counts, variance_counts
@@ -144,15 +145,22 @@ def _summarize(matrix: np.ndarray, sites: int) -> Dict:
     }
 
 
-def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None) -> GrmResult:
+def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None, devices=None) -> GrmResult:
     """The GRM core, CLI-free: conf in, kinship and manifest out, in the
     reference's order. The Gramian rides a ``VariantsPcaDriver``'s packed
-    arm on ``device`` (default ``conf.device``), so the GRM inherits its
-    accumulator, flush telemetry and launch accounting."""
+    arm on ``device`` (default ``conf.device``) and the run's mesh over
+    ``devices`` (default: the device's cards, or CPU positions; the
+    reference's argument, so a device may repeat): dense with its data
+    axis, or the packed ring under ``--similarity-strategy sharded``. The
+    GRM inherits the driver's accumulator, flush telemetry and launch
+    accounting.
+
+    Every process of a run of several reads every site (the host moments
+    need them all), so the ingest is not host-sharded: the data axis or
+    the ring splits the work over the processes."""
     check_analysis_conf(conf, "grm")
-    # One device: the analyses do not run on the mesh yet.
     device = conf.device if device is None else device
-    driver = VariantsPcaDriver(conf, device=device, devices=[device])
+    driver = VariantsPcaDriver(conf, device=device, devices=devices, shard_ingest=False)
     n = len(driver.indexes)
     moments = GrmMoments(n)
     times = StageTimes(recorder=driver.spans)
@@ -176,9 +184,10 @@ def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None) -> GrmResult:
 
             similarity = driver.get_similarity_rows(rows())
         with times.stage("grm-finalize"):
-            if not isinstance(similarity, np.ndarray):
-                similarity = similarity.cpu().numpy()
-            matrix = grm_finalize(similarity, moments)
+            # A sharded finalize is the padded matrix: trim to the true
+            # cohort (pad rows and columns are zero by construction).
+            G_host = host_value(similarity)[:n, :n]
+            matrix = grm_finalize(G_host, moments)
     finally:
         if heartbeat is not None:
             heartbeat.stop()
@@ -210,8 +219,11 @@ def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None) -> GrmResult:
 
 
 def run(argv: Sequence[str], device: DeviceLike = None) -> GrmResult:
-    """The ``grm`` CLI verb. ``device`` overrides ``--device``."""
-    return run_grm_pipeline(GrmConf.parse(argv), device=device)
+    """The ``grm`` CLI verb: joins the run's processes when the cluster
+    flags name them. ``device`` overrides ``--device``."""
+    conf = GrmConf.parse(argv)
+    conf.init_distributed()
+    return run_grm_pipeline(conf, device=device)
 
 
 __all__ = [

@@ -4,7 +4,8 @@ The port's copy of ``spark_examples_tpu/analyses/ld.py``. A streaming pass
 over contig-ordered site windows: sites fill a ``(W, N)`` window buffer as
 blocks stream; each full window runs one device program
 (``ops/ld.py:ld_window_stats``: on the card ``unpack_rows_t`` and
-``gram_accumulate`` over the window's transposed packing), the host
+``gram_accumulate`` over the window's transposed packing — on a mesh with
+a samples axis, each position on its cut of the cohort, summed), the host
 greedy-prunes the W×W r² matrix in contig order (``ops/ld.py:greedy_prune``,
 strictly above ``--ld-r2-threshold``), and the window's kept-mask rows
 spill straight to the windowed writer (``pipeline/sitewriter.py``).
@@ -40,6 +41,7 @@ from spark_examples_tpu_torch.ops.ld import (
     ld_window_stats,
     ld_window_stats_reference,
 )
+from spark_examples_tpu_torch.parallel.mesh import SAMPLES_AXIS
 from spark_examples_tpu_torch.pipeline.sitewriter import SiteOutputWriter
 from spark_examples_tpu_torch.utils.device import DeviceLike, synchronizer
 from spark_examples_tpu_torch.utils.tracing import StageTimes
@@ -152,18 +154,32 @@ def ld_prune_reference(
     return out
 
 
-def run_ld_pipeline(conf: LdConf, device: DeviceLike = None) -> LdResult:
+def run_ld_pipeline(conf: LdConf, device: DeviceLike = None, devices=None) -> LdResult:
     """The LD-prune core, CLI-free: conf in, kept-mask + manifest out, on
-    ``device`` (default ``conf.device``)."""
-    ctx = AnalysisContext(conf, "ld", device=device)
+    ``device`` (default ``conf.device``), or over the run's mesh (resolved
+    over ``devices``, as the PCA driver's: a device may repeat) whose
+    samples axis splits each window's cohort."""
+    ctx = AnalysisContext(conf, "ld", device=device, devices=devices)
     times = StageTimes(recorder=ctx.spans)
-    # --pca-backend host runs the window statistics as the NumPy oracle,
-    # the same host escape hatch GRM and assoc honor.
-    if conf.pca_backend == "host":
+    # --pca-backend host runs the window statistics as the NumPy oracle —
+    # no mesh — the same host escape hatch GRM and assoc honor.
+    host_oracle = conf.pca_backend == "host"
+    mesh = None if host_oracle else ctx.make_mesh()
+    if mesh is not None:
+        samples_axis = mesh.shape.get(SAMPLES_AXIS, 1)
+        if samples_axis >= 2 and ctx.num_samples % samples_axis:
+            # ld-cohort-not-divisible: the window's cohort is cut into
+            # equal row ranges, without padding.
+            raise ValueError(
+                f"--num-samples {ctx.num_samples} does not divide over "
+                f"the mesh samples axis ({samples_axis}); choose a mesh "
+                "whose samples axis divides the cohort"
+            )
+    if host_oracle:
         stats_fn = ld_window_stats_reference
     else:
         def stats_fn(rows):
-            return ld_window_stats(rows, ctx.device)
+            return ld_window_stats(rows, ctx.device, mesh=mesh)
     writer = None
     if conf.ld_out:
         writer = SiteOutputWriter(conf.ld_out, header=("contig", "pos", "kept"))
@@ -215,8 +231,11 @@ def run_ld_pipeline(conf: LdConf, device: DeviceLike = None) -> LdResult:
 
 
 def run(argv: Sequence[str], device: DeviceLike = None) -> LdResult:
-    """The ``ld-prune`` CLI verb. ``device`` overrides ``--device``."""
-    return run_ld_pipeline(LdConf.parse(argv), device=device)
+    """The ``ld-prune`` CLI verb: joins the run's processes when the
+    cluster flags name them. ``device`` overrides ``--device``."""
+    conf = LdConf.parse(argv)
+    conf.init_distributed()
+    return run_ld_pipeline(conf, device=device)
 
 
 __all__ = ["LdResult", "ld_prune_reference", "run", "run_ld_pipeline"]

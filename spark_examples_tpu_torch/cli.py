@@ -45,15 +45,22 @@ faults:
     python -m spark_examples_tpu_torch variants-pca --ingest packed \
         --gramian-checkpoint-dir ck --resume-from ck
 
-A mesh of this process's devices: ``--mesh-shape data,samples`` (every
-card by default, the data axis capped by ``--num-reduce-partitions``);
-``--similarity-strategy sharded`` keeps the Gramian as row tiles over the
-samples axis through a ring (``--ring-pack-bits``, ``--reduce-schedule``).
-On ``--device cpu`` the positions are CPU positions:
+A mesh: ``--mesh-shape data,samples`` (every card by default, the data
+axis capped by ``--num-reduce-partitions``); ``--similarity-strategy
+sharded`` keeps the Gramian as row tiles over the samples axis through a
+ring (``--ring-pack-bits``, ``--reduce-schedule``). On ``--device cpu``
+the positions are CPU positions:
 
     python -m spark_examples_tpu_torch variants-pca --device cpu \
         --num-samples 21 --references 17:0:20000 --mesh-shape 1,4 \
         --similarity-strategy sharded
+
+Several processes (one a host, or several on one card over gloo) join one
+run with ``--coordinator-address host:port --num-processes N
+--process-id i``, the same flags in each; the mesh then spans them:
+
+    python -m spark_examples_tpu_torch variants-pca --device cpu \
+        --coordinator-address 127.0.0.1:29500 --num-processes 2 --process-id 0
 
 The JAX package's other verbs are not ported yet; they exit with code 2.
 """
@@ -65,6 +72,7 @@ from typing import Optional, Sequence
 
 from spark_examples_tpu_torch.analyses import assoc, grm, ld, reads_examples, variants_examples
 from spark_examples_tpu_torch.config import GenomicsConf
+from spark_examples_tpu_torch.parallel.mesh import distributed_shutdown
 from spark_examples_tpu_torch.pipeline import pca_driver
 from spark_examples_tpu_torch.sources.files import file_set_ids
 from spark_examples_tpu_torch.utils.device import resolve_device
@@ -146,7 +154,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if command not in COMMANDS:
         print(f"unknown command: {command}", file=sys.stderr)
         return 2
-    COMMANDS[command](rest)
+    try:
+        COMMANDS[command](rest)
+    finally:
+        distributed_shutdown()
     return 0
 
 

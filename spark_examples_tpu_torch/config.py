@@ -20,12 +20,14 @@ source's (wire), variant checkpoints (``--save-variants``,
 (``--gramian-checkpoint-dir``, ``--checkpoint-every-sites``,
 ``--resume-from``), fault plans (``--fault-plan``) and the run's telemetry
 (``--metrics-json``, ``--profile-dir``, ``--heartbeat-seconds``), the
-dense and sharded strategies on a mesh of this process's devices
+dense and sharded strategies on a mesh
 (``--mesh-shape``, ``--num-reduce-partitions``, ``--similarity-strategy``,
-``--ring-pack-bits``, ``--reduce-schedule``); :class:`GrmConf` adds the ``grm`` verb's
+``--ring-pack-bits``, ``--reduce-schedule``), across several processes
+(``--coordinator-address``, ``--num-processes``, ``--process-id``:
+:meth:`GenomicsConf.init_distributed`); :class:`GrmConf` adds the ``grm`` verb's
 ``--grm-out``, :class:`LdConf` the ``ld-prune`` verb's ``--ld-*`` flags and
 :class:`AssocConf` the ``assoc-scan`` verb's ``--phenotypes`` and
-``--assoc-*``. A flag that belongs to any other path raises
+``--assoc-*``; the analyses take the mesh's flags too. A flag that belongs to any other path raises
 :class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
 is never silently ignored.
 """
@@ -292,6 +294,20 @@ class GenomicsConf:
                 )
         return conf
 
+    def init_distributed(self) -> None:
+        """Join the run of several processes the cluster flags name (a
+        no-op without them) — call before any device use. The process's
+        positions live where ``--device`` says
+        (``parallel/mesh.py:distributed_init``)."""
+        from spark_examples_tpu_torch.parallel.mesh import distributed_init
+
+        distributed_init(
+            coordinator_address=self.coordinator_address,
+            num_processes=self.num_processes,
+            process_id=self.process_id,
+            device=self.device,
+        )
+
     def _check_flags(self) -> None:
         """The subclass's own flag checks, before the source checks. The
         examples take every base flag, as the reference's do; the ones their
@@ -364,43 +380,31 @@ class PcaConf(GenomicsConf):
 #: the flag unused). Any other value raises.
 _UNPORTED = (
     ("trace_dir", "--trace-dir", None),
-    ("coordinator_address", "--coordinator-address", None),
-    ("num_processes", "--num-processes", None),
-    ("process_id", "--process-id", None),
     ("check_ranges", "--check-ranges", False),
-)
-
-#: The mesh's flags, which the analysis verbs (``grm``, ``ld-prune``,
-#: ``assoc-scan``) do not take yet: they run on one device.
-_UNPORTED_IN_ANALYSES = (
-    ("mesh_shape", "--mesh-shape", None),
-    ("ring_pack_bits", "--ring-pack-bits", "auto"),
-    ("reduce_schedule", "--reduce-schedule", "auto"),
 )
 
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet: the flight recorder, several processes,
-    ``--check-ranges``, and the mesh in the analysis verbs."""
-    refused = _UNPORTED
-    if isinstance(conf, (GrmConf, LdConf, AssocConf)):
-        refused = refused + _UNPORTED_IN_ANALYSES
-        if conf.similarity_strategy == "sharded":
-            raise NotImplementedError(
-                "--similarity-strategy sharded: the analyses do not run on "
-                "the mesh in the port yet (use dense or auto)"
-            )
-    for name, flag, unused in refused:
+    does not run yet: the flight recorder and ``--check-ranges``; and, in
+    a run of several processes, the Gramian checkpoints (every process
+    would write the one directory)."""
+    for name, flag, unused in _UNPORTED:
         value = getattr(conf, name)
         if value != unused:
             raise NotImplementedError(
                 f"{flag} {value!r}: this path is not ported to PyTorch yet "
                 "(the port runs the synthetic, file and REST sources' device, "
                 "packed, streamed and wire ingest, dense and sharded "
-                "strategies on the devices of one process; the analyses on "
-                "one device)"
+                "strategies on a mesh of one or several processes, and the "
+                "analyses on the mesh)"
             )
+    if (conf.num_processes or 1) > 1 and (conf.gramian_checkpoint_dir or conf.resume_from):
+        flag = "--gramian-checkpoint-dir" if conf.gramian_checkpoint_dir else "--resume-from"
+        raise NotImplementedError(
+            f"{flag} with --num-processes {conf.num_processes}: Gramian "
+            "checkpoints run in a run of one process in the port"
+        )
 
 
 def build_grm_parser(

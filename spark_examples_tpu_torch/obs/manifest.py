@@ -11,8 +11,13 @@ validator, so a manifest from either package passes both packages'
 
 The blocks whose subject the port does not have yet are absent exactly as
 the reference writes them when absent: ``compile_cache`` (the XLA compile
-cache), ``multihost`` (cross-process aggregation), ``gramian_exactness``,
-``schedule`` and ``cost`` are null, and ``process`` is the single process.
+cache), ``gramian_exactness`` and ``cost`` are null. ``process`` is this
+process's ``{index, count}`` and, beside the reference's two fields, the
+``backend`` its run chose (``gloo``/``nccl``, null in a run of one
+process); in a run of several processes ``multihost`` holds the I/O totals
+summed across them (``parallel/multihost.py:aggregate_host_counts``, a
+collective every process's manifest build joins), null otherwise.
+``schedule`` is the sharded ring's block.
 ``resume`` is the checkpointed run's ``{checkpoint_sites, sites_skipped,
 faults_injected}``, ``analysis`` an analysis verb's ``{kind, sites_kept,
 sites_tested}``, both null otherwise. ``host_memory`` holds the OS's peak
@@ -103,6 +108,7 @@ def build_manifest(
     resume: Optional[Dict] = None,
     analysis: Optional[Dict] = None,
     schedule: Optional[Dict] = None,
+    multihost: Optional[Dict] = None,
 ) -> Dict:
     """Assemble a manifest from already-snapshotted parts (the low-level
     form; :func:`build_run_manifest` snapshots a live driver)."""
@@ -124,9 +130,19 @@ def build_manifest(
         "conformance": conformance,
         "cost": None,
         "compile_cache": None,
-        "process": {"index": 0, "count": 1},
-        "multihost": None,
+        "process": _process_block(),
+        "multihost": multihost,
     }
+
+
+def _process_block() -> Dict:
+    from spark_examples_tpu_torch.parallel.mesh import (
+        process_backend,
+        process_count,
+        process_index,
+    )
+
+    return {"index": process_index(), "count": process_count(), "backend": process_backend()}
 
 
 def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
@@ -145,11 +161,23 @@ def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
         if dataclasses.is_dataclass(conf)
         else dict(conf or {})
     )
+    stats_block = io_stats.as_dict() if io_stats is not None else None
+    multihost = None
+    process = _process_block()
+    if stats_block is not None and process["count"] > 1:
+        from spark_examples_tpu_torch.parallel.multihost import aggregate_host_counts
+
+        totals = aggregate_host_counts([stats_block[f] for f in IO_STAT_FIELDS])
+        multihost = {
+            "process_count": process["count"],
+            "io_stats_global": dict(zip(IO_STAT_FIELDS, totals)),
+        }
     return build_manifest(
         config=config,
         spans=spans.as_list() if spans is not None else [],
         metrics=registry.as_dict() if registry is not None else {},
-        io_stats=io_stats.as_dict() if io_stats is not None else None,
+        io_stats=stats_block,
+        multihost=multihost,
         overlap=overlap,
         host_memory=_host_memory_block(registry),
         conformance=conformance_block(registry) if registry is not None else None,

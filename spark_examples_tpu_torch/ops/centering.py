@@ -37,13 +37,21 @@ def gower_center_sharded(S: RowSharded, n_true: int | None = None) -> RowSharded
     zero, so sums over the padded extent are sums over the true one, and
     they are zeroed again after centring — the dense result embedded in a
     zero block. Float64 arithmetic in the reference's order (integer sums
-    are exact in any order), float32 tiles out."""
+    are exact in any order), float32 tiles out. Across processes each
+    process centres its own tiles; the column sums are summed over every
+    process."""
     n = S.n_true if n_true is None else int(n_true)
-    wide = [tile.to(torch.float64) for tile in S.tiles]
-    col_sums = all_reduce_sum([w.sum(dim=0, keepdim=True) for w in wide])
-    out, row_start = [], 0
-    for w, col_sum in zip(wide, col_sums):
-        n_local = w.shape[0]
+    wide = [None if tile is None else tile.to(torch.float64) for tile in S.tiles]
+    col_sums = all_reduce_sum(
+        [None if w is None else w.sum(dim=0, keepdim=True) for w in wide],
+        S.shared, like=((1, S.padded), torch.float64),
+    )
+    out = []
+    for i, (w, col_sum) in enumerate(zip(wide, col_sums)):
+        if w is None:
+            out.append(None)
+            continue
+        n_local, row_start = w.shape[0], i * S.rows
         row_mean = w.sum(dim=1, keepdim=True) / n
         col_mean = col_sum / n
         total_mean = col_sum.sum() / (n * n)
@@ -51,8 +59,7 @@ def gower_center_sharded(S: RowSharded, n_true: int | None = None) -> RowSharded
         rows = torch.arange(row_start, row_start + n_local, device=w.device) < n
         cols = torch.arange(w.shape[1], device=w.device) < n
         out.append(torch.where(rows[:, None] & cols[None, :], centred, 0.0).to(torch.float32))
-        row_start += n_local
-    return RowSharded(out, S.positions, n)
+    return RowSharded(out, S.positions, n, S.padded, torch.float32, S.shared)
 
 
 __all__ = ["gower_center", "gower_center_sharded"]

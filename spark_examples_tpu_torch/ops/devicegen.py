@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from spark_examples_tpu_torch.ops import _kernels
-from spark_examples_tpu_torch.parallel.mesh import run_on
+from spark_examples_tpu_torch.parallel.mesh import run_on, spans_processes
 from spark_examples_tpu_torch.sources.synthetic import (
     _AF_BASE_Q32,
     _AF_SPAN_Q16,
@@ -948,6 +948,24 @@ class _GridWalk:
         self._round_robin(list(range(rem, last_index, tail)), last_index, self._tail_blocks)
 
 
+def _counter_totals(mesh, rows, kept, n_sets: int) -> Tuple[np.ndarray, int]:
+    """The device-generation counters — per-set variant rows and kept
+    sites, one tensor each a data slice (``None`` for another process's) —
+    summed on the device, across processes when ``mesh`` spans them, and
+    fetched in one host copy."""
+    from spark_examples_tpu_torch.parallel.collectives import rank_reduce
+
+    held = [torch.cat([r, k.reshape(1)]) for r, k in zip(rows, kept) if r is not None]
+    device = held[0].device if held else mesh.home
+    total = torch.zeros((n_sets + 1,), dtype=torch.int64, device=device)
+    for part in held:
+        total += part.to(device)
+    if mesh is not None and mesh.shared:
+        total = rank_reduce(total)
+    flat = total.cpu().numpy()
+    return flat[:n_sets], int(flat[n_sets])
+
+
 class DeviceGenGramianAccumulator(_GridWalk):
     """Fused on-device ingest and similarity for the synthetic source: the
     host walks the site grid in dispatch groups of ``blocks_per_dispatch``
@@ -967,7 +985,9 @@ class DeviceGenGramianAccumulator(_GridWalk):
     Gramian and counters on its position (the first of the slice) and
     stream. :meth:`finalize_device` sums the slices
     (:func:`~spark_examples_tpu_torch.ops.gramian.data_axis_sum`, int64
-    past one).
+    past one). On a mesh that spans processes every process walks the same
+    grid and generates its own slices' spans; the sums run across
+    processes.
     """
 
     def __init__(
@@ -989,7 +1009,7 @@ class DeviceGenGramianAccumulator(_GridWalk):
     ):
         self.mesh = mesh
         self._slices = [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
-        self.device = self._slices[0].device if mesh is not None else resolve_device(device)
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         self.data_parallel = len(self._slices)
         self.num_samples = int(num_samples)
         self.n_sets = len(vs_keys)
@@ -1012,8 +1032,14 @@ class DeviceGenGramianAccumulator(_GridWalk):
         self._init_walk(block_size, blocks_per_dispatch)
         n_pops = int(n_pops) if n_pops is not None else int(np.max(pops)) + 1
         C = self.total_columns
+        # One plan, Gramian and counters a data slice (``None`` for another
+        # process's).
         self._plans, self._G, self._rows, self._kept = [], [], [], []
         for position in self._slices:
+            if position is not None and not position.local:
+                for state in (self._plans, self._G, self._rows, self._kept):
+                    state.append(None)
+                continue
             device = self.device if position is None else position.device
             with run_on(position):
                 self._plans.append(make_gen_plan(
@@ -1025,36 +1051,39 @@ class DeviceGenGramianAccumulator(_GridWalk):
                 self._kept.append(torch.zeros((), dtype=torch.int64, device=device))
         self.plan = self._plans[0]
 
-    @property
-    def G(self) -> torch.Tensor:
-        """The Gramian so far: the one slice's, or the data axis's sum."""
+    def _sum(self, parts, like) -> torch.Tensor:
         from spark_examples_tpu_torch.ops.gramian import data_axis_sum
 
         self._join()
-        return data_axis_sum(self._G)
+        if self.mesh is None:
+            return parts[0]
+        return data_axis_sum(parts, like=like, shared=self.mesh.shared)
+
+    @property
+    def G(self) -> torch.Tensor:
+        """The Gramian so far: the one slice's, or the data axis's sum."""
+        C = self.total_columns
+        return self._sum(self._G, ((C, C), torch.int32))
 
     @property
     def variant_rows(self) -> torch.Tensor:
         """(n_sets,) int64 per-set variant rows, summed over data slices."""
-        from spark_examples_tpu_torch.ops.gramian import data_axis_sum
-
-        self._join()
-        return data_axis_sum(self._rows)
+        return self._sum(self._rows, ((self.n_sets,), torch.int64))
 
     @property
     def kept_sites(self) -> torch.Tensor:
         """0-dim int64 kept sites, summed over data slices."""
-        from spark_examples_tpu_torch.ops.gramian import data_axis_sum
-
-        self._join()
-        return data_axis_sum(self._kept)
+        return self._sum(self._kept, ((), torch.int64))
 
     def _join(self) -> None:
         if self.mesh is not None:
             self.mesh.join(self._G + self._rows + self._kept)
 
     def _blocks(self, d: int, grid_offset: int, n_valid: int, blocks: int) -> None:
-        """Slice ``d``'s share of one dispatch: its valid blocks."""
+        """Slice ``d``'s share of one dispatch: its valid blocks (another
+        process's slice: nothing here)."""
+        if self._G[d] is None:
+            return
         B = self.block_size
         with run_on(self._slices[d]):
             for k in range(blocks):
@@ -1070,12 +1099,8 @@ class DeviceGenGramianAccumulator(_GridWalk):
         """``(per-set variant-row totals, kept-site total)``, fetched
         synchronously in one copy (so an ingest stage's wall-clock ends
         with its work); data slices hold disjoint spans, so they sum."""
-        from spark_examples_tpu_torch.parallel.mesh import packed_host_fetch
-
         self._join()
-        flat = packed_host_fetch([self._rows, self._kept])
-        D, S = self.data_parallel, self.n_sets
-        return flat[: D * S].reshape(D, S).sum(axis=0), int(flat[D * S :].sum())
+        return _counter_totals(self.mesh, self._rows, self._kept, self.n_sets)
 
     def finalize_device(self) -> torch.Tensor:
         """The accumulated Gramian, still on the device: int32 on one
@@ -1110,6 +1135,12 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
     Multi-set cohorts (``set_sizes`` with ``pops_per_set``, or several
     ``vs_key`` sharing one cohort) concatenate per-set columns, as the
     dense accumulator does; a position's slice may span sets.
+
+    On a mesh that spans processes every process walks the same grid and
+    generates its own positions' columns; a ring's tiles cross processes
+    in ``ring_pass``, and its per-set flags are ORed first over the
+    ring's positions in each process, then over the ring's processes (a
+    max over the ring's group) before the ring's first position counts.
     """
 
     def __init__(
@@ -1170,6 +1201,11 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
             for s, position in enumerate(ring):
                 lo = s * self.n_local
                 hi = min(lo + self.n_local, self.total_columns)
+                if not position.local:
+                    plans.append(None)
+                    ranges.append([])
+                    scratch.append(None)
+                    continue
                 with position.run():
                     plan = None
                     if lo < hi:
@@ -1189,9 +1225,13 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
                     for v in np.unique(sets)
                 ])
             lead = ring[0]
-            with lead.run():
-                self._kept.append(torch.zeros((), dtype=torch.int64, device=lead.device))
-                self._rows.append(torch.zeros((self.n_sets,), dtype=torch.int64, device=lead.device))
+            if lead.local:
+                with lead.run():
+                    self._kept.append(torch.zeros((), dtype=torch.int64, device=lead.device))
+                    self._rows.append(torch.zeros((self.n_sets,), dtype=torch.int64, device=lead.device))
+            else:
+                self._kept.append(None)
+                self._rows.append(None)
             self._plans.append(plans)
             self._ranges.append(ranges)
             self._scratch.append(scratch)
@@ -1221,13 +1261,19 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
 
     def _ring_block(self, d: int, grid_offset: int, valid: int) -> None:
         from spark_examples_tpu_torch.ops.gramian import pack_rows_t, ring_pass
-        from spark_examples_tpu_torch.parallel.collectives import fetch, record
+        from spark_examples_tpu_torch.parallel.collectives import fetch, rank_reduce, record
 
         B, n_local = self.block_size, self.n_local
         ring = self.layout.rings[d]
+        if not any(p.local for p in ring):
+            return
         ld, rows_pad = _round_up(B, SITE_TILE), _round_up(n_local, COL_TILE)
         own, ready, mine, flags = [], [], [], []
         for s, position in enumerate(ring):
+            if not position.local:
+                for held in (own, ready, mine, flags):
+                    held.append(None)
+                continue
             plan = self._plans[d][s]
             with position.run():
                 if plan is None:
@@ -1246,24 +1292,25 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
                 mine.append(xt)
                 own.append(pack_rows_t(xt, n_local, rows=B) if self.pack else xt)
                 ready.append(record(position))
-        lead = ring[0]
-        gathered = [fetch(lead, f, e) for f, e in zip(flags, ready)]
-        with lead.run():
+        # OR the flags on this process's first position of the ring, then
+        # over the ring's processes; the ring's first position counts.
+        home = next(p for p in ring if p.local)
+        gathered = [fetch(home, f, e) for f, e in zip(flags, ready) if f is not None]
+        with home.run():
             union = torch.stack(gathered).amax(dim=0)
-            self._rows[d] += (union != 0).sum(dim=1)
+            if spans_processes(ring):
+                union = rank_reduce(union, "max", group=self.layout.groups[d])
+            if ring[0].local:
+                self._rows[d] += (union != 0).sum(dim=1)
         ring_pass(ring, own, ready, mine, self.layout.G_local[d], n_local, self.pack,
                   self.layout.ring_hosts)
 
     def ingest_counters(self) -> Tuple[np.ndarray, int]:
         """``(per-set variant-row totals, kept-site total)`` in one host
         copy; data slices hold disjoint spans, so they sum."""
-        from spark_examples_tpu_torch.parallel.mesh import packed_host_fetch
-
         self.layout.in_flight.drain()
         self.mesh.join(self._rows + self._kept)
-        flat = packed_host_fetch([self._rows, self._kept])
-        D, S = self.data_parallel, self.n_sets
-        return flat[: D * S].reshape(D, S).sum(axis=0), int(flat[D * S :].sum())
+        return _counter_totals(self.mesh, self._rows, self._kept, self.n_sets)
 
     def finalize_sharded(self):
         """The (padded, padded) Gramian as row tiles over ``samples``

@@ -77,7 +77,13 @@ from spark_examples_tpu_torch.ops.devicegen import (
     cross_accumulate,
     gram_accumulate,
 )
-from spark_examples_tpu_torch.parallel.collectives import consume, record, ring_shift
+from spark_examples_tpu_torch.parallel.collectives import (
+    consume,
+    rank_group,
+    rank_reduce,
+    record,
+    ring_shift,
+)
 from spark_examples_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     SAMPLES_AXIS,
@@ -87,12 +93,14 @@ from spark_examples_tpu_torch.parallel.mesh import (
     Topology,
     flat_traffic_split,
     hierarchical_traffic_bytes,
+    home_device,
     host_value,
     padded_cohort,
     resolve_hier_hosts,
     resolve_reduce_schedule,
     ring_traffic_bytes,
     run_on,
+    spans_processes,
 )
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
 
@@ -366,19 +374,33 @@ def resolve_ring_pack(pack_bits: str) -> bool:
     return pack_bits != "off"
 
 
-def data_axis_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of a data axis's partial accumulators, on the first one's
-    device. Past one slice an integer sum is int64: each slice's int32 is
-    bounded by its own sites, the total is not (the reference's rule). One
-    slice is returned as it is."""
+def data_axis_sum(
+    parts: Sequence[Optional[torch.Tensor]],
+    like=None,
+    shared: bool = False,
+) -> torch.Tensor:
+    """The sum of a data axis's partial accumulators, on the first held
+    one's device. Past one slice an integer sum is int64: each slice's
+    int32 is bounded by its own sites, the total is not (the reference's
+    rule). One slice is returned as it is.
+
+    On a ``shared`` mesh (the partials of other processes' slices
+    ``None`` here) this process's sum joins a sum over every process, so
+    each ends with the whole; ``like`` (shape, dtype of a partial) shapes
+    the zero share of a process that holds none."""
     parts = list(parts)
-    if len(parts) == 1:
+    if len(parts) == 1 and not shared:
         return parts[0]
-    dtype = parts[0].dtype if parts[0].is_floating_point() else torch.int64
-    total = parts[0].to(dtype=dtype, copy=True)
-    for part in parts[1:]:
-        total += part.to(device=total.device, dtype=dtype)
-    return total
+    held = [p for p in parts if p is not None]
+    base = held[0].dtype if held else like[1]
+    dtype = base if base.is_floating_point or len(parts) == 1 else torch.int64
+    if held:
+        total = held[0].to(dtype=dtype, copy=True)
+        for part in held[1:]:
+            total += part.to(device=total.device, dtype=dtype)
+    else:
+        total = torch.zeros(like[0], dtype=dtype, device=home_device())
+    return rank_reduce(total) if shared else total
 
 
 class _InFlight:
@@ -507,7 +529,9 @@ class GramianAccumulator(_Staging):
     into its own partial on its position (the first of each data slice; a
     samples axis holds replicas in the reference, so only one of them works
     here), summed by :func:`data_axis_sum` at finalize. Without a mesh the
-    work runs on ``device``'s current stream.
+    work runs on ``device``'s current stream. On a mesh that spans
+    processes every process stages the same rows and flushes only its own
+    slices; the finalize sum runs across processes.
 
     ``pipeline_depth`` bounds the flushes in flight: ``None`` waits for
     each flush's work before the next (the reference's default
@@ -532,7 +556,7 @@ class GramianAccumulator(_Staging):
         self._slices: List[Optional[Position]] = (
             [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
         )
-        self.device = self._slices[0].device if mesh is not None else resolve_device(device)
+        self.device = mesh.home if mesh is not None else resolve_device(device)
         self.data_parallel = len(self._slices)
         self.telemetry = _AccumulatorTelemetry(registry, spans)
         self.num_samples = int(num_samples)
@@ -550,8 +574,12 @@ class GramianAccumulator(_Staging):
         self._fill = 0
         self._flushes = 0
         self.rows_seen = 0
-        self._parts: List[torch.Tensor] = []
+        #: One partial a data slice (``None`` for another process's).
+        self._parts: List[Optional[torch.Tensor]] = []
         for position in self._slices:
+            if position is not None and not position.local:
+                self._parts.append(None)
+                continue
             with run_on(position):
                 self._parts.append(torch.zeros(
                     (self.num_samples, self.num_samples), dtype=torch.int32,
@@ -561,9 +589,11 @@ class GramianAccumulator(_Staging):
     @property
     def G(self) -> torch.Tensor:
         """The Gramian so far: the one slice's, or the data axis's sum."""
-        if len(self._parts) > 1:
-            self._join()
-        return data_axis_sum(self._parts)
+        if self.mesh is None:
+            return self._parts[0]
+        self._join()
+        n = self.num_samples
+        return data_axis_sum(self._parts, like=((n, n), torch.int32), shared=self.mesh.shared)
 
     def _ship(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
         """``host`` on ``device``. On the card through a fresh pinned copy
@@ -595,6 +625,8 @@ class GramianAccumulator(_Staging):
             rows = block[d * B : (d + 1) * B]
             if rows.shape[0] == 0:
                 break
+            if position is not None and not position.local:
+                continue
             device = self.device if position is None else position.device
             with run_on(position):
                 if max_count > 1:
@@ -627,7 +659,7 @@ class GramianAccumulator(_Staging):
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
             return [done]
-        return [record(position) for position in self._slices]
+        return [record(position) for position in self._slices if position.local]
 
     def _join(self) -> None:
         if self.mesh is not None:
@@ -749,13 +781,21 @@ def ring_pass(
     position (h, d) holds the tile of ``((h + k) mod H)·D + (d + j) mod
     D``. ``hosts`` 1 is the flat ring. Each shift is issued before the
     products of the step before it, so on a card the transfer runs behind
-    them."""
+    them.
+
+    On a ring that spans processes each process passes its own positions'
+    operands (``None`` for the others') and runs their products; the hops
+    between processes are ``ring_shift``'s paired sends and receives.
+    With ``hosts`` the process count, the inner rings stay inside one
+    process and only the outer ring crosses."""
     S = len(positions)
     H = int(hosts)
     D = S // H
 
     def step(tiles, events, k, j):
         for p, pos in enumerate(positions):
+            if not pos.local:
+                continue
             h, d = divmod(p, D)
             owner = ((h + k) % H) * D + (d + j) % D
             cols = G_local[p][:, owner * n_local : (owner + 1) * n_local]
@@ -794,10 +834,13 @@ class RingLayout:
     ``--reduce-schedule`` resolution, the cohort padding, the row tiles
     (one ``(n_local, padded)`` int32 a position, made on its stream), the
     manifest's ``schedule`` block and the finalize. ``auto`` is ``hier``
-    when the samples axis spans more than one host (never in one process,
-    unless the rehearsal override names hosts); an explicit ``hier`` whose
-    host factor does not divide the samples axis raises, ``auto``/``flat``
-    then run the flat ring."""
+    when the samples axis spans more than one host — the processes that
+    drive the mesh, or the hosts the rehearsal override names; an explicit
+    ``hier`` whose host factor does not divide the samples axis raises,
+    ``auto``/``flat`` then run the flat ring. On a mesh that spans
+    processes a process holds the row tiles of its own positions
+    (``None`` for the others') and each ring that spans processes has its
+    process group (made here, by every process in the same order)."""
 
     def __init__(self, mesh: Mesh, columns: int, pack_bits: str, reduce_schedule: str,
                  hier_hosts: Optional[int]):
@@ -810,7 +853,9 @@ class RingLayout:
         self.data_parallel = mesh.shape.get(DATA_AXIS, 1)
         resolve_reduce_schedule(reduce_schedule, 1)  # validate the spelling
         try:
-            self.hier_hosts = resolve_hier_hosts(self.samples_parallel, hier_hosts)
+            self.hier_hosts = resolve_hier_hosts(
+                self.samples_parallel, hier_hosts, hosts=len(mesh.ranks)
+            )
         except ValueError:
             if reduce_schedule == "hier":
                 raise
@@ -820,17 +865,24 @@ class RingLayout:
         self.padded = padded_cohort(columns, self.samples_parallel, pack=self.pack)
         self.n_local = self.padded // self.samples_parallel
         self.rings = mesh.data_slices()
-        self.G_local: List[List[torch.Tensor]] = []
+        self.groups = [
+            rank_group(tuple(sorted({p.rank for p in ring}))) if spans_processes(ring) else None
+            for ring in self.rings
+        ]
+        self.G_local: List[List[Optional[torch.Tensor]]] = []
         for ring in self.rings:
             tiles = []
             for position in ring:
+                if not position.local:
+                    tiles.append(None)
+                    continue
                 with position.run():
                     tiles.append(torch.zeros(
                         (self.n_local, self.padded), dtype=torch.int32, device=position.device
                     ))
             self.G_local.append(tiles)
-        self.device = self.rings[0][0].device
-        self.in_flight = _InFlight(mesh.flat())
+        self.device = mesh.home
+        self.in_flight = _InFlight(mesh.local)
 
     def schedule(self, rows: int, measured: Optional[int] = None) -> dict:
         """The ``schedule`` block of a ring that circulated ``rows`` rows
@@ -875,14 +927,24 @@ class RingLayout:
 
     def finalize_tiles(self) -> RowSharded:
         """The row tiles summed over the data axis (int64 past one slice),
-        on the first data slice's positions, after every position's work."""
+        on the first data slice's positions, after every position's work
+        (across processes where the slices' positions are driven by
+        several)."""
         self.in_flight.drain()
         self.mesh.join([t for tiles in self.G_local for t in tiles])
-        tiles = [
-            data_axis_sum([self.G_local[d][s] for d in range(len(self.rings))])
-            for s in range(self.samples_parallel)
-        ]
-        return RowSharded(tiles, self.rings[0], self.columns)
+        data = len(self.rings)
+        like = ((self.n_local, self.padded), torch.int32)
+        tiles = []
+        for s, position in enumerate(self.rings[0]):
+            if data == 1:
+                tiles.append(self.G_local[0][s])
+                continue
+            total = data_axis_sum(
+                [self.G_local[d][s] for d in range(data)], like=like, shared=self.mesh.shared
+            )
+            tiles.append(total if position.local else None)
+        dtype = torch.int32 if data == 1 else torch.int64
+        return RowSharded(tiles, self.rings[0], self.columns, self.padded, dtype, self.mesh.shared)
 
 
 class ShardedGramianAccumulator(_Staging):
@@ -899,7 +961,10 @@ class ShardedGramianAccumulator(_Staging):
     (same-set joins) cannot pack and ride the unpacked wire for that flush.
     Ring bytes are counted per flush with the reference's formula over the
     staged capacity (``ring_traffic_bytes``), the wire format of that
-    flush. Entries are exact int32, as the dense accumulator's.
+    flush: the whole mesh's, hops between processes included. Entries are
+    exact int32, as the dense accumulator's. On a mesh that spans
+    processes every process stages the same rows and works its own
+    positions.
     """
 
     def __init__(
@@ -962,9 +1027,16 @@ class ShardedGramianAccumulator(_Staging):
             rows = block[d * B : (d + 1) * B]
             if rows.shape[0] == 0:
                 break
+            if not any(p.local for p in ring):
+                continue
             host = np.packbits(rows, axis=-1) if use_packed else rows
             own, ready, mine = [], [], []
             for s, position in enumerate(ring):
+                if not position.local:
+                    own.append(None)
+                    ready.append(None)
+                    mine.append(None)
+                    continue
                 shard = torch.from_numpy(np.ascontiguousarray(host[:, s * width : (s + 1) * width]))
                 with position.run():
                     if position.cuda:

@@ -27,6 +27,15 @@ is exact. A tail window runs on its rows only (the reference pads it to W
 for one XLA compile; its padding rows are inert, so the kept mask over the
 real rows is the same).
 
+On a mesh with a ``samples`` axis (:func:`ld_window_stats` with ``mesh``,
+the reference's ``build_ld_window_stats(mesh)``) the window's packing is
+cut by rows — its rows are the samples, so position p of the first data
+slice takes rows ``[p·N/S, (p+1)·N/S)`` — and each position runs the same
+two kernels on its rows into its own zeroed ``C`` on its stream; one sum
+over the positions (across processes too, ``rank_reduce``) completes
+``C``, and ``k = diag(C)``. The window is replicated over the data axis, which carries no
+per-site work here, so the first data slice's positions do it.
+
 **Association counts** (:func:`case_counts`): per site, the carriers
 among the cases ``a = X·case`` and in all ``t = X·1``, the two numbers the
 allelic 2×2 chi-square needs (``analyses/assoc.py:chi2_from_counts``).
@@ -49,6 +58,8 @@ import torch
 from spark_examples_tpu_torch.ops import _kernels
 from spark_examples_tpu_torch.ops.devicegen import _require, _round_up, _sms, gram_accumulate
 from spark_examples_tpu_torch.ops.gramian import _packed_width, unpack_bits, unpack_rows_t
+from spark_examples_tpu_torch.parallel.collectives import rank_reduce
+from spark_examples_tpu_torch.parallel.mesh import SAMPLES_AXIS, host_value
 from spark_examples_tpu_torch.utils.af import variance_counts
 from spark_examples_tpu_torch.utils.device import DeviceLike
 
@@ -88,15 +99,39 @@ def window_counts(packed: torch.Tensor, num_sites: int) -> torch.Tensor:
     return C
 
 
-def ld_window_stats(rows: np.ndarray, device: DeviceLike = "cpu") -> Tuple[np.ndarray, np.ndarray]:
+def ld_window_stats(
+    rows: np.ndarray, device: DeviceLike = "cpu", mesh=None
+) -> Tuple[np.ndarray, np.ndarray]:
     """The window-statistics program: ``(W, N)`` {0,1} rows → ``(C (W, W)
     int32, k (W,) int32)``, on ``device`` (the card's kernels, or their
-    plain versions on the CPU). ``k = diag(C)``, exact because has-variation
-    bits are {0,1}. Replaces ``spark_examples_tpu/ops/ld.py:
+    plain versions on the CPU), or over ``mesh``'s samples axis (the
+    cohort must divide over it). ``k = diag(C)``, exact because
+    has-variation bits are {0,1}. Replaces ``spark_examples_tpu/ops/ld.py:
     build_ld_window_stats`` (its ``_window_counts_body``)."""
     rows = np.asarray(rows)
-    packed = torch.from_numpy(pack_window(rows)).to(device)
-    C = window_counts(packed, rows.shape[0]).cpu().numpy()
+    packed = pack_window(rows)
+    W = rows.shape[0]
+    if mesh is None or mesh.shape.get(SAMPLES_AXIS, 1) < 2:
+        C = window_counts(torch.from_numpy(packed).to(device), W).cpu().numpy()
+        return C, np.diagonal(C).copy()
+    positions = mesh.data_slices()[0]
+    per = packed.shape[0] // len(positions)
+    parts = []
+    for s, position in enumerate(positions):
+        if not position.local:
+            parts.append(None)
+            continue
+        with position.run():
+            shard = torch.from_numpy(packed[s * per : (s + 1) * per]).to(position.device)
+            parts.append(window_counts(shard, W))
+    mesh.join(parts)
+    total = torch.zeros((W, W), dtype=torch.int32, device=mesh.home)
+    for part in parts:
+        if part is not None:
+            total += part.to(total.device)
+    if mesh.shared:
+        total = rank_reduce(total)
+    C = host_value(total)
     return C, np.diagonal(C).copy()
 
 

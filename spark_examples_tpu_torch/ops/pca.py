@@ -104,18 +104,23 @@ def principal_components_subspace_sharded(
     solve's (the same seeded draw of the true ``N × k``), so the two agree
     within the dense solve's tolerance; padded rows come back zero.
     Returns ``(components (padded, num_pc), eigenvalues (num_pc,))`` on the
-    first position's device."""
+    device of this process's first tile; across processes the iterate is
+    gathered in every process, so each runs the same solve."""
     _full_float32()
     n, padded = centered.n_true, centered.padded
     k = min(num_pc + oversample, n)
-    device = centered.tiles[0].device
+    device = centered.device
     generator = torch.Generator(device=device).manual_seed(0)
     V = torch.randn((n, k), generator=generator, dtype=torch.float32, device=device)
     V, _ = torch.linalg.qr(V)
 
     def gathered_bv(V: torch.Tensor) -> torch.Tensor:
-        W = [tile[:, :n] @ V.to(tile.device) for tile in centered.tiles]
-        return all_gather_rows(W)[0][:n]
+        W = [None if tile is None else tile[:, :n] @ V.to(tile.device) for tile in centered.tiles]
+        gathered = all_gather_rows(
+            W, centered.positions if centered.shared else None,
+            like=((centered.rows, k), torch.float32),
+        )
+        return gathered[0].to(device)[:n]
 
     for _ in range(iterations):
         V, _ = torch.linalg.qr(gathered_bv(V))

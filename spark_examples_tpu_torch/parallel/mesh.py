@@ -1,13 +1,14 @@
-"""The device mesh of one process: named axes over positions, and its
+"""The device mesh: named axes over positions, its processes, and its
 arithmetic.
 
 The port of ``spark_examples_tpu/parallel/mesh.py``. The reference builds a
-``jax.sharding.Mesh`` over the devices of its process (one controller) and
-runs its collectives inside ``shard_map``. The port keeps that model: a
+``jax.sharding.Mesh`` over the global devices of its processes and runs its
+collectives inside ``shard_map``. The port keeps that model: a
 :class:`Mesh` is a grid of :class:`Position` objects with named axes
 (``data``, ``samples``, and ``hosts`` for the hierarchical factorisation),
-each position one ``torch.device`` with a CUDA stream for its work and one
-for its transfers. The collectives are ``parallel/collectives.py``.
+each position one ``torch.device`` of one process (its ``rank``), with a
+CUDA stream for its work and one for its transfers. The collectives are
+``parallel/collectives.py``.
 
 - ``data`` axis: the site dimension. Each data slice accumulates a
   different span of the site grid into its own partial Gramian; the
@@ -24,6 +25,17 @@ of the reference tests' virtual CPU devices. Positions on one card run
 their work on their own streams, and the ring's transfers become device
 copies there. On ``--device cpu`` every position is the CPU.
 
+**Processes** (the reference's ``jax.distributed``): :func:`distributed_init`
+joins this process to a ``torch.distributed`` group from the
+``--coordinator-address``/``--num-processes``/``--process-id`` flags. Every
+process runs the same host program over the same global mesh — each brings
+the same number of positions, ranks in order (:func:`global_places`) — and
+does the work of its own positions only (``Position.local``); what crosses
+processes goes through ``parallel/collectives.py``. The backend follows one
+rule, recorded in the manifest (:func:`process_backend`): ``gloo`` on the
+CPU and when two ranks share one card (NCCL refuses that), ``nccl`` when
+every rank owns its card; a failed NCCL set-up raises.
+
 Beside the mesh, the reference's JAX-free arithmetic: the cohort padding
 and ring traffic formulas, the topology and reduction-schedule rules, and
 the peak host-memory bound :func:`host_peak_bytes`. The manifest keeps the
@@ -37,7 +49,9 @@ from __future__ import annotations
 
 import contextlib
 import os
+import socket
 from dataclasses import dataclass
+from datetime import timedelta
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
@@ -168,15 +182,19 @@ def resolve_reduce_schedule(spec: str, hosts: int) -> str:
     return spec
 
 
-def resolve_hier_hosts(samples_parallel: int, explicit: Optional[int] = None) -> int:
+def resolve_hier_hosts(
+    samples_parallel: int, explicit: Optional[int] = None, hosts: Optional[int] = None
+) -> int:
     """The host factor of the hierarchical factorisation: ``explicit``, else
-    :data:`HIER_HOSTS_ENV`, else this process's count (one: the port runs
-    one process). It must divide the samples axis."""
+    :data:`HIER_HOSTS_ENV`, else ``hosts`` (default: the run's process
+    count, :func:`process_count`). It must divide the samples axis."""
     if explicit is None:
         env = os.environ.get(HIER_HOSTS_ENV)
         if env:
             explicit = int(env)
-    hosts = max(1, int(explicit) if explicit is not None else 1)
+    if explicit is None:
+        explicit = process_count() if hosts is None else hosts
+    hosts = max(1, int(explicit))
     if int(samples_parallel) % hosts:
         raise ValueError(
             f"hierarchical schedule needs the host factor ({hosts}) to "
@@ -186,21 +204,201 @@ def resolve_hier_hosts(samples_parallel: int, explicit: Optional[int] = None) ->
     return hosts
 
 
+# ----------------------------------------------------------- processes
+
+#: Seconds a process waits to join its group (and for any collective)
+#: unless the caller names a limit: a missing peer or a bad coordinator
+#: fails the run instead of hanging it.
+DEFAULT_INIT_TIMEOUT = 300.0
+#: Environment variable that replaces :data:`DEFAULT_INIT_TIMEOUT`
+#: (seconds): how a harness bounds the CLI processes it starts.
+DIST_TIMEOUT_ENV = "SPARK_EXAMPLES_TPU_DIST_TIMEOUT"
+
+#: This process's part in a run of several: ``backend`` (``gloo`` or
+#: ``nccl``), ``group`` (the group tensors move through: the default gloo
+#: group, or the NCCL group over it), ``home`` (the device of this
+#: process's positions) and ``rank``/``count``.
+_PROCESS: Dict[str, object] = {"backend": None, "group": None, "home": None, "rank": 0, "count": 1}
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+def distributed_init(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    timeout: Optional[float] = None,
+    device: Union[str, torch.device, None] = None,
+) -> None:
+    """Join this process to a run of several (``torch.distributed``), the
+    reference's ``distributed_init`` (its ``jax.distributed.initialize``).
+
+    A no-op when all three flags are ``None``; a partly given set raises
+    the reference's ``ValueError`` (a run over 1/N of the fleet must not
+    start silently). ``device`` (``cpu`` or ``cuda``, default ``cuda``)
+    names where this process's positions live: on CUDA its card is
+    ``cuda:(rank mod device_count)`` (:func:`local_cards`), and a process
+    that finds no card raises. ``timeout`` (seconds) bounds the rendezvous
+    and every later collective; without it, :data:`DIST_TIMEOUT_ENV` or
+    :data:`DEFAULT_INIT_TIMEOUT`.
+
+    The backend rule: the default group is ``gloo``. On CUDA every rank
+    publishes ``(hostname, card uuid)``; when two ranks share a card the
+    run stays on gloo (tensors staged through host memory,
+    ``parallel/collectives.py``), otherwise an NCCL group is made over the
+    same ranks and carries the tensors. A failed NCCL set-up raises; it
+    never falls back to gloo."""
+    given = (coordinator_address, num_processes, process_id)
+    if all(v is None for v in given):
+        return
+    if any(v is None for v in given):
+        raise ValueError(
+            "multi-host init needs --coordinator-address and --num-processes "
+            f"(got coordinator_address={coordinator_address!r}, "
+            f"num_processes={num_processes!r}, process_id={process_id!r})"
+        )
+    count, rank = int(num_processes), int(process_id)
+    if not 0 <= rank < count:
+        raise ValueError(f"--process-id {rank} outside [0, {count})")
+    if (_PROCESS["rank"], _PROCESS["count"]) == (rank, count) and count > 1:
+        return  # joined already
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"process {rank} was asked for CUDA and has no CUDA device"
+            )
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist = _dist()
+    if timeout is None:
+        timeout = float(os.environ.get(DIST_TIMEOUT_ENV, DEFAULT_INIT_TIMEOUT))
+    limit = timedelta(seconds=float(timeout))
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{coordinator_address}", world_size=count,
+        rank=rank, timeout=limit,
+    )
+    backend, group = "gloo", None
+    if device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        card = (socket.gethostname(), str(getattr(props, "uuid", device.index)))
+        cards: List[object] = [None] * count
+        dist.all_gather_object(cards, card)
+        if len(set(cards)) == count:
+            # Every rank owns its card: tensors move over NCCL. Its first
+            # collective runs here, on every rank, so a broken NCCL fails
+            # the set-up (and later point-to-point batches may involve a
+            # subset of ranks).
+            group = dist.new_group(backend="nccl", timeout=limit)
+            probe = torch.ones(1, device=device)
+            dist.all_reduce(probe, group=group)
+            torch.cuda.synchronize(device)
+            backend = "nccl"
+    _PROCESS.update(backend=backend, group=group, home=device, rank=rank, count=count)
+    print(
+        f"Process {rank} of {count} joined at {coordinator_address} "
+        f"({backend} on {device.type})."
+    )
+
+
+def distributed_shutdown() -> None:
+    """Leave the run's group (a no-op in a run of one process)."""
+    if _PROCESS["count"] > 1:
+        _dist().destroy_process_group()
+    _PROCESS.update(backend=None, group=None, home=None, rank=0, count=1)
+
+
+def process_index() -> int:
+    """This process's rank (0 in a run of one)."""
+    return int(_PROCESS["rank"])
+
+
+def process_count() -> int:
+    """The run's number of processes (1 without :func:`distributed_init`)."""
+    return int(_PROCESS["count"])
+
+
+def process_backend() -> Optional[str]:
+    """The backend :func:`distributed_init` chose (``gloo``/``nccl``);
+    ``None`` in a run of one process."""
+    return _PROCESS["backend"]
+
+
+def data_group():
+    """The group tensors cross processes through (``None``: the default
+    group)."""
+    return _PROCESS["group"]
+
+
+def home_device() -> torch.device:
+    """The device of this process's positions: the one
+    :func:`distributed_init` set up, else the CPU (a process that holds
+    no position of a mesh still needs a device for its share of a
+    collective)."""
+    home = _PROCESS["home"]
+    return home if home is not None else torch.device("cpu")
+
+
+def local_cards() -> List[torch.device]:
+    """The cards this process drives: every card in a run of one process;
+    in a run of several, ``cuda:(rank mod device_count)`` — one card a
+    rank, all ranks on ``cuda:0`` of a one-card host."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass CPU devices to build a mesh on the CPU"
+        )
+    if process_count() > 1:
+        return [torch.device("cuda", process_index() % torch.cuda.device_count())]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class Place(NamedTuple):
+    """A device of the run and the rank of the process that drives it."""
+
+    device: torch.device
+    rank: int
+
+
+def global_places(devices: Sequence, local: bool = False) -> List[Place]:
+    """The places a mesh is built over: ``devices`` are this process's; in
+    a run of several processes (and unless ``local``) every process brings
+    as many, so the run's places are each rank's devices, ranks in order
+    (the reference's ``jax.devices()``). Places pass through unchanged."""
+    places = [
+        d if isinstance(d, Place) else Place(torch.device(d), process_index())
+        for d in devices
+    ]
+    if local or process_count() == 1 or any(isinstance(d, Place) for d in devices):
+        return places
+    return [Place(p.device, r) for r in range(process_count()) for p in places]
+
+
 # ---------------------------------------------------------------- the mesh
 
 
 class Position:
-    """One place of a mesh: a ``torch.device`` and, on a card, the stream
-    its work runs on and the stream its incoming transfers run on (both
-    made at first use). Positions may share a device."""
+    """One place of a mesh: a ``torch.device`` of the process ranked
+    ``rank`` and, on a card, the stream its work runs on and the stream
+    its incoming transfers run on (both made at first use, and only by the
+    process that drives the position). Positions may share a device."""
 
-    def __init__(self, device: torch.device, index: int):
+    def __init__(self, device: torch.device, index: int, rank: Optional[int] = None):
         self.device = torch.device(device)
         self.index = int(index)
+        self.rank = process_index() if rank is None else int(rank)
         self._stream = self._comm = None
 
     def __repr__(self) -> str:
-        return f"Position({self.index}, {self.device})"
+        return f"Position({self.index}, {self.device}, rank {self.rank})"
+
+    @property
+    def local(self) -> bool:
+        """Whether this process drives the position."""
+        return self.rank == process_index()
 
     @property
     def cuda(self) -> bool:
@@ -245,16 +443,29 @@ def run_on(position: Optional[Position]):
     return position.run() if position is not None else contextlib.nullcontext()
 
 
+def spans_processes(positions: Sequence[Position]) -> bool:
+    """Whether more than one process drives ``positions`` (the same answer
+    in every process)."""
+    return len({p.rank for p in positions}) > 1
+
+
 class Mesh:
     """A grid of :class:`Position` objects with named axes, e.g. ``{"data":
     2, "samples": 4}``: ``positions[d, s]``. The samples axis is the fast
-    axis of the grid (position order), as in the reference."""
+    axis of the grid (position order), as in the reference.
 
-    def __init__(self, positions: np.ndarray, axis_names: Sequence[str]):
+    ``shared``: every process of the run runs this mesh's host program and
+    joins its collectives — a mesh over the run's places in a run of
+    several processes, even where one of its sums or rings touches the
+    positions of one process only. A mesh of one process's own devices
+    (host-sharded ingest) is not shared."""
+
+    def __init__(self, positions: np.ndarray, axis_names: Sequence[str], shared: bool = False):
         if positions.ndim != len(axis_names):
             raise ValueError(f"{positions.ndim}-d positions for axes {tuple(axis_names)}")
         self.positions = positions
         self.axis_names = tuple(axis_names)
+        self.shared = bool(shared)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -268,20 +479,43 @@ class Mesh:
         """Every position in grid order."""
         return list(self.positions.reshape(-1))
 
+    @property
+    def local(self) -> List[Position]:
+        """The positions this process drives, in grid order."""
+        return [p for p in self.flat() if p.local]
+
+    @property
+    def ranks(self) -> List[int]:
+        """The ranks of the processes that drive the mesh, in order."""
+        return sorted({p.rank for p in self.flat()})
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether more than one process drives the mesh's positions."""
+        return spans_processes(self.flat())
+
+    @property
+    def home(self) -> torch.device:
+        """The device of this process's first position (its home device
+        when it drives none)."""
+        local = self.local
+        return local[0].device if local else home_device()
+
     def data_slices(self) -> List[List[Position]]:
         """The positions of each data slice, samples-major within it (the
         ring of that slice)."""
         data = self.shape.get(DATA_AXIS, 1)
         return [list(row) for row in self.positions.reshape(data, -1)]
 
-    def join(self, tensors: Sequence[torch.Tensor] = ()) -> None:
-        """Order each device's current stream after every position's work,
-        and keep ``tensors`` (made on position streams) alive until that
+    def join(self, tensors: Sequence[Optional[torch.Tensor]] = ()) -> None:
+        """Order each device's current stream after the work of every
+        position this process drives, and keep ``tensors`` (made on
+        position streams; ``None`` for another process's) alive until that
         stream is done with them."""
-        for position in self.flat():
+        for position in self.local:
             position.join()
         for tensor in tensors:
-            if tensor.is_cuda:
+            if tensor is not None and tensor.is_cuda:
                 tensor.record_stream(torch.cuda.current_stream(tensor.device))
 
     def __repr__(self) -> str:
@@ -295,63 +529,90 @@ class RowSharded:
     strategy's Gramian and centred matrix. Shardedness travels with the
     matrix: ``compute_pca`` takes the sharded centring and eigensolve
     exactly for this type. ``n_true`` is the cohort's width; rows and
-    columns past it are padding (zero)."""
+    columns past it are padding (zero). ``shared`` as the mesh it came
+    from (:class:`Mesh`): then a tile of a position another process
+    drives is ``None`` here, ``padded`` and ``dtype`` are given (a process
+    may hold none of the tiles), and every process joins the collectives
+    that read it."""
 
-    tiles: List[torch.Tensor]
+    tiles: List[Optional[torch.Tensor]]
     positions: List[Position]
     n_true: int
+    padded: int = 0
+    dtype: Optional[torch.dtype] = None
+    shared: bool = False
+
+    def __post_init__(self) -> None:
+        held = [t for t in self.tiles if t is not None]
+        if held:
+            self.padded = int(held[0].shape[1])
+            self.dtype = held[0].dtype
+        if not self.padded or self.dtype is None:
+            raise ValueError("a RowSharded that holds no tile needs padded and dtype")
 
     @property
-    def padded(self) -> int:
-        return int(self.tiles[0].shape[1])
+    def rows(self) -> int:
+        """Rows of one tile."""
+        return self.padded // len(self.positions)
 
     @property
-    def dtype(self) -> torch.dtype:
-        return self.tiles[0].dtype
+    def device(self) -> torch.device:
+        """Where this process's share lives: its first tile's device, else
+        its home device."""
+        held = [t for t in self.tiles if t is not None]
+        return held[0].device if held else home_device()
 
     def to_host(self) -> np.ndarray:
-        """The whole (padded, padded) matrix on the host."""
+        """The whole (padded, padded) matrix on the host, in every process
+        (tiles of other processes gathered first, the reference's
+        ``host_value`` of a non-addressable array)."""
+        from spark_examples_tpu_torch.parallel.collectives import all_gather_rows
+
+        if self.shared:
+            return all_gather_rows(
+                self.tiles, self.positions, like=((self.rows, self.padded), self.dtype)
+            )[0].cpu().numpy()
         return np.concatenate([t.cpu().numpy() for t in self.tiles])
 
 
-def _devices(devices: Optional[Sequence]) -> List[torch.device]:
+def _devices(devices: Optional[Sequence]) -> List:
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass CPU devices to build a mesh on the CPU"
-            )
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device(d) for d in devices]
+        return local_cards()
+    return [d if isinstance(d, Place) else torch.device(d) for d in devices]
 
 
-def make_mesh(shape: Dict[str, int], devices: Optional[Sequence] = None) -> Mesh:
+def make_mesh(shape: Dict[str, int], devices: Optional[Sequence] = None, local: bool = False) -> Mesh:
     """Build a named mesh, e.g. ``make_mesh({"data": 4, "samples": 2})``,
-    over the first positions of ``devices`` (default: every card). Raises
-    when the devices cannot hold the shape; a device may repeat."""
-    devices = _devices(devices)
+    over the first of the run's places (:func:`global_places` of
+    ``devices``, default: this process's cards; with ``local``, this
+    process's devices alone). Raises when the places cannot hold the
+    shape; a device may repeat."""
+    places = global_places(_devices(devices), local=local)
     sizes = [max(1, int(n)) for n in shape.values()]
     total = int(np.prod(sizes))
-    if total > len(devices):
-        raise ValueError(f"mesh shape {shape} needs {total} devices, have {len(devices)}")
+    if total > len(places):
+        raise ValueError(f"mesh shape {shape} needs {total} devices, have {len(places)}")
     grid = np.empty(total, dtype=object)
-    for i, device in enumerate(devices[:total]):
-        grid[i] = Position(device, i)
-    return Mesh(grid.reshape(sizes), tuple(shape.keys()))
+    for i, place in enumerate(places[:total]):
+        grid[i] = Position(place.device, i, place.rank)
+    return Mesh(grid.reshape(sizes), tuple(shape.keys()),
+                shared=not local and process_count() > 1)
 
 
 def default_mesh(
     num_reduce_partitions: Optional[int] = None,
     samples_axis: int = 1,
     devices: Optional[Sequence] = None,
+    local: bool = False,
 ) -> Mesh:
-    """All devices, data-major; ``num_reduce_partitions`` caps the data
-    axis (the reference's reduce parallelism), the rest stay unused."""
-    devices = _devices(devices)
+    """All the run's places, data-major; ``num_reduce_partitions`` caps the
+    data axis (the reference's reduce parallelism), the rest stay unused."""
+    places = global_places(_devices(devices), local=local)
     samples_axis = max(1, samples_axis)
-    data = len(devices) // samples_axis
+    data = len(places) // samples_axis
     if num_reduce_partitions is not None:
         data = max(1, min(data, num_reduce_partitions))
-    return make_mesh({DATA_AXIS: data, SAMPLES_AXIS: samples_axis}, devices)
+    return make_mesh({DATA_AXIS: data, SAMPLES_AXIS: samples_axis}, places)
 
 
 def hierarchical_mesh(mesh: Mesh, hosts: int) -> Mesh:
@@ -366,47 +627,69 @@ def hierarchical_mesh(mesh: Mesh, hosts: int) -> Mesh:
         raise ValueError(f"host factor {hosts} does not divide samples axis {samples}")
     data = mesh.shape.get(DATA_AXIS, 1)
     grid = mesh.positions.reshape(data, hosts, samples // hosts)
-    return Mesh(grid, (DATA_AXIS, HOST_AXIS, SAMPLES_AXIS))
+    return Mesh(grid, (DATA_AXIS, HOST_AXIS, SAMPLES_AXIS), shared=mesh.shared)
 
 
 def run_devices(device: Union[str, torch.device]) -> List[torch.device]:
-    """The devices a run on ``device`` resolves its mesh over: every card
-    (``cuda:0 .. device_count() - 1``) for a CUDA device; on the CPU, CPU
-    positions, as many as a mesh shape asks for (:func:`resolve_run_mesh`
-    takes ``None`` for them)."""
+    """The devices of this process a run on ``device`` resolves its mesh
+    over: its cards (:func:`local_cards`) for a CUDA device; on the CPU,
+    CPU positions, as many as a mesh shape asks for
+    (:func:`resolve_run_mesh` takes ``None`` for them)."""
     device = torch.device(device)
     if device.type == "cpu":
         return [device]
-    return _devices(None)
+    return local_cards()
 
 
 def resolve_run_mesh(
     mesh_shape: Optional[str] = None,
     num_reduce_partitions: Optional[int] = None,
     devices: Optional[Sequence] = None,
+    local: bool = False,
 ) -> Optional[Mesh]:
     """The one run-mesh rule: an explicit ``--mesh-shape``, else every
-    device capped by ``--num-reduce-partitions``; ``None`` on one device.
-    A CPU device list of one position grows to the shape's size (CPU
-    positions are places, as the reference's virtual devices are)."""
+    place of the run capped by ``--num-reduce-partitions``; ``None`` on one
+    place. A CPU device list of one position grows to the shape's size —
+    in a run of several processes, each process's to its share (CPU
+    positions are places, as the reference's virtual devices are).
+    ``local`` keeps the mesh to this process's devices (host-sharded
+    ingest)."""
     devices = _devices(devices)
+    shares = 1 if local else process_count()
     if mesh_shape:
         shape = parse_mesh_shape(mesh_shape)
-        if all(d.type == "cpu" for d in devices) and len(devices) == 1:
-            devices = devices * int(np.prod([max(1, n) for n in shape.values()]))
-        return make_mesh(shape, devices)
-    if len(devices) == 1:
+        size = int(np.prod([max(1, n) for n in shape.values()]))
+        if len(devices) == 1 and not isinstance(devices[0], Place) and devices[0].type == "cpu":
+            if size % shares:
+                raise ValueError(
+                    f"mesh shape {shape} does not divide over {shares} processes"
+                )
+            devices = devices * (size // shares)
+        return make_mesh(shape, devices, local=local)
+    places = global_places(devices, local=local)
+    if len(places) == 1:
         return None
-    return default_mesh(num_reduce_partitions=num_reduce_partitions, devices=devices)
+    return default_mesh(num_reduce_partitions=num_reduce_partitions, devices=places)
 
 
 def host_value(x) -> np.ndarray:
-    """Host copy of a tensor or of a :class:`RowSharded` matrix."""
+    """Host copy of a tensor or of a :class:`RowSharded` matrix, valid in
+    every process (the tiles of other processes are gathered first)."""
     if isinstance(x, RowSharded):
         return x.to_host()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def local_shard(x) -> np.ndarray:
+    """One shard this process holds — a process-local synchronous fetch
+    (the reference's ``local_shard``): a :class:`RowSharded`'s first tile
+    here, or a tensor whole."""
+    if isinstance(x, RowSharded):
+        held = [t for t in x.tiles if t is not None]
+        return held[0].cpu().numpy() if held else np.zeros((0, x.padded))
+    return host_value(x)
 
 
 def packed_host_fetch(arrays: Sequence[Union[torch.Tensor, Sequence[torch.Tensor]]]) -> np.ndarray:
@@ -553,6 +836,8 @@ def parse_mesh_shape(spec: str) -> Dict[str, int]:
 
 __all__ = [
     "DATA_AXIS",
+    "DEFAULT_INIT_TIMEOUT",
+    "DIST_TIMEOUT_ENV",
     "HIER_HOSTS_ENV",
     "HOST_AXIS",
     "HOST_RUNTIME_BASELINE_BYTES",
@@ -563,21 +848,33 @@ __all__ = [
     "RowSharded",
     "SAMPLES_AXIS",
     "Topology",
+    "Place",
+    "data_group",
     "default_mesh",
+    "distributed_init",
+    "distributed_shutdown",
     "flat_traffic_split",
+    "global_places",
     "hierarchical_mesh",
     "hierarchical_traffic_bytes",
     "host_peak_bytes",
+    "home_device",
     "host_value",
+    "local_cards",
+    "local_shard",
     "make_mesh",
     "packed_host_fetch",
     "padded_cohort",
     "parse_mesh_shape",
     "parse_topology",
+    "process_backend",
+    "process_count",
+    "process_index",
     "resolve_hier_hosts",
     "resolve_reduce_schedule",
     "resolve_run_mesh",
     "ring_traffic_bytes",
     "run_devices",
     "run_on",
+    "spans_processes",
 ]

@@ -7,14 +7,26 @@ eigensolve (``ops/pca.py``) → the TSV rows and the "Variants API stats"
 epilogue. Every printed line but the PC values is identical to the JAX
 package's on the same argv.
 
-On a mesh of this process's devices (``--mesh-shape``, or every card
-capped by ``--num-reduce-partitions``; ``parallel/mesh.py``) the dense
-strategy gains a ``data`` axis and ``--similarity-strategy sharded`` (or
-``auto`` past the device's memory) keeps the Gramian as row tiles over the
-``samples`` axis through a ring (``ops/gramian.py``,
+On a mesh (``--mesh-shape``, or every card capped by
+``--num-reduce-partitions``; ``parallel/mesh.py``) the dense strategy gains
+a ``data`` axis and ``--similarity-strategy sharded`` (or ``auto`` past the
+device's memory) keeps the Gramian as row tiles over the ``samples`` axis
+through a ring (``ops/gramian.py``,
 ``ops/devicegen.py:DeviceGenRingGramianAccumulator``), the sharded
 centring and the sharded eigensolve; the ring's ``schedule`` block goes
 into the manifest.
+
+Across several processes (``--coordinator-address``/``--num-processes``/
+``--process-id``, joined by :func:`run`) the mesh spans every process's
+positions. A dense run ingests host-sharded, as the reference's does
+(:meth:`VariantsPcaDriver._plan_host_sharded_ingest`): each process reads
+only its contig partition (``sharding/contig.py:host_partition``) into a
+Gramian on its own positions, and the partials are summed exactly across
+processes at the end (:meth:`VariantsPcaDriver._merge_host_partials`);
+the sharded ring keeps the whole site stream in every process and its
+hops cross processes. Every process builds the manifest, whose I/O totals
+are summed across processes (``parallel/multihost.py:
+aggregate_host_counts``).
 
 Three ingest arms, resolved from ``--ingest`` exactly as the reference
 resolves them (:func:`resolve_ingest`):
@@ -108,9 +120,12 @@ from spark_examples_tpu_torch.parallel.mesh import (
     Mesh,
     RowSharded,
     packed_host_fetch,
+    process_count,
+    process_index,
     resolve_run_mesh,
     run_devices,
 )
+from spark_examples_tpu_torch.parallel.collectives import rank_reduce
 from spark_examples_tpu_torch.pipeline.checkpoint import (
     CheckpointWriter,
     GramianFeeder,
@@ -124,6 +139,7 @@ from spark_examples_tpu_torch.pipeline.datasets import (
     _parallel_shards,
 )
 from spark_examples_tpu_torch.pipeline.stats import VariantsDatasetStats
+from spark_examples_tpu_torch.sharding.contig import host_partition
 from spark_examples_tpu_torch.sharding.partitioners import VariantsPartitioner
 from spark_examples_tpu_torch.sources import partition_page_requests
 from spark_examples_tpu_torch.sources.base import GenomicsSource, get_access_token
@@ -197,8 +213,13 @@ class VariantsPcaDriver:
         source: Optional[GenomicsSource] = None,
         device: DeviceLike = None,
         devices: Optional[Sequence[DeviceLike]] = None,
+        shard_ingest: bool = True,
     ):
         self.conf = conf
+        #: Whether a dense run of several processes may split its ingest
+        #: over them (:meth:`_plan_host_sharded_ingest`); off for a caller
+        #: that feeds every process the whole site stream itself.
+        self.shard_ingest = shard_ingest
         self.devices = [torch.device(d) for d in devices] if devices is not None else None
         self.device = resolve_device(self.devices[0] if self.devices else device)
         self.source = source if source is not None else make_source(conf)
@@ -220,6 +241,9 @@ class VariantsPcaDriver:
         #: The manifest's ``schedule`` block, from the sharded accumulator
         #: when one ran; ``None`` on dense and host runs.
         self.sched_block: Optional[Dict] = None
+        #: Processes the run's ingest is split over (resolved once,
+        #: :meth:`_plan_host_sharded_ingest`).
+        self._ingest_hosts: Optional[int] = None
         # The resume artifact loads here, before any ingest, so a
         # fingerprint mismatch or a corrupt artifact fails in milliseconds
         # instead of after a re-ingest pass.
@@ -254,9 +278,11 @@ class VariantsPcaDriver:
         the run resolves), as the reference's ``_register_host_memory_gauges``
         resolves it,
         over this device's runtime baseline (``runtime_baseline_bytes``:
-        measured here on the card, before any data is staged). Telemetry
-        never takes down a run: if the resolver raises, the runtime
-        baseline is registered."""
+        measured here on the card, before any data is staged). It is a
+        per-process bound: in a run of several processes each charges the
+        merge of the partial Gramians (``num_hosts``). Telemetry never
+        takes down a run: if the resolver raises, the runtime baseline is
+        registered."""
         if read_host_peak_rss_bytes() is not None:
             well_known_gauge(self.registry, HOST_PEAK_RSS_BYTES).set_function(
                 lambda: float(read_host_peak_rss_bytes() or 0)
@@ -267,7 +293,7 @@ class VariantsPcaDriver:
                 self.conf,
                 device_count=len(self._mesh_devices()),
                 num_samples=len(self.indexes) or None,
-                num_hosts=1,
+                num_hosts=process_count(),
                 baseline_bytes=baseline,
             )
         except Exception:
@@ -283,7 +309,9 @@ class VariantsPcaDriver:
         list, or a checkpoint reader under ``--input-path``."""
         if self.conf.input_path:
             return [load_variants(self.conf.input_path)]
-        contigs = self.conf.get_contigs(self.source, self.conf.variant_set_id)
+        contigs = self._host_contigs(
+            self.conf.get_contigs(self.source, self.conf.variant_set_id)
+        )
         partitioner = VariantsPartitioner(contigs, self.conf.bases_per_partition)
         return [
             VariantsDataset(
@@ -441,6 +469,73 @@ class VariantsPcaDriver:
             sharded = False
         return sharded
 
+    def _plan_host_sharded_ingest(self) -> int:
+        """How many processes the run's ingest is split over, resolved
+        once (the reference's rule, ``sharding/contig.py:
+        partition_contigs_by_host``): all of them when the run has several
+        processes, the strategy is dense (the sharded ring needs every
+        process on the same site stream), the backend is the device one,
+        and the source is live (no ``--input-path`` resume, no
+        ``--save-variants``, no Gramian checkpoint cursor); else 1. Each
+        process then ingests only its contig partition on its own positions
+        and the partials are summed exactly at the end
+        (:meth:`_merge_host_partials`)."""
+        if self._ingest_hosts is not None:
+            return self._ingest_hosts
+        hosts = 1
+        conf = self.conf
+        if (
+            self.shard_ingest
+            and conf.pca_backend == "gpu"
+            and not conf.input_path
+            and not conf.save_variants
+            and not conf.gramian_checkpoint_dir
+            and not conf.resume_from
+            and process_count() > 1
+            and not self._resolve_sharded(self._make_mesh())
+        ):
+            hosts = process_count()
+        self._ingest_hosts = hosts
+        return hosts
+
+    def _host_contigs(self, contigs) -> List:
+        """This process's contig partition under host-sharded ingest; the
+        full list otherwise. The one seam every ingest arm partitions
+        through, so they cannot disagree on the split."""
+        contigs = list(contigs)
+        hosts = self._plan_host_sharded_ingest()
+        if hosts <= 1:
+            return contigs
+        local = host_partition(
+            contigs, process_index(), hosts, weight=self.source.declared_sites
+        )
+        print(
+            f"Host-sharded ingest: process {process_index()} of "
+            f"{hosts} reads {len(local)} of {len(contigs)} contig(s)."
+        )
+        return local
+
+    def _ingest_mesh(self) -> Optional[Mesh]:
+        """The dense accumulator's mesh: the run's, or under host-sharded
+        ingest one over this process's devices only, so ingest streams of
+        different lengths never meet in a collective before the merge."""
+        if self._plan_host_sharded_ingest() > 1:
+            return resolve_run_mesh(
+                None, self.conf.num_reduce_partitions, devices=self._mesh_devices(), local=True
+            )
+        return self._make_mesh()
+
+    def _merge_host_partials(self, result):
+        """The one collective of host-sharded ingest: every process's dense
+        N×N partial Gramian summed across processes, in int64 (float64 for
+        float partials) and cast back, so the merged matrix is
+        byte-identical to the one-process run's (``G += XᵀX`` commutes over
+        any split of the rows). The identity in a run of one process."""
+        if self._plan_host_sharded_ingest() <= 1:
+            return result
+        wide = torch.float64 if result.is_floating_point() else torch.int64
+        return rank_reduce(result.to(wide)).to(result.dtype)
+
     def _host_fed_accumulator(self, pipeline_depth: Optional[int] = None):
         """The host-fed arms' accumulator: the sharded ring, or the dense
         Gramian (with the mesh's data axis)."""
@@ -460,7 +555,7 @@ class VariantsPcaDriver:
                 pipeline_depth=pipeline_depth,
                 registry=self.registry,
                 spans=self.spans,
-                mesh=mesh,
+                mesh=self._ingest_mesh(),
             )
         self.accumulator = acc
         return acc
@@ -471,7 +566,7 @@ class VariantsPcaDriver:
         if isinstance(acc, ShardedGramianAccumulator):
             self.sched_block = acc.schedule_block()
             return acc.finalize_sharded()
-        return acc.finalize_device()
+        return self._merge_host_partials(acc.finalize_device())
 
     def _wrap_accumulator(self, acc):
         """Interpose the checkpoint feeder between the ingest stream and a
@@ -568,6 +663,11 @@ class VariantsPcaDriver:
         )
         mesh = self._make_mesh()
         use_ring = self._resolve_sharded(mesh)
+        if not use_ring:
+            # Dense across processes: host-sharded ingest, each process
+            # generating its contig partition on its own positions.
+            contigs = self._host_contigs(contigs)
+            mesh = self._ingest_mesh()
         if use_ring:
             # Each samples position generates its own column block and the
             # tiles ring-exchange: no host traffic, no position holding N×N.
@@ -626,7 +726,7 @@ class VariantsPcaDriver:
         if use_ring:
             self.sched_block = acc.schedule_block()
             return acc.finalize_sharded()
-        return acc.finalize_device()
+        return self._merge_host_partials(acc.finalize_device())
 
     def _host_similarity(self, calls: Iterable[List[int]]) -> np.ndarray:
         """Literal host replication of ``getSimilarityMatrix``
@@ -661,10 +761,12 @@ class VariantsPcaDriver:
                 device_components, _ = principal_components_subspace_sharded(
                     centered, self.conf.num_pc
                 )
-            nz = sum(
-                (tile != 0).any(dim=1).sum().to(device_components.device)
-                for tile in similarity.tiles
-            )
+            nz = torch.zeros((), dtype=torch.int64, device=device_components.device)
+            for tile in similarity.tiles:
+                if tile is not None:
+                    nz += (tile != 0).any(dim=1).sum().to(nz.device)
+            if similarity.shared:
+                nz = rank_reduce(nz)
             # One host copy for the components and the nonzero-row count.
             flat = packed_host_fetch([device_components, nz])
             components = flat[:-1].reshape(-1, self.conf.num_pc)[:n].astype(np.float64)
@@ -888,7 +990,7 @@ def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
     the same per-shard pages and variants in the I/O stats."""
     source = driver.source
     set_id = conf.variant_set_id[0]
-    contigs = conf.get_contigs(source, conf.variant_set_id)
+    contigs = driver._host_contigs(conf.get_contigs(source, conf.variant_set_id))
     partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(set_id)
     well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
     done_gauge = well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
@@ -1022,7 +1124,9 @@ def run_pipeline(
         print(str(times))
         print(f"Device trace written to {conf.profile_dir}.")
     manifest = manifest_path = None
-    if conf.metrics_json:
+    if conf.metrics_json or process_count() > 1:
+        # Across processes every process builds it (the I/O totals inside
+        # are a collective), with --metrics-json or not.
         resume = None
         if driver.feeder is not None:
             # Where this run started from (0 for a fresh checkpointed run),
@@ -1042,6 +1146,7 @@ def run_pipeline(
             resume=resume,
             schedule=driver.sched_block,
         )
+    if conf.metrics_json:
         try:
             write_manifest(conf.metrics_json, manifest)
         except OSError as e:
@@ -1086,9 +1191,12 @@ def run(
     devices: Optional[Sequence[DeviceLike]] = None,
 ) -> List[str]:
     """``VariantsPcaDriver.main`` (``VariantsPca.scala:47-59``): parse the
-    flags and run. ``device`` overrides ``--device``; ``devices`` are the
-    mesh's positions (:func:`run_pipeline`)."""
-    return run_pipeline(PcaConf.parse(argv), device=device, devices=devices).lines
+    flags, join the run's processes when the cluster flags name them, and
+    run. ``device`` overrides ``--device``; ``devices`` are the mesh's
+    positions (:func:`run_pipeline`)."""
+    conf = PcaConf.parse(argv)
+    conf.init_distributed()
+    return run_pipeline(conf, device=device, devices=devices).lines
 
 
 __all__ = [

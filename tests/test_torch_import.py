@@ -81,11 +81,14 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.ops.devicegen",
     "spark_examples_tpu_torch.ops.gramian",
     "spark_examples_tpu_torch.ops.ld",
+    "spark_examples_tpu_torch.parallel.collectives",
     "spark_examples_tpu_torch.parallel.mesh",
+    "spark_examples_tpu_torch.parallel.multihost",
     "spark_examples_tpu_torch.pipeline.checkpoint",
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
     "spark_examples_tpu_torch.pipeline.sitewriter",
+    "spark_examples_tpu_torch.sharding.contig",
     "spark_examples_tpu_torch.sources.files",
     "spark_examples_tpu_torch.sources.rest",
     "spark_examples_tpu_torch.sources.stream",
@@ -171,9 +174,9 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
 @pytest.mark.parametrize(
     "flags, named",
     [
-        (["--num-processes", "2"], "--num-processes"),
-        (["--coordinator-address", "h:1"], "--coordinator-address"),
-        (["--process-id", "0"], "--process-id"),
+        (["--num-processes", "2", "--trace-dir", "t"], "--trace-dir"),
+        (["--coordinator-address", "h:1", "--check-ranges"], "--check-ranges"),
+        (["--num-processes", "2", "--gramian-checkpoint-dir", "ck"], "--gramian-checkpoint-dir"),
         (["--check-ranges"], "--check-ranges"),
         (["--trace-dir", "t"], "--trace-dir"),
         (["--mesh-shape", "1,2", "--check-ranges"], "--check-ranges"),
@@ -184,6 +187,47 @@ def test_unported_flags_raise_naming_the_flag(flags, named):
 
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         PcaConf.parse(flags + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--coordinator-address", "127.0.0.1:29500", "--num-processes", "2", "--process-id", "1"],
+        ["--num-processes", "2"],
+        ["--mesh-shape", "1,4", "--similarity-strategy", "sharded"],
+    ],
+)
+@pytest.mark.parametrize("conf_class", ["PcaConf", "GrmConf", "LdConf", "AssocConf"])
+def test_process_and_mesh_flags_parse_in_every_verb(flags, conf_class):
+    """The cluster flags and the mesh's, refused before they were ported,
+    parse in the PCA verb and the analyses; joining happens at run time
+    (``init_distributed``), where partly given flags raise."""
+    from spark_examples_tpu_torch import config
+
+    conf = getattr(config, conf_class).parse(flags + ["--device", "cpu"])
+    assert conf.num_processes in (None, 2)
+
+
+def test_multihost_child_imports_no_jax():
+    """A harness child (here a run of one process) drives its checks
+    without importing JAX or the JAX package."""
+    from spark_examples_tpu_torch.parallel.multihost import _child_env, _free_port
+
+    code = (
+        "import sys\n"
+        "from spark_examples_tpu_torch.parallel import multihost\n"
+        f"v = multihost.child_check('127.0.0.1:{_free_port()}', 1, 0, local_devices=2, timeout=60)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'spark_examples_tpu' or m.startswith('spark_examples_tpu.'))\n"
+        "print(bad, v['gramian_ok'], v['ring_gramian_ok'], v['hier_gramian_ok'])\n"
+        "sys.exit(1 if bad or not v['ring_gramian_ok'] else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_child_env(60),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("[] True True True")
 
 
 @pytest.mark.parametrize(
