@@ -60,7 +60,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    items, and ``pack_rows_t`` on a generated 632-column slice and on a
    6,256-column Xᵀ (also against ``np.packbits``) with ``unpack_rows_t``
    of each packed tile back, and ``gen_genotypes`` on one position's cut
-   tables;
+   tables; the stacked jobs' kernels, ``stacked_unpack_rows_t`` then
+   ``stacked_gram_accumulate`` at 1, 2 and 8 lanes × 2,504 samples × 1,024
+   and 16,384 rows, at 17, 130 and 2,504 samples × 3 lanes, and in a step
+   where 5 of 8 lanes have finished, timed at 4 lanes beside the K-launch
+   loop and K calls of ``torch._int_mm`` plus the add;
 4. main path: ``variants-pca`` through ``run_pipeline`` — device generation
    over chr17 at 2,504 samples (a cold run, then a warm one, both with
    blocks of 16,384 sites, then one at the CLI's default 1,024) and over
@@ -91,7 +95,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    summing to the solo run's), with wall-clock, spans, backend and the
    bytes staged through host memory; and ``bench.py``'s
    large-cohort-sharded cell, 25,000 samples over chr17 through the ring
-   at 1,4, its Gramian byte-equal to the one-device dense run's;
+   at 1,4, its Gramian byte-equal to the one-device dense run's; and
+   ``run_fused_pipeline``: a ``pca`` and a ``similarity`` group of 4 jobs
+   over the four 2 Mb windows of chr17-20, each lane's Gramian byte-equal
+   to its serial ``run_pipeline`` (``--ingest packed``), its PC rows or
+   summary equal, the group's wall-clock beside the serial runs' sum, and
+   ``max_fused_jobs`` on the card;
 5. files: the packed window's synthetic cohort written as a VCF (GT from
    ``has_variation``, AF in INFO; about 180 MB) and a gzip copy, the wire
    window's as a small VCF, under ``chip_smoke_data/``; then the file
@@ -2364,6 +2373,213 @@ def phase_mesh_analyses(torch, kernels):
         log(f"mesh {label}: the 1,4 output is byte-identical to the one-device run's")
 
 
+#: The stacked kernels' checks (``phase_fused_kernels``): lanes K at 2,504
+#: samples × the CLI's and chr17's blocks; cohort widths at K = 3 (odd, n %
+#: 4 == 2, the cohort); the lanes that hold a block in a step where the
+#: others of 8 have finished.
+FUSED_LANES = (1, 2, 8)
+FUSED_WIDTHS = (17, 130, N_SAMPLES)
+FUSED_ACTIVE = (1, 4, 6)
+#: The fused pipeline phase: groups of this many jobs over ``FLEET_WINDOWS``,
+#: one window a job, packed ingest at the CLI's block; the timed stacked
+#: step is at this K.
+FUSED_GROUP = 4
+FUSED_TIMED_ROWS = (CLI_BLOCK, BLOCK)
+
+
+def stacked_inputs(torch, rng, k, n, rows, active=None):
+    """K lanes of bit-packed has-variation rows at the synthetic density on
+    the card, the lanes outside ``active`` zero (as the stacked accumulator
+    ships a finished lane)."""
+    bits = (rng.random((k, rows, n)) < 0.3).astype(np.uint8)
+    if active is not None:
+        bits[[j for j in range(k) if j not in active]] = 0
+    return torch.from_numpy(np.packbits(bits, axis=-1)).to("cuda")
+
+
+def phase_fused_kernels(torch, batched, devicegen, gramian):
+    """The stacked jobs' two kernels against their plain versions, exactly:
+    ``stacked_unpack_rows_t`` (every listed lane's rows of the stacked Xᵀ)
+    then ``stacked_gram_accumulate`` onto a nonzero (K, N, N) G, at K in
+    ``FUSED_LANES`` × 2,504 samples × 1,024 and 16,384 rows, at N in
+    ``FUSED_WIDTHS`` with K = 3, and in a step of 8 lanes where only
+    ``FUSED_ACTIVE`` hold a block. Then CUDA-event times at K =
+    ``FUSED_GROUP`` (and 1 and 8 at the CLI's block) beside the K-launch
+    loop (``unpack_rows_t`` + ``gram_accumulate`` a lane), K calls of
+    ``torch._int_mm`` plus the add, the plain versions, the bounds and each
+    product launch's blocks and waves. Returns the JSON rows (K =
+    ``FUSED_GROUP`` × 1,024 rows, the fused phase's step)."""
+    from spark_examples_tpu_torch.utils.device import cuda_event_ms as cuda_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(17)
+    cases = [(k, N_SAMPLES, rows, None) for k in FUSED_LANES for rows in (CLI_BLOCK, BLOCK)]
+    cases += [(3, n, CLI_BLOCK, None) for n in FUSED_WIDTHS]
+    cases.append((8, N_SAMPLES, CLI_BLOCK, FUSED_ACTIVE))
+    for k, n, rows, active in cases:
+        packed = stacked_inputs(torch, rng, k, n, rows, active)
+        lanes = list(active) if active is not None else None
+        n_pad = -(-n // 128) * 128
+        got = batched.stacked_unpack_rows_t(packed, n, lanes)
+        want = batched.stacked_unpack_rows_t_plain(packed, n)
+        start = torch.from_numpy(rng.integers(-1000, 1000, (k, n, n), dtype=np.int32)).to(dev)
+        g_k, g_p = start.clone(), start.clone()
+        batched.stacked_gram_accumulate(g_k, got, lanes)
+        batched.stacked_gram_accumulate_plain(g_p, want)
+        torch.cuda.synchronize()
+        for lane in (lanes if lanes is not None else range(k)):
+            if not torch.equal(got[lane * n_pad:(lane + 1) * n_pad],
+                               want[lane * n_pad:(lane + 1) * n_pad]):
+                raise AssertionError(f"stacked_unpack_rows_t != plain (K={k}, N={n}, {rows} "
+                                     f"rows, lane {lane})")
+        err = int((g_k.long() - g_p.long()).abs().max())
+        if err:
+            raise AssertionError(f"stacked_gram_accumulate != plain (K={k}, N={n}, {rows} rows, "
+                                 f"lanes {lanes}): max err {err}")
+        blocks, resident, split, sms = batched.stacked_gram_accumulate_grid(
+            n_pad, -(-rows // 128) * 128, len(lanes or range(k)), dev)
+        log(f"kernels: stacked_unpack_rows_t and stacked_gram_accumulate == plain (K={k}, N={n}, "
+            f"{rows} rows, lanes {lanes or 'all'}): trace {int((g_k - start).diagonal(0, 1, 2).long().sum())}; "
+            f"product launch {blocks} blocks (split {split}), {resident} resident on {sms} SMs, "
+            f"{blocks / resident:.2f} waves")
+        del packed, got, want, start, g_k, g_p
+    int32_rate = int32_ops_per_s(torch)
+    times = {}
+    n = N_SAMPLES
+    n_pad = -(-n // 128) * 128
+    for k, rows in [(FUSED_GROUP, r) for r in FUSED_TIMED_ROWS] + [(1, CLI_BLOCK), (8, CLI_BLOCK)]:
+        packed = stacked_inputs(torch, rng, k, n, rows)
+        ld = -(-rows // 128) * 128
+        G = torch.zeros((k, n, n), dtype=torch.int32, device=dev)
+        xt = batched.stacked_unpack_rows_t(packed, n)
+        singles = [gramian.unpack_rows_t(packed[j], n) for j in range(k)]
+        iters = 20 if rows > CLI_BLOCK else 50
+
+        def loop():
+            for j in range(k):
+                devicegen.gram_accumulate(G[j], gramian.unpack_rows_t(packed[j], n))
+
+        def int_mm():
+            for j in range(k):
+                G[j].add_(torch._int_mm(singles[j][:n], singles[j][:n].t()))
+
+        unpack_bound = bound(packed.numel() + k * n_pad * ld, 0, int32_rate)
+        # The product reads the stacked Xᵀ once and each lane's G once each
+        # way; N·(N+1)·B operations a lane (the symmetric half).
+        gram_bound = bound(k * (n_pad * ld + 8 * n * n), float(k) * n * (n + 1) * rows,
+                           PEAK_INT8_OPS_PER_S)
+        r = times[(k, rows)] = dict(
+            unpack_ms=cuda_ms(lambda: batched.stacked_unpack_rows_t(packed, n), iters),
+            gram_ms=cuda_ms(lambda: batched.stacked_gram_accumulate(G, xt), iters),
+            step_ms=cuda_ms(lambda: batched.stacked_gram_accumulate(
+                G, batched.stacked_unpack_rows_t(packed, n)), iters),
+            loop_ms=cuda_ms(loop, iters),
+            int_mm_ms=cuda_ms(int_mm, iters),
+            unpack_plain_ms=cuda_ms(lambda: batched.stacked_unpack_rows_t_plain(packed, n), 3, 1),
+            gram_plain_ms=cuda_ms(lambda: batched.stacked_gram_accumulate_plain(G, xt), 3, 1),
+            unpack_bound=unpack_bound, gram_bound=gram_bound,
+        )
+        blocks, resident, split, sms = batched.stacked_gram_accumulate_grid(n_pad, ld, k, dev)
+        log(f"kernels: stacked step at K={k} x N={n} x {rows} rows: {r['step_ms']:.4f} ms "
+            f"(stacked_unpack_rows_t {r['unpack_ms']:.4f} ms, bound {unpack_bound[0]:.4f} ms by "
+            f"bytes, {100 * unpack_bound[0] / r['unpack_ms']:.1f} % of it; stacked_gram_accumulate "
+            f"{r['gram_ms']:.4f} ms, bound {gram_bound[0]:.4f} ms by {gram_bound[1]}, "
+            f"{100 * gram_bound[0] / r['gram_ms']:.1f} % of it); the K-launch loop "
+            f"{r['loop_ms']:.4f} ms, {k} x torch._int_mm + add {r['int_mm_ms']:.4f} ms; plain "
+            f"{r['unpack_plain_ms']:.4f} + {r['gram_plain_ms']:.4f} ms; product launch {blocks} "
+            f"blocks (split {split}), {resident} resident on {sms} SMs, {blocks / resident:.2f} "
+            f"waves ({card_line()})")
+        del packed, G, xt, singles
+    torch.cuda.empty_cache()
+    r = times[(FUSED_GROUP, CLI_BLOCK)]
+    rows = {
+        "stacked_unpack_rows_t": dict(max_abs_err=0, ms=r["unpack_ms"],
+                                      plain_ms=r["unpack_plain_ms"], library_ms=None,
+                                      bound=r["unpack_bound"]),
+        "stacked_gram_accumulate": dict(max_abs_err=0, ms=r["gram_ms"],
+                                        plain_ms=r["gram_plain_ms"], library_ms=r["int_mm_ms"],
+                                        bound=r["gram_bound"]),
+    }
+    return rows, times
+
+
+def phase_fused(torch, kernels):
+    """``run_fused_pipeline`` end to end: a ``pca`` and a ``similarity``
+    group of ``FUSED_GROUP`` jobs, one 2 Mb window of ``FLEET_WINDOWS`` a
+    job, 2,504 samples, packed ingest at the CLI's block, every launch
+    count set to 0 just before each group. Each lane's Gramian must equal
+    its serial ``run_pipeline`` (``--ingest packed``) byte for byte, its
+    PC rows that run's rows, its summary the summary of that Gramian; the
+    stacked kernels must have launched and the single product not. Prints
+    each group's wall-clock beside the sum of the serial runs', the
+    launches, the peak device memory and ``max_fused_jobs`` on this card.
+    Returns the ``pca`` group's launches."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.ops.batched import max_fused_jobs
+    from spark_examples_tpu_torch.ops.gramian import per_device_memory_bytes
+    from spark_examples_tpu_torch.pipeline.fused import run_fused_pipeline
+    from spark_examples_tpu_torch.pipeline.pca_driver import _summarize_similarity, run_pipeline
+
+    t_phase = time.perf_counter()
+    argvs = [["--references", window, "--num-samples", str(N_SAMPLES), "--ingest", "packed"]
+             for window in FLEET_WINDOWS.split(",")][:FUSED_GROUP]
+    serial, serial_wall = [], 0.0
+    for argv in argvs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = run_pipeline(PcaConf.parse(argv))
+        torch.cuda.synchronize()
+        serial_wall += time.perf_counter() - t0
+        serial.append((result.driver.accumulator.G.cpu(), result.lines))
+        del result
+    torch.cuda.empty_cache()
+    launches = {}
+    for kind in ("pca", "similarity"):
+        confs = [PcaConf.parse(argv) for argv in argvs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = run_fused_pipeline(confs, [kind] * len(confs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated()
+        acc = results[0].driver.accumulator
+        for j, (result, (want_g, want_lines)) in enumerate(zip(results, serial)):
+            got = acc.job_slice(j).cpu()
+            if got.dtype != want_g.dtype or not torch.equal(got, want_g):
+                raise AssertionError(f"fused {kind} lane {j}: Gramian != its serial run's")
+            if kind == "pca" and result.lines != want_lines:
+                raise AssertionError(f"fused pca lane {j}: PC rows != its serial run's")
+            if kind == "similarity" and result.similarity_summary != _summarize_similarity(
+                    want_g, N_SAMPLES):
+                raise AssertionError(f"fused similarity lane {j}: summary "
+                                     f"{result.similarity_summary}")
+        missing = [k for k in ("stacked_unpack_rows_t", "stacked_gram_accumulate")
+                   if counts[k] != acc.steps]
+        if missing or counts["gram_accumulate"] or counts["unpack_rows_t"]:
+            raise AssertionError(f"fused {kind}: launches {json.dumps(counts)} for "
+                                 f"{acc.steps} steps")
+        spans = {s["path"]: s["seconds"] for s in results[0].driver.spans.flat()}
+        log(f"fused {kind}: {len(results)} jobs, {acc.steps} steps, wall {wall:.4f} s against "
+            f"{serial_wall:.4f} s for the serial runs; spans of job 0 {json.dumps(spans)}; "
+            f"launches {json.dumps(counts)}; peak device memory {peak / 2**20:.1f} MiB; every "
+            f"lane's Gramian == its serial run's" + (", PC rows equal" if kind == "pca" else
+                                                       ", summaries equal") + f" ({card_line()})")
+        if kind == "pca":
+            launches = counts
+        del results, acc
+        torch.cuda.empty_cache()
+    cap = max_fused_jobs(N_SAMPLES, device_bytes=per_device_memory_bytes("cuda"))
+    log(f"fused: max_fused_jobs({N_SAMPLES}) on this card's "
+        f"{per_device_memory_bytes('cuda')} bytes: {cap}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -2377,7 +2593,7 @@ def main() -> int:
     try:
         from spark_examples_tpu_torch.constants import GoogleGenomicsPublicData
         from spark_examples_tpu_torch.experiments import probe_ops, vmem_capacity
-        from spark_examples_tpu_torch.ops import _kernels, depth, devicegen, gramian, ld
+        from spark_examples_tpu_torch.ops import _kernels, batched, depth, devicegen, gramian, ld
         from spark_examples_tpu_torch.utils import native
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}", file=sys.stderr)
@@ -2416,9 +2632,11 @@ def main() -> int:
     rows.update(phase_depth_kernels(torch, depth, int32_rate, floor_ms))
     ring_rows, _ = phase_ring_kernels(torch, devicegen, gramian)
     rows.update(ring_rows)
+    fused_rows, _ = phase_fused_kernels(torch, batched, devicegen, gramian)
+    rows.update(fused_rows)
     phase_count_variants(floor_ms)
 
-    path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS
+    path_kernels = devicegen.KERNELS + gramian.KERNELS + ld.KERNELS + batched.KERNELS
     # The first run in a process also pays the CUDA libraries' lazy set-up
     # (the eigensolve's first cuSOLVER call); the second is the warm time.
     device_path = ("gen_genotypes", "gram_accumulate")
@@ -2453,6 +2671,9 @@ def main() -> int:
     phase_files(torch, path_kernels, host_fed, packed_g, wire_g)
     phase_grm(torch, path_kernels)
     phase_mesh_analyses(torch, path_kernels)
+    fused = phase_fused(torch, path_kernels)
+    for name in ("stacked_unpack_rows_t", "stacked_gram_accumulate"):
+        launches[name] = fused[name]
     launches["gram_accumulate_ld_window"] = phase_ld(torch, path_kernels)["gram_accumulate"]
     launches["case_counts"] = phase_assoc(torch, path_kernels)["case_counts"]
     phase_checkpoint(torch, path_kernels)
@@ -2504,6 +2725,10 @@ def main() -> int:
          "spark_examples_tpu/ops/gramian.py:651"),
         ("pack_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
          "spark_examples_tpu/ops/gramian.py:377"),
+        ("stacked_unpack_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
+         "spark_examples_tpu/ops/batched.py:242"),
+        ("stacked_gram_accumulate", "spark_examples_tpu_torch/csrc/devicegen.cu",
+         "spark_examples_tpu/ops/batched.py:242"),
     ):
         r = rows[name]
         kernels.append({

@@ -26,6 +26,18 @@ numerators:
 port compute the identical float64 matrix byte for byte. The int32 G
 fetched from the card widens to int64 before ``n²·G``. ``C == 0`` (every
 site monomorphic) is an error, not a NaN matrix.
+
+A divergence from the reference, kept on purpose: ``grm`` across several
+processes. The reference feeds every site to its driver in each process
+(``spark_examples_tpu/analyses/grm.py:182-192``), and its driver plans
+host-sharded ingest all the same (``spark_examples_tpu/pipeline/
+pca_driver.py:498-582``): each process accumulates every site on a
+process-local mesh and ``_merge_host_partials`` sums the partials, so each
+site's ``XᵀX`` counts once a process while the host moments count it once,
+and its kinship across processes differs from its one-process kinship.
+Here the driver does not shard the ingest (``shard_ingest=False``), so the
+kinship of every run, across processes or not, is the reference's
+one-process kinship (``tests/test_torch_grm_processes.py`` holds both).
 """
 
 from __future__ import annotations
@@ -157,7 +169,9 @@ def run_grm_pipeline(conf: GrmConf, device: DeviceLike = None, devices=None) -> 
 
     Every process of a run of several reads every site (the host moments
     need them all), so the ingest is not host-sharded: the data axis or
-    the ring splits the work over the processes."""
+    the ring splits the work over the processes, and the kinship is the
+    one-process run's (the reference's differs there; see the module's
+    docstring)."""
     check_analysis_conf(conf, "grm")
     device = conf.device if device is None else device
     driver = VariantsPcaDriver(conf, device=device, devices=devices, shard_ingest=False)

@@ -115,6 +115,22 @@
 //   neighbouring int32 of a row with red.global.add. The adds are int32
 //   sums of exact partials, so any order and any split give the same G.
 //
+// stacked_gram_accumulate_kernel — G[k] += (X_kᵀ·X_k)[:n, :n] for K
+//   independent jobs at once (the product half of spark_examples_tpu/ops/
+//   batched.py:StackedJobsAccumulator._drain: _dense_update with the jobs
+//   axis in the leading slot) from the (K·n_pad, ld) stacked Xᵀ of
+//   stacked_unpack_rows_t (csrc/gramian.cu) into the (K, n, n) int32 G.
+//   One 2-D tensor map spans the whole stack; lane k's boxes sit at row
+//   k·n_pad + 128·i (lanes start on box boundaries, so no box straddles
+//   two) and its G at k·n². Each block runs gram_accumulate_kernel's body
+//   (consumers, producer, both epilogues) for one unit of one lane; the
+//   lane is gridDim.z (csrc/stacked.cuh: the lanes that hold a block this
+//   step, so a finished job costs nothing). K lanes give K times the
+//   units: at 2,504 samples one Gramian is 110 units on 132 SMs, six make
+//   660, five whole waves. The bulk reduction needs each lane's G rows on
+//   16 bytes: n % 4 == 0 makes k·n²·4 a multiple of 16, so the single
+//   product's rule (n % 4 == 0, G aligned) holds for every lane.
+//
 // cross_accumulate_kernel — C[i, j] += Σ_s A[i, s]·B[j, s] for two int8
 //   operands in the Xᵀ layout (rows × sites, sites innermost, rows padded to
 //   128) into an int32 C of any leading dimension, written only in
@@ -198,6 +214,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "stacked.cuh"
 
 namespace {
 
@@ -740,10 +757,12 @@ int gram_units(int n_tiles) {
 
 // One block per work unit (tile row bi, column group), or per half of its
 // rows in a split launch (blockIdx.x), and part of the sites (blockIdx.y of
-// gridDim.y = split).
-__global__ void __launch_bounds__(GRAM_THREADS, 1)
-gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __restrict__ g,
-                       int n, int n_tiles, int total_steps, int halves, bool bulk) {
+// gridDim.y = split): the body of gram_accumulate_kernel, and of each lane
+// of stacked_gram_accumulate_kernel, whose Xᵀ rows start at `row0` of the
+// tensor map.
+__device__ __forceinline__ void gram_unit(const CUtensorMap* xt_map, int32_t* __restrict__ g,
+                                          int n, int n_tiles, int total_steps, int halves,
+                                          bool bulk, int row0) {
   constexpr int W = G_BOXES;
   extern __shared__ unsigned char g_smem[];
   const uint32_t raw = smem_u32(g_smem);
@@ -792,9 +811,10 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
         const uint32_t stage = ring + s * G_STAGE_BYTES;
         const int k = (first + t) * GK;
         mbar_expect_tx(full + 8 * s, bytes);
-        if (!a_in_b) tma_load_box(stage, &xt_map, full + 8 * s, k, bi * GT);
+        if (!a_in_b) tma_load_box(stage, xt_map, full + 8 * s, k, row0 + bi * GT);
         for (int w = 0; w < b_boxes; ++w)
-          tma_load_box(stage + (1 + w) * G_BOX_BYTES, &xt_map, full + 8 * s, k, (b0 + w) * GT);
+          tma_load_box(stage + (1 + w) * G_BOX_BYTES, xt_map, full + 8 * s, k,
+                       row0 + (b0 + w) * GT);
       }
     }
     return;
@@ -889,6 +909,23 @@ gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __re
   asm volatile("bar.sync 1, %0;" ::"r"(consumers) : "memory");
   red_rows(g, n, i0, j0, staged, G_STRIDE, 1, rows_out, G_BN, consumers / 32);
   if (mirrored) red_rows(g, n, j0, i0, staged, 1, G_STRIDE, G_BN, rows_out, consumers / 32);
+}
+
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
+gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map, int32_t* __restrict__ g,
+                       int n, int n_tiles, int total_steps, int halves, bool bulk) {
+  gram_unit(&xt_map, g, n, n_tiles, total_steps, halves, bulk, 0);
+}
+
+// Lane k (stack_lane) of the stacked jobs: G[k] (n × n, at k·n² int32)
+// += the product of the stacked Xᵀ's rows k·n_pad .. (k + 1)·n_pad.
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
+stacked_gram_accumulate_kernel(const __grid_constant__ CUtensorMap xt_map,
+                               int32_t* __restrict__ g, int n, int n_tiles, int total_steps,
+                               int halves, bool bulk, const __grid_constant__ StackLanes lanes) {
+  const int k = stack_lane(lanes);
+  gram_unit(&xt_map, g + static_cast<int64_t>(k) * n * n, n, n_tiles, total_steps, halves, bulk,
+            k * n_tiles * GT);
 }
 
 // d (64 × 128 int32, the warpgroup's registers d[0..63]) += A (64 × 32) ·
@@ -1255,6 +1292,9 @@ cudaError_t gram_prepare(int* device) {
   status = cudaFuncSetAttribute(gram_accumulate_kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
   if (status == cudaSuccess)
+    status = cudaFuncSetAttribute(stacked_gram_accumulate_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM_BYTES);
+  if (status == cudaSuccess)
     status = cudaFuncSetAttribute(cross_accumulate_kernel<CrossFull>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, CrossFull::SMEM_BYTES);
   if (status == cudaSuccess)
@@ -1507,6 +1547,8 @@ extern "C" {
 // (ld) and rows are multiples of the product's 128-wide TMA box.
 int devicegen_site_tile() { return GT; }
 int devicegen_col_tile() { return GT; }
+// The most lanes a stacked launch lists (csrc/stacked.cuh).
+int devicegen_stack_list() { return STACK_LIST; }
 
 // The device buffer, in 32-bit words, that gen_genotypes_launch needs for
 // these shapes on the current card (its tables): 0 when they fit shared
@@ -1607,6 +1649,38 @@ int gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int n_pad, int l
   const bool bulk = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
   gram_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       map, g, n, n_pad / GT, ldx / GK, halves, bulk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stacked jobs' product: G[k][:n, :n] += (X_kᵀ·X_k)[:n, :n] for the
+// `total` lanes of the (total·n_pad, ldx) stacked Xᵀ at `xt` (lane k's
+// rows from k·n_pad) and the (total, n, n) G, one launch: the lanes listed
+// in `lanes` (count 0: every lane) along gridDim.z, each as
+// gram_accumulate_launch lays out one product, sites split over `split`
+// blocks a unit (ops/batched.py:stacked_gram_split counts the launch's
+// lanes × units against the SMs).
+int stacked_gram_accumulate_launch(int32_t* g, int n, const int8_t* xt, int total, int n_pad,
+                                   int ldx, int split, const int* lanes, int count,
+                                   void* stream) {
+  StackLanes list;
+  int z = 0;
+  if (split < 1 || !stack_lanes(&list, total, lanes, count, &z) || z > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (z == 0) return static_cast<int>(cudaSuccess);
+  int device = 0;
+  const cudaError_t prepared = gram_prepare(&device);
+  if (prepared != cudaSuccess) return static_cast<int>(prepared);
+  CUtensorMap map;
+  const int encoded = encode_xt_map(&map, xt, total * n_pad, ldx);
+  if (encoded != 0) return encoded;
+  const int halves = split > 1 ? 2 : 1;
+  const dim3 blocks(gram_units(n_pad / GT) * halves, split, z);
+  // Lane k's G starts k·n²·4 bytes on: 16-byte aligned for every lane
+  // where n % 4 == 0 and the first is.
+  const bool bulk = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  stacked_gram_accumulate_kernel<<<blocks, GRAM_THREADS, G_SMEM_BYTES,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      map, g, n, n_pad / GT, ldx / GK, halves, bulk, list);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,6 +38,16 @@
 //   Columns past N (the unused low bits of the last packed byte included)
 //   and sites past B come out zero.
 //
+// stacked_unpack_rows_t_kernel — the packed mode for K stacked jobs at
+//   once: the unpack half of spark_examples_tpu/ops/batched.py:
+//   StackedJobsAccumulator._drain, which runs _dense_update with the jobs
+//   axis in the leading slot. The input is (K, B, ceil(N/8)) bit-packed
+//   rows, the output one (K·n_pad, ld) Xᵀ whose lane k starts at row
+//   k·n_pad, a multiple of 128, so the stacked product's 128-row boxes
+//   never straddle two lanes. The lane is gridDim.z (csrc/stacked.cuh:
+//   every lane, or the lanes the launcher lists, those with a block this
+//   step); each block runs unpack_rows_t_kernel's tile body unchanged.
+//
 // pack_rows_t_kernel — the exact inverse of the packed mode: an int8 {0,1}
 //   Xᵀ (rows × sites, sites innermost, n_pad × ld) back into bit-packed
 //   rows, (B, n_cols / 8) uint8 in np.packbits' big-endian order (bit 7 of
@@ -68,6 +78,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stacked.cuh"
 
 namespace {
 
@@ -148,10 +160,13 @@ __device__ __forceinline__ void stage_tile(uint32_t* tile, const uint8_t* __rest
   }
 }
 
+// The tile (blockIdx.x: sites, blockIdx.y: columns) of one block of rows:
+// the body of unpack_rows_t_kernel and of each lane of
+// stacked_unpack_rows_t_kernel.
 template <bool kPacked>
-__global__ void __launch_bounds__(THREADS)
-unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int n_cols,
-                     int words, int8_t* __restrict__ xt, int ld) {
+__device__ __forceinline__ void unpack_tile(const uint8_t* __restrict__ in, int rows,
+                                            int in_width, int n_cols, int words,
+                                            int8_t* __restrict__ xt, int ld) {
   __shared__ __align__(16) uint32_t tile[TILE_COLS * QUADS];
   const int tid = threadIdx.x;
   const int s0 = blockIdx.x * TILE_SITES;
@@ -193,6 +208,23 @@ unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int
           *reinterpret_cast<const uint4*>(&tile[staged(c, 4 * seg)]);
     }
   }
+}
+
+template <bool kPacked>
+__global__ void __launch_bounds__(THREADS)
+unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int n_cols,
+                     int words, int8_t* __restrict__ xt, int ld) {
+  unpack_tile<kPacked>(in, rows, in_width, n_cols, words, xt, ld);
+}
+
+// Lane k (stack_lane) of the stacked jobs: its bit-packed rows start at
+// k·rows·in_width bytes, its Xᵀ at row k·n_pad of the stacked Xᵀ.
+__global__ void __launch_bounds__(THREADS)
+stacked_unpack_rows_t_kernel(const uint8_t* __restrict__ in, int rows, int in_width, int n_cols,
+                             int8_t* __restrict__ xt, int n_pad, int ld,
+                             const __grid_constant__ StackLanes lanes) {
+  const int64_t k = stack_lane(lanes);
+  unpack_tile<true>(in + k * rows * in_width, rows, in_width, n_cols, 0, xt + k * n_pad * ld, ld);
 }
 
 constexpr int PACK_SITES = 32;         // sites a block: one 32-byte sector of a column row
@@ -305,6 +337,9 @@ extern "C" {
 // The site granularity the Python side pads ld to, checked at load.
 int gramian_tile_sites() { return TILE_SITES; }
 
+// The most lanes a stacked launch lists (csrc/stacked.cuh), checked at load.
+int gramian_stack_list() { return STACK_LIST; }
+
 int unpack_rows_t_launch(const uint8_t* in, int rows, int in_width, int n_cols,
                          int packed, int8_t* xt, int n_pad, int ld, void* stream) {
   if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || rows > ld || n_cols > n_pad) {
@@ -319,6 +354,27 @@ int unpack_rows_t_launch(const uint8_t* in, int rows, int in_width, int n_cols,
     const int words = in_width % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 4 == 0;
     unpack_rows_t_kernel<false><<<grid, THREADS, 0, s>>>(in, rows, in_width, n_cols, words, xt, ld);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stacked jobs' unpack: `in` holds `total` lanes of (rows, in_width)
+// bit-packed rows one after another, `xt` the (total·n_pad, ld) stacked Xᵀ;
+// only the `count` lanes listed in `lanes` are unpacked (count 0: every
+// lane), the other lanes' rows of Xᵀ are left as they are.
+int stacked_unpack_rows_t_launch(const uint8_t* in, int total, int rows, int in_width,
+                                 int n_cols, int8_t* xt, int n_pad, int ld, const int* lanes,
+                                 int count, void* stream) {
+  StackLanes list;
+  int z = 0;
+  if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || rows > ld || n_cols > n_pad ||
+      in_width != (n_cols + 7) / 8 || !stack_lanes(&list, total, lanes, count, &z) ||
+      z > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (z == 0) return static_cast<int>(cudaSuccess);
+  stacked_unpack_rows_t_kernel<<<dim3(ld / TILE_SITES, n_pad / TILE_COLS, z), THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(in, rows, in_width, n_cols,
+                                                                      xt, n_pad, ld, list);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,6 +27,14 @@ same inputs made from fixed seeds:
   slice add; ``pack_rows_t`` of a 632- and a 6,256-column Xᵀ × 16,384
   sites (a position's packed tile at 2,504 and 25,000 samples) and
   ``unpack_rows_t`` of the packed tile back;
+- ``unpack_rows_t`` of a host-fed bit-packed block at 2,504 samples ×
+  1,024 and 16,384 rows (the packed arm's flush);
+- the stacked jobs' kernels (trees that have ``ops/batched.py``) at
+  2,504 samples, K = 2, 4 and 6 lanes × 1,024 and 16,384 rows:
+  ``stacked_unpack_rows_t``, ``stacked_gram_accumulate`` and the step
+  (both), beside the K-launch loop (``unpack_rows_t`` then
+  ``gram_accumulate`` a lane) and K calls of ``torch._int_mm`` plus the
+  add into the lane's G;
 - the launch floor: ``torch.cuda._sleep(0)`` in the same harness;
 - in every process, ``torch._int_mm`` on the LD window's operand and
   ``torch.bincount`` of the chr21 shard's covered positions, the same
@@ -122,6 +130,45 @@ if hasattr(devicegen, "cross_accumulate"):
         packed = gramian.pack_rows_t(xt, cols)
         out[f"unpack_rows_t ring {cols}x16384"] = cuda_ms(
             lambda: gramian.unpack_rows_t(packed, cols), 50)
+for rows in (1024, 16384):
+    block = torch.from_numpy(
+        np.packbits((rng.random((rows, 2504)) < 0.3).astype(np.uint8), axis=-1)).to(dev)
+    out[f"unpack_rows_t 2504x{rows}"] = cuda_ms(lambda: gramian.unpack_rows_t(block, 2504), 50)
+try:
+    from spark_examples_tpu_torch.ops import batched
+except ImportError:
+    batched = None
+if batched is not None:
+    n = 2504
+    for k in (2, 4, 6):
+        G = torch.zeros((k, n, n), dtype=torch.int32, device=dev)
+        for rows in (1024, 16384):
+            packed = torch.from_numpy(np.packbits(
+                (rng.random((k, rows, n)) < 0.3).astype(np.uint8), axis=-1)).to(dev)
+            xt = batched.stacked_unpack_rows_t(packed, n)
+            singles = [gramian.unpack_rows_t(packed[j], n) for j in range(k)]
+            iters = 20 if rows > 1024 else 50
+            shape = f"{k}x{n}x{rows}"
+
+            def loop():
+                for j in range(k):
+                    devicegen.gram_accumulate(G[j], gramian.unpack_rows_t(packed[j], n))
+
+            def int_mm():
+                for j in range(k):
+                    G[j].add_(torch._int_mm(singles[j][:n], singles[j][:n].t()))
+
+            out[f"stacked_unpack_rows_t {shape}"] = cuda_ms(
+                lambda: batched.stacked_unpack_rows_t(packed, n), iters)
+            out[f"stacked_gram_accumulate {shape}"] = cuda_ms(
+                lambda: batched.stacked_gram_accumulate(G, xt), iters)
+            out[f"stacked step {shape}"] = cuda_ms(
+                lambda: batched.stacked_gram_accumulate(G, batched.stacked_unpack_rows_t(packed, n)),
+                iters)
+            out[f"K-launch loop {shape}"] = cuda_ms(loop, iters)
+            out[f"torch._int_mm loop {shape}"] = cuda_ms(int_mm, iters)
+            del packed, xt, singles
+        del G
 out["launch floor"] = cuda_ms(lambda: torch.cuda._sleep(0), 50)
 print(json.dumps(out))
 '''

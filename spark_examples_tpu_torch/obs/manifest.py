@@ -10,8 +10,11 @@ validator, so a manifest from either package passes both packages'
 :func:`validate_manifest`.
 
 The blocks whose subject the port does not have yet are absent exactly as
-the reference writes them when absent: ``compile_cache`` (the XLA compile
-cache), ``gramian_exactness`` and ``cost`` are null. ``process`` is this
+the reference writes them when absent: ``gramian_exactness`` and ``cost``
+are null. ``compile_cache`` carries the warm-geometry ledger's
+``geometry_hits`` and ``geometry_misses`` (``utils/cache.py``) as the
+reference's does; its ``dir`` is null and its ``entries`` 0, the port
+having no XLA compile cache. ``process`` is this
 process's ``{index, count}`` and, beside the reference's two fields, the
 ``backend`` its run chose (``gloo``/``nccl``, null in a run of one
 process); in a run of several processes ``multihost`` holds the I/O totals
@@ -129,10 +132,20 @@ def build_manifest(
         "schedule": schedule,
         "conformance": conformance,
         "cost": None,
-        "compile_cache": None,
+        "compile_cache": _compile_cache_block(),
         "process": _process_block(),
         "multihost": multihost,
     }
+
+
+def _compile_cache_block() -> Dict:
+    """The reference's ``compile_cache`` block: the process's warm-geometry
+    counts beside the XLA cache's directory and entries, which the port
+    does not have (null and 0)."""
+    from spark_examples_tpu_torch.utils.cache import compile_cache_stats
+
+    hits, misses = compile_cache_stats()
+    return {"dir": None, "entries": 0, "geometry_hits": hits, "geometry_misses": misses}
 
 
 def _process_block() -> Dict:

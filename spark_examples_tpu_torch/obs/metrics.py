@@ -80,6 +80,10 @@ GRAMIAN_RING_FLUSH_SECONDS = "gramian_ring_flush_seconds"
 #: Per-site analyses (``analyses/``): sites tested and kept.
 ANALYSIS_SITES_TESTED = "analysis_sites_tested"
 ANALYSIS_SITES_KEPT = "analysis_sites_kept"
+#: The warm-geometry ledger (``utils/cache.py``), function-backed: runs of
+#: this process whose geometry it had run before, and first sights.
+COMPILE_CACHE_GEOMETRY_HITS = "compile_cache_geometry_hits"
+COMPILE_CACHE_GEOMETRY_MISSES = "compile_cache_geometry_misses"
 
 _WELL_KNOWN_GAUGE_HELP = {
     INGEST_SITES_SCANNED: "Candidate sites scanned so far (heartbeat progress).",
@@ -128,6 +132,14 @@ _WELL_KNOWN_GAUGE_HELP = {
     ANALYSIS_SITES_KEPT: (
         "Sites the pruning analysis has kept so far (LD kept-mask "
         "cardinality; equals tested for non-pruning analyses)."
+    ),
+    COMPILE_CACHE_GEOMETRY_HITS: (
+        "Runs in this process that hit an already-compiled analysis "
+        "geometry (utils/cache.py warm-geometry ledger)."
+    ),
+    COMPILE_CACHE_GEOMETRY_MISSES: (
+        "Runs in this process that paid a cold compile for a fresh "
+        "analysis geometry (utils/cache.py warm-geometry ledger)."
     ),
 }
 
@@ -719,6 +731,8 @@ def escape_help_text(value: str) -> str:
 __all__ = [
     "ANALYSIS_SITES_KEPT",
     "ANALYSIS_SITES_TESTED",
+    "COMPILE_CACHE_GEOMETRY_HITS",
+    "COMPILE_CACHE_GEOMETRY_MISSES",
     "CONFORMANCE_PROVERS",
     "Counter",
     "DEFAULT_BUCKETS",

@@ -56,6 +56,8 @@ _SIGNATURES = {
             _P,  # stream
         ),
         "gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _I32, _P),  # ..., ldx, split, stream
+        # g, n, xt, lanes in the stack, n_pad, ldx, split, listed lanes, their count, stream
+        "stacked_gram_accumulate_launch": (_P, _I32, _P, _I32, _I32, _I32, _I32, _P, _I32, _P),
         # c, ldc, m, n, a, m_pad, b, n_pad, ld, split, counter, stream
         "cross_accumulate_launch": (_P, _I64, _I32, _I32, _P, _I32, _P, _I32, _I32, _I32, _P, _P),
         "cross_accumulate_grid": (_I32, _I32, _I32, _I32, _P),  # m_pad, n_pad, ld, split, grid (7 ints)
@@ -64,11 +66,16 @@ _SIGNATURES = {
         "gram_accumulate_grid": (_I32, _P),  # n_pad, grid (3 ints)
         "devicegen_site_tile": (),
         "devicegen_col_tile": (),
+        "devicegen_stack_list": (),
     },
     "gramian.cu": {
         # in, rows, in_width, n_cols, packed, xt, n_pad, ld, stream
         "unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P),
         "gramian_tile_sites": (),
+        "gramian_stack_list": (),
+        # in, lanes in the stack, rows, in_width, n_cols, xt, n_pad, ld, listed lanes,
+        # their count, stream
+        "stacked_unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _I32, _P),
         "pack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _P),  # xt, n_pad, ld, n_cols, rows, out, stream
         "pack_rows_t_grid": (_I32, _I32, _P),  # rows, n_cols, grid (5 ints)
     },

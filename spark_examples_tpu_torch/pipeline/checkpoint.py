@@ -321,14 +321,6 @@ _META_REQUIRED = (
     "num_samples",
 )
 
-#: The port's conf fields that the reference's ``PcaConf`` lacks, and the
-#: reference's name of the port's device backend: the fingerprint digests
-#: the reference's field set with the reference's values, so a run of
-#: either package resumes the other's artifact.
-_PORT_ONLY_FIELDS = frozenset({"device"})
-_REFERENCE_BACKEND = {"gpu": "tpu"}
-
-
 def gramian_checkpoint_fingerprint(conf) -> str:
     """The conf digest a Gramian checkpoint is keyed by:
     ``utils/cache.py:compile_fingerprint`` over every field that shapes the
@@ -336,13 +328,7 @@ def gramian_checkpoint_fingerprint(conf) -> str:
     themselves excluded, so the saving and the resuming run digest alike),
     in the reference's field set and backend name — equal to the
     reference's digest of the same argv."""
-    doc = {
-        name: getattr(conf, name)
-        for name in conf.__dataclass_fields__
-        if name not in _PORT_ONLY_FIELDS
-    }
-    doc["pca_backend"] = _REFERENCE_BACKEND.get(doc["pca_backend"], doc["pca_backend"])
-    return compile_fingerprint(doc, kind="gramian-checkpoint")
+    return compile_fingerprint(conf, kind="gramian-checkpoint")
 
 
 def save_gramian_checkpoint(

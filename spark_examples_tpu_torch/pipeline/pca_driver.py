@@ -83,6 +83,8 @@ from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
 from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
 from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_manifest
 from spark_examples_tpu_torch.obs.metrics import (
+    COMPILE_CACHE_GEOMETRY_HITS,
+    COMPILE_CACHE_GEOMETRY_MISSES,
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
     GRAMIAN_RING_BYTES,
@@ -119,6 +121,7 @@ from spark_examples_tpu_torch.parallel.mesh import (
     SAMPLES_AXIS,
     Mesh,
     RowSharded,
+    host_value,
     packed_host_fetch,
     process_count,
     process_index,
@@ -155,6 +158,11 @@ from spark_examples_tpu_torch.sources.stream import MergeJoinStats, merge_join
 from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
 from spark_examples_tpu_torch.utils import faults
 from spark_examples_tpu_torch.utils.af import af_filter_micro, af_passes
+from spark_examples_tpu_torch.utils.cache import (
+    compile_cache_stats,
+    compile_fingerprint,
+    record_geometry,
+)
 from spark_examples_tpu_torch.utils.device import DeviceLike, resolve_device, synchronizer
 from spark_examples_tpu_torch.utils.tracing import StageTimes, device_trace
 
@@ -822,18 +830,24 @@ class VariantsPcaDriver:
         if self.io_stats is not None:
             print(str(self.io_stats))
 
+    def stop(self) -> None:
+        """Nothing to tear down (no SparkContext); the reference's API."""
+
 
 @dataclass
 class PipelineResult:
-    """One completed analysis: the emitted TSV lines, the driver that ran
-    it (its accumulator, spans and registry), the run manifest when one was
-    built (``--metrics-json``) and the path it was written to when the
-    write succeeded."""
+    """One completed analysis: the emitted TSV lines (none for a
+    similarity-only run), the driver that ran it (its accumulator, spans
+    and registry), the run manifest when one was built (``--metrics-json``)
+    and the path it was written to when the write succeeded, and a
+    similarity-only run's summary of its Gramian
+    (:func:`_summarize_similarity`)."""
 
     lines: List[str]
     driver: VariantsPcaDriver
     manifest: Optional[Dict] = None
     manifest_path: Optional[str] = None
+    similarity_summary: Optional[Dict] = None
 
 
 def resolve_ingest(conf: PcaConf, source: GenomicsSource) -> Tuple[bool, bool]:
@@ -982,6 +996,47 @@ def _feed_rows(conf: PcaConf, driver: VariantsPcaDriver, rows: Iterable[np.ndarr
                 print(prefetch.overlap_report())
 
 
+def _packed_partitions(conf: PcaConf, driver: VariantsPcaDriver):
+    """The packed arm's shard windows of this process, in partition order,
+    with the progress gauges: planned (set here) and done."""
+    contigs = driver._host_contigs(conf.get_contigs(driver.source, conf.variant_set_id))
+    partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(
+        conf.variant_set_id[0]
+    )
+    well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
+    return partitions, well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
+
+
+def _window_blocks(
+    conf: PcaConf, driver: VariantsPcaDriver, partitions, done_gauge
+) -> Iterator[np.ndarray]:
+    """The packed arm's blocks window by window in partition order, one at
+    a time from the source's per-window producer, the I/O stats and the
+    done-partitions gauge accounted per window as it streams."""
+    source = driver.source
+    io_stats = driver.io_stats
+    for index, part in enumerate(partitions):
+        if io_stats is not None:
+            io_stats.add_partition(part.range)
+            io_stats.add_requests(
+                partition_page_requests(
+                    source, part.variant_set_id, part.contig, conf.bases_per_partition
+                )
+            )
+        window_variants = 0
+        for block in source.genotype_blocks(
+            part.variant_set_id,
+            part.contig,
+            block_size=conf.block_size,
+            min_allele_frequency=conf.min_allele_frequency,
+        ):
+            window_variants += len(block["positions"])
+            yield block["has_variation"]
+        if io_stats is not None:
+            io_stats.add_variants(window_variants)
+        done_gauge.set(index + 1)
+
+
 def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
     """The packed arm: dense genotype blocks from the source — the
     synthetic generator's, or a VCF's from the native parser — window by
@@ -990,10 +1045,7 @@ def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
     the same per-shard pages and variants in the I/O stats."""
     source = driver.source
     set_id = conf.variant_set_id[0]
-    contigs = driver._host_contigs(conf.get_contigs(source, conf.variant_set_id))
-    partitions = VariantsPartitioner(contigs, conf.bases_per_partition).get_partitions(set_id)
-    well_known_gauge(driver.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
-    done_gauge = well_known_gauge(driver.registry, INGEST_PARTITIONS_DONE)
+    partitions, done_gauge = _packed_partitions(conf, driver)
     io_stats = driver.io_stats
     file_source = isinstance(source, FileGenomicsSource)
     streamed = file_source and source.wants_streaming(set_id)
@@ -1021,33 +1073,7 @@ def _packed_similarity(conf: PcaConf, driver: VariantsPcaDriver) -> Similarity:
             io_stats.add_requests(counters.requests())
             io_stats.add_variants(counters.variants)
     else:
-
-        def block_stream():
-            # Blocks flow one at a time from the per-window producer; stats
-            # account per window as it streams, in partition order.
-            for index, part in enumerate(partitions):
-                if io_stats is not None:
-                    io_stats.add_partition(part.range)
-                    io_stats.add_requests(
-                        partition_page_requests(
-                            source, part.variant_set_id, part.contig,
-                            conf.bases_per_partition,
-                        )
-                    )
-                window_variants = 0
-                for block in source.genotype_blocks(
-                    part.variant_set_id,
-                    part.contig,
-                    block_size=conf.block_size,
-                    min_allele_frequency=conf.min_allele_frequency,
-                ):
-                    window_variants += len(block["positions"])
-                    yield block["has_variation"]
-                if io_stats is not None:
-                    io_stats.add_variants(window_variants)
-                done_gauge.set(index + 1)
-
-        similarity = _feed_rows(conf, driver, block_stream())
+        similarity = _feed_rows(conf, driver, _window_blocks(conf, driver, partitions, done_gauge))
     if file_source:
         native = source.native_parse(set_id, streamed)
         if native is not None:
@@ -1073,6 +1099,7 @@ def run_pipeline(
     device: DeviceLike = None,
     source: Optional[GenomicsSource] = None,
     devices: Optional[Sequence[DeviceLike]] = None,
+    similarity_only: bool = False,
 ) -> PipelineResult:
     """The analysis, CLI-free: config in, result out, in the reference's
     order (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): the
@@ -1085,7 +1112,12 @@ def run_pipeline(
     transport, say). ``devices`` are the positions the run's mesh resolves
     over (the reference's argument; a device may repeat, so
     ``[torch.device("cuda", 0)] * 4`` runs a four-position ring on one
-    card); by default every card, or CPU positions on ``--device cpu``."""
+    card); by default every card, or CPU positions on ``--device cpu``.
+    ``similarity_only`` (the reference's argument) stops after
+    ``ingest+similarity`` and returns a summary of the Gramian
+    (:func:`_summarize_similarity`) instead of PC rows. The run's geometry
+    is recorded in the warm-geometry ledger (``utils/cache.py``) once its
+    stages have run."""
     check_ported(conf)
     if conf.fault_plan is not None:
         # The flag wins over the environment variable; configuring resets
@@ -1101,6 +1133,7 @@ def run_pipeline(
     driver = VariantsPcaDriver(
         conf, source, device=conf.device if device is None else device, devices=devices
     )
+    _export_compile_cache_gauges(driver.registry)
     times = StageTimes(recorder=driver.spans)
     heartbeat = None
     if conf.heartbeat_seconds > 0:
@@ -1111,14 +1144,21 @@ def run_pipeline(
         with device_trace(conf.profile_dir):
             with times.stage("ingest+similarity", sync=sync):
                 similarity = _similarity_stage(conf, driver, use_device, use_packed)
-            with times.stage("center+pca", sync=sync):
-                result = driver.compute_pca(similarity)
+            summary = result = None
+            if similarity_only:
+                summary = _summarize_similarity(similarity, len(driver.indexes))
+            else:
+                with times.stage("center+pca", sync=sync):
+                    result = driver.compute_pca(similarity)
     finally:
         # A failed run gets its last heartbeat, then silence.
         if heartbeat is not None:
             heartbeat.stop()
+    # Only a run whose kernels all ran warms its geometry; recorded before
+    # the manifest so the run's own hit or miss is in it.
+    record_geometry(compile_fingerprint(conf, kind="similarity" if similarity_only else "pca"))
     _register_prover_conformance(driver)
-    lines = driver.emit_result(result)
+    lines = driver.emit_result(result) if result is not None else []
     driver.report_io_stats()
     if conf.profile_dir:
         print(str(times))
@@ -1156,7 +1196,45 @@ def run_pipeline(
         else:
             manifest_path = conf.metrics_json
             print(f"Run manifest written to {conf.metrics_json}.")
-    return PipelineResult(lines, driver, manifest, manifest_path)
+    return PipelineResult(lines, driver, manifest, manifest_path, summary)
+
+
+def _export_compile_cache_gauges(registry) -> None:
+    """The warm-geometry ledger's counters (``utils/cache.py``) as the
+    well-known function-backed gauges of ``registry``, so the manifest and
+    the heartbeat's samples show warm against cold. The ledger is fed at
+    the end of a run: only a run that ran its kernels warms a geometry."""
+    well_known_gauge(registry, COMPILE_CACHE_GEOMETRY_HITS).set_function(
+        lambda: float(compile_cache_stats()[0])
+    )
+    well_known_gauge(registry, COMPILE_CACHE_GEOMETRY_MISSES).set_function(
+        lambda: float(compile_cache_stats()[1])
+    )
+
+
+def _summarize_similarity(similarity: Similarity, n: int) -> Dict:
+    """Host-side facts about a Gramian (a similarity-only run's result):
+    its shape, dtype, the nonzero-row count the PCA path would print, and
+    its trace (the total variation count), from the true cohort's
+    ``[:n, :n]``. The reference's summary; its ``dtype`` is the port's
+    accumulator, ``int32``, where the reference's CPU run reports
+    ``float32``."""
+    S = host_value(similarity)[:n, :n]
+    counts = S.astype(np.int64, copy=False)
+    return {
+        "shape": [int(s) for s in S.shape],
+        "dtype": str(S.dtype),
+        "nonzero_rows": int((counts.sum(axis=1) > 0).sum()),
+        "trace": float(np.trace(counts)),
+    }
+
+
+def _sync_scalar(similarity: Similarity) -> None:
+    """Wait for the whole accumulation with a one-scalar fetch that depends
+    on every entry of the Gramian on the card (a host array or row tiles:
+    nothing to do)."""
+    if isinstance(similarity, torch.Tensor) and similarity.device.type == "cuda":
+        bool((similarity != 0).any())
 
 
 def _register_prover_conformance(driver: VariantsPcaDriver) -> None:

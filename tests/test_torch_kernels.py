@@ -748,3 +748,103 @@ def test_ring_of_four_positions_on_one_card_equals_the_dense_gramian(pack, sched
     want_rows, want_kept = dense.ingest_counters()
     assert rows.tolist() == want_rows.tolist() and kept == want_kept
     assert (gramian.pack_rows_t.launches > 0) == (pack == "on")
+
+
+def _stacked_case(k, n, rows, finished, seed):
+    """K lanes of bit-packed {0,1} rows, the finished lanes' rows zero (as
+    the stacked accumulator ships them), on the card; and the lanes that
+    hold a block."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bits = (rng.random((k, rows, n)) < 0.3).astype(np.uint8)
+    bits[list(finished)] = 0
+    packed = torch.from_numpy(np.packbits(bits, axis=-1)).to("cuda")
+    return packed, [lane for lane in range(k) if lane not in finished]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,rows,finished", [
+    (1, 2504, 1024, ()), (3, 17, 1024, ()), (3, 13, 200, ()), (3, 130, 1024, ()),
+    (2, 2504, 1024, (0,)), (5, 300, 700, (1, 3)), (8, 256, 384, (0, 1, 2, 3, 4, 5, 6)),
+])
+def test_stacked_kernels_equal_plain_on_the_card(k, n, rows, finished):
+    """The stacked unpack (the listed lanes' rows of Xᵀ) and the stacked
+    product (every lane of G, onto a nonzero G) against their plain
+    versions: odd N, N % 4 == 2, one lane, lanes that have finished (the
+    kernels skip them, the plain version adds their zero block); one
+    launch of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spark_examples_tpu_torch.ops import batched
+
+    packed, lanes = _stacked_case(k, n, rows, finished, seed=k * n + rows)
+    n_pad = -(-n // 128) * 128
+    batched.reset_launch_counts()
+    got = batched.stacked_unpack_rows_t(packed, n, lanes)
+    want = batched.stacked_unpack_rows_t_plain(packed, n)
+    for lane in lanes:
+        assert torch.equal(got[lane * n_pad:(lane + 1) * n_pad], want[lane * n_pad:(lane + 1) * n_pad])
+    start = torch.randint(-1000, 1000, (k, n, n), dtype=torch.int32, device="cuda")
+    g_k, g_p = start.clone(), start.clone()
+    batched.stacked_gram_accumulate(g_k, got, lanes)
+    batched.stacked_gram_accumulate_plain(g_p, want)
+    assert torch.equal(g_k, g_p)
+    assert batched.stacked_unpack_rows_t.launches == batched.stacked_gram_accumulate.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 132, 2504])
+def test_stacked_product_on_a_g_off_16_bytes_and_every_split(n):
+    """A stacked G whose first lane starts 4 bytes past a 16-byte boundary
+    (the epilogue's single adds, not the bulk reductions) and the product
+    at every split equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from spark_examples_tpu_torch.ops import batched
+
+    k = 3
+    packed, lanes = _stacked_case(k, n, 512, (), seed=n)
+    xt = batched.stacked_unpack_rows_t(packed, n)
+    buffer = torch.zeros(k * n * n + 1, dtype=torch.int32, device="cuda")
+    g_k = buffer[1:].view(k, n, n)
+    assert g_k.data_ptr() % 16 == 4
+    g_p = torch.zeros((k, n, n), dtype=torch.int32, device="cuda")
+    batched.stacked_gram_accumulate(g_k, xt)
+    batched.stacked_gram_accumulate_plain(g_p, xt)
+    assert torch.equal(g_k, g_p)
+    for split in (1, 2, 4):
+        g_s = torch.zeros((k, n, n), dtype=torch.int32, device="cuda")
+        batched.stacked_gram_accumulate(g_s, xt, split=split)
+        assert torch.equal(g_s, g_p)
+
+
+@pytest.mark.gpu
+def test_stacked_accumulator_lanes_equal_their_serial_runs_on_the_card():
+    """A ragged group fed in lockstep on the card: every lane equals the
+    serial accumulator's Gramian, and each step launched each stacked
+    kernel once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import batched, gramian
+
+    rng = np.random.default_rng(17)
+    n, block = 300, 256
+    lanes = [(rng.random((size, n)) < 0.3).astype(np.uint8) for size in (1000, 0, 513, 2049)]
+    batched.reset_launch_counts()
+    acc = batched.StackedJobsAccumulator(len(lanes), n, device="cuda", block_size=block)
+    for start in range(0, 2049, 200):
+        for j, rows in enumerate(lanes):
+            if start < len(rows):
+                acc.add_rows(j, rows[start:start + 200])
+    for j in range(len(lanes)):
+        acc.finish_lane(j)
+    G = acc.finalize()
+    for j, rows in enumerate(lanes):
+        serial = gramian.GramianAccumulator(n, device="cuda", block_size=block)
+        serial.add_rows(rows)
+        assert torch.equal(G[j], serial.finalize_device())
+    assert acc.steps == batched.stacked_gram_accumulate.launches == 9
+    assert batched.stacked_unpack_rows_t.launches == acc.steps
