@@ -138,14 +138,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``ingest+similarity``
    range is read from the trace's CUDA kernel events (traced wall-clock is
    reported apart from the untraced runs');
-10. probes: the entry points of the two probes, ``probe_ops.run`` for every
+10. trace and plan: chr17 with ``--trace-dir``, its segment's stage pairs,
+   ``trace export`` through the CLI to a document the validator passes,
+   each exported span beside the manifest's stage seconds; the recorder's
+   cost (chr17 with and without ``--trace-dir``, median of three each);
+   ``graftcheck plan --json`` over ``bench.py``'s configurations at the
+   reference's 16 GiB budget and at the card's memory; the cost model's
+   rates (``experiments/cost_rates.py`` in a process of its own) and
+   chr17's prediction beside its measured wall, through the calibration
+   ledger;
+11. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
-11. variants examples: ``search-variants-klotho`` (defaults) and
+12. variants examples: ``search-variants-klotho`` (defaults) and
    ``search-variants-brca1 --num-samples 17`` through the CLI, and Klotho
    over 2 kb around its SNP, each printed line list equal to an oracle
    counting the same source's records;
-12. reads examples on the synthetic source through
+13. reads examples on the synthetic source through
    ``reads_examples.run_example*`` on the card, every read kept as served:
    example 1 at the CLI's default SNP (where the JAX package raises; the
    pileup must be the half-open oracle's), example 2 over 200 kb of chr21
@@ -154,11 +163,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    over 200 kb of chr1 (four shards, normal and tumor; the diff lines equal
    a numpy oracle and are not empty); each with its wall-clock, depth
    launches, derived kernel time and peak device memory;
-13. reads from SAM: example 3's reads and example 4's normal and tumor
+14. reads from SAM: example 3's reads and example 4's normal and tumor
    reads written as SAM files under ``chip_smoke_data/``; examples 3 and 4
    through the CLI with ``--source file`` at their defaults (all of chr21;
    1 Mb of chr1), each output byte-identical to the synthetic run's;
-14. the ``kernels`` JSON line, the card line, and last the result line.
+15. the ``kernels`` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package. Exits non-zero without a
 result when no CUDA card is present or the port is not beside this file.
@@ -1546,6 +1555,175 @@ def phase_telemetry(torch, kernels):
     return shares
 
 
+# ------------------------------------------------------------ trace + plan
+
+
+def bench_plan_argv(name: str):
+    """``bench.py``'s configurations (``CONFIGS``, ``bench.py:58-128``, its
+    base flags at ``:958-971``) as ``graftcheck plan`` flags: device
+    generation at 16,384-site blocks, two PCs, the sharded cell over four
+    declared devices."""
+    from spark_examples_tpu_torch.constants import Examples
+
+    base = ["--ingest", "device", "--block-size", str(BLOCK), "--num-pc", "2"]
+    autosomes = ",".join(f"{name}:0:{length}" for name, length in
+                         Examples.HUMAN_CHROMOSOMES.items() if name not in ("X", "Y"))
+    chr17 = ["--references", "17:0:81195210"]
+    return base + {
+        "whole-genome": ["--variant-set-id", "bench-1kg", "--num-samples", "2504",
+                         "--all-references"],
+        "brca1": ["--variant-set-id", "bench-1kg", "--num-samples", "2504",
+                  "--references", "17:41196311:41277499"],
+        "chr17": ["--variant-set-id", "bench-1kg", "--num-samples", "2504", *chr17],
+        "platinum": ["--variant-set-id", "bench-platinum", "--num-samples", "17",
+                     "--all-references"],
+        "large-cohort": ["--variant-set-id", "bench-1kg", "--num-samples", "25000", *chr17],
+        "large-cohort-sharded": ["--variant-set-id", "bench-1kg", "--num-samples", "25000",
+                                 *chr17, "--mesh-shape", "1,4", "--similarity-strategy",
+                                 "sharded", "--plan-devices", "4"],
+        "merged": ["--variant-set-id", "bench-1kg,bench-platinum", "--num-samples", "2504,17",
+                   "--references", autosomes],
+    }[name]
+
+
+BENCH_CONFIGS = ("whole-genome", "brca1", "chr17", "platinum", "large-cohort",
+                 "large-cohort-sharded", "merged")
+#: The stage pairs a traced variants-pca run's segment holds.
+TRACE_SPANS = ("run", "ingest+similarity", "center+pca")
+#: Rounds of the recorder's cost: chr17 with and without --trace-dir, in
+#: turns.
+TRACE_ROUNDS = 3
+
+
+def phase_trace(torch, kernels):
+    """The flight recorder, the trace export and the plan on the card: chr17
+    (16,384-site blocks) with ``--trace-dir`` and ``--metrics-json``, its
+    segment's ``run``/``ingest+similarity``/``center+pca`` pairs, ``trace
+    export`` through the CLI to a document the validator passes, each
+    exported span beside the manifest's stage seconds; the recorder's cost
+    (chr17 with and without ``--trace-dir``, median of three each, in
+    turns); ``graftcheck plan --json`` over ``bench.py``'s configurations at
+    the default budget and at the card's memory; then the cost model: the
+    rates ``experiments/cost_rates.py`` measures in a process of its own,
+    chr17's prediction beside its measured wall, and the calibration
+    ledger's fold of that pair."""
+    import tempfile
+
+    from spark_examples_tpu_torch import cli
+    from spark_examples_tpu_torch.check.plan import predict_job_cost
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.obs import costmodel
+    from spark_examples_tpu_torch.obs.calibration import CalibrationLedger
+    from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
+    from spark_examples_tpu_torch.obs.recorder import read_segments
+    from spark_examples_tpu_torch.obs.trace import validate_chrome_trace
+    from spark_examples_tpu_torch.ops.gramian import per_device_memory_bytes
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+    run_dir = DATA_DIR / "trace_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    metrics_json = DATA_DIR / "manifest_trace.json"
+    launches, _ = run_main_path(
+        torch, kernels, CHR17_ARGV + ["--trace-dir", str(run_dir),
+                                      "--metrics-json", str(metrics_json)],
+        "chr17 --trace-dir", ("gen_genotypes", "gram_accumulate"))
+    events = read_segments(str(run_dir))
+    pairs = [(e["name"], e["ph"]) for e in events]
+    for name in TRACE_SPANS:
+        if pairs.count((name, "B")) != 1 or pairs.count((name, "E")) != 1:
+            raise AssertionError(f"trace: the segment lacks a {name} B/E pair: {pairs}")
+    out = DATA_DIR / "trace_merged.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["trace", "export", "--run-dir", str(run_dir), "--out", str(out)])
+    doc = json.loads(out.read_text())
+    problems = validate_chrome_trace(doc)
+    if rc or problems:
+        raise AssertionError(f"trace export: rc {rc}, {problems}")
+    manifest = read_manifest(str(metrics_json))
+    if validate_manifest(manifest):
+        raise AssertionError(f"trace: the manifest is invalid: {validate_manifest(manifest)}")
+    stages = {s["name"]: s["seconds"] for s in manifest["spans"]}
+    spans = {e["name"]: e["dur"] / 1e6 for e in doc["traceEvents"] if e["ph"] == "X"}
+    for name in TRACE_SPANS:
+        stage = f"{stages[name]:.6f} s" if name in stages else "none (the whole run)"
+        log(f"trace chr17: exported {name} {spans[name]:.6f} s, manifest stage {stage}")
+    segments = glob.glob(str(run_dir / "trace" / "*.jsonl"))
+    log(f"trace chr17: {len(events)} events in {len(segments)} segment(s); export "
+        f"{os.path.getsize(out)} bytes, validator clean")
+
+    # The recorder's cost: chr17 with and without --trace-dir, in turns.
+    walls = {"without": [], "with": []}
+    for _ in range(TRACE_ROUNDS):
+        for label in ("without", "with"):
+            argv = list(CHR17_ARGV)
+            if label == "with":
+                shutil.rmtree(run_dir, ignore_errors=True)
+                argv += ["--trace-dir", str(run_dir)]
+            conf = PcaConf.parse(argv)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                run_pipeline(conf)
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    median = {k: float(np.median(v)) for k, v in walls.items()}
+    log(f"trace recorder cost on chr17: median wall {median['with']:.4f} s with --trace-dir, "
+        f"{median['without']:.4f} s without ({median['with'] - median['without']:+.4f} s); "
+        f"walls {json.dumps(walls)}")
+
+    # graftcheck plan over bench.py's configurations, at the reference's
+    # device-free budget and at the card's memory.
+    card_bytes = per_device_memory_bytes("cuda")
+    for name in BENCH_CONFIGS:
+        for budget in (None, card_bytes):
+            argv = ["graftcheck", "plan", *bench_plan_argv(name), "--json"]
+            if budget is not None:
+                argv += ["--device-memory-bytes", str(budget)]
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                rc = cli.main(argv)
+            report = json.loads(printed.getvalue())
+            geometry = report["geometry"]
+            keys = ("mesh", "shard_windows", "gramian_entry_bound", "host_peak_bytes",
+                    "ring_bytes_per_flush", "ring_peak_live_bytes_per_device")
+            log(f"plan {name} at {'16 GiB' if budget is None else f'{budget} bytes'}: rc {rc}, "
+                f"ok {report['ok']}, issues "
+                f"{[(i['code'], i['severity']) for i in report['issues']]}, "
+                f"{json.dumps({k: geometry[k] for k in keys if k in geometry})}")
+            if rc != (0 if report["ok"] else 2):
+                raise AssertionError(f"plan {name}: rc {rc} for ok {report['ok']}")
+
+    # The cost model: the measured rates, then chr17's prediction.
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch.experiments.cost_rates"],
+        capture_output=True, text=True, timeout=600, cwd=Path(__file__).resolve().parent,
+    )
+    if proc.returncode:
+        raise AssertionError(f"cost rates failed: {proc.stderr[-2000:]}")
+    rates = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"cost rates (a fresh process): {json.dumps(rates)}")
+    log(f"cost model constants: SITES_PER_SECOND {costmodel.SITES_PER_SECOND}, "
+        f"HOST_BYTES_PER_SECOND {costmodel.HOST_BYTES_PER_SECOND}, "
+        f"DISPATCH_OVERHEAD_SECONDS {costmodel.DISPATCH_OVERHEAD_SECONDS}, "
+        f"COLD_COMPILE_SECONDS {costmodel.COLD_COMPILE_SECONDS}")
+    prediction = predict_job_cost(PcaConf.parse(CHR17_ARGV))
+    measured = median["without"]
+    with tempfile.TemporaryDirectory() as ledger_dir:
+        ledger = CalibrationLedger(ledger_dir)
+        ledger.record(fingerprint=prediction.fingerprint, kind="pca", job_class="small",
+                      predicted_seconds=prediction.predicted_seconds,
+                      measured_seconds=measured, queue_wait_seconds=0.0,
+                      compile=prediction.compile)
+        ratio = ledger.fold.ratio_for(prediction.fingerprint)
+        ledger.close()
+    log(f"cost chr17: predicted {prediction.predicted_seconds:.4f} s ({prediction.compile}, "
+        f"{prediction.sites} sites, compute {prediction.compute_seconds:.4f} s), measured "
+        f"{measured:.4f} s; the calibration ledger's measured/predicted ratio {ratio}")
+    if ratio is None or not (prediction.predicted_seconds > 0 and math.isfinite(ratio)):
+        raise AssertionError(f"cost chr17: prediction {prediction.to_dict()}")
+    return launches
+
+
 # ------------------------------------------------------------ reads examples
 
 
@@ -2289,7 +2467,9 @@ def phase_multiprocess():
     every ring kernel launched; then the ``variants-pca`` CLI alone and
     across the two processes with host-sharded ingest over
     ``FLEET_WINDOWS``: PC lines identical, per-process reference bases
-    summing to the solo run's, each strictly below it."""
+    summing to the solo run's, each strictly below it, and the two
+    processes' ``--trace-dir`` segments merged into one trace that
+    validates with a replica a process (``fleet_trace_ok``)."""
     from spark_examples_tpu_torch.parallel import multihost
 
     t0 = time.perf_counter()
@@ -2322,7 +2502,9 @@ def phase_multiprocess():
         f"{json.dumps(report.get('fleet_wall_seconds'))}, ingest+similarity "
         f"{json.dumps(report.get('fleet_stage_seconds'))}, backends "
         f"{report.get('fleet_backend')}, reference bases {json.dumps(bases)}, "
-        f"{report.get('cli_pc_lines')} PC lines identical {report.get('cli_outputs_identical')}")
+        f"{report.get('cli_pc_lines')} PC lines identical {report.get('cli_outputs_identical')}; "
+        f"fleet_trace_ok: {json.dumps(report.get('fleet_trace_ok'))} "
+        f"{json.dumps(report.get('fleet_trace_errors', []))}")
     if not report["ok"] or not all(0 < b < bases["solo"] for b in bases["per_process"]):
         brief = {k: v for k, v in report.items() if k != "children"}
         raise AssertionError(f"multiprocess: {json.dumps(brief)}")
@@ -2679,6 +2861,7 @@ def main() -> int:
     phase_checkpoint(torch, path_kernels)
     phase_rest(torch, path_kernels, wire_g)
     phase_telemetry(torch, path_kernels)
+    phase_trace(torch, path_kernels)
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
     t0 = time.perf_counter()
     examples_kernels = path_kernels + depth.KERNELS

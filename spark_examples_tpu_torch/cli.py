@@ -62,7 +62,20 @@ run with ``--coordinator-address host:port --num-processes N
     python -m spark_examples_tpu_torch variants-pca --device cpu \
         --coordinator-address 127.0.0.1:29500 --num-processes 2 --process-id 0
 
-The JAX package's other verbs are not ported yet; they exit with code 2.
+A run records its stages' timeline with ``--trace-dir DIR`` (one
+segment a process under ``DIR/trace/``); ``trace export`` merges the
+segments (and a serve journal, where one is there) into one Chrome trace.
+``graftcheck plan`` validates a configuration device-free. Both verbs are
+pure file I/O and arithmetic: they touch no device and take no
+``--device``, and their exit codes propagate:
+
+    python -m spark_examples_tpu_torch variants-pca --trace-dir run
+    python -m spark_examples_tpu_torch trace export --run-dir run
+    python -m spark_examples_tpu_torch graftcheck plan --num-samples 2504 \
+        --references 17:0:81195210 --json
+
+The JAX package's other verbs (``serve``, ``submit``, ``obs``) are not
+ported yet; they exit with code 2.
 """
 
 from __future__ import annotations
@@ -80,12 +93,30 @@ from spark_examples_tpu_torch.utils.device import resolve_device
 #: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
 #: the port does not run yet.
 NOT_PORTED = (
-    "graftcheck",
     "serve",
     "submit",
-    "trace",
     "obs",
 )
+
+
+def _trace_cmd(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.obs.trace import export_main
+
+    return export_main(argv)
+
+
+def _graftcheck_cmd(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.cli import main as graftcheck_main
+
+    return graftcheck_main(argv)
+
+
+#: Device-free verbs: file I/O and arithmetic, run without a card and
+#: without ``--device``; their exit codes propagate.
+DEVICE_FREE = {
+    "trace": _trace_cmd,
+    "graftcheck": _graftcheck_cmd,
+}
 
 
 def _readset_kwargs(conf: GenomicsConf, names: Sequence[str]) -> dict:
@@ -144,10 +175,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m spark_examples_tpu_torch <command> [flags]")
         print("commands:")
-        for name in COMMANDS:
+        for name in (*COMMANDS, *DEVICE_FREE):
             print(f"  {name}")
         return 0
     command, rest = argv[0], argv[1:]
+    if command in DEVICE_FREE:
+        return int(DEVICE_FREE[command](rest))
     if command in NOT_PORTED:
         print(f"{command}: not yet ported to PyTorch", file=sys.stderr)
         return 2

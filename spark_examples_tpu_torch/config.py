@@ -379,14 +379,13 @@ class PcaConf(GenomicsConf):
 #: Flags of paths the port does not run yet: (field, flag, value that leaves
 #: the flag unused). Any other value raises.
 _UNPORTED = (
-    ("trace_dir", "--trace-dir", None),
     ("check_ranges", "--check-ranges", False),
 )
 
 
 def check_ported(conf: PcaConf) -> None:
     """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet: the flight recorder and ``--check-ranges``; and, in
+    does not run yet: ``--check-ranges``; and, in
     a run of several processes, the Gramian checkpoints (every process
     would write the one directory)."""
     for name, flag, unused in _UNPORTED:

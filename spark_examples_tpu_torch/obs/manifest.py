@@ -10,8 +10,11 @@ validator, so a manifest from either package passes both packages'
 :func:`validate_manifest`.
 
 The blocks whose subject the port does not have yet are absent exactly as
-the reference writes them when absent: ``gramian_exactness`` and ``cost``
-are null. ``compile_cache`` carries the warm-geometry ledger's
+the reference writes them when absent: ``gramian_exactness`` is null, and
+so is ``cost`` unless a caller passes one (a served job's prediction,
+``obs/costmodel.py:CostPrediction.to_dict``, beside its
+``measured_seconds``, ``queue_wait_seconds`` and ``compile``; the
+reference's validator rules). ``compile_cache`` carries the warm-geometry ledger's
 ``geometry_hits`` and ``geometry_misses`` (``utils/cache.py``) as the
 reference's does; its ``dir`` is null and its ``entries`` 0, the port
 having no XLA compile cache. ``process`` is this
@@ -112,9 +115,11 @@ def build_manifest(
     analysis: Optional[Dict] = None,
     schedule: Optional[Dict] = None,
     multihost: Optional[Dict] = None,
+    cost: Optional[Dict] = None,
 ) -> Dict:
     """Assemble a manifest from already-snapshotted parts (the low-level
-    form; :func:`build_run_manifest` snapshots a live driver)."""
+    form; :func:`build_run_manifest` snapshots a live driver). ``cost`` is
+    a served job's block (module docstring)."""
     return {
         "schema": {"id": MANIFEST_ID, "version": MANIFEST_VERSION},
         "created_unix": time.time(),
@@ -131,7 +136,7 @@ def build_manifest(
         "analysis": analysis,
         "schedule": schedule,
         "conformance": conformance,
-        "cost": None,
+        "cost": cost,
         "compile_cache": _compile_cache_block(),
         "process": _process_block(),
         "multihost": multihost,

@@ -91,6 +91,17 @@ def flush_entry_increment(rows: int, max_count: int) -> int:
     return int(rows) * int(max_count) * int(max_count)
 
 
+def exactness_headroom_sites(dtype, max_count: int = 1) -> int:
+    """The largest variant-row count whose Gramian accumulation is provably
+    exact on ``dtype``: ``window(dtype) // max_count²`` (0 when the dtype
+    has no exact-integer window) — the reference's formula, which
+    ``graftcheck plan`` reports for float32 and int32."""
+    window = exact_int_window(dtype)
+    if window is None or max_count < 1:
+        return 0
+    return int(window) // (int(max_count) * int(max_count))
+
+
 #: Declared production geometry: the most candidate sites one run may scan
 #: (the reference's ceiling: the whole-genome synthetic grid carries about
 #: 39.5M). The host-memory bound charges it for inputs whose size it cannot
@@ -105,5 +116,6 @@ __all__ = [
     "RangeContract",
     "SAME_SET_JOIN_MAX_COUNT",
     "exact_int_window",
+    "exactness_headroom_sites",
     "flush_entry_increment",
 ]

@@ -947,6 +947,22 @@ class RingLayout:
         return RowSharded(tiles, self.rings[0], self.columns, self.padded, dtype, self.mesh.shared)
 
 
+def sharded_peak_bytes(n_local: int, padded: int, block_size: int, pack: bool) -> int:
+    """Device bytes one position of :class:`ShardedGramianAccumulator`
+    holds at peak: its int32 row tile ``(n_local, padded)``, and for each of
+    the ``_InFlight`` depth's 2 queued flushes its own tile as shipped
+    (``block_size`` rows, ``n_local / 8`` bytes packed or ``n_local``
+    unpacked), its int8 Xᵀ (``round_up(n_local, COL_TILE) ×
+    round_up(block_size, SITE_TILE)``), the received tile and the next one
+    in flight, and the received tile's unpacked Xᵀ on the packed wire.
+    ``graftcheck plan`` reports it as ``ring_peak_live_bytes_per_device``."""
+    rows = int(block_size)
+    wire = rows * (int(n_local) // 8 if pack else int(n_local))
+    xt = _round_up(int(n_local), COL_TILE) * _round_up(max(rows, 1), SITE_TILE)
+    per_flush = wire + xt + 2 * wire + (xt if pack else 0)
+    return int(n_local) * int(padded) * 4 + 2 * per_flush
+
+
 class ShardedGramianAccumulator(_Staging):
     """Sharded strategy on host-fed rows: the Gramian as row tiles over the
     ``samples`` axis, a ring per block, an optional ``data`` axis on top

@@ -33,9 +33,11 @@ Run it directly for the machine-readable report::
 
 Every child has a time limit, both as its ``subprocess`` timeout and as
 its process group's timeout (``--timeout``), so a bad coordinator or a
-lost peer fails the run instead of hanging it. The reference's
-flight-recorder trace merge is not part of the port (``--trace-dir`` is
-refused): the report's ``fleet_trace_ok`` is ``None``.
+lost peer fails the run instead of hanging it. The fleet's processes
+record with ``--trace-dir`` into one run directory, whose segments merge
+into one Chrome trace (``obs/trace.py:merge_run_trace``, the report's
+``fleet_trace``): ``fleet_trace_ok`` holds when it validates and spans one
+replica a process (``fleet_trace_errors`` lists what failed).
 """
 
 from __future__ import annotations
@@ -424,7 +426,7 @@ def verify_multihost(
         report.update(_fleet_rehearsal(num_processes, env, timeout, device, fleet_regions, num_samples))
         ok = ok and all(report[k] for k in (
             "cli_ok", "cli_outputs_identical", "fleet_host_sharded", "fleet_io_ok",
-            "fleet_conformance_ok",
+            "fleet_conformance_ok", "fleet_trace_ok",
         ))
     report["ok"] = bool(ok)
     return report
@@ -462,7 +464,9 @@ def _fleet_rehearsal(
     most ~1/H of solo plus the one contig the split rule may overshoot by,
     summing to the solo total, and the global block every process summed
     collectively equal to it); every manifest's conformance block holds,
-    the per-process host-memory pair included."""
+    the per-process host-memory pair included; the processes' flight
+    recorder segments merge into one valid trace with a replica a
+    process."""
     with tempfile.TemporaryDirectory(prefix="multihost-fleet-") as run_dir:
         return _fleet_runs(num_processes, env, timeout, device, regions, num_samples, run_dir)
 
@@ -472,7 +476,7 @@ def _fleet_runs(num_processes, env, timeout, device, regions, num_samples, run_d
         "variants-pca", "--source", "synthetic", "--num-samples", str(num_samples),
         "--references", regions, "--device", device,
     ]
-    report: Dict[str, object] = {"fleet_trace_ok": None}
+    report: Dict[str, object] = {}
     solo_manifest_path = os.path.join(run_dir, "solo.manifest.json")
     solo_cmd = [
         sys.executable, "-m", "spark_examples_tpu_torch", *fleet_flags,
@@ -492,7 +496,7 @@ def _fleet_runs(num_processes, env, timeout, device, regions, num_samples, run_d
             sys.executable, "-m", "spark_examples_tpu_torch", *fleet_flags,
             "--coordinator-address", f"127.0.0.1:{port}",
             "--num-processes", str(num_processes), "--process-id", str(pid),
-            "--metrics-json", manifest_paths[pid],
+            "--metrics-json", manifest_paths[pid], "--trace-dir", run_dir,
         ]
         for pid in range(num_processes)
     ]
@@ -563,6 +567,34 @@ def _fleet_runs(num_processes, env, timeout, device, regions, num_samples, run_d
         if any(isinstance(pair, dict) and pair.get("ok") is False for pair in block.values()):
             conformance_ok = False
     report["fleet_conformance_ok"] = bool(conformance_ok)
+    report.update(_fleet_trace(run_dir, num_processes))
+    return report
+
+
+def _fleet_trace(run_dir: str, num_processes: int) -> Dict[str, object]:
+    """The fleet's merged trace and the reference's rule for it: it
+    validates, and it spans one replica a process."""
+    from spark_examples_tpu_torch.obs.trace import merge_run_trace, validate_chrome_trace
+
+    doc = None
+    try:
+        doc = merge_run_trace(run_dir)
+        errors = list(validate_chrome_trace(doc))
+        replicas = {
+            e.get("args", {}).get("name", "")
+            for e in doc.get("traceEvents", [])
+            if e.get("ph") == "M" and e.get("name") == "process_name"
+        }
+        if len(replicas) != num_processes:
+            errors.append(
+                f"merged trace spans {len(replicas)} replicas, "
+                f"expected {num_processes}: {sorted(replicas)}"
+            )
+    except Exception as e:  # the failure is the report's finding
+        errors = [f"{type(e).__name__}: {e}"]
+    report: Dict[str, object] = {"fleet_trace_ok": not errors, "fleet_trace": doc}
+    if errors:
+        report["fleet_trace_errors"] = errors[:20]
     return report
 
 

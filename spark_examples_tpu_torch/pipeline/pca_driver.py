@@ -82,6 +82,7 @@ from spark_examples_tpu_torch.models.variant import Variant
 from spark_examples_tpu_torch.obs import MetricsRegistry, SpanRecorder
 from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
 from spark_examples_tpu_torch.obs.manifest import build_run_manifest, write_manifest
+from spark_examples_tpu_torch.obs.recorder import FlightRecorder
 from spark_examples_tpu_torch.obs.metrics import (
     COMPILE_CACHE_GEOMETRY_HITS,
     COMPILE_CACHE_GEOMETRY_MISSES,
@@ -1138,22 +1139,49 @@ def run_pipeline(
     heartbeat = None
     if conf.heartbeat_seconds > 0:
         heartbeat = Heartbeat(conf.heartbeat_seconds, driver.registry).start()
-    # Every arm's stage ends with the card synchronised.
+    recorder = None
+    if conf.trace_dir:
+        # The crash-durable stage timeline (obs/recorder.py): one segment a
+        # process, named by its index, so the segments of a run of several
+        # processes merge into one Chrome trace (`trace export --run-dir`)
+        # with a trace process a host. A kill-point flushes it first.
+        recorder = FlightRecorder(conf.trace_dir, f"host{process_index()}")
+        recorder.begin("run", tid="pipeline")
+        faults.add_flush_hook(recorder.flush)
+    # Every arm's stage ends with the card synchronised, and its recorded
+    # end follows the synchronise.
     sync = synchronizer(driver.device)
     try:
         with device_trace(conf.profile_dir):
+            if recorder is not None:
+                recorder.begin("ingest+similarity", tid="pipeline")
             with times.stage("ingest+similarity", sync=sync):
                 similarity = _similarity_stage(conf, driver, use_device, use_packed)
+            if recorder is not None:
+                recorder.end("ingest+similarity", tid="pipeline")
+                if (driver._ingest_hosts or 1) > 1:
+                    recorder.record(
+                        "host_sharded_ingest", tid="pipeline", hosts=int(driver._ingest_hosts)
+                    )
             summary = result = None
             if similarity_only:
                 summary = _summarize_similarity(similarity, len(driver.indexes))
             else:
+                if recorder is not None:
+                    recorder.begin("center+pca", tid="pipeline")
                 with times.stage("center+pca", sync=sync):
                     result = driver.compute_pca(similarity)
+                if recorder is not None:
+                    recorder.end("center+pca", tid="pipeline")
     finally:
         # A failed run gets its last heartbeat, then silence.
         if heartbeat is not None:
             heartbeat.stop()
+        if recorder is not None:
+            # Whatever happened above, the events so far reach the segment
+            # (an open "run" span exports as a truncated span).
+            faults.remove_flush_hook(recorder.flush)
+            recorder.flush()
     # Only a run whose kernels all ran warms its geometry; recorded before
     # the manifest so the run's own hit or miss is in it.
     record_geometry(compile_fingerprint(conf, kind="similarity" if similarity_only else "pca"))
@@ -1196,6 +1224,9 @@ def run_pipeline(
         else:
             manifest_path = conf.metrics_json
             print(f"Run manifest written to {conf.metrics_json}.")
+    if recorder is not None:
+        recorder.end("run", tid="pipeline")
+        recorder.close()
     return PipelineResult(lines, driver, manifest, manifest_path, summary)
 
 

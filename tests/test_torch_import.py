@@ -66,16 +66,23 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.analyses.reads_examples",
     "spark_examples_tpu_torch.analyses.variants_examples",
     "spark_examples_tpu_torch.api",
+    "spark_examples_tpu_torch.check.cli",
     "spark_examples_tpu_torch.check.hostmem",
+    "spark_examples_tpu_torch.check.plan",
     "spark_examples_tpu_torch.experiments.cli_wall",
+    "spark_examples_tpu_torch.experiments.cost_rates",
     "spark_examples_tpu_torch.experiments.count_variants",
     "spark_examples_tpu_torch.experiments.probe_ops",
     "spark_examples_tpu_torch.experiments.vmem_capacity",
     "spark_examples_tpu_torch.models.read",
     "spark_examples_tpu_torch.models.variant",
+    "spark_examples_tpu_torch.obs.calibration",
+    "spark_examples_tpu_torch.obs.costmodel",
     "spark_examples_tpu_torch.obs.heartbeat",
     "spark_examples_tpu_torch.obs.manifest",
     "spark_examples_tpu_torch.obs.metrics",
+    "spark_examples_tpu_torch.obs.recorder",
+    "spark_examples_tpu_torch.obs.trace",
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.depth",
     "spark_examples_tpu_torch.ops.devicegen",
@@ -88,6 +95,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
     "spark_examples_tpu_torch.pipeline.sitewriter",
+    "spark_examples_tpu_torch.serve.journal",
     "spark_examples_tpu_torch.sharding.contig",
     "spark_examples_tpu_torch.sources.files",
     "spark_examples_tpu_torch.sources.rest",
@@ -163,7 +171,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert "Matrix size: 8." in out and "Variants API stats:" in out
 
 
-@pytest.mark.parametrize("verb", ["graftcheck", "serve", "trace"])
+@pytest.mark.parametrize("verb", ["obs", "serve", "submit"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
     from spark_examples_tpu_torch.cli import main
 
@@ -174,11 +182,11 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
 @pytest.mark.parametrize(
     "flags, named",
     [
-        (["--num-processes", "2", "--trace-dir", "t"], "--trace-dir"),
+        (["--num-processes", "2", "--resume-from", "ck"], "--resume-from"),
         (["--coordinator-address", "h:1", "--check-ranges"], "--check-ranges"),
         (["--num-processes", "2", "--gramian-checkpoint-dir", "ck"], "--gramian-checkpoint-dir"),
         (["--check-ranges"], "--check-ranges"),
-        (["--trace-dir", "t"], "--trace-dir"),
+        (["--trace-dir", "t", "--check-ranges"], "--check-ranges"),
         (["--mesh-shape", "1,2", "--check-ranges"], "--check-ranges"),
     ],
 )

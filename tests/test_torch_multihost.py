@@ -56,7 +56,7 @@ def _check_report(report, processes, local):
                 "cli_outputs_identical", "fleet_host_sharded", "fleet_io_ok",
                 "fleet_conformance_ok", "ok"):
         assert report[key], (key, text)
-    assert report["fleet_trace_ok"] is None
+    assert report["fleet_trace_ok"] is True
     assert report["cli_pc_lines"] == multihost._NUM_SAMPLES
     want = _jax_gramian_sha256()
     for child in report["children"]:
@@ -73,6 +73,10 @@ def _check_report(report, processes, local):
     assert sum(bases["per_process"]) == bases["solo"]
     assert all(0 < b < bases["solo"] for b in bases["per_process"])
     assert report["fleet_backend"] == ["gloo"] * processes
+    # The merged fleet trace passes the reference's validator too.
+    from spark_examples_tpu.obs.trace import validate_chrome_trace
+
+    assert validate_chrome_trace(report["fleet_trace"]) == []
 
 
 def test_two_process_distributed_run():
