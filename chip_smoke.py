@@ -146,7 +146,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    reference's 16 GiB budget and at the card's memory; the cost model's
    rates (``experiments/cost_rates.py`` in a process of its own) and
    chr17's prediction beside its measured wall, through the calibration
-   ledger;
+   ledger; then the serve daemon (``PcaService`` over HTTP on port 0,
+   ``ServeClient``): a chr17 ``pca`` job (cold, then warm) whose logged
+   rows equal ``run_pipeline``'s, four 200 kb ``similarity`` jobs run as
+   one fused group (the stacked kernels once a step, the single product
+   never), each summary its serial run's, a ``grm`` job equal to
+   ``run_grm_pipeline``'s, a 413 past the card's memory, a restarted
+   daemon serving warm from its geometry ledger, the median admission
+   over 20 requests, and ``serve`` as a process with one ``submit`` and a
+   SIGTERM that drains to exit 0;
 11. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
@@ -185,6 +193,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2762,6 +2771,264 @@ def phase_fused(torch, kernels):
     return launches
 
 
+#: The serve phase's fused group: four ``similarity`` jobs of one geometry,
+#: 200 kb of chr17-20 each (2,001 sites, packed), small under the phase's
+#: site limit; the grm job over the packed cell is large under it (no
+#: linger), and chr17 is large by the reference's own limit.
+SERVE_SIMILARITY_WINDOWS = [f"{ref}:41196311:41396311" for ref in ("17", "18", "19", "20")]
+SERVE_SMALL_SITE_LIMIT = 10_000
+#: How long the worker holds a small group open for compatible jobs: the
+#: four similarity jobs are submitted back to back and the group dispatches
+#: the moment it is full.
+SERVE_LINGER_SECONDS = 20.0
+#: Admission latency: submit -> 202 over this many requests, each a
+#: similarity job over 10 kb of chr17 (the jobs run too, so they are short).
+SERVE_ADMISSIONS = 20
+SERVE_ADMISSION_ARGV = ["--references", "17:41196311:41206311", "--num-samples", str(N_SAMPLES),
+                        "--ingest", "packed"]
+#: The grm job: 1 Mb of chr17 (10,001 sites, large under the phase's limit).
+SERVE_GRM_ARGV = ["--references", "17:41196311:42196311", "--num-samples", str(N_SAMPLES)]
+#: A Gramian no 80 GB card holds: 200,000 samples, dense.
+SERVE_OVER_MEMORY_ARGV = ["--similarity-strategy", "dense", "--num-samples", "200000"]
+
+
+def _served_rows(job) -> list:
+    """The PC rows a served job printed into its ``stdout.log``."""
+    log_path = Path(job["manifest_path"]).parent / "stdout.log"
+    return [line for line in log_path.read_text().splitlines() if "\t" in line]
+
+
+def phase_serve(torch, kernels):
+    """The serve daemon on the card: ``PcaService`` with its HTTP server on
+    port 0, driven by ``ServeClient``, at 2,504 samples. A ``pca`` job over
+    chr17 (device generation) whose rows in ``jobs/<id>/stdout.log`` equal
+    ``run_pipeline``'s, twice (cold, then warm); four ``similarity`` jobs of
+    one geometry admitted back to back and run as exactly one fused group
+    (the stacked kernels once a step, the single product and unpack never),
+    each summary its serial run's; a ``grm`` job whose summary equals
+    ``run_grm_pipeline``'s; a 413 for a Gramian past the card's memory; a
+    second daemon on the same run directory, its ledger primed, serving
+    chr17 warm, and taking 20 admissions (median submit -> 202); then
+    ``python -m spark_examples_tpu_torch serve`` as a process on the same
+    run directory, one ``submit`` against it (warm), and SIGTERM, which
+    must drain to exit 0. Every launch count is set to 0 just before each
+    served job or group and read after it. Logs each served wall beside the
+    batch run's, the queue waits, the fused group beside its serial runs,
+    and the restarted daemons' jobs beside the warm one."""
+    from spark_examples_tpu_torch.analyses.grm import run_grm_pipeline
+    from spark_examples_tpu_torch.config import GrmConf, PcaConf
+    from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+    from spark_examples_tpu_torch.serve.client import ServeClient, ServeError
+    from spark_examples_tpu_torch.serve.daemon import PcaService
+    from spark_examples_tpu_torch.serve.http import start_server
+    from spark_examples_tpu_torch.utils.cache import reset_compile_cache_stats
+
+    t_phase = time.perf_counter()
+    run_dir = DATA_DIR / "serve"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    similarity_argvs = [["--references", w, "--num-samples", str(N_SAMPLES), "--ingest",
+                         "packed"] for w in SERVE_SIMILARITY_WINDOWS]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The batch runs every served job is held to, in this phase (chr17
+    # twice: the second is the warm wall).
+    for _ in range(2):
+        batch_pca, batch_pca_wall = timed(lambda: run_pipeline(PcaConf.parse(CHR17_ARGV)))
+    batch_rows = batch_pca.lines
+    del batch_pca
+    batch_grm, batch_grm_wall = timed(lambda: run_grm_pipeline(GrmConf.parse(SERVE_GRM_ARGV)))
+    batch_grm_summary = batch_grm.summary
+    del batch_grm
+    serial, serial_wall, serial_blocks = [], 0.0, 0
+    for argv in similarity_argvs:
+        reset_counts(kernels)
+        result, wall = timed(lambda: run_pipeline(PcaConf.parse(argv), similarity_only=True))
+        serial.append(result.similarity_summary)
+        serial_wall += wall
+        serial_blocks = max(serial_blocks, next(k.launches for k in kernels
+                                                if k.__name__ == "unpack_rows_t"))
+        del result
+    torch.cuda.empty_cache()
+
+    def run_job(client, argv, kind="pca", expect=()):
+        reset_counts(kernels)
+        job = client.wait(client.submit(argv, kind=kind)["job"]["id"], timeout=300)["job"]
+        counts = {k.__name__: k.launches for k in kernels}
+        if job["status"] != "done":
+            raise AssertionError(f"serve: {kind} job failed: {job['error']}")
+        missing = [k for k in expect if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"serve: {kind} job never launched {missing}: {counts}")
+        return job, counts
+
+    def serve(**kw):
+        service = PcaService(run_dir=str(run_dir), persistent_cache=True,
+                             small_site_limit=SERVE_SMALL_SITE_LIMIT, **kw).start()
+        return service, start_server(service)
+
+    def stop(service, server):
+        server.shutdown()
+        server.server_close()
+        if not service.stop(timeout=120):
+            raise AssertionError(f"serve: the daemon did not drain: {service.healthz()}")
+
+    reset_compile_cache_stats()
+    service, server = serve(batch_max_jobs=len(similarity_argvs),
+                            batch_linger_seconds=SERVE_LINGER_SECONDS)
+    try:
+        client = ServeClient(server.url)
+        health = client.healthz()
+        log(f"serve: daemon on {health['mesh']}, slices {json.dumps(health['slices'])} "
+            f"({card_line()})")
+        if [s["name"] for s in health["slices"]] != ["shared"]:
+            raise AssertionError(f"serve: one card must give the shared topology: {health}")
+        device_path = ("gen_genotypes", "gram_accumulate")
+        walls = {}
+        for label in ("cold", "warm"):
+            job, counts = run_job(client, CHR17_ARGV, expect=device_path)
+            if job["compile_cache"] != label:
+                raise AssertionError(f"serve: chr17 job {label} reported {job['compile_cache']}")
+            if job["result"]["pc_lines"] != batch_rows or _served_rows(job) != batch_rows:
+                raise AssertionError(f"serve: chr17 {label} job's rows != run_pipeline's")
+            walls[label] = job["seconds"]
+            log(f"serve: chr17 pca {label}: served wall {job['seconds']:.4f} s against batch "
+                f"{batch_pca_wall:.4f} s; queue wait {job['cost']['queue_wait_seconds']:.4f} s; "
+                f"launches {json.dumps(counts)}; {len(batch_rows)} rows == run_pipeline's "
+                f"({card_line()})")
+
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        ids = [client.submit(argv, kind="similarity")["job"]["id"] for argv in similarity_argvs]
+        jobs = [client.wait(job_id, timeout=300)["job"] for job_id in ids]
+        group_wall = time.perf_counter() - t0
+        counts = {k.__name__: k.launches for k in kernels}
+        for job, want in zip(jobs, serial):
+            if job["status"] != "done" or job["fused_size"] != len(jobs):
+                raise AssertionError(f"serve: similarity job not in one fused group: {job}")
+            if job["result"]["similarity"] != want:
+                raise AssertionError(f"serve: fused lane {job['result']} != serial {want}")
+        stats = service.fleet_stats()["dispatch"]
+        steps = counts["stacked_unpack_rows_t"]
+        if (stats["fused_groups"], stats["fused_jobs"]) != (1, len(jobs)) or steps != serial_blocks \
+                or counts["stacked_gram_accumulate"] != steps or counts["gram_accumulate"] \
+                or counts["unpack_rows_t"]:
+            raise AssertionError(f"serve: fused group dispatch {stats}, launches {counts}, "
+                                 f"{serial_blocks} blocks a lane")
+        line = Heartbeat(60.0, service.registry).line()
+        if f"fused 1 K-job group(s) (K≈{len(jobs)}.0)" not in line:
+            raise AssertionError(f"serve: heartbeat {line!r}")
+        waits = [round(j["cost"]["queue_wait_seconds"], 4) for j in jobs]
+        log(f"serve: fused similarity group of {len(jobs)}: wall {group_wall:.4f} s (submit to "
+            f"last result; each job's share {jobs[0]['seconds']:.4f} s) against {serial_wall:.4f} s "
+            f"for the serial runs; queue waits {waits} s; {steps} steps, launches "
+            f"{json.dumps(counts)}; summaries == the serial runs' ({card_line()})")
+        log(f"serve: heartbeat {line}")
+
+        job, counts = run_job(client, SERVE_GRM_ARGV, kind="grm",
+                              expect=("unpack_rows_t", "gram_accumulate"))
+        if job["result"]["grm"] != batch_grm_summary:
+            raise AssertionError(f"serve: grm {job['result']} != run_grm_pipeline's "
+                                 f"{batch_grm_summary}")
+        log(f"serve: grm over 1 Mb of chr17: served wall {job['seconds']:.4f} s against batch "
+            f"{batch_grm_wall:.4f} s; summary == run_grm_pipeline's; launches "
+            f"{json.dumps(counts)} ({card_line()})")
+
+        try:
+            client.submit(SERVE_OVER_MEMORY_ARGV)
+            raise AssertionError("serve: a Gramian past the card's memory was admitted")
+        except ServeError as e:
+            codes = [i["code"] for i in e.body["plan"]["issues"]]
+            if e.status != 413 or "dense-exceeds-hbm" not in codes:
+                raise AssertionError(f"serve: over-memory job got {e.status} {codes}")
+            log(f"serve: {SERVE_OVER_MEMORY_ARGV} -> {e.status} {e.code} {codes} on the card's "
+                f"{service.admission_device_bytes('large')} bytes")
+    finally:
+        stop(service, server)
+
+    # A second daemon on the run directory, the process's ledger cleared as
+    # a new process starts: the ledger file primes it.
+    reset_compile_cache_stats()
+    t0 = time.perf_counter()
+    service, server = serve(small_capacity=2 * SERVE_ADMISSIONS)
+    start_wall = time.perf_counter() - t0
+    try:
+        client = ServeClient(server.url)
+        warm_state = client.healthz()["warm_state"]
+        job, _ = run_job(client, CHR17_ARGV, expect=("gen_genotypes", "gram_accumulate"))
+        if job["compile_cache"] != "warm" or job["result"]["pc_lines"] != batch_rows:
+            raise AssertionError(f"serve: restarted chr17 job {job['compile_cache']}")
+        log(f"serve: restarted daemon (in-process; start {start_wall:.4f} s, warm state "
+            f"{json.dumps(warm_state)}): chr17 warm, wall {job['seconds']:.4f} s against "
+            f"{walls['warm']:.4f} s warm before the restart ({card_line()})")
+        latencies, ids = [], []
+        for i in range(SERVE_ADMISSIONS):
+            t0 = time.perf_counter()
+            doc = client.submit(SERVE_ADMISSION_ARGV, kind="similarity")
+            latencies.append(time.perf_counter() - t0)
+            ids.append(doc["job"]["id"])
+        done = [client.wait(job_id, timeout=300)["job"]["status"] for job_id in ids]
+        if done != ["done"] * len(ids):
+            raise AssertionError(f"serve: admitted jobs ended {done}")
+        log(f"serve: admission latency (submit -> 202) over {len(latencies)} requests: median "
+            f"{float(np.median(latencies)) * 1e3:.3f} ms, max {max(latencies) * 1e3:.3f} ms "
+            f"({card_line()})")
+    finally:
+        stop(service, server)
+
+    # The entry point as a process on the same run directory.
+    endpoint = run_dir / "endpoint"
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    t0 = time.perf_counter()
+    daemon = subprocess.Popen(
+        [sys.executable, "-m", "spark_examples_tpu_torch", "serve", "--port", "0",
+         "--run-dir", str(run_dir), "--endpoint-file", str(endpoint),
+         "--serve-small-site-limit", str(SERVE_SMALL_SITE_LIMIT)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        while not endpoint.exists():
+            if daemon.poll() is not None or time.perf_counter() - t0 > 180:
+                raise AssertionError(f"serve: the daemon process never listened: "
+                                     f"{daemon.stderr.read() if daemon.poll() is not None else ''}")
+            time.sleep(0.05)
+        listen_wall = time.perf_counter() - t0
+        url = endpoint.read_text().strip()
+        t1 = time.perf_counter()
+        submitted = subprocess.run(
+            [sys.executable, "-m", "spark_examples_tpu_torch", "submit", "--url", url, "--json",
+             "--", *CHR17_ARGV], capture_output=True, text=True, env=env, timeout=300)
+        submit_wall = time.perf_counter() - t1
+        if submitted.returncode != 0:
+            raise AssertionError(f"serve: submit exited {submitted.returncode}: "
+                                 f"{submitted.stdout[-2000:]} {submitted.stderr[-2000:]}")
+        job = json.loads(submitted.stdout)["job"]
+        if job["compile_cache"] != "warm" or job["result"]["pc_lines"] != batch_rows:
+            raise AssertionError(f"serve: the process's chr17 job {job['compile_cache']}")
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(timeout=120)
+        err = daemon.stderr.read()
+        if rc != 0 or "drained cleanly" not in err:
+            raise AssertionError(f"serve: the daemon process exited {rc}: {err[-2000:]}")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait(timeout=30)
+    log(f"serve: `serve` as a process: listening after {listen_wall:.3f} s; its first job "
+        f"(chr17, warm from the ledger) served wall {job['seconds']:.4f} s against "
+        f"{walls['warm']:.4f} s warm in this process, queue wait "
+        f"{job['cost']['queue_wait_seconds']:.4f} s, admission to settlement "
+        f"{job['finished_unix'] - job['submitted_unix']:.4f} s; the `submit --json` process "
+        f"{submit_wall:.3f} s; SIGTERM drained to exit 0 ({card_line()})")
+    log(f"serve: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     started = time.perf_counter()
     try:
@@ -2862,6 +3129,7 @@ def main() -> int:
     phase_rest(torch, path_kernels, wire_g)
     phase_telemetry(torch, path_kernels)
     phase_trace(torch, path_kernels)
+    phase_serve(torch, path_kernels)
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
     t0 = time.perf_counter()
     examples_kernels = path_kernels + depth.KERNELS

@@ -74,8 +74,18 @@ pure file I/O and arithmetic: they touch no device and take no
     python -m spark_examples_tpu_torch graftcheck plan --num-samples 2504 \
         --references 17:0:81195210 --json
 
-The JAX package's other verbs (``serve``, ``submit``, ``obs``) are not
-ported yet; they exit with code 2.
+The resident service: ``serve`` runs the daemon (jobs on every card, or
+on the CPU with ``--device cpu``; ``--port 0 --endpoint-file F`` binds an
+ephemeral port and writes its URL to F; SIGTERM drains, exit 0) and
+``submit`` sends it a job, the flags after ``--`` being the verb's own
+(a job may not name ``--device``: placement is the daemon's). Their exit
+codes propagate:
+
+    python -m spark_examples_tpu_torch serve --port 0 --endpoint-file url
+    python -m spark_examples_tpu_torch submit --url "$(cat url)" \
+        -- --num-samples 64 --references 17:41196311:41277499
+
+The JAX package's ``obs`` verb is not ported yet; it exits with code 2.
 """
 
 from __future__ import annotations
@@ -92,11 +102,7 @@ from spark_examples_tpu_torch.utils.device import resolve_device
 
 #: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
 #: the port does not run yet.
-NOT_PORTED = (
-    "serve",
-    "submit",
-    "obs",
-)
+NOT_PORTED = ("obs",)
 
 
 def _trace_cmd(argv: Sequence[str]) -> int:
@@ -116,6 +122,26 @@ def _graftcheck_cmd(argv: Sequence[str]) -> int:
 DEVICE_FREE = {
     "trace": _trace_cmd,
     "graftcheck": _graftcheck_cmd,
+}
+
+
+def _serve_cmd(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.serve.http import serve_main
+
+    return serve_main(argv)
+
+
+def _submit_cmd(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.serve.client import submit_main
+
+    return submit_main(argv)
+
+
+#: The resident service's verbs (``serve/``): the daemon takes its own
+#: ``--device``, the client touches no device; their exit codes propagate.
+SERVICE = {
+    "serve": _serve_cmd,
+    "submit": _submit_cmd,
 }
 
 
@@ -175,12 +201,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: python -m spark_examples_tpu_torch <command> [flags]")
         print("commands:")
-        for name in (*COMMANDS, *DEVICE_FREE):
+        for name in (*COMMANDS, *DEVICE_FREE, *SERVICE):
             print(f"  {name}")
         return 0
     command, rest = argv[0], argv[1:]
     if command in DEVICE_FREE:
         return int(DEVICE_FREE[command](rest))
+    if command in SERVICE:
+        return int(SERVICE[command](rest))
     if command in NOT_PORTED:
         print(f"{command}: not yet ported to PyTorch", file=sys.stderr)
         return 2

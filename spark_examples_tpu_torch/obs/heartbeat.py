@@ -12,10 +12,13 @@ host rss peak 1.2 GiB/4.0 GiB bound; device mem 0.2/79.1 GiB
 Segments appear only when their metric exists, so every ingest arm
 (device generation, packed, streamed, wire) gets an honest subset. Enabled
 by ``--heartbeat-seconds N`` (0 = off, the default). The port samples the
-reference's ingest, prefetch, dispatch, analysis (the LD prune's ``analysis
-kept K/T sites``) and host-memory segments; its serving, ring, cost and
-compile-cache segments wait for those layers. Device memory is ``torch.cuda.memory_allocated`` against the card's
-total memory.
+reference's segments in its order: ingest, prefetch, dispatch, analysis
+(the LD prune's ``analysis kept K/T sites``), the ring's traffic
+(``gramian_ring_bytes``), the serve daemon's queue, slices, replicas,
+batched and fused groups, the cost observatory's predicted against
+measured wall (``serve/daemon.py`` registers those gauges), the
+warm-geometry ledger's warm/cold pair, and host memory. Device memory is
+``torch.cuda.memory_allocated`` against the card's total memory.
 
 ``stop()`` is idempotent and joins the thread: the driver stops it in a
 ``finally``, so a run that fails emits its last heartbeat and then goes
@@ -32,7 +35,13 @@ from typing import Callable, Optional
 from spark_examples_tpu_torch.obs.metrics import (
     ANALYSIS_SITES_KEPT,
     ANALYSIS_SITES_TESTED,
+    COMPILE_CACHE_GEOMETRY_HITS,
+    COMPILE_CACHE_GEOMETRY_MISSES,
+    COST_CALIBRATION_SAMPLES,
+    COST_MEASURED_MEAN_SECONDS,
+    COST_PREDICTED_MEAN_SECONDS,
     GRAMIAN_INFLIGHT_DISPATCHES,
+    GRAMIAN_RING_BYTES,
     HOST_PEAK_RSS_BYTES,
     HOST_RUNTIME_BASELINE_BYTES,
     HOST_STATIC_BOUND_BYTES,
@@ -43,6 +52,18 @@ from spark_examples_tpu_torch.obs.metrics import (
     MetricsRegistry,
     PREFETCH_QUEUE_DEPTH,
     PREFETCH_QUEUE_OCCUPANCY,
+    SERVE_BATCH_JOBS,
+    SERVE_BATCHES,
+    SERVE_FUSED_GROUPS,
+    SERVE_FUSED_JOBS,
+    SERVE_JOBS_DONE,
+    SERVE_JOBS_INFLIGHT,
+    SERVE_JOBS_STOLEN,
+    SERVE_LEASE_RENEWALS,
+    SERVE_QUEUE_DEPTH,
+    SERVE_REPLICAS_ALIVE,
+    SERVE_SLICES,
+    SERVE_SLICES_BUSY,
 )
 
 
@@ -204,6 +225,90 @@ class Heartbeat:
             tested = self.registry.value(ANALYSIS_SITES_TESTED)
             if tested is not None and tested == tested:
                 parts.append(f"analysis kept {int(kept):,}/{int(tested):,} sites")
+
+        ring_bytes = self.registry.value(GRAMIAN_RING_BYTES)
+        if ring_bytes:
+            parts.append(f"ring traffic {_bytes_text(ring_bytes)}")
+
+        # The serve daemon's service registry: admission state where a
+        # batch run's heartbeat shows ingest progress.
+        queued = self.registry.value(SERVE_QUEUE_DEPTH)
+        if queued is not None and queued == queued:
+            segment = f"serve queue {int(queued)}"
+            inflight = self.registry.value(SERVE_JOBS_INFLIGHT)
+            if inflight is not None and inflight == inflight:
+                segment += f" (in-flight {int(inflight)}"
+                settled = self.registry.value(SERVE_JOBS_DONE)
+                if settled is not None and settled == settled:
+                    segment += f", done {int(settled)}"
+                segment += ")"
+            parts.append(segment)
+
+        # Executor slices busy of all (busy == total reads as saturation).
+        slices = self.registry.value(SERVE_SLICES)
+        if slices is not None and slices == slices and slices > 0:
+            busy = self.registry.value(SERVE_SLICES_BUSY)
+            if busy is not None and busy == busy:
+                parts.append(f"slices {int(busy)}/{int(slices)} busy")
+
+        # Replicas heartbeating against the run directory (self included;
+        # a solo daemon exports 0 and the segment stays silent), with this
+        # replica's steals and lease renewals.
+        replicas = self.registry.value(SERVE_REPLICAS_ALIVE)
+        if replicas is not None and replicas == replicas and replicas > 0:
+            segment = f"replicas {int(replicas)} alive"
+            extras = []
+            stolen = self.registry.value(SERVE_JOBS_STOLEN)
+            if stolen:
+                extras.append(f"stolen {int(stolen)}")
+            renewals = self.registry.value(SERVE_LEASE_RENEWALS)
+            if renewals:
+                extras.append(f"lease renewals {int(renewals)}")
+            if extras:
+                segment += " (" + ", ".join(extras) + ")"
+            parts.append(segment)
+
+        batches = self.registry.value(SERVE_BATCHES)
+        if batches:
+            batch_jobs = self.registry.value(SERVE_BATCH_JOBS)
+            segment = f"batched {int(batches)} groups"
+            if batch_jobs:
+                segment += f" ({int(batch_jobs)} jobs)"
+            parts.append(segment)
+
+        # Groups run as one stacked program, with their mean size.
+        fused = self.registry.value(SERVE_FUSED_GROUPS)
+        if fused:
+            fused_jobs = self.registry.value(SERVE_FUSED_JOBS)
+            segment = f"fused {int(fused)} K-job group(s)"
+            if fused_jobs:
+                segment += f" (K≈{fused_jobs / fused:.1f})"
+            parts.append(segment)
+
+        # The calibration fold's mean predicted and measured wall, silent
+        # until the first completed job lands (the gauges read NaN).
+        cost_n = self.registry.value(COST_CALIBRATION_SAMPLES)
+        if cost_n is not None and cost_n == cost_n and cost_n > 0:
+            predicted = self.registry.value(COST_PREDICTED_MEAN_SECONDS)
+            measured = self.registry.value(COST_MEASURED_MEAN_SECONDS)
+            if (
+                predicted is not None
+                and predicted == predicted
+                and measured is not None
+                and measured == measured
+            ):
+                segment = f"cost pred {predicted:.1f}s / meas {measured:.1f}s"
+                if predicted > 0:
+                    segment += f" (ratio {measured / predicted:.2f}, n={int(cost_n)})"
+                else:
+                    segment += f" (n={int(cost_n)})"
+                parts.append(segment)
+
+        # The warm-geometry ledger (utils/cache.py): warm against cold runs.
+        hits = self.registry.value(COMPILE_CACHE_GEOMETRY_HITS)
+        misses = self.registry.value(COMPILE_CACHE_GEOMETRY_MISSES)
+        if hits is not None and hits == hits and misses is not None and misses == misses:
+            parts.append(f"compile cache {int(hits)} warm/{int(misses)} cold")
 
         # Host memory: each tick samples the function-backed peak-RSS
         # gauge, shown against the registered bound (the runtime baseline

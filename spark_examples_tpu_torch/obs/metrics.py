@@ -34,6 +34,13 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0, 60.0,
 )
 
+#: Buckets for whole-job latencies (the serve daemon's queue-wait and job
+#: wall histograms), from ten milliseconds to an hour.
+WIDE_SECONDS_BUCKETS: Tuple[float, ...] = (
+    0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    60.0, 120.0, 300.0, 900.0, 3600.0,
+)
+
 
 class MetricError(ValueError):
     """Invalid metric registration or use (name/type/label mismatch)."""
@@ -84,6 +91,38 @@ ANALYSIS_SITES_KEPT = "analysis_sites_kept"
 #: this process whose geometry it had run before, and first sights.
 COMPILE_CACHE_GEOMETRY_HITS = "compile_cache_geometry_hits"
 COMPILE_CACHE_GEOMETRY_MISSES = "compile_cache_geometry_misses"
+#: The serve daemon (``serve/daemon.py``): watchdog restarts of a dead
+#: worker thread; admitted-but-unstarted jobs, jobs executing and jobs
+#: settled; executor slices and how many are busy; dispatch groups of more
+#: than one job and the jobs they carried; groups run as one stacked
+#: program (``pipeline/fused.py``) and their jobs; jobs replayed from the
+#: journal at start-up; lease renewals, jobs stolen from dead peers and the
+#: replicas heartbeating against the run directory.
+SERVE_WORKER_RESTARTS = "serve_worker_restarts_total"
+SERVE_QUEUE_DEPTH = "serve_queue_depth"
+SERVE_JOBS_INFLIGHT = "serve_jobs_inflight"
+SERVE_JOBS_DONE = "serve_jobs_done"
+SERVE_SLICES = "serve_slices"
+SERVE_SLICES_BUSY = "serve_slices_busy"
+SERVE_BATCHES = "serve_batches_total"
+SERVE_BATCH_JOBS = "serve_batch_jobs_total"
+SERVE_FUSED_GROUPS = "serve_fused_groups_total"
+SERVE_FUSED_JOBS = "serve_fused_jobs_total"
+SERVE_JOURNAL_REPLAYED = "serve_journal_replayed_total"
+SERVE_LEASE_RENEWALS = "serve_lease_renewals_total"
+SERVE_JOBS_STOLEN = "serve_jobs_stolen_total"
+SERVE_REPLICAS_ALIVE = "serve_replicas_alive"
+#: The cost observatory (``obs/costmodel.py``, ``obs/calibration.py``):
+#: queue-wait and job-wall histograms (the wall labeled ``kind``,
+#: ``job_class`` and ``compile``), the measured/predicted ratio of the
+#: latest completed job by kind, and the calibration fold's means and
+#: sample count.
+SERVE_QUEUE_WAIT_SECONDS = "serve_queue_wait_seconds"
+SERVE_JOB_WALL_SECONDS = "serve_job_wall_seconds"
+COST_PREDICTION_RATIO = "cost_prediction_ratio"
+COST_PREDICTED_MEAN_SECONDS = "cost_predicted_mean_seconds"
+COST_MEASURED_MEAN_SECONDS = "cost_measured_mean_seconds"
+COST_CALIBRATION_SAMPLES = "cost_calibration_samples"
 
 _WELL_KNOWN_GAUGE_HELP = {
     INGEST_SITES_SCANNED: "Candidate sites scanned so far (heartbeat progress).",
@@ -141,6 +180,42 @@ _WELL_KNOWN_GAUGE_HELP = {
         "Runs in this process that paid a cold compile for a fresh "
         "analysis geometry (utils/cache.py warm-geometry ledger)."
     ),
+    SERVE_QUEUE_DEPTH: (
+        "Admitted jobs waiting in the service's two-class admission "
+        "queue (both classes)."
+    ),
+    SERVE_JOBS_INFLIGHT: (
+        "Jobs the service's slice workers are executing right now "
+        "(bounded by the executor-slice count)."
+    ),
+    SERVE_JOBS_DONE: (
+        "Service jobs that reached a terminal state (done, failed, or "
+        "cancelled) since the daemon started."
+    ),
+    SERVE_SLICES: (
+        "Executor slices partitioning the daemon's devices "
+        "(parallel/mesh.py:plan_executor_slices)."
+    ),
+    SERVE_SLICES_BUSY: (
+        "Executor slices currently executing a job (each slice runs its "
+        "dispatch group serially)."
+    ),
+    SERVE_REPLICAS_ALIVE: (
+        "Replica daemons currently heartbeating against this shared run "
+        "dir, self included (serve/journal.py lease substrate)."
+    ),
+    COST_PREDICTED_MEAN_SECONDS: (
+        "Mean predicted wall seconds over the folded calibration ledger "
+        "(obs/calibration.py; the heartbeat's cost segment numerator)."
+    ),
+    COST_MEASURED_MEAN_SECONDS: (
+        "Mean measured wall seconds over the folded calibration ledger "
+        "(obs/calibration.py; pairs with cost_predicted_mean_seconds)."
+    ),
+    COST_CALIBRATION_SAMPLES: (
+        "Completed (predicted, measured) job pairs folded into the "
+        "calibration ledger so far — the n behind the learned ratios."
+    ),
 }
 
 _WELL_KNOWN_COUNTER_HELP = {
@@ -152,6 +227,39 @@ _WELL_KNOWN_COUNTER_HELP = {
     GRAMIAN_CHECKPOINT_SAVES: (
         "Atomic Gramian accumulator snapshots published by this run "
         "(--gramian-checkpoint-dir)."
+    ),
+    SERVE_WORKER_RESTARTS: (
+        "Dead worker threads the serve watchdog replaced; each increment "
+        "is one crash the daemon survived instead of wedging."
+    ),
+    SERVE_BATCHES: (
+        "Dispatch groups that coalesced more than one compatible small "
+        "job (continuous batching over the admission queue)."
+    ),
+    SERVE_BATCH_JOBS: (
+        "Small jobs that rode a multi-job dispatch group (continuous "
+        "batching over the admission queue)."
+    ),
+    SERVE_FUSED_GROUPS: (
+        "Dispatch groups executed as ONE stacked device program "
+        "(pipeline/fused.py) — one dispatch and one reduction per step "
+        "for the whole group."
+    ),
+    SERVE_FUSED_JOBS: (
+        "Jobs that rode a fused stacked device program instead of a "
+        "serial back-to-back dispatch."
+    ),
+    SERVE_JOURNAL_REPLAYED: (
+        "Accepted-but-unfinished jobs replayed from the job journal at "
+        "daemon startup (serve/journal.py)."
+    ),
+    SERVE_LEASE_RENEWALS: (
+        "Job-lease renewals this replica performed against the shared "
+        "run dir (serve/journal.py lease substrate)."
+    ),
+    SERVE_JOBS_STOLEN: (
+        "Jobs this replica reclaimed from a dead peer's expired lease "
+        "(epoch-fenced work stealing over the shared journal)."
     ),
 }
 
@@ -734,6 +842,10 @@ __all__ = [
     "COMPILE_CACHE_GEOMETRY_HITS",
     "COMPILE_CACHE_GEOMETRY_MISSES",
     "CONFORMANCE_PROVERS",
+    "COST_CALIBRATION_SAMPLES",
+    "COST_MEASURED_MEAN_SECONDS",
+    "COST_PREDICTED_MEAN_SECONDS",
+    "COST_PREDICTION_RATIO",
     "Counter",
     "DEFAULT_BUCKETS",
     "DEVICEGEN_DISPATCHES",
@@ -759,7 +871,24 @@ __all__ = [
     "PREFETCH_QUEUE_OCCUPANCY",
     "PROVER_CONFORMANCE_MEASURED",
     "PROVER_CONFORMANCE_PROVEN",
+    "SERVE_BATCHES",
+    "SERVE_BATCH_JOBS",
+    "SERVE_FUSED_GROUPS",
+    "SERVE_FUSED_JOBS",
+    "SERVE_JOBS_DONE",
+    "SERVE_JOBS_INFLIGHT",
+    "SERVE_JOBS_STOLEN",
+    "SERVE_JOB_WALL_SECONDS",
+    "SERVE_JOURNAL_REPLAYED",
+    "SERVE_LEASE_RENEWALS",
+    "SERVE_QUEUE_DEPTH",
+    "SERVE_QUEUE_WAIT_SECONDS",
+    "SERVE_REPLICAS_ALIVE",
+    "SERVE_SLICES",
+    "SERVE_SLICES_BUSY",
+    "SERVE_WORKER_RESTARTS",
     "VCF_NATIVE_PARSE",
+    "WIDE_SECONDS_BUCKETS",
     "conformance_block",
     "escape_help_text",
     "escape_label_value",

@@ -52,7 +52,7 @@ import os
 import socket
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Union
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -834,8 +834,115 @@ def parse_mesh_shape(spec: str) -> Dict[str, int]:
     return {DATA_AXIS: parts[0], SAMPLES_AXIS: parts[1]}
 
 
+# ------------------------------------------------------------ executor slices
+# The serve daemon's concurrency unit: one process's device positions cut
+# into independent ranges, each with its own worker. Pure index arithmetic,
+# the reference's (``spark_examples_tpu/parallel/mesh.py:ExecutorSlice``),
+# so the daemon, admission and tests agree without a device.
+
+#: Job classes a slice may serve (the admission classes of ``serve/queue.py``).
+SLICE_SMALL = "small"
+SLICE_LARGE = "large"
+
+
+@dataclass(frozen=True)
+class ExecutorSlice:
+    """One executor: a contiguous range of the daemon's device positions.
+    Slices never share a position, so a large job on one slice cannot
+    head-block a small job on another; two slices may still name one card
+    (positions of ``cuda:0``), each worker then on its own stream."""
+
+    name: str
+    job_classes: Tuple[str, ...]
+    device_start: int
+    device_count: int
+
+    def __post_init__(self) -> None:
+        if self.device_count < 1:
+            raise ValueError(
+                f"slice {self.name!r} needs >= 1 device, got {self.device_count}"
+            )
+        if not self.job_classes:
+            raise ValueError(f"slice {self.name!r} serves no job class")
+
+    def device_indices(self) -> Tuple[int, ...]:
+        return tuple(range(self.device_start, self.device_start + self.device_count))
+
+
+def resolve_small_slices(spec, device_count: int) -> int:
+    """The ``--executor-slices`` rule: ``'auto'`` (or ``None``) is one small
+    slice when a device can be spared (two or more), none on one device (the
+    ``shared`` topology, as on the reference's single device); an integer
+    passes through."""
+    if spec is None or spec == "auto":
+        return 1 if int(device_count) >= 2 else 0
+    count = int(spec)
+    if count < 0:
+        raise ValueError(f"--executor-slices must be >= 0, got {spec!r}")
+    return count
+
+
+def plan_executor_slices(
+    device_count: int,
+    small_slices: int = 0,
+    small_slice_devices: int = 1,
+) -> Tuple[ExecutorSlice, ...]:
+    """Cut ``device_count`` positions into slices, as the reference does:
+    with no small slice, one ``shared`` slice over every position serving
+    both classes; otherwise ``small_slices`` slices of
+    ``small_slice_devices`` positions off the end of the list, and the rest
+    (at least one position) the ``large`` slice."""
+    devices = int(device_count)
+    small = int(small_slices)
+    per_small = int(small_slice_devices)
+    if devices < 1:
+        raise ValueError(f"device_count must be >= 1, got {device_count}")
+    if small < 0:
+        raise ValueError(f"small_slices must be >= 0, got {small_slices}")
+    if per_small < 1:
+        raise ValueError(f"small_slice_devices must be >= 1, got {small_slice_devices}")
+    if small == 0:
+        return (
+            ExecutorSlice(
+                name="shared",
+                job_classes=(SLICE_SMALL, SLICE_LARGE),
+                device_start=0,
+                device_count=devices,
+            ),
+        )
+    reserved = small * per_small
+    if devices - reserved < 1:
+        raise ValueError(
+            f"{small} small slice(s) x {per_small} device(s) reserve "
+            f"{reserved} of {devices} devices, leaving none for the large "
+            "slice; shrink --executor-slices/--small-slice-devices or add "
+            "devices"
+        )
+    slices = [
+        ExecutorSlice(
+            name="large",
+            job_classes=(SLICE_LARGE,),
+            device_start=0,
+            device_count=devices - reserved,
+        )
+    ]
+    for i in range(small):
+        slices.append(
+            ExecutorSlice(
+                name=f"small-{i}",
+                job_classes=(SLICE_SMALL,),
+                device_start=devices - reserved + i * per_small,
+                device_count=per_small,
+            )
+        )
+    return tuple(slices)
+
+
 __all__ = [
     "DATA_AXIS",
+    "ExecutorSlice",
+    "SLICE_LARGE",
+    "SLICE_SMALL",
     "DEFAULT_INIT_TIMEOUT",
     "DIST_TIMEOUT_ENV",
     "HIER_HOSTS_ENV",
@@ -867,12 +974,14 @@ __all__ = [
     "padded_cohort",
     "parse_mesh_shape",
     "parse_topology",
+    "plan_executor_slices",
     "process_backend",
     "process_count",
     "process_index",
     "resolve_hier_hosts",
     "resolve_reduce_schedule",
     "resolve_run_mesh",
+    "resolve_small_slices",
     "ring_traffic_bytes",
     "run_devices",
     "run_on",

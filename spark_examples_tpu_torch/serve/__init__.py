@@ -1,9 +1,23 @@
-"""The serve daemon's substrate: the shared job journal and its leases.
+"""The resident PCA service: executor slices, admission control, replicas.
 
-The port's counterpart of ``spark_examples_tpu/serve/``. It holds one
-module so far, :mod:`~spark_examples_tpu_torch.serve.journal`, the
-append-only job journal, the lease store and the run-directory lock that
-the daemon's admission, replay and work stealing stand on; the daemon,
-its queue, protocol, executor, HTTP front end and client are still to
-port (ROADMAP.md §1).
+The port's counterpart of ``spark_examples_tpu/serve/``: one process owns
+the devices ``--device`` names, cut into executor slices
+(``parallel/mesh.py:plan_executor_slices``), each with a worker thread on
+CUDA streams of its own; every request is validated device-free at
+admission against its slice; compatible small jobs coalesce into one
+dispatch group, run as one stacked program when eligible; every
+acknowledged admission is journaled so accepted jobs survive a daemon
+kill; the warm-geometry ledger under the run directory survives restarts;
+and replica daemons share one run directory through leases.
+
+Layout:
+
+- ``protocol.py`` — the versioned JSON request/response schema
+- ``queue.py``    — bounded two-class admission queue + continuous batching
+- ``journal.py``  — append-only job journal, leases, run-directory lock
+- ``executor.py`` — one job through ``run_pipeline``/``run_grm_pipeline``,
+  a group through ``run_fused_pipeline``
+- ``daemon.py``   — the service: devices, slices, workers, job table, metrics
+- ``http.py``     — stdlib HTTP front end + the ``serve`` CLI verb
+- ``client.py``   — stdlib HTTP client + the ``submit`` CLI verb
 """

@@ -19,16 +19,23 @@ compile cache (the port builds its kernels once per source into
   gauges and the manifest's ``compile_cache`` block. In the port a hit
   means the process has built and run every kernel that geometry launches.
 
-The daemon's file-backed ledger (``attach_geometry_ledger``) waits for
-serving.
+The serve daemon makes the ledger outlive its process
+(:func:`attach_geometry_ledger`, one fingerprint a line under its run
+directory): a restarted daemon primes the ledger from the file and reports
+a repeat geometry ``warm``. That is honest in the port because its kernels
+are built once into ``build/torch_kernels/`` and loaded, never compiled
+again, by a later process; the reference's other half, an XLA compile
+cache, has no counterpart here.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
+import sys
 import threading
-from typing import Set, Tuple
+from typing import Optional, Set, Tuple
 
 #: Conf fields that do NOT shape an analysis: output/telemetry placement,
 #: credentials, and the robustness flags (checkpoint placement, resume
@@ -76,6 +83,8 @@ _geometry_lock = threading.Lock()
 _seen_geometries: Set[str] = set()
 _geometry_hits = 0
 _geometry_misses = 0
+#: The file every first-sight geometry is appended to, once attached.
+_ledger_path: Optional[str] = None
 
 
 def _reference_fields(conf) -> dict:
@@ -135,7 +144,9 @@ def geometry_seen(key: str) -> bool:
 def record_geometry(key: str) -> bool:
     """Record one run of geometry ``key``: ``True`` (a hit) when this
     process ran it before, ``False`` (a miss) on first sight. The counters
-    move once per call."""
+    move once per call. With a ledger file attached, a first-sight key is
+    appended to it (fsync'd, outside the lock) so the next process primes
+    it back."""
     global _geometry_hits, _geometry_misses
     with _geometry_lock:
         if key in _seen_geometries:
@@ -143,7 +154,46 @@ def record_geometry(key: str) -> bool:
             return True
         _seen_geometries.add(key)
         _geometry_misses += 1
-        return False
+        ledger = _ledger_path
+    if ledger is not None:
+        try:
+            with open(ledger, "a", encoding="utf-8") as f:
+                f.write(key + "\n")
+                f.flush()
+                os.fsync(f.fileno())
+        except OSError as e:
+            print(
+                f"warning: geometry ledger append failed ({e}); the next "
+                "daemon incarnation will see this geometry cold",
+                file=sys.stderr,
+            )
+    return False
+
+
+def attach_geometry_ledger(path: str) -> int:
+    """Prime the ledger from ``path`` (one 16-hex-digit fingerprint a line;
+    anything else, such as a torn last line of a killed writer, is skipped)
+    and append every later first-sight geometry there. Returns how many
+    geometries were primed. Priming moves no counter: the hit and miss
+    counts stay this process's own."""
+    global _ledger_path
+    keys = []
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                key = line.strip()
+                if len(key) == 16 and all(c in "0123456789abcdef" for c in key):
+                    keys.append(key)
+    except FileNotFoundError:
+        pass
+    primed = 0
+    with _geometry_lock:
+        for key in keys:
+            if key not in _seen_geometries:
+                _seen_geometries.add(key)
+                primed += 1
+        _ledger_path = path
+    return primed
 
 
 def compile_cache_stats() -> Tuple[int, int]:
@@ -153,15 +203,18 @@ def compile_cache_stats() -> Tuple[int, int]:
 
 
 def reset_compile_cache_stats() -> None:
-    """Clear the ledger and its counters (tests only)."""
-    global _geometry_hits, _geometry_misses
+    """Clear the ledger and its counters and detach any ledger file (tests
+    only)."""
+    global _geometry_hits, _geometry_misses, _ledger_path
     with _geometry_lock:
         _seen_geometries.clear()
         _geometry_hits = 0
         _geometry_misses = 0
+        _ledger_path = None
 
 
 __all__ = [
+    "attach_geometry_ledger",
     "batch_compile_fingerprint",
     "compile_cache_stats",
     "compile_fingerprint",

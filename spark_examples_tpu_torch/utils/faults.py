@@ -57,7 +57,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 #: Registered control-flow kill-points (site → where it lives). The chaos
 #: matrix (``tests/test_torch_gramian_checkpoint.py``) iterates the
 #: driver.* and checkpoint.* entries and asserts kill + resume parity at
-#: each. The serve.* sites belong to the serving layer, not ported yet.
+#: each. The six serve.* sites fire in ``serve/daemon.py`` at the
+#: reference's places; ``tests/test_torch_serve_replicas_chaos.py`` kills a
+#: replica daemon at ``serve.worker.claim`` and ``serve.lease.pre-renew``
+#: and holds the survivor's outcome to a clean run's.
 KILL_POINTS: Dict[str, str] = {
     "driver.post-flush": (
         "pipeline/checkpoint.py:GramianFeeder.save — after the accumulator "

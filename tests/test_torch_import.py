@@ -95,7 +95,13 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.pipeline.datasets",
     "spark_examples_tpu_torch.pipeline.pca_driver",
     "spark_examples_tpu_torch.pipeline.sitewriter",
+    "spark_examples_tpu_torch.serve.client",
+    "spark_examples_tpu_torch.serve.daemon",
+    "spark_examples_tpu_torch.serve.executor",
+    "spark_examples_tpu_torch.serve.http",
     "spark_examples_tpu_torch.serve.journal",
+    "spark_examples_tpu_torch.serve.protocol",
+    "spark_examples_tpu_torch.serve.queue",
     "spark_examples_tpu_torch.sharding.contig",
     "spark_examples_tpu_torch.sources.files",
     "spark_examples_tpu_torch.sources.rest",
@@ -171,7 +177,7 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
     assert "Matrix size: 8." in out and "Variants API stats:" in out
 
 
-@pytest.mark.parametrize("verb", ["obs", "serve", "submit"])
+@pytest.mark.parametrize("verb", ["obs"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
     from spark_examples_tpu_torch.cli import main
 

@@ -103,11 +103,12 @@ def test_brca1_verb_prints_the_reference_lines(capsys):
 
 
 def test_only_the_unported_verbs_are_refused():
-    assert cli.NOT_PORTED == ("serve", "submit", "obs")
-    ported = set(cli.COMMANDS) | set(cli.DEVICE_FREE)
+    assert cli.NOT_PORTED == ("obs",)
+    ported = set(cli.COMMANDS) | set(cli.DEVICE_FREE) | set(cli.SERVICE)
     assert ported | set(cli.NOT_PORTED) == set(REF_COMMANDS)
     assert not ported & set(cli.NOT_PORTED)
     assert not set(cli.COMMANDS) & set(cli.DEVICE_FREE)
+    assert not (set(cli.COMMANDS) | set(cli.DEVICE_FREE)) & set(cli.SERVICE)
 
 
 @pytest.mark.parametrize("verb", EXAMPLE_VERBS)
