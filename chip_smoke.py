@@ -144,17 +144,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cost (chr17 with and without ``--trace-dir``, median of three each);
    ``graftcheck plan --json`` over ``bench.py``'s configurations at the
    reference's 16 GiB budget and at the card's memory; the cost model's
-   rates (``experiments/cost_rates.py`` in a process of its own) and
-   chr17's prediction beside its measured wall, through the calibration
-   ledger; then the serve daemon (``PcaService`` over HTTP on port 0,
-   ``ServeClient``): a chr17 ``pca`` job (cold, then warm) whose logged
+   rates (``experiments/cost_rates.py`` in a process of its own: a
+   never-built geometry's first-run penalty and, apart, a fresh process's
+   first-run cost) and chr17's prediction beside its measured wall,
+   through the calibration ledger; then the serve daemon (``PcaService``
+   over HTTP on port 0, ``ServeClient``): first a geometry the daemon has
+   never built (chr17 at 2,000 samples) under ``deadline_seconds=0.5``,
+   which must be admitted and settle within it, then a chr17 ``pca`` job
+   (cold, then warm) whose logged
    rows equal ``run_pipeline``'s, four 200 kb ``similarity`` jobs run as
    one fused group (the stacked kernels once a step, the single product
    never), each summary its serial run's, a ``grm`` job equal to
    ``run_grm_pipeline``'s, a 413 past the card's memory, a restarted
    daemon serving warm from its geometry ledger, the median admission
    over 20 requests, and ``serve`` as a process with one ``submit`` and a
-   SIGTERM that drains to exit 0;
+   SIGTERM that drains to exit 0; at the end of each daemon's life,
+   ``obs report --json`` over the phase's run directory as a process: one
+   journaled job for each that life settled (a starting daemon compacts
+   earlier lives' settled jobs out of the journal), each under its
+   submit's trace id, and one calibration sample for each done job of the
+   phase so far; then the checkers: ``graftcheck hostmem``,
+   ``lockgraph``, ``proto`` (2 replicas, 1 job, 1 crash, 1 stall) and
+   ``typecheck`` over the port's tree, each a process that exits 0;
 11. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
@@ -1711,6 +1722,12 @@ def phase_trace(torch, kernels):
         raise AssertionError(f"cost rates failed: {proc.stderr[-2000:]}")
     rates = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"cost rates (a fresh process): {json.dumps(rates)}")
+    if not all(math.isfinite(rates[k]) for k in ("cold_seconds", "process_cold_seconds")):
+        raise AssertionError(f"cost rates: {rates}")
+    log(f"cost rates: a never-built geometry's first run pays {rates['cold_seconds']:.4f} s "
+        f"(median of {[round(p, 4) for p in rates['new_geometry_penalties_seconds']]} s; warm "
+        f"spread {rates['warm_spread_seconds']:.4f} s); a fresh process's first run pays "
+        f"{rates['process_cold_seconds']:.4f} s, not charged by the model ({card_line()})")
     log(f"cost model constants: SITES_PER_SECOND {costmodel.SITES_PER_SECOND}, "
         f"HOST_BYTES_PER_SECOND {costmodel.HOST_BYTES_PER_SECOND}, "
         f"DISPATCH_OVERHEAD_SECONDS {costmodel.DISPATCH_OVERHEAD_SECONDS}, "
@@ -2789,6 +2806,12 @@ SERVE_ADMISSION_ARGV = ["--references", "17:41196311:41206311", "--num-samples",
 #: The grm job: 1 Mb of chr17 (10,001 sites, large under the phase's limit).
 SERVE_GRM_ARGV = ["--references", "17:41196311:42196311", "--num-samples", str(N_SAMPLES)]
 #: A Gramian no 80 GB card holds: 200,000 samples, dense.
+#: A geometry the serve phase never builds before it is submitted (chr17
+#: at 2,000 samples), and its deadline: feasible once the cold penalty is
+#: a geometry's (tens of milliseconds at most), not a process's.
+SERVE_NEW_GEOMETRY_ARGV = ["--references", "17:0:81195210", "--num-samples", "2000",
+                           "--ingest", "device", "--block-size", "16384"]
+SERVE_DEADLINE_SECONDS = 0.5
 SERVE_OVER_MEMORY_ARGV = ["--similarity-strategy", "dense", "--num-samples", "200000"]
 
 
@@ -2818,6 +2841,7 @@ def phase_serve(torch, kernels):
     from spark_examples_tpu_torch.analyses.grm import run_grm_pipeline
     from spark_examples_tpu_torch.config import GrmConf, PcaConf
     from spark_examples_tpu_torch.obs.heartbeat import Heartbeat
+    from spark_examples_tpu_torch.obs.trace import mint_trace_id
     from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
     from spark_examples_tpu_torch.serve.client import ServeClient, ServeError
     from spark_examples_tpu_torch.serve.daemon import PcaService
@@ -2858,9 +2882,28 @@ def phase_serve(torch, kernels):
         del result
     torch.cuda.empty_cache()
 
+    # The jobs of the current daemon's life, by id: the trace id its
+    # submit carried. A daemon compacts the settled jobs of earlier lives
+    # out of the journal at start-up (the reference's semantics), so the
+    # fleet report is read at the end of each life; the calibration ledger
+    # is append-only and holds every done job of the phase.
+    life, settled_jobs = {}, [0]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+
+    def submit(client, argv, **kw):
+        trace = mint_trace_id()
+        job_id = client.submit(argv, trace_id=trace, **kw)["job"]["id"]
+        life[job_id] = trace
+        return job_id
+
+    def report(label):
+        settled_jobs[0] += len(life)
+        check_fleet_report(run_dir, life, settled_jobs[0], label, env)
+        life.clear()
+
     def run_job(client, argv, kind="pca", expect=()):
         reset_counts(kernels)
-        job = client.wait(client.submit(argv, kind=kind)["job"]["id"], timeout=300)["job"]
+        job = client.wait(submit(client, argv, kind=kind), timeout=300)["job"]
         counts = {k.__name__: k.launches for k in kernels}
         if job["status"] != "done":
             raise AssertionError(f"serve: {kind} job failed: {job['error']}")
@@ -2890,7 +2933,30 @@ def phase_serve(torch, kernels):
             f"({card_line()})")
         if [s["name"] for s in health["slices"]] != ["shared"]:
             raise AssertionError(f"serve: one card must give the shared topology: {health}")
+        # First, with the calibration ledger empty (the raw model decides):
+        # a geometry this daemon has never built, under a deadline its
+        # per-geometry cold penalty leaves room for, is admitted (202) and
+        # settles within the deadline.
         device_path = ("gen_genotypes", "gram_accumulate")
+        reset_counts(kernels)
+        job_id = submit(client, SERVE_NEW_GEOMETRY_ARGV, deadline_seconds=SERVE_DEADLINE_SECONDS)
+        job = client.wait(job_id, timeout=300)["job"]
+        counts = {k.__name__: k.launches for k in kernels}
+        if any(counts[k] <= 0 for k in device_path):
+            raise AssertionError(f"serve: the new geometry never launched {device_path}: {counts}")
+        settled = job["finished_unix"] - job["submitted_unix"]
+        cost = job["cost"]
+        if job["status"] != "done" or job["compile_cache"] != "cold" \
+                or cost["compile"] != "cold" or settled > SERVE_DEADLINE_SECONDS:
+            raise AssertionError(f"serve: the new geometry under a {SERVE_DEADLINE_SECONDS} s "
+                                 f"deadline: {job['status']} {job['compile_cache']}, admission "
+                                 f"to settlement {settled:.4f} s, cost {cost}")
+        log(f"serve: a never-built geometry ({SERVE_NEW_GEOMETRY_ARGV[3]} samples over chr17) "
+            f"under deadline_seconds={SERVE_DEADLINE_SECONDS}: 202, predicted "
+            f"{cost['predicted_seconds']:.4f} s ({cost['compile']}; calibrated "
+            f"{cost.get('calibrated_seconds')}), served wall {job['seconds']:.4f} s, admission "
+            f"to settlement {settled:.4f} s; launches {json.dumps(counts)} ({card_line()})")
+
         walls = {}
         for label in ("cold", "warm"):
             job, counts = run_job(client, CHR17_ARGV, expect=device_path)
@@ -2906,7 +2972,7 @@ def phase_serve(torch, kernels):
 
         reset_counts(kernels)
         t0 = time.perf_counter()
-        ids = [client.submit(argv, kind="similarity")["job"]["id"] for argv in similarity_argvs]
+        ids = [submit(client, argv, kind="similarity") for argv in similarity_argvs]
         jobs = [client.wait(job_id, timeout=300)["job"] for job_id in ids]
         group_wall = time.perf_counter() - t0
         counts = {k.__name__: k.launches for k in kernels}
@@ -2952,6 +3018,7 @@ def phase_serve(torch, kernels):
                 f"{service.admission_device_bytes('large')} bytes")
     finally:
         stop(service, server)
+    report("the first daemon")
 
     # A second daemon on the run directory, the process's ledger cleared as
     # a new process starts: the ledger file primes it.
@@ -2971,9 +3038,8 @@ def phase_serve(torch, kernels):
         latencies, ids = [], []
         for i in range(SERVE_ADMISSIONS):
             t0 = time.perf_counter()
-            doc = client.submit(SERVE_ADMISSION_ARGV, kind="similarity")
+            ids.append(submit(client, SERVE_ADMISSION_ARGV, kind="similarity"))
             latencies.append(time.perf_counter() - t0)
-            ids.append(doc["job"]["id"])
         done = [client.wait(job_id, timeout=300)["job"]["status"] for job_id in ids]
         if done != ["done"] * len(ids):
             raise AssertionError(f"serve: admitted jobs ended {done}")
@@ -2982,10 +3048,10 @@ def phase_serve(torch, kernels):
             f"({card_line()})")
     finally:
         stop(service, server)
+    report("the restarted daemon")
 
     # The entry point as a process on the same run directory.
     endpoint = run_dir / "endpoint"
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     t0 = time.perf_counter()
     daemon = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch", "serve", "--port", "0",
@@ -3009,6 +3075,7 @@ def phase_serve(torch, kernels):
             raise AssertionError(f"serve: submit exited {submitted.returncode}: "
                                  f"{submitted.stdout[-2000:]} {submitted.stderr[-2000:]}")
         job = json.loads(submitted.stdout)["job"]
+        life[job["id"]] = job["trace"]
         if job["compile_cache"] != "warm" or job["result"]["pc_lines"] != batch_rows:
             raise AssertionError(f"serve: the process's chr17 job {job['compile_cache']}")
         daemon.send_signal(signal.SIGTERM)
@@ -3026,7 +3093,71 @@ def phase_serve(torch, kernels):
         f"{job['cost']['queue_wait_seconds']:.4f} s, admission to settlement "
         f"{job['finished_unix'] - job['submitted_unix']:.4f} s; the `submit --json` process "
         f"{submit_wall:.3f} s; SIGTERM drained to exit 0 ({card_line()})")
+    report("`serve` as a process")
     log(f"serve: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_fleet_report(run_dir, traces, done, label, env):
+    """``obs report --run-dir --json`` over the serve phase's run directory,
+    as a process, at the end of a daemon's life: one journaled job for each
+    that life settled (``traces``: id -> the trace id its submit carried),
+    each under that id, all done; and one calibration sample for each of
+    the phase's ``done`` jobs so far."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch", "obs", "report", "--run-dir",
+         str(run_dir), "--json"], capture_output=True, text=True, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"obs report exited {proc.returncode}: {proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout)
+    totals = report["totals"]
+    got = {job_id: job["trace"] for job_id, job in report["jobs"].items()}
+    if totals["journaled"] != len(traces) or got != traces:
+        raise AssertionError(f"obs report after {label}: {totals['journaled']} journaled jobs "
+                             f"against {len(traces)} settled; traces differ for "
+                             f"{sorted(k for k in set(got) | set(traces) if got.get(k) != traces.get(k))}")
+    if totals["statuses"] != {"done": len(traces)} or report["calibration"]["samples"] != done:
+        raise AssertionError(f"obs report after {label}: statuses {totals['statuses']}, "
+                             f"calibration samples {report['calibration']['samples']} for "
+                             f"{done} done jobs")
+    p50 = {job_class: round(block["wall_seconds"]["p50"], 4)
+           for job_class, block in report["classes"].items()}
+    log(f"obs report after {label} ({wall:.3f} s as a process): {totals['journaled']} journaled "
+        f"jobs, each under its submit's trace id; per-class p50 walls {json.dumps(p50)} s; "
+        f"calibration fold n={report['calibration']['samples']}, ratio "
+        f"{report['calibration']['ratio']:.4f}; protocol "
+        f"{json.dumps(report['protocol']['totals'])} ({card_line()})")
+
+
+#: The checkers phase: each ``graftcheck`` subcommand the port runs over
+#: its own tree, as a process that must exit 0.
+CHECKERS = (
+    ("hostmem",),
+    ("lockgraph",),
+    ("proto", "--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "1"),
+    ("typecheck",),
+)
+
+
+def phase_checkers():
+    """``graftcheck hostmem``, ``lockgraph``, ``proto`` and ``typecheck``
+    over the port's tree, each a process that must exit 0 (``typecheck``
+    skips there: the card's machine has no ``mypy``); logs each one's wall
+    and last line."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    for argv in CHECKERS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "spark_examples_tpu_torch", "graftcheck", *argv],
+            capture_output=True, text=True, env=env, timeout=300)
+        wall = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        if proc.returncode != 0:
+            raise AssertionError(f"graftcheck {argv[0]} exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
+            f"{last} ({card_line()})")
 
 
 def main() -> int:
@@ -3130,6 +3261,7 @@ def main() -> int:
     phase_telemetry(torch, path_kernels)
     phase_trace(torch, path_kernels)
     phase_serve(torch, path_kernels)
+    phase_checkers()
     launches.update(phase_probe_entry_points(torch, probe_ops, vmem_capacity, per_op))
     t0 = time.perf_counter()
     examples_kernels = path_kernels + depth.KERNELS

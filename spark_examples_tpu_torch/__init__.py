@@ -12,8 +12,12 @@ the same kernels and on ``csrc/ld.cu``. The reference's other examples
 run too: ``search-variants-klotho`` and ``search-variants-brca1`` on the
 host, ``search-reads-example-1`` … ``-4`` over reads from the synthetic
 source, REST or SAM files, their depth and base counts on
-``csrc/depth.cu``. The verbs not ported yet are ``graftcheck``,
-``serve``, ``submit``, ``trace`` and ``obs``.
+``csrc/depth.cu``. Device-free verbs read what runs leave behind:
+``trace export``, the fleet report (``obs report``) and the ``graftcheck``
+checkers (``plan``, ``hostmem``, ``lockgraph``, ``proto``,
+``typecheck``); ``serve`` and ``submit`` run the resident service. Of
+the reference's ``graftcheck`` subcommands, ``lint``, ``ir``, ``ranges``,
+``sched`` and ``sanitize`` are not ported yet.
 It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU

@@ -65,14 +65,20 @@ run with ``--coordinator-address host:port --num-processes N
 A run records its stages' timeline with ``--trace-dir DIR`` (one
 segment a process under ``DIR/trace/``); ``trace export`` merges the
 segments (and a serve journal, where one is there) into one Chrome trace.
-``graftcheck plan`` validates a configuration device-free. Both verbs are
-pure file I/O and arithmetic: they touch no device and take no
-``--device``, and their exit codes propagate:
+``obs report`` folds a serve fleet's run directory (journal, calibration
+ledger, recorder segments) into one post-mortem report. ``graftcheck``
+validates a configuration (``plan``) and audits the source tree
+(``hostmem``, ``lockgraph``), the replica protocol (``proto``) and its
+types (``typecheck``) device-free. These verbs are pure file I/O and
+arithmetic: they touch no device and take no ``--device``, and their exit
+codes propagate:
 
     python -m spark_examples_tpu_torch variants-pca --trace-dir run
     python -m spark_examples_tpu_torch trace export --run-dir run
+    python -m spark_examples_tpu_torch obs report --run-dir run --json
     python -m spark_examples_tpu_torch graftcheck plan --num-samples 2504 \
         --references 17:0:81195210 --json
+    python -m spark_examples_tpu_torch graftcheck lockgraph
 
 The resident service: ``serve`` runs the daemon (jobs on every card, or
 on the CPU with ``--device cpu``; ``--port 0 --endpoint-file F`` binds an
@@ -85,7 +91,6 @@ codes propagate:
     python -m spark_examples_tpu_torch submit --url "$(cat url)" \
         -- --num-samples 64 --references 17:41196311:41277499
 
-The JAX package's ``obs`` verb is not ported yet; it exits with code 2.
 """
 
 from __future__ import annotations
@@ -101,14 +106,20 @@ from spark_examples_tpu_torch.sources.files import file_set_ids
 from spark_examples_tpu_torch.utils.device import resolve_device
 
 #: The JAX package's verbs (``spark_examples_tpu/cli.py:COMMANDS``) that
-#: the port does not run yet.
-NOT_PORTED = ("obs",)
+#: the port does not run yet: none.
+NOT_PORTED = ()
 
 
 def _trace_cmd(argv: Sequence[str]) -> int:
     from spark_examples_tpu_torch.obs.trace import export_main
 
     return export_main(argv)
+
+
+def _obs_cmd(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.obs.report import report_main
+
+    return report_main(argv)
 
 
 def _graftcheck_cmd(argv: Sequence[str]) -> int:
@@ -121,6 +132,7 @@ def _graftcheck_cmd(argv: Sequence[str]) -> int:
 #: without ``--device``; their exit codes propagate.
 DEVICE_FREE = {
     "trace": _trace_cmd,
+    "obs": _obs_cmd,
     "graftcheck": _graftcheck_cmd,
 }
 
@@ -209,9 +221,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return int(DEVICE_FREE[command](rest))
     if command in SERVICE:
         return int(SERVICE[command](rest))
-    if command in NOT_PORTED:
-        print(f"{command}: not yet ported to PyTorch", file=sys.stderr)
-        return 2
     if command not in COMMANDS:
         print(f"unknown command: {command}", file=sys.stderr)
         return 2

@@ -60,11 +60,17 @@ HOST_BYTES_PER_SECOND: float = 1_725_110_154.44
 #: H100 80GB HBM3, 700.00 W; ``experiments/cost_rates.py``).
 DISPATCH_OVERHEAD_SECONDS: float = 0.0638
 
-#: One-time penalty of a geometry's first run in a process: the first
-#: chr17 run less the median of the next three, 0.9166 - 0.0822 s — the
-#: kernel libraries' load and cuSOLVER's set-up, the libraries already
-#: built (NVIDIA H100 80GB HBM3, 700.00 W; ``experiments/cost_rates.py``).
-COLD_COMPILE_SECONDS: float = 0.8344
+#: One-time penalty when the geometry ledger says this compile fingerprint
+#: has never been built: what a never-built geometry's first run costs over
+#: its warm runs in a process whose libraries are already warm (the
+#: reference's meaning). Chr17 at 2,000, 2,200 and 2,400 samples after the
+#: warm 2,504-sample runs, each first run less the median of its next
+#: three: 0.0037, 0.1161 and -0.0036 s, the median 0.0037 s — the port
+#: builds nothing per geometry (NVIDIA H100 80GB HBM3, 700.00 W;
+#: ``experiments/cost_rates.py``). A fresh process's own first-run cost
+#: (0.8130 s there: the libraries' load, cuSOLVER's set-up) is no part of
+#: it; the serve daemon pays that at start-up.
+COLD_COMPILE_SECONDS: float = 0.0037
 
 #: Hard positive floor on every prediction (see module docstring).
 MIN_PREDICTED_SECONDS: float = 0.05

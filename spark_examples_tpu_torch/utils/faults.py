@@ -380,6 +380,15 @@ def snapshot() -> Tuple[int, Dict[str, int]]:
         return _injected, dict(_hits)
 
 
+def registered_kill_points() -> Dict[str, str]:
+    """The closed kill-point catalogue, ``{site: where it lives}`` — a
+    defensive copy. ``graftcheck proto``'s GP006 rule compares every
+    model-reachable crash transition against THIS set: a protocol state
+    the model can crash in that no registered site covers is a chaos-
+    matrix blind spot, reported as a finding."""
+    return dict(KILL_POINTS)
+
+
 __all__ = [
     "ENV_VAR",
     "KILL_POINTS",
@@ -396,5 +405,6 @@ __all__ = [
     "remove_flush_hook",
     "kill_point",
     "io_point",
+    "registered_kill_points",
     "snapshot",
 ]

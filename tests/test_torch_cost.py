@@ -185,3 +185,70 @@ def test_manifest_cost_block_tampering_rejected(tamper, validator):
     doc = _m("port", "manifest").build_manifest(cost=cost)
     errors = _m(validator, "manifest").validate_manifest(doc)
     assert errors and any("cost" in e for e in errors), errors
+
+
+# ------------------------------------------------- deadline feasibility
+
+
+#: Rates that make the port's estimate easy to read off: 0.5 s of overhead,
+#: 2 s of cold penalty, a million sites a second.
+FIXED_RATES = {"SITES_PER_SECOND": 1e6, "HOST_BYTES_PER_SECOND": 1e9,
+               "DISPATCH_OVERHEAD_SECONDS": 0.5, "COLD_COMPILE_SECONDS": 2.0,
+               "MIN_PREDICTED_SECONDS": 0.05}
+
+
+def _admission_service(tmp_path):
+    """The port's daemon with a stub executor: admission is all it runs."""
+    from torch_serve_helpers import GateExecutor, pkg_of
+
+    port = pkg_of("port")
+    port.cache.reset_compile_cache_stats()
+    return port, port.service(tmp_path, executor=GateExecutor(port, block_classes=()),
+                              small_slices=0).start()
+
+
+@pytest.mark.parametrize("side", ["just-above", "just-below"])
+def test_cold_geometry_deadline_boundary(side, monkeypatch, tmp_path):
+    """A never-built geometry is charged the cold penalty once, and the
+    413 boundary sits exactly at its estimate: a deadline just above it is
+    admitted, one just below it refused as ``deadline-infeasible``."""
+    from torch_serve_helpers import TINY_FLAGS
+
+    cm = _m("port", "costmodel")
+    for name, value in FIXED_RATES.items():
+        monkeypatch.setattr(cm, name, value)
+    port, service = _admission_service(tmp_path)
+    try:
+        status, doc = service.submit(port.doc(TINY_FLAGS, deadline_seconds=1e-6))
+        assert status == 413 and doc["error"]["code"] == "deadline-infeasible", doc
+        cost = doc["cost"]
+        estimate = cost["predicted_seconds"]
+        assert cost["compile"] == "cold" and "calibrated_seconds" not in cost
+        assert estimate == pytest.approx(0.5 + cost["sites"] / 1e6 + 2.0)
+        deadline = estimate * (1 + 1e-6) if side == "just-above" else estimate * (1 - 1e-6)
+        status, doc = service.submit(port.doc(TINY_FLAGS, deadline_seconds=deadline))
+        if side == "just-above":
+            assert status == 202, doc
+        else:
+            assert status == 413 and doc["error"]["code"] == "deadline-infeasible", doc
+            assert doc["cost"]["requested_deadline_seconds"] == pytest.approx(deadline)
+    finally:
+        assert service.stop(timeout=60)
+        port.cache.reset_compile_cache_stats()
+
+
+def test_a_never_built_geometry_meets_a_half_second_deadline(tmp_path):
+    """With the port's own rates the cold penalty is a geometry's, not a
+    process's: a tiny never-built geometry under ``deadline_seconds=0.5``
+    is admitted."""
+    from torch_serve_helpers import TINY_FLAGS
+
+    port, service = _admission_service(tmp_path)
+    try:
+        status, doc = service.submit(port.doc(TINY_FLAGS, deadline_seconds=0.5))
+        assert status == 202, doc
+        assert doc["job"]["cost"]["compile"] == "cold"
+        assert doc["job"]["cost"]["predicted_seconds"] < 0.5
+    finally:
+        assert service.stop(timeout=60)
+        port.cache.reset_compile_cache_stats()

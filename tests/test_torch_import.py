@@ -68,7 +68,12 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.cli",
     "spark_examples_tpu_torch.check.hostmem",
+    "spark_examples_tpu_torch.check.linter",
+    "spark_examples_tpu_torch.check.lockgraph",
     "spark_examples_tpu_torch.check.plan",
+    "spark_examples_tpu_torch.check.proto",
+    "spark_examples_tpu_torch.check.rules",
+    "spark_examples_tpu_torch.check.typecheck",
     "spark_examples_tpu_torch.experiments.cli_wall",
     "spark_examples_tpu_torch.experiments.cost_rates",
     "spark_examples_tpu_torch.experiments.count_variants",
@@ -82,6 +87,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.obs.manifest",
     "spark_examples_tpu_torch.obs.metrics",
     "spark_examples_tpu_torch.obs.recorder",
+    "spark_examples_tpu_torch.obs.report",
     "spark_examples_tpu_torch.obs.trace",
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.depth",
@@ -179,10 +185,15 @@ def test_cli_runs_on_the_cpu_when_asked(capsys):
 
 @pytest.mark.parametrize("verb", ["obs"])
 def test_cli_unported_verbs_exit_2(verb, capsys):
-    from spark_examples_tpu_torch.cli import main
+    """``obs`` is ported: with no subcommand it runs ``report_main([])``
+    and exits 2 with the reference's usage line, as the reference does."""
+    from spark_examples_tpu_torch.cli import NOT_PORTED, main
 
+    assert verb not in NOT_PORTED
     assert main([verb]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "usage: python -m spark_examples_tpu_torch obs report" in err
+    assert "not yet ported" not in err
 
 
 @pytest.mark.parametrize(

@@ -701,10 +701,14 @@ def test_served_metrics_count_the_jobs(served):
 
 
 def test_cli_runs_serve_and_submit_and_refuses_obs():
+    """``serve`` and ``submit`` are the service's verbs; ``obs``, ported
+    since, is device-free, and refuses only a missing subcommand (exit 2,
+    as the reference's ``report_main([])``)."""
     from spark_examples_tpu_torch import cli
 
-    assert cli.NOT_PORTED == ("obs",)
+    assert cli.NOT_PORTED == ()
     assert set(cli.SERVICE) == {"serve", "submit"}
+    assert "obs" in cli.DEVICE_FREE and "obs" not in cli.SERVICE
     assert cli.main(["obs"]) == 2
 
 
