@@ -3133,6 +3133,7 @@ def check_fleet_report(run_dir, traces, done, label, env):
 #: The checkers phase: each ``graftcheck`` subcommand the port runs over
 #: its own tree, as a process that must exit 0.
 CHECKERS = (
+    ("lint",),
     ("hostmem",),
     ("lockgraph",),
     ("proto", "--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "1"),
@@ -3140,24 +3141,43 @@ CHECKERS = (
 )
 
 
+def run_checker(argv, env):
+    """One ``graftcheck`` subcommand as a process that must exit 0; returns
+    its standard output and wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spark_examples_tpu_torch", "graftcheck", *argv],
+        capture_output=True, text=True, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"graftcheck {' '.join(argv)} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
 def phase_checkers():
-    """``graftcheck hostmem``, ``lockgraph``, ``proto`` and ``typecheck``
-    over the port's tree, each a process that must exit 0 (``typecheck``
-    skips there: the card's machine has no ``mypy``); logs each one's wall
-    and last line."""
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    """``graftcheck lint``, ``hostmem``, ``lockgraph``, ``proto`` and
+    ``typecheck`` over the port's tree, each a process that must exit 0
+    (``typecheck`` skips there: the card's machine has no ``mypy``); logs
+    each one's wall and last line. Then ``lint --json``, whose report must
+    name no finding over every ``.py`` file of the package (the linter
+    under this machine's own ``ast``)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
     for argv in CHECKERS:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "spark_examples_tpu_torch", "graftcheck", *argv],
-            capture_output=True, text=True, env=env, timeout=300)
-        wall = time.perf_counter() - t0
-        last = (proc.stdout.strip().splitlines() or [""])[-1]
-        if proc.returncode != 0:
-            raise AssertionError(f"graftcheck {argv[0]} exited {proc.returncode}: "
-                                 f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        out, wall = run_checker(argv, env)
+        last = (out.strip().splitlines() or [""])[-1]
         log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
             f"{last} ({card_line()})")
+    out, wall = run_checker(("lint", "--json"), env)
+    report = json.loads(out)
+    files = sum(1 for path in (root / "spark_examples_tpu_torch").rglob("*.py")
+                if "__pycache__" not in path.parts)
+    if (report["tool"], report["finding_count"], report["checked_files"]) != (
+            "graftcheck", 0, files):
+        raise AssertionError(f"graftcheck lint --json: {out[-2000:]} (package files: {files})")
+    log(f"checkers: graftcheck lint --json: exit 0 in {wall:.3f} s as a process; "
+        f"{report['checked_files']} files, {report['finding_count']} findings ({card_line()})")
 
 
 def main() -> int:

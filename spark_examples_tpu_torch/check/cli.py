@@ -5,6 +5,7 @@ graftcheck <sub> ...``), as ``spark_examples_tpu/check/cli.py`` is from the
 reference's, with the reference's flags and exit codes; subcommand exit
 codes propagate:
 
+    graftcheck lint [PATH...] [--json]        0 clean / 1 findings
     graftcheck lockgraph [PATH...] [--json] [--dot FILE]
                                               0 acyclic+clean / 1 findings
     graftcheck hostmem [PATH...] [--json]     0 clean / 1 findings
@@ -20,14 +21,15 @@ codes propagate:
     graftcheck typecheck [--strict] [--update-baseline]
                                               0 ok or skipped / 1 new errors
 
-``lockgraph`` and ``hostmem`` read this package's source by default;
+``lint``, ``lockgraph`` and ``hostmem`` read this package's source by
+default, wherever they are run from (a missing path exits 2);
 ``proto`` checks the replica protocol over this package's journal fold;
 ``typecheck`` skips with exit 0 where ``mypy`` is not installed.
 ``--device-memory-bytes`` is the HBM budget of the plan's memory rules
 (default the reference's device-free 16 GiB; an H100's is
 ``torch.cuda.mem_get_info()[1]``). The reference's other subcommands
-(``lint``, ``sanitize``, ``ir``, ``ranges``, ``sched``) exit 2 naming the
-ROADMAP step that brings them.
+(``sanitize``, ``ir``, ``ranges``, ``sched``) exit 2 naming the ROADMAP
+step that brings them.
 """
 
 from __future__ import annotations
@@ -40,12 +42,48 @@ from typing import Optional, Sequence
 #: The reference's subcommands the port does not run yet, each with the
 #: ROADMAP.md §1 step that brings it.
 NOT_PORTED = {
-    "lint": 2,
     "sanitize": 2,
     "ir": 3,
     "ranges": 3,
     "sched": 3,
 }
+
+
+def _default_lint_root() -> str:
+    """The installed package directory — so ``graftcheck lint`` with no
+    argument lints this package regardless of the working directory."""
+    import spark_examples_tpu_torch
+
+    return os.path.dirname(os.path.abspath(spark_examples_tpu_torch.__file__))
+
+
+def _cmd_lint(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.linter import json_report, lint_paths
+
+    parser = argparse.ArgumentParser(prog="graftcheck lint")
+    parser.add_argument(
+        "paths",
+        nargs="*",
+        help="Files or package trees to lint (default: this package).",
+    )
+    parser.add_argument(
+        "--json", action="store_true", help="Emit the machine-readable report."
+    )
+    ns = parser.parse_args(list(argv))
+    paths = ns.paths or [_default_lint_root()]
+    for path in paths:
+        if not os.path.exists(path):
+            print(f"graftcheck lint: no such path {path!r}", file=sys.stderr)
+            return 2
+    findings, checked = lint_paths(paths)
+    if ns.json:
+        print(json_report(findings, checked))
+    else:
+        for f in findings:
+            print(f.format())
+        verdict = "clean" if not findings else f"{len(findings)} finding(s)"
+        print(f"graftcheck lint: {checked} file(s), {verdict}")
+    return 1 if findings else 0
 
 
 def _cmd_plan(argv: Sequence[str]) -> int:
@@ -306,6 +344,7 @@ def _cmd_typecheck(argv: Sequence[str]) -> int:
 
 
 _SUBCOMMANDS = {
+    "lint": _cmd_lint,
     "lockgraph": _cmd_lockgraph,
     "hostmem": _cmd_hostmem,
     "plan": _cmd_plan,

@@ -1,21 +1,22 @@
 """The graftcheck rule catalogue, as far as the port's checkers report.
 
-The port's copy of ``spark_examples_tpu/check/rules.py`` for the three
-ported source and protocol checkers: the host-memory audit
-(``check/hostmem.py``, GH rules), the lock-order analysis
-(``check/lockgraph.py``, GL rules) and the replica protocol's model
-checker (``check/proto.py``, GP rules), with the shared :class:`Finding`
-and the escape-hatch grammar. Ids, names and finding text are the
-reference's, so both packages report the same findings on the same
-source. The ``lint`` rules (GC) are JAX pitfalls; the port's torch rules
-come with ``graftcheck lint`` (ROADMAP.md §1). The ``ir``, ``ranges`` and
-``sched`` catalogues come with those checkers.
+The port's copy of ``spark_examples_tpu/check/rules.py`` for its four
+ported source and protocol checkers: the source linter (``check/
+linter.py``, GC rules), the host-memory audit (``check/hostmem.py``, GH
+rules), the lock-order analysis (``check/lockgraph.py``, GL rules) and the
+replica protocol's model checker (``check/proto.py``, GP rules), with the
+shared :class:`Finding` and the escape-hatch grammar. Ids, names and scopes
+are the reference's. The GC rules name JAX pitfalls there; here each reads
+the same pitfall in torch's idiom (a ``torch.compile``d or
+``torch.jit.script``ed function where the reference has a jitted one, a
+tensor where it has a ``jnp`` value) and its summary says so. The ``ir``,
+``ranges`` and ``sched`` catalogues come with those checkers.
 
-Every GH and GL rule honors the escape hatch::
+Every GC, GH and GL rule honors the escape hatch::
 
-    something_flagged()  # graftcheck: disable=GL002  -- justification
+    something_flagged()  # graftcheck: disable=GC001  -- justification
 
-on the finding's line, or ``# graftcheck: disable-file=GL002`` anywhere in
+on the finding's line, or ``# graftcheck: disable-file=GC001`` anywhere in
 the file (comma-separate multiple ids; ``disable=all`` silences the line).
 """
 
@@ -40,6 +41,172 @@ class Rule:
         if not self.scope:
             return True
         return any(fnmatch.fnmatch(relpath, g) for g in self.scope)
+
+
+#: Directories (package-relative glob prefixes) that are "hot path" for
+#: device-sync rules: per-block work that runs once per genotype block or
+#: per shard, where one stray sync serializes the pipeline. The analyses'
+#: per-window/per-block device fetches are deliberate (host-sequential
+#: prune/chi-square) and carry justified GC001 disables.
+HOT_PATH_GLOBS = ("ops/*", "pipeline/*", "analyses/*")
+
+#: Ingest-concurrency scope: modules where threads share parse state, so
+#: bare lock creation must carry the documented lock-ordering idiom
+#: (a ``# lock order:`` comment on or just above the creation line).
+INGEST_GLOBS = (
+    "sources/*",
+    "pipeline/datasets.py",
+    "utils/native.py",
+    "serve/*",
+    "analyses/*",
+)
+
+#: Telemetry scope: pipeline code whose counters must flow through the
+#: metrics registry (``obs/metrics.py``) via the owning object's methods —
+#: a bare ``stats.x += n`` bypasses both the lock and the manifest.
+TELEMETRY_GLOBS = ("ops/*", "pipeline/*", "sources/*", "serve/*", "analyses/*")
+
+
+#: ``graftcheck lint`` rule catalogue (``check/linter.py``): the
+#: reference's GC rules, each read in torch's idiom. A "compiled function"
+#: is one decorated with ``torch.compile`` or ``torch.jit.script``/
+#: ``trace`` — the reference's ``jax.jit``/``shard_map`` bodies; a "tensor
+#: value" is an expression rooted at ``torch`` — the reference's ``jnp``
+#: value.
+RULES: Dict[str, Rule] = {
+    rule.id: rule
+    for rule in [
+        Rule(
+            "GC000",
+            "unparseable-file",
+            "The file does not parse as Python; the linter cannot vouch "
+            "for it (and neither can the interpreter).",
+        ),
+        Rule(
+            "GC001",
+            "host-sync-in-hot-path",
+            "Implicit device→host sync (.item()/.tolist()/.cpu()/.numpy(), "
+            "or float()/int()/np.asarray on a tensor value) inside per-block "
+            "hot-path code stalls the launch queue once per call.",
+            scope=HOT_PATH_GLOBS,
+        ),
+        Rule(
+            "GC002",
+            "python-branch-on-traced",
+            "Python if/while on a tensor inside a torch.compile'd (or "
+            "torch.jit.script'ed) function breaks the graph and syncs the "
+            "device to read the value (or specializes on it); use "
+            "torch.where/torch.cond, or pass the value as a Python scalar.",
+        ),
+        Rule(
+            "GC003",
+            "jit-in-loop",
+            "torch.compile (or torch.jit.script/trace) constructed inside a "
+            "loop builds a fresh compiled callable per iteration — a "
+            "recompilation storm; hoist the compile out of the loop.",
+        ),
+        Rule(
+            "GC004",
+            "jnp-at-import-time",
+            "torch.* executed at module import time builds tensors (and, on "
+            "a device, initializes CUDA, which breaks a later fork) as a "
+            "side effect of `import`; move it into a function or use numpy "
+            "for module constants.",
+        ),
+        Rule(
+            "GC005",
+            "accumulator-update-without-donation",
+            "An accumulator update that builds its result out of place "
+            "(`return G + X`) holds two live copies of the accumulator per "
+            "step; update it in place (G.add_(X), G += X, out=G) or "
+            "document why not (e.g. measured pipelining win).",
+            scope=("ops/*",),
+        ),
+        Rule(
+            "GC006",
+            "undocumented-lock-in-ingest",
+            "A bare threading lock in ingest code without the documented "
+            "lock-ordering idiom (`# lock order:` comment) — the "
+            "GIL-released parse pool makes ordering violations real "
+            "deadlocks, not theoretical ones.",
+            scope=INGEST_GLOBS,
+        ),
+        Rule(
+            "GC007",
+            "sync-inside-loop",
+            "torch.cuda.synchronize() (or an event's or stream's "
+            ".synchronize()) inside a loop syncs every iteration, "
+            "serializing launches against compute; sync once after the "
+            "loop, or bound the in-flight window instead.",
+            scope=HOT_PATH_GLOBS,
+        ),
+        Rule(
+            "GC008",
+            "print-under-jit",
+            "print() inside a torch.compile'd function breaks the graph "
+            "(and under torch.jit.script runs with the scripted values, not "
+            "the eager ones); print outside the compiled function.",
+        ),
+        Rule(
+            "GC009",
+            "ad-hoc-stats-mutation",
+            "Direct augmented assignment on a stats/counters object "
+            "(`io_stats.requests += n`, `self.counters.x += 1`) bypasses "
+            "the owner's accounting methods — and with them the lock and "
+            "the metrics registry, so the mutation races concurrent "
+            "workers and never reaches the run manifest; route it through "
+            "an add_*() method.",
+            scope=TELEMETRY_GLOBS,
+        ),
+        Rule(
+            "GC011",
+            "unjustified-narrowing-cast",
+            "A narrowing .to()/.type()/astype (int8/uint8/int16/uint16/"
+            "int32/uint32/float16/bfloat16/float32 target) in ops/ without "
+            "a range-justifying `# range:` comment or contract reference — "
+            "the Gramian dtype ladder's exactness rests on every narrowing "
+            "cast's operand range being an explicit, checkable claim "
+            "(ops/contracts.py), not an unstated assumption.",
+            scope=("ops/*",),
+        ),
+        Rule(
+            "GC012",
+            "raw-file-iteration-outside-stream",
+            "A read-mode file handle (open/gzip.open/bz2.open/lzma.open) "
+            "is iterated or .read*()-consumed directly in ingest/pipeline "
+            "code instead of through the one windowed stream abstraction "
+            "(sources/stream.py: iter_byte_windows/iter_text_lines/"
+            "open_binary) — a raw handle is exactly where O(file) staging "
+            "regrows; route the read through sources/stream.py so the "
+            "hostmem totality proof keeps covering it.",
+            scope=("sources/*", "pipeline/*"),
+        ),
+        Rule(
+            "GC013",
+            "journal-record-outside-journal",
+            "A journal protocol record (a dict literal with an `event` "
+            "key naming accepted/began/terminal/lease) is constructed — "
+            "or a journal appender's `_append` is called — outside "
+            "serve/journal.py. The record constructors there are the "
+            "protocol's ONLY writers: `graftcheck proto` proves the "
+            "coordination protocol against exactly those shapes, so a "
+            "hand-rolled record elsewhere is a write the proof does not "
+            "cover. Route it through journal.accepted_record/"
+            "began_record/terminal_record/lease_record (or the JobJournal "
+            "methods).",
+        ),
+        Rule(
+            "GC010",
+            "host-numpy-under-jit",
+            "A host `np.*` call inside a torch.compile'd (or "
+            "torch.jit.script'ed) kernel breaks the graph (or fails to "
+            "script) and runs on the host, or bakes a compile-time "
+            "constant into the compiled program; use the torch equivalent "
+            "(or hoist the host computation out of the kernel).",
+            scope=("ops/*",),
+        ),
+    ]
+}
 
 
 #: ``graftcheck hostmem`` scope: the host-staging layers whose ingest and
@@ -235,7 +402,7 @@ PROTO_RULES: Dict[str, Rule] = {
 
 
 #: Every rule id the port's checkers can emit, for Finding.rule lookup.
-ALL_RULES: Dict[str, Rule] = {**LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES}
+ALL_RULES: Dict[str, Rule] = {**RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES}
 
 
 @dataclass
@@ -325,11 +492,15 @@ def apply_disables(
 __all__ = [
     "Rule",
     "Finding",
+    "RULES",
     "LOCK_RULES",
     "HOSTMEM_RULES",
     "PROTO_RULES",
     "ALL_RULES",
+    "HOT_PATH_GLOBS",
     "HOSTMEM_GLOBS",
+    "INGEST_GLOBS",
+    "TELEMETRY_GLOBS",
     "parse_disables",
     "apply_disables",
 ]

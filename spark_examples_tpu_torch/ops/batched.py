@@ -438,7 +438,7 @@ class StackedJobsAccumulator:
                 done.record(torch.cuda.current_stream(self.device))
                 self._in_flight.append(done)
                 if len(self._in_flight) > self.pipeline_depth:
-                    self._in_flight.pop(0).synchronize()
+                    self._in_flight.pop(0).synchronize()  # graftcheck: disable=GC007 -- this IS the bounded in-flight window the rule recommends: waits only for the stacked step issued pipeline_depth iterations ago (same double-buffered feed as GramianAccumulator._flush), never the step just dispatched
 
     # -------------------------------------------------------------- results
 
@@ -489,7 +489,7 @@ def load_reference_state(
         raise ValueError("G entries exceed the int32 accumulator")
     if len(entry_bound) != k:
         raise ValueError(f"expected {k} entry bounds, got {len(entry_bound)}")
-    acc.G.copy_(torch.from_numpy(G.astype(np.int32)))
+    acc.G.copy_(torch.from_numpy(G.astype(np.int32)))  # range: |G| <= _INT32_MAX is checked just above, so int32 holds every entry exactly
     acc._entry_bound = [int(b) for b in entry_bound]
     if rows_seen is not None:
         acc.rows_seen = [int(r) for r in rows_seen]

@@ -58,7 +58,7 @@ def gower_center_sharded(S: RowSharded, n_true: int | None = None) -> RowSharded
         centred = w - row_mean - col_mean + total_mean
         rows = torch.arange(row_start, row_start + n_local, device=w.device) < n
         cols = torch.arange(w.shape[1], device=w.device) < n
-        out.append(torch.where(rows[:, None] & cols[None, :], centred, 0.0).to(torch.float32))
+        out.append(torch.where(rows[:, None] & cols[None, :], centred, 0.0).to(torch.float32))  # range: centered values are real-valued (means subtracted); the subspace eigensolve runs in f32 by design, and integer exactness ends at the centering boundary
     return RowSharded(out, S.positions, n, S.padded, torch.float32, S.shared)
 
 

@@ -289,7 +289,7 @@ def make_gen_plan(
     )
     with np.errstate(over="ignore"):
         s_u64 = local * np.uint64(_P4)
-    fsamp = ((s_u64 >> np.uint64(32)) ^ s_u64).astype(np.uint32).view(np.int32)
+    fsamp = ((s_u64 >> np.uint64(32)) ^ s_u64).astype(np.uint32).view(np.int32)  # range: deliberate 64→32 bit FOLD (high xor low); the draw is defined on u32, so truncation is the hash, not a lost value
     if col_pop.size and (col_pop.min() < 0 or col_pop.max() >= n_pops):
         raise ValueError(f"populations must lie in [0, {n_pops})")
     keys = np.array([_i64(int(k)) for k in vs_keys], dtype=np.int64)
@@ -388,7 +388,7 @@ def gen_genotypes_plain(
         sum(plan.set_sizes), plan.set_sizes,
     )
     xt = torch.zeros((plan.n_cols_pad, ld), dtype=torch.int8, device=device)
-    xt[: plan.n_cols] = hv.T.to(torch.int8)
+    xt[: plan.n_cols] = hv.T.to(torch.int8)  # range: hv is {0,1} (ops/contracts.py:HAS_VARIATION), exact in int8
     kept += (T > 0).any(dim=1).sum()
     for s in range(plan.n_sets):
         rows[s] += hv[:, plan.col_set == s].any(dim=1).sum()
@@ -962,7 +962,7 @@ def _counter_totals(mesh, rows, kept, n_sets: int) -> Tuple[np.ndarray, int]:
         total += part.to(device)
     if mesh is not None and mesh.shared:
         total = rank_reduce(total)
-    flat = total.cpu().numpy()
+    flat = total.cpu().numpy()  # graftcheck: disable=GC001 -- the run's counters, summed on the device and fetched in one host copy when the ingest stage ends, not per block
     return flat[:n_sets], int(flat[n_sets])
 
 
@@ -1108,7 +1108,7 @@ class DeviceGenGramianAccumulator(_GridWalk):
         return self.G
 
     def finalize(self) -> np.ndarray:
-        return self.G.cpu().numpy().astype(np.float64)
+        return self.G.cpu().numpy().astype(np.float64)  # graftcheck: disable=GC001 -- one host copy of the finished Gramian (tests, host use), not a per-block sync
 
 
 class DeviceGenRingGramianAccumulator(_GridWalk):
@@ -1345,7 +1345,7 @@ def load_reference_state(
     rows = np.asarray(variant_rows, dtype=np.int64).reshape(acc.n_sets)
     if acc.data_parallel != 1:
         raise ValueError("reference state seeds a one-slice accumulator")
-    acc._G[0].copy_(torch.from_numpy(G.astype(np.int32)))
+    acc._G[0].copy_(torch.from_numpy(G.astype(np.int32)))  # range: |G| < 2**31 is checked just above, so int32 holds every entry exactly
     acc._rows[0].copy_(torch.from_numpy(rows))
     acc._kept[0].fill_(int(np.asarray(kept_sites)))
     acc.dispatches = int(dispatches)

@@ -45,7 +45,7 @@ def _fix_signs(top: torch.Tensor) -> torch.Tensor:
 
 
 def _symmetric_f32(centered: torch.Tensor) -> torch.Tensor:
-    B = centered.to(torch.float32)
+    B = centered.to(torch.float32)  # range: centered input is real-valued; the eigensolve is defined in f32, and integer exactness ends at the centering boundary by design
     return (B + B.T) * 0.5
 
 

@@ -266,6 +266,7 @@ def test_schedule_proof_flags_are_refused(flags):
 #: The subcommands ported since, each with a run whose exit code the
 #: reference's gives on the same argv ({tmp}: a tree of one clean module).
 PORTED_SUBCOMMAND_RUNS = {
+    "lint": (["{tmp}"], 0),
     "lockgraph": (["{tmp}"], 0),
     "hostmem": (["{tmp}"], 0),
     "proto": (["--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "0"], 0),
@@ -277,7 +278,7 @@ PORTED_SUBCOMMAND_RUNS = {
                                  "proto", "sanitize", "typecheck"])
 def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_path,
                                                               monkeypatch):
-    """The five subcommands still refused exit 2 naming their ROADMAP step;
+    """The four subcommands still refused exit 2 naming their ROADMAP step;
     each ported one runs and exits as the reference's does."""
     from spark_examples_tpu.check import typecheck as ref_typecheck
     from spark_examples_tpu.check.cli import main as ref_main
