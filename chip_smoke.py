@@ -163,9 +163,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    journaled job for each that life settled (a starting daemon compacts
    earlier lives' settled jobs out of the journal), each under its
    submit's trace id, and one calibration sample for each done job of the
-   phase so far; then the checkers: ``graftcheck hostmem``,
-   ``lockgraph``, ``proto`` (2 replicas, 1 job, 1 crash, 1 stall) and
-   ``typecheck`` over the port's tree, each a process that exits 0;
+   phase so far; then the checkers: ``graftcheck lint``, ``hostmem``,
+   ``lockgraph``, ``proto`` (2 replicas, 1 job, 1 crash, 1 stall),
+   ``typecheck`` and ``sanitize`` over the port's tree, each a process
+   that exits 0; ``sanitize`` must read OK over the 40 corpus documents
+   (or SKIP where the machine's g++ has no runtime for the mode) in asan,
+   ubsan and tsan, each mode's harness first built and replayed in this
+   process with its uncached walls logged; ``lint --json`` must name 0
+   findings over every file of the package;
 11. probes: the entry points of the two probes, ``probe_ops.run`` for every
    op and ``vmem_capacity.find_limit``, whose bisected limit must equal
    the driver's ``cudaDevAttrMaxSharedMemoryPerBlockOptin``;
@@ -3138,7 +3143,11 @@ CHECKERS = (
     ("lockgraph",),
     ("proto", "--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "1"),
     ("typecheck",),
+    ("sanitize",),
 )
+
+#: The sanitizer modes ``graftcheck sanitize`` must read OK or SKIP in.
+SANITIZER_MODES = ("asan", "ubsan", "tsan")
 
 
 def run_checker(argv, env):
@@ -3155,17 +3164,78 @@ def run_checker(argv, env):
     return proc.stdout, wall
 
 
+def sanitize_first_walls():
+    """Build and replay each sanitizer mode once in this process, before
+    any ``graftcheck sanitize`` process, so the builds timed are the
+    checkout's uncached ones; returns {mode: "OK" or "SKIP"}."""
+    from spark_examples_tpu_torch.check.corpus import corpus_documents
+    from spark_examples_tpu_torch.check.sanitize import replay_corpus
+    from spark_examples_tpu_torch.ops._kernels import BUILD_DIR
+    from spark_examples_tpu_torch.utils.native import build_sanitizer_harness
+
+    n_docs = len(corpus_documents())
+    verdicts = {}
+    for mode in SANITIZER_MODES:
+        before = set(os.listdir(BUILD_DIR)) if BUILD_DIR.is_dir() else set()
+        t0 = time.perf_counter()
+        try:
+            harness = build_sanitizer_harness(mode)
+        except RuntimeError as e:
+            verdicts[mode] = "SKIP"
+            log(f"checkers: sanitize[{mode}]: no build in {time.perf_counter() - t0:.3f} s: "
+                f"{str(e)[-300:]} ({card_line()})")
+            continue
+        built = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = replay_corpus(mode)
+        replayed = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"sanitize[{mode}]: the harness exited {proc.returncode}: "
+                                 f"{(proc.stderr or proc.stdout)[-2000:]}")
+        verdicts[mode] = "OK"
+        name = os.path.basename(harness)
+        log(f"checkers: sanitize[{mode}]: {name} built in {built:.3f} s "
+            f"({'cached' if name in before else 'uncached'}), {n_docs} corpus documents "
+            f"replayed clean in {replayed:.3f} s ({card_line()})")
+    return verdicts
+
+
+def check_sanitize_lines(out, wall, verdicts):
+    """Every mode's line of the ``graftcheck sanitize`` process must read
+    OK over the whole corpus, or SKIP with its reason where this process's
+    own build found no runtime for the mode."""
+    from spark_examples_tpu_torch.check.corpus import corpus_documents
+
+    ok = f"OK — {len(corpus_documents())} corpus documents replayed clean"
+    lines = dict(re.findall(r"^graftcheck sanitize\[(\w+)\]: (.*)$", out, re.MULTILINE))
+    for mode in SANITIZER_MODES:
+        said = lines.get(mode, "(no line)")
+        if not (said == ok and verdicts[mode] == "OK"
+                or said.startswith("SKIP (") and verdicts[mode] == "SKIP"):
+            raise AssertionError(f"graftcheck sanitize[{mode}]: {said!r} (this process: "
+                                 f"{verdicts[mode]}); output: {out[-2000:]}")
+        log(f"checkers: graftcheck sanitize[{mode}]: {said} ({wall:.3f} s for the process, "
+            f"cached builds; {card_line()})")
+
+
 def phase_checkers():
-    """``graftcheck lint``, ``hostmem``, ``lockgraph``, ``proto`` and
-    ``typecheck`` over the port's tree, each a process that must exit 0
-    (``typecheck`` skips there: the card's machine has no ``mypy``); logs
-    each one's wall and last line. Then ``lint --json``, whose report must
-    name no finding over every ``.py`` file of the package (the linter
-    under this machine's own ``ast``)."""
+    """``graftcheck lint``, ``hostmem``, ``lockgraph``, ``proto``,
+    ``typecheck`` and ``sanitize`` over the port's tree, each a process
+    that must exit 0 (``typecheck`` skips there: the card's machine has no
+    ``mypy``); logs each one's wall and last line, and each sanitizer
+    mode's line, which must read OK over the 40 corpus documents (or SKIP
+    where the machine's compiler has no runtime for the mode), beside the
+    mode's uncached build and replay walls. Then ``lint --json``, whose
+    report must name no finding over every ``.py`` file of the package
+    (the linter under this machine's own ``ast``)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
+    verdicts = sanitize_first_walls()
     for argv in CHECKERS:
         out, wall = run_checker(argv, env)
+        if argv == ("sanitize",):
+            check_sanitize_lines(out, wall, verdicts)
+            continue
         last = (out.strip().splitlines() or [""])[-1]
         log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
             f"{last} ({card_line()})")

@@ -14,10 +14,10 @@ host, ``search-reads-example-1`` … ``-4`` over reads from the synthetic
 source, REST or SAM files, their depth and base counts on
 ``csrc/depth.cu``. Device-free verbs read what runs leave behind:
 ``trace export``, the fleet report (``obs report``) and the ``graftcheck``
-checkers (``plan``, ``hostmem``, ``lockgraph``, ``proto``,
-``typecheck``); ``serve`` and ``submit`` run the resident service. Of
-the reference's ``graftcheck`` subcommands, ``lint``, ``ir``, ``ranges``,
-``sched`` and ``sanitize`` are not ported yet.
+checkers (``plan``, ``lint``, ``hostmem``, ``lockgraph``, ``proto``,
+``typecheck``, ``sanitize``); ``serve`` and ``submit`` run the resident
+service. Of the reference's ``graftcheck`` subcommands, ``ir``,
+``ranges`` and ``sched`` are not ported yet.
 It imports neither JAX nor the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU

@@ -18,18 +18,23 @@ codes propagate:
                   [--stalls N] [--max-states N] [--mutations] [--json]
                                               0 clean (or every planted
                                               bug caught) / 1 findings
+    graftcheck sanitize [--modes m1,m2] [--strict]
+                                              0 clean or skipped / 1 FAIL
     graftcheck typecheck [--strict] [--update-baseline]
                                               0 ok or skipped / 1 new errors
 
 ``lint``, ``lockgraph`` and ``hostmem`` read this package's source by
 default, wherever they are run from (a missing path exits 2);
 ``proto`` checks the replica protocol over this package's journal fold;
+``sanitize`` builds the native parser's harness under each sanitizer into
+``build/torch_kernels/`` and replays the fuzz corpus through it (no
+compiler: SKIP, exit 0; ``--strict``: 2);
 ``typecheck`` skips with exit 0 where ``mypy`` is not installed.
 ``--device-memory-bytes`` is the HBM budget of the plan's memory rules
 (default the reference's device-free 16 GiB; an H100's is
 ``torch.cuda.mem_get_info()[1]``). The reference's other subcommands
-(``sanitize``, ``ir``, ``ranges``, ``sched``) exit 2 naming the ROADMAP
-step that brings them.
+(``ir``, ``ranges``, ``sched``) exit 2 naming the ROADMAP step that
+brings them.
 """
 
 from __future__ import annotations
@@ -42,7 +47,6 @@ from typing import Optional, Sequence
 #: The reference's subcommands the port does not run yet, each with the
 #: ROADMAP.md §1 step that brings it.
 NOT_PORTED = {
-    "sanitize": 2,
     "ir": 3,
     "ranges": 3,
     "sched": 3,
@@ -325,6 +329,25 @@ def _cmd_proto(argv: Sequence[str]) -> int:
     return 0 if report.ok else 1
 
 
+def _cmd_sanitize(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.sanitize import DEFAULT_MODES, run_sanitize
+
+    parser = argparse.ArgumentParser(prog="graftcheck sanitize")
+    parser.add_argument(
+        "--modes",
+        default=",".join(DEFAULT_MODES),
+        help=f"Comma-separated sanitizer modes (default {','.join(DEFAULT_MODES)}).",
+    )
+    parser.add_argument(
+        "--strict",
+        action="store_true",
+        help="Fail (not skip) when the toolchain is missing a mode.",
+    )
+    ns = parser.parse_args(list(argv))
+    modes = [m.strip() for m in ns.modes.split(",") if m.strip()]
+    return run_sanitize(modes, strict=ns.strict)
+
+
 def _cmd_typecheck(argv: Sequence[str]) -> int:
     from spark_examples_tpu_torch.check.typecheck import run_typecheck
 
@@ -349,6 +372,7 @@ _SUBCOMMANDS = {
     "hostmem": _cmd_hostmem,
     "plan": _cmd_plan,
     "proto": _cmd_proto,
+    "sanitize": _cmd_sanitize,
     "typecheck": _cmd_typecheck,
 }
 

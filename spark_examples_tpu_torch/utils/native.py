@@ -6,13 +6,18 @@ compiler and loaded with :mod:`ctypes`. Without a compiler every caller
 takes the pure-Python parser of ``sources/files.py``, which gives the same
 arrays.
 
-The library lands in ``build/torch_kernels/`` at the repository root, beside
-the CUDA libraries, named ``vcfparse-<hash>.so`` by a hash of the source,
-the compiler, the flags and the Python version, so an edited source
-rebuilds. It never shares the JAX package's cache. A build writes a
-per-process temporary file and renames it into place, so concurrent
-builders (test workers) race benignly. The parser's sanitizer harness
-(``native/sanitize_harness.cpp``) is not built here.
+The parser's sanitizer harness (``native/sanitize_harness.cpp`` compiled
+with ``vcfparse.cpp`` into a standalone executable, one per mode of
+:data:`SANITIZER_FLAGS`) is built here too, for ``graftcheck sanitize``
+(``check/sanitize.py``).
+
+Every artifact lands in ``build/torch_kernels/`` at the repository root,
+beside the CUDA libraries: ``vcfparse-<hash>.so`` for the library and
+``vcfparse-<hash>-<mode>`` for a harness, the hash taken over every
+source, the compiler, the flags and the Python version, so an edited
+source or a changed flag rebuilds. It never shares the JAX package's
+cache. A build writes a per-process temporary file and renames it into
+place, so concurrent builders (test workers) race benignly.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import os
 import shutil
 import subprocess
 import sys
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,25 +62,49 @@ def _compiler() -> Optional[str]:
     return None
 
 
-def _build(source_path: str, flags: Tuple[str, ...] = ("-O3", "-shared", "-fPIC")) -> str:
-    """Compile ``source_path`` to a content-addressed library under
-    ``BUILD_DIR`` and return its path, reusing an identical earlier build."""
+#: Sanitizer build modes of the parser's harness (``graftcheck sanitize``),
+#: each the compile and link flags of one instrumented build: -O1 keeps
+#: stack traces honest where -O3 would inline them away, and UBSan
+#: violations are non-recoverable, so a clean exit code means clean.
+SANITIZER_FLAGS = {
+    "asan": ("-fsanitize=address", "-fno-omit-frame-pointer", "-g", "-O1"),
+    "ubsan": (
+        "-fsanitize=undefined",
+        "-fno-sanitize-recover=undefined",
+        "-g",
+        "-O1",
+    ),
+    "tsan": ("-fsanitize=thread", "-g", "-O1"),
+}
+
+
+def _build(
+    source_paths: Sequence[str],
+    flags: Tuple[str, ...] = ("-O3", "-shared", "-fPIC"),
+    suffix: str = ".so",
+) -> str:
+    """Compile one or more translation units to a content-addressed
+    artifact under ``BUILD_DIR`` and return its path, reusing an identical
+    earlier build. It is named after the first source; the tag hashes every
+    source, the compiler, the flags and the Python version, so a harness
+    and the library coexist and a flag change rebuilds."""
     compiler = _compiler()
     if compiler is None:
         raise RuntimeError("no C++ compiler on PATH")
     digest = hashlib.sha256()
-    with open(source_path, "rb") as f:
-        digest.update(f.read())
+    for path in source_paths:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(compiler.encode())
     digest.update(" ".join(flags).encode())
     digest.update(sys.version.encode())
-    stem = os.path.splitext(os.path.basename(source_path))[0]
-    out = os.path.join(str(BUILD_DIR), f"{stem}-{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source_paths[0]))[0]
+    out = os.path.join(str(BUILD_DIR), f"{stem}-{digest.hexdigest()[:16]}{suffix}")
     if os.path.exists(out):
         return out
     os.makedirs(str(BUILD_DIR), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [compiler, *flags, "-std=c++17", "-o", tmp, source_path]
+    cmd = [compiler, *flags, "-std=c++17", "-o", tmp, *source_paths]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -85,6 +114,34 @@ def _build(source_path: str, flags: Tuple[str, ...] = ("-O3", "-shared", "-fPIC"
     return out
 
 
+def build_sanitizer_harness(mode: str) -> str:
+    """Build the standalone sanitizer replay executable: ``vcfparse.cpp``
+    and ``native/sanitize_harness.cpp`` under one of
+    :data:`SANITIZER_FLAGS`, linked with ``-pthread``; returns its path.
+
+    An executable rather than an instrumented library: ASan and TSan need
+    their runtime to be the first thing in the process, which a ctypes
+    ``dlopen`` into an uninstrumented CPython cannot give. The executable
+    also gives TSan a real multi-threaded replay of the span entry points,
+    the concurrency of the chunk-parallel parse. Raises ``ValueError`` for
+    an unknown mode and ``RuntimeError`` when a source is missing or the
+    build fails (no compiler, or no runtime for the mode).
+    """
+    if mode not in SANITIZER_FLAGS:
+        raise ValueError(
+            f"unknown sanitizer mode {mode!r}; have {sorted(SANITIZER_FLAGS)}"
+        )
+    sources = [
+        os.path.join(_REPO_NATIVE, "vcfparse.cpp"),
+        os.path.join(_REPO_NATIVE, "sanitize_harness.cpp"),
+    ]
+    for path in sources:
+        if not os.path.exists(path):
+            raise RuntimeError(f"missing native source {path}")
+    flags = SANITIZER_FLAGS[mode] + ("-pthread",)
+    return _build(sources, flags=flags, suffix=f"-{mode}")
+
+
 def vcf_library() -> Optional[ctypes.CDLL]:
     """The compiled VCF parser, or ``None`` (with the reason recorded) when
     it cannot be built — callers fall back to pure Python."""
@@ -92,7 +149,7 @@ def vcf_library() -> Optional[ctypes.CDLL]:
     if _lib is not None or _lib_error is not None:
         return _lib
     try:
-        path = _build(os.path.join(_REPO_NATIVE, "vcfparse.cpp"))
+        path = _build([os.path.join(_REPO_NATIVE, "vcfparse.cpp")])
         # CDLL, never PyDLL: ctypes releases the GIL around CDLL foreign
         # calls, which is what lets the chunk-parallel ingest engine
         # (sources/files.py) run vcf_parse_span concurrently on a thread
@@ -355,6 +412,8 @@ def scan_vcf_sites_chunk(text: bytes):
 
 __all__ = [
     "MalformedVcfLine",
+    "SANITIZER_FLAGS",
+    "build_sanitizer_harness",
     "vcf_library",
     "native_unavailable_reason",
     "parse_vcf_arrays",

@@ -67,12 +67,14 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.analyses.variants_examples",
     "spark_examples_tpu_torch.api",
     "spark_examples_tpu_torch.check.cli",
+    "spark_examples_tpu_torch.check.corpus",
     "spark_examples_tpu_torch.check.hostmem",
     "spark_examples_tpu_torch.check.linter",
     "spark_examples_tpu_torch.check.lockgraph",
     "spark_examples_tpu_torch.check.plan",
     "spark_examples_tpu_torch.check.proto",
     "spark_examples_tpu_torch.check.rules",
+    "spark_examples_tpu_torch.check.sanitize",
     "spark_examples_tpu_torch.check.typecheck",
     "spark_examples_tpu_torch.experiments.cli_wall",
     "spark_examples_tpu_torch.experiments.cost_rates",

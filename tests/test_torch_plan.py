@@ -263,14 +263,17 @@ def test_schedule_proof_flags_are_refused(flags):
         validate_plan(PcaConf(), topology=object())
 
 
-#: The subcommands ported since, each with a run whose exit code the
-#: reference's gives on the same argv ({tmp}: a tree of one clean module).
+#: The subcommands ported since, each with runs whose exit codes the
+#: reference's gives on the same argv ({tmp}: a tree of one clean module;
+#: ``sanitize`` and ``typecheck`` run with no compiler and no mypy, so
+#: they build and type-check nothing).
 PORTED_SUBCOMMAND_RUNS = {
-    "lint": (["{tmp}"], 0),
-    "lockgraph": (["{tmp}"], 0),
-    "hostmem": (["{tmp}"], 0),
-    "proto": (["--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "0"], 0),
-    "typecheck": (["--strict"], 2),
+    "lint": [(["{tmp}"], 0)],
+    "lockgraph": [(["{tmp}"], 0)],
+    "hostmem": [(["{tmp}"], 0)],
+    "proto": [(["--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "0"], 0)],
+    "sanitize": [([], 0), (["--strict"], 2)],
+    "typecheck": [(["--strict"], 2)],
 }
 
 
@@ -278,12 +281,14 @@ PORTED_SUBCOMMAND_RUNS = {
                                  "proto", "sanitize", "typecheck"])
 def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_path,
                                                               monkeypatch):
-    """The four subcommands still refused exit 2 naming their ROADMAP step;
+    """The three subcommands still refused exit 2 naming their ROADMAP step;
     each ported one runs and exits as the reference's does."""
     from spark_examples_tpu.check import typecheck as ref_typecheck
     from spark_examples_tpu.check.cli import main as ref_main
+    from spark_examples_tpu.utils import native as ref_native
     from spark_examples_tpu_torch.check import typecheck as port_typecheck
     from spark_examples_tpu_torch.cli import main
+    from spark_examples_tpu_torch.utils import native as port_native
 
     if sub not in PORTED_SUBCOMMAND_RUNS:
         assert main(["graftcheck", sub]) == 2
@@ -293,10 +298,12 @@ def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_p
     (tmp_path / "clean.py").write_text("import threading\n\nLOCK = threading.Lock()\n")
     for module in (ref_typecheck, port_typecheck):  # the no-mypy case, as on every image
         monkeypatch.setattr(module, "_run_mypy", lambda: None)
-    argv, want = PORTED_SUBCOMMAND_RUNS[sub]
-    argv = [sub, *(a.format(tmp=tmp_path) for a in argv)]
-    assert main(["graftcheck", *argv]) == ref_main(argv) == want
-    assert "not yet ported" not in capsys.readouterr().err
+    for module in (ref_native, port_native):  # the no-compiler case: nothing is built
+        monkeypatch.setattr(module, "_compiler", lambda: None)
+    for argv, want in PORTED_SUBCOMMAND_RUNS[sub]:
+        argv = [sub, *(a.format(tmp=tmp_path) for a in argv)]
+        assert main(["graftcheck", *argv]) == ref_main(argv) == want
+        assert "not yet ported" not in capsys.readouterr().err
 
 
 def test_graftcheck_verb_is_device_free(capsys):
