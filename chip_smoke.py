@@ -59,8 +59,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    slice add as the library call and each launch's clusters, split and
    items, and ``pack_rows_t`` on a generated 632-column slice and on a
    6,256-column Xᵀ (also against ``np.packbits``) with ``unpack_rows_t``
-   of each packed tile back, and ``gen_genotypes`` on one position's cut
-   tables; the stacked jobs' kernels, ``stacked_unpack_rows_t`` then
+   of each packed tile back, ``transpose_rows_t`` (the unpacked wire's
+   rows) on 626 columns of the generated slice, with the counts unpack
+   back and ``.T.contiguous()`` as the library call, and
+   ``gen_genotypes`` on one position's cut tables; the stacked jobs' kernels, ``stacked_unpack_rows_t`` then
    ``stacked_gram_accumulate`` at 1, 2 and 8 lanes × 2,504 samples × 1,024
    and 16,384 rows, at 17, 130 and 2,504 samples × 3 lanes, and in a step
    where 5 of 8 lanes have finished, timed at 4 lanes beside the K-launch
@@ -78,12 +80,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the PCs checked against a full ``eigh`` of the same run's centered
    Gramian; then the mesh over four positions of one card
    (``devices=[cuda:0] * 4``): the device-generation ring over chr17 at
-   ``--mesh-shape 1,4`` (flat, and hierarchical with 2 hosts) and ``2,2``,
+   ``--mesh-shape 1,4`` (flat, hierarchical with 2 hosts, and on the
+   unpacked wire) and ``2,2``,
    the dense data axis at ``4,1``, and the host-fed ring on the packed
    cell, packed and ``--ring-pack-bits off`` — each Gramian byte-equal to
    the one-device run's, the ring's measured bytes equal to its
    projection, the PCs checked as above, with the launch counts, spans and
-   peak device memory; then two processes sharing cuda:0 over gloo
+   peak device memory; then one block of the host-fed ring at chr17's
+   geometry (2,504 samples, 16,384 rows, 1,4, packed wire) recorded
+   (``obs/schedule.py``) on the card: its ops (names, positions, dtypes,
+   shapes; 3 shifts) must be ``graftcheck ir``'s device-free schedule at
+   the same geometry on ``meta`` tensors, its shifted bytes the
+   ``gramian_ring_bytes`` increment and ``ring_traffic_bytes``, its row
+   tiles the block's Gramian, with the block's wall recorded and not;
+   then two processes sharing cuda:0 over gloo
    (``parallel/multihost.py``'s harness, two positions each, chr17 at
    2,504 samples): the data axis over the four positions, the ring at
    1,4 flat and hierarchical (2 hosts) whose hops cross the processes
@@ -166,7 +176,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase so far; then the checkers: ``graftcheck lint``, ``hostmem``,
    ``lockgraph``, ``proto`` (2 replicas, 1 job, 1 crash, 1 stall),
    ``typecheck`` and ``sanitize`` over the port's tree, each a process
-   that exits 0; ``sanitize`` must read OK over the 40 corpus documents
+   that exits 0; ``ir --json`` as one process, which must audit the 18
+   kernels of its default matrix with 0 findings; ``sanitize`` must read OK over the 40 corpus documents
    (or SKIP where the machine's g++ has no runtime for the mode) in asan,
    ubsan and tsan, each mode's harness first built and replayed in this
    process with its uncached walls logged; ``lint --json`` must name 0
@@ -319,6 +330,7 @@ MESH_FLAGS = ["--mesh-shape", "1,4", "--similarity-strategy", "sharded"]
 SHARDED_RUNS = (
     ("ring 1,4", "chr17", MESH_FLAGS, None),
     ("ring 1,4 hier 2 hosts", "chr17", MESH_FLAGS + ["--reduce-schedule", "hier"], 2),
+    ("ring 1,4 unpacked wire", "chr17", MESH_FLAGS + ["--ring-pack-bits", "off"], None),
     ("ring 2,2", "chr17", ["--mesh-shape", "2,2", "--similarity-strategy", "sharded"], None),
     ("data axis 4,1", "chr17", ["--mesh-shape", "4,1"], None),
     ("packed ring 1,4", "packed", MESH_FLAGS, None),
@@ -2365,6 +2377,30 @@ def phase_ring_kernels(torch, devicegen, gramian):
             f"sites): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound'][0]:.4f} "
             f"ms by bytes, {100 * r['bound'][0] / r['ms']:.1f} % of it)")
     rows["pack_rows_t"] = times["pack_rows_t 632"]
+
+    # The unpacked wire's rows of the same generated slice: 626 columns,
+    # a position's share of 2,504 over 4 on that wire.
+    cols, x = N_SAMPLES // 4, xts[632]
+    got = gramian.transpose_rows_t(x, cols, BLOCK)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, gramian.transpose_rows_t_plain(x, cols, BLOCK)) and np.array_equal(
+            got.cpu().numpy(), x[:cols, :BLOCK].cpu().numpy().T.view(np.uint8))):
+        raise AssertionError(f"transpose_rows_t != plain or numpy at {cols} columns")
+    back = gramian.unpack_rows_t(got, cols, counts=True, max_count=1)
+    torch.cuda.synchronize()
+    if not torch.equal(back[:cols, :BLOCK], x[:cols, :BLOCK]) or back[cols:].any():
+        raise AssertionError(f"unpack_rows_t of an unpacked ring tile != its Xᵀ at {cols} columns")
+    r = rows["transpose_rows_t"] = dict(
+        max_abs_err=0,
+        ms=cuda_ms(lambda: gramian.transpose_rows_t(x, cols, BLOCK), 50),
+        plain_ms=cuda_ms(lambda: gramian.transpose_rows_t_plain(x, cols, BLOCK), 5, 1),
+        library_ms=cuda_ms(lambda: x[:cols, :BLOCK].T.contiguous(), 50),
+        bound=bound(2 * cols * BLOCK, 0, int32_ops_per_s(torch)),
+    )
+    log(f"kernels: transpose_rows_t == plain == numpy ({cols} columns x {BLOCK} sites of a "
+        f"generated slice): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, .T.contiguous() "
+        f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms by bytes, "
+        f"{100 * r['bound'][0] / r['ms']:.1f} % of it)")
     return rows, times
 
 
@@ -2436,7 +2472,8 @@ def run_sharded(torch, kernels, argv, label, devices, expect, want_g, check_pcs=
 def phase_sharded(torch, kernels, one_device):
     """``SHARDED_RUNS`` over four positions of cuda:0 against the one-device
     Gramians (``one_device``: chr17's and the packed cell's). Returns the
-    launch counts of the first device-generation ring."""
+    launch counts of the first device-generation ring and of the one on
+    the unpacked wire."""
     from spark_examples_tpu_torch.parallel.mesh import HIER_HOSTS_ENV
 
     dev = torch.device("cuda", 0)
@@ -2445,11 +2482,12 @@ def phase_sharded(torch, kernels, one_device):
         "chr17": ("gen_genotypes", "pack_rows_t", "unpack_rows_t", "cross_accumulate"),
         "packed": ("unpack_rows_t", "cross_accumulate"),
     }
-    first = None
+    first = unpacked = None
     for label, base, flags, hosts in SHARDED_RUNS:
         expect = expects[base]
         if "off" in flags:
-            expect = ("unpack_rows_t", "cross_accumulate")
+            expect = (("gen_genotypes", "transpose_rows_t") if base == "chr17" else ()) + (
+                "unpack_rows_t", "cross_accumulate")
         if "--similarity-strategy" not in flags:
             expect = ("gen_genotypes", "gram_accumulate")
         if hosts:
@@ -2460,7 +2498,88 @@ def phase_sharded(torch, kernels, one_device):
         finally:
             os.environ.pop(HIER_HOSTS_ENV, None)
         first = first or launches
-    return first
+        if base == "chr17" and "off" in flags:
+            unpacked = launches
+    return first, unpacked
+
+
+def phase_ring_schedule(torch):
+    """One block of the host-fed ring at chr17's geometry (2,504 samples,
+    16,384 rows, ``1,4``, packed wire) through ``ShardedGramianAccumulator``
+    on four positions of cuda:0, three times: unrecorded, recorded and
+    unrecorded again
+    (``obs/schedule.py``): the recorded ops must be the device-free audit's
+    (``check/ir.py:ring_kernel_spec`` on ``meta`` tensors, as ``graftcheck
+    plan`` runs it) op for op — name, role, position, each tile's dtype and
+    shape — with 3 shifts a position, the shifted bytes equal to the
+    ``gramian_ring_bytes`` increment and to ``ring_traffic_bytes``, the
+    audit clean, and each block's row tiles equal to the block's Gramian
+    (a float32 product on the card, exact below 2^24)."""
+    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec, trace_kernel
+    from spark_examples_tpu_torch.obs import schedule
+    from spark_examples_tpu_torch.obs.metrics import GRAMIAN_RING_BYTES, MetricsRegistry
+    from spark_examples_tpu_torch.ops.gramian import ShardedGramianAccumulator, sharded_peak_bytes
+    from spark_examples_tpu_torch.parallel.mesh import make_mesh, ring_traffic_bytes
+
+    dev = torch.device("cuda", 0)
+    rows = (np.random.default_rng(17).random((BLOCK, N_SAMPLES)) < 0.05).astype(np.uint8)
+    x = torch.from_numpy(rows).to(dev, torch.float32)
+    want = (x.T @ x).to(torch.int32)
+    del x
+    walls, results = {}, {}
+    # The first block also makes the positions' streams and checks the
+    # product's launch shapes: it is timed apart.
+    for label in ("first", "recorded", "unrecorded"):
+        registry = MetricsRegistry()
+        acc = ShardedGramianAccumulator(N_SAMPLES, make_mesh({"data": 1, "samples": 4}, [dev] * 4),
+                                        block_size=BLOCK, registry=registry, pack_bits="on",
+                                        reduce_schedule="flat")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with schedule.recording() if label == "recorded" else contextlib.nullcontext() as sched:
+            acc.add_rows(rows)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        tiles = acc.layout.finalize_tiles().tiles
+        got = torch.cat([t.to(dev) for t in tiles])[:N_SAMPLES, :N_SAMPLES]
+        if not torch.equal(got, want):
+            raise AssertionError(f"ring schedule: the {label} block's Gramian != XᵀX")
+        results[label] = (sched, registry.value(GRAMIAN_RING_BYTES))
+        del acc, tiles, got
+    sched, counted = results["recorded"]
+    spec = ring_kernel_spec(1, 4, N_SAMPLES, BLOCK, True, device="meta")
+    t0 = time.perf_counter()
+    meta = trace_kernel(spec)
+    audit = audit_kernel(spec, traced=meta)
+    audit_wall = time.perf_counter() - t0
+    card_ops = [op.signature() for op in sched.ops]
+    meta_ops = [op.signature() for op in meta.ops]
+    if card_ops != meta_ops:
+        at = next((i for i, (a, b) in enumerate(zip(card_ops, meta_ops)) if a != b),
+                  min(len(card_ops), len(meta_ops)))
+        raise AssertionError(f"ring schedule: op {at} is {card_ops[at:at + 1]} on the card, "
+                             f"{meta_ops[at:at + 1]} in the audit ({len(card_ops)} ops against "
+                             f"{len(meta_ops)})")
+    shifts = [op for op in sched.ops if op.role == "shift"]
+    calls = len({op.call for op in shifts})
+    recorded = sum(op.results[0].nbytes for op in shifts)
+    formula = ring_traffic_bytes(BLOCK, 4, spec.n_local, True)
+    if (calls, recorded, counted) != (3, formula, formula) or not audit.ok:
+        raise AssertionError(f"ring schedule: {calls} shifts, {recorded} bytes recorded, "
+                             f"{counted} counted, formula {formula}; audit "
+                             f"{[f.format() for f in audit.findings]}")
+    roles = {}
+    for op in sched.ops:
+        roles[op.role] = roles.get(op.role, 0) + 1
+    log(f"ring schedule: one block of the chr17 ring at 1,4 ({N_SAMPLES} samples x {BLOCK} "
+        f"rows, packed) recorded on the card: {len(card_ops)} ops {json.dumps(roles)} == the "
+        f"device-free audit's on meta, {calls} shifts, {recorded} bytes == gramian_ring_bytes == "
+        f"ring_traffic_bytes; block wall {walls['recorded']:.4f} s recorded, "
+        f"{walls['unrecorded']:.4f} s unrecorded after it ({walls['first']:.4f} s the "
+        f"first block, unrecorded); the meta audit {audit_wall:.3f} s, peak live "
+        f"{audit.facts['peak_live_bytes']} B a position against sharded_peak_bytes "
+        f"{sharded_peak_bytes(spec.n_local, 4 * spec.n_local, BLOCK, True)} B; Gramian == XᵀX "
+        f"({card_line()})")
 
 
 def phase_large_cohort(torch, kernels):
@@ -3225,9 +3344,10 @@ def phase_checkers():
     ``mypy``); logs each one's wall and last line, and each sanitizer
     mode's line, which must read OK over the 40 corpus documents (or SKIP
     where the machine's compiler has no runtime for the mode), beside the
-    mode's uncached build and replay walls. Then ``lint --json``, whose
-    report must name no finding over every ``.py`` file of the package
-    (the linter under this machine's own ``ast``)."""
+    mode's uncached build and replay walls. Then ``ir --json``, which must
+    audit its default matrix's 18 kernels with no finding, and ``lint
+    --json``, whose report must name no finding over every ``.py`` file of
+    the package (the linter under this machine's own ``ast``)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
     verdicts = sanitize_first_walls()
@@ -3239,6 +3359,15 @@ def phase_checkers():
         last = (out.strip().splitlines() or [""])[-1]
         log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
             f"{last} ({card_line()})")
+    out, wall = run_checker(("ir", "--json"), env)
+    report = json.loads(out)
+    if (report["tool"], report["ok"], report["kernel_count"], report["finding_count"]) != (
+            "graftcheck-ir", True, 18, 0):
+        raise AssertionError(f"graftcheck ir --json: {out[-2000:]}")
+    peaks = {k["kernel"]: k["facts"]["peak_live_bytes"] for k in report["kernels"]}
+    log(f"checkers: graftcheck ir --json: exit 0 in {wall:.3f} s as a process; "
+        f"{report['kernel_count']} kernels, {report['finding_count']} findings, peak live bytes "
+        f"{json.dumps(peaks)} ({card_line()})")
     out, wall = run_checker(("lint", "--json"), env)
     report = json.loads(out)
     files = sum(1 for path in (root / "spark_examples_tpu_torch").rglob("*.py")
@@ -3332,9 +3461,12 @@ def main() -> int:
                      "--variant-set-id", f"{set_id},{set_id}"]
     run_main_path(torch, path_kernels, same_set_argv, "same-set wire", host_fed)
     launches["unpack_rows_t"] = packed["unpack_rows_t"]
-    ring = phase_sharded(torch, path_kernels, {"chr17": chr17_g, "packed": packed_g_dev})
+    ring, unpacked_ring = phase_sharded(torch, path_kernels, {"chr17": chr17_g, "packed": packed_g_dev})
     launches["cross_accumulate"], launches["pack_rows_t"] = ring["cross_accumulate"], ring["pack_rows_t"]
+    launches["transpose_rows_t"] = unpacked_ring["transpose_rows_t"]
     del chr17_g, packed_g_dev
+    torch.cuda.empty_cache()
+    phase_ring_schedule(torch)
     torch.cuda.empty_cache()
     phase_multiprocess()
     phase_large_cohort(torch, path_kernels)
@@ -3398,6 +3530,8 @@ def main() -> int:
          "spark_examples_tpu/ops/gramian.py:651"),
         ("pack_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
          "spark_examples_tpu/ops/gramian.py:377"),
+        ("transpose_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
+         "spark_examples_tpu/ops/devicegen.py:1082"),
         ("stacked_unpack_rows_t", "spark_examples_tpu_torch/csrc/gramian.cu",
          "spark_examples_tpu/ops/batched.py:242"),
         ("stacked_gram_accumulate", "spark_examples_tpu_torch/csrc/devicegen.cu",

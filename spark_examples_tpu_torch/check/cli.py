@@ -6,6 +6,10 @@ reference's, with the reference's flags and exit codes; subcommand exit
 codes propagate:
 
     graftcheck lint [PATH...] [--json]        0 clean / 1 findings
+    graftcheck ir [--json] [--mesh D,S]... [--topology H,D]...
+                  [--num-samples N] [--block-size B]
+                                              0 clean / 1 findings /
+                                              2 grammar error
     graftcheck lockgraph [PATH...] [--json] [--dot FILE]
                                               0 acyclic+clean / 1 findings
     graftcheck hostmem [PATH...] [--json]     0 clean / 1 findings
@@ -29,12 +33,13 @@ default, wherever they are run from (a missing path exits 2);
 ``sanitize`` builds the native parser's harness under each sanitizer into
 ``build/torch_kernels/`` and replays the fuzz corpus through it (no
 compiler: SKIP, exit 0; ``--strict``: 2);
-``typecheck`` skips with exit 0 where ``mypy`` is not installed.
+``typecheck`` skips with exit 0 where ``mypy`` is not installed;
+``ir`` records the Gramian updates' schedule on CPU positions
+(``check/ir.py``) and touches no card.
 ``--device-memory-bytes`` is the HBM budget of the plan's memory rules
 (default the reference's device-free 16 GiB; an H100's is
 ``torch.cuda.mem_get_info()[1]``). The reference's other subcommands
-(``ir``, ``ranges``, ``sched``) exit 2 naming the ROADMAP step that
-brings them.
+(``ranges``, ``sched``) exit 2 naming the ROADMAP step that brings them.
 """
 
 from __future__ import annotations
@@ -47,9 +52,8 @@ from typing import Optional, Sequence
 #: The reference's subcommands the port does not run yet, each with the
 #: ROADMAP.md §1 step that brings it.
 NOT_PORTED = {
-    "ir": 3,
-    "ranges": 3,
-    "sched": 3,
+    "ranges": "3b",
+    "sched": "3c",
 }
 
 
@@ -88,6 +92,103 @@ def _cmd_lint(argv: Sequence[str]) -> int:
         verdict = "clean" if not findings else f"{len(findings)} finding(s)"
         print(f"graftcheck lint: {checked} file(s), {verdict}")
     return 1 if findings else 0
+
+
+def _parse_audit_args(prog: str, argv: Sequence[str]):
+    """The shared ``--json/--mesh/--topology/--num-samples/--block-size``
+    surface of the kernel-audit subcommands (``ir``, and ``ranges`` and
+    ``sched`` when they come) — ONE parser, ONE mesh-pair validation, and
+    ONE ``--topology hosts,devices_per_host`` spelling, with the
+    reference's messages. Returns ``(ns, meshes, topologies)`` or ``None``
+    after printing the grammar error."""
+    parser = argparse.ArgumentParser(prog=prog)
+    parser.add_argument(
+        "--json", action="store_true", help="Emit the machine-readable report."
+    )
+    parser.add_argument(
+        "--mesh",
+        action="append",
+        default=None,
+        metavar="D,S",
+        help=(
+            "Mesh shape(s) to audit, as CPU positions (repeatable, e.g. "
+            "--mesh 1,4 --mesh 2,2). Default: the shipped matrix (1,2), "
+            "(1,4), (2,2)."
+        ),
+    )
+    parser.add_argument(
+        "--topology",
+        action="append",
+        default=None,
+        metavar="H,D",
+        help=(
+            "Declared topology (hosts,devices_per_host — repeatable, e.g. "
+            "--topology 2,4) to audit the two-level ring on; the topology "
+            "never has to exist. ir appends the two-level kernels per "
+            "topology."
+        ),
+    )
+    parser.add_argument(
+        "--num-samples",
+        type=int,
+        default=64,
+        help="Aligned cohort width for the audit geometry (default 64).",
+    )
+    parser.add_argument(
+        "--block-size",
+        type=int,
+        default=8,
+        help="Variant block size for the audit geometry (default 8).",
+    )
+    ns = parser.parse_args(list(argv))
+    meshes = None
+    if ns.mesh:
+        try:
+            meshes = tuple(
+                tuple(int(p) for p in spec.split(",")) for spec in ns.mesh
+            )
+            if any(len(m) != 2 or m[0] < 1 or m[1] < 1 for m in meshes):
+                raise ValueError(meshes)
+        except ValueError:
+            print(
+                f"{prog}: --mesh expects positive 'data,samples' "
+                f"pairs, got {ns.mesh}",
+                file=sys.stderr,
+            )
+            return None
+    topologies = None
+    if ns.topology:
+        from spark_examples_tpu_torch.parallel.mesh import parse_topology
+
+        topologies = []
+        for spec in ns.topology:
+            try:
+                topo = parse_topology(spec)
+            except ValueError as e:
+                print(f"{prog}: {e}", file=sys.stderr)
+                return None
+            topologies.append((topo.hosts, topo.devices_per_host))
+        topologies = tuple(topologies)
+    return ns, meshes, topologies
+
+
+def _cmd_ir(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.ir import default_specs, run_audit
+
+    parsed = _parse_audit_args("graftcheck ir", argv)
+    if parsed is None:
+        return 2
+    ns, meshes, topologies = parsed
+    specs = default_specs(
+        num_samples=ns.num_samples,
+        ragged_samples=ns.num_samples + 36,
+        block_size=ns.block_size,
+        **({"meshes": meshes} if meshes is not None else {}),
+        **({"topologies": topologies} if topologies is not None else {}),
+    )
+    report = run_audit(specs)
+    print(report.to_json() if ns.json else report.format())
+    return 0 if report.ok else 1
 
 
 def _cmd_plan(argv: Sequence[str]) -> int:
@@ -368,6 +469,7 @@ def _cmd_typecheck(argv: Sequence[str]) -> int:
 
 _SUBCOMMANDS = {
     "lint": _cmd_lint,
+    "ir": _cmd_ir,
     "lockgraph": _cmd_lockgraph,
     "hostmem": _cmd_hostmem,
     "plan": _cmd_plan,

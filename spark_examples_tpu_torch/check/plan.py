@@ -18,10 +18,13 @@ the same validator on every request:
   block → Xᵀ → accumulator agreement is checked by the code the CPU runs
   and at the shapes the card's wrappers take, without touching a device
   or allocating a byte;
-- the sharded ring's traffic is ``parallel/mesh.py:ring_traffic_bytes``
-  (the formula the ring's byte counter is held to on the card) and its
-  peak bytes those of the port's ring buffers; exactness is closed-form
-  arithmetic over ``ops/contracts.py``.
+- the sharded ring is audited through ``graftcheck ir`` (``check/
+  ir.py``): one flush of the runtime's ring recorded on ``meta``
+  positions at the configured geometry, its findings plan rejections
+  (``ir-GIxxx``), its recorded bytes beside ``parallel/mesh.py:
+  ring_traffic_bytes`` (the formula the ring's byte counter is held to on
+  the card); its peak bytes are those of the port's ring buffers, and
+  exactness is closed-form arithmetic over ``ops/contracts.py``.
 
 The HBM budget is a parameter (``device_bytes``, the plan CLI's
 ``--device-memory-bytes``); its default is the reference's device-free
@@ -429,14 +432,15 @@ def _eval_sharded_update(
     conf: PcaConf,
     device_bytes: int,
 ) -> None:
-    """The sharded ring's geometry facts and one ring step on ``meta``
-    tensors: the pack-width-padded cohort (rounded exactly as the
-    accumulators round it), per-device ring tile bytes, per-flush ring
-    traffic (``parallel/mesh.py:ring_traffic_bytes``, the formula the
-    ring's byte counter is held to on the card), the permutes of a flush,
-    the peak bytes of the port's ring buffers
-    (``ops/gramian.py:sharded_peak_bytes``), and the HBM feasibility
-    check against ``device_bytes``."""
+    """The sharded ring's geometry facts: the pack-width-padded cohort
+    (rounded exactly as the accumulators round it), per-device ring tile
+    bytes, per-flush ring traffic (``parallel/mesh.py:ring_traffic_bytes``,
+    the formula the ring's byte counter is held to on the card), the peak
+    bytes of the port's ring buffers (``ops/gramian.py:
+    sharded_peak_bytes``) and the HBM feasibility check against
+    ``device_bytes``; then, under ``--similarity-strategy sharded``, the
+    ring's audit (:func:`_audit_sharded_ring`: its shifts a flush and its
+    recorded bytes), else one ring step on ``meta`` tensors."""
     from spark_examples_tpu_torch.ops.devicegen import (
         COL_TILE,
         cross_accumulate_plain,
@@ -508,9 +512,15 @@ def _eval_sharded_update(
             "samples axis",
         )
 
-    # One ring step of one position: its row tile's owner columns take
-    # Xᵀ_mine · X_owner (``ops/gramian.py:ring_pass``), the received tile
-    # unpacked first on the packed wire.
+    if conf.similarity_strategy == "sharded":
+        _audit_sharded_ring(report, data, samples, N, B, pack, padded)
+        report.geometry["ring_peak_live_bytes_per_device"] = sharded_peak_bytes(
+            n_local, padded, B, pack
+        )
+        return
+    # No ring runs on a dense strategy's samples axis: one ring step of one
+    # position, its row tile's owner columns taking Xᵀ_mine · X_owner
+    # (``ops/gramian.py:ring_pass``), the received tile unpacked first.
     try:
         G_tile = _meta((n_local, padded), torch.int32)
         if pack:
@@ -546,6 +556,67 @@ def _eval_sharded_update(
     report.geometry["ring_peak_live_bytes_per_device"] = sharded_peak_bytes(
         n_local, padded, B, pack
     )
+
+
+def _audit_sharded_ring(
+    report: PlanReport, data: int, samples: int, N: int, B: int, pack: bool, padded: int
+) -> None:
+    """The configured ring through ``graftcheck ir`` (``check/ir.py``):
+    one flush of the runtime's ``RingLayout.flush`` recorded over
+    ``data x samples`` positions of ``meta`` tensors at this geometry, the
+    schedule alone (``audit_kernel(watch=False)``: the rules of dispatched
+    operations do not depend on the geometry, and ``graftcheck ir`` holds
+    them over its matrix). Any
+    finding is an ``ir-GIxxx`` plan rejection — the configured ring would
+    ship without its contracts; the schedule's shift count and bytes land
+    in the report (``ring_permute_steps``, ``ring_bytes_per_flush_jaxpr``:
+    the reference's key, here the recorded schedule's bytes, which must
+    equal ``ring_bytes_per_flush``)."""
+    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec
+    from spark_examples_tpu_torch.parallel.mesh import RING_PACK_MULTIPLE
+
+    audit = audit_kernel(ring_kernel_spec(data, samples, N, B, pack, device="meta"), watch=False)
+    if "out_shapes" not in audit.facts:  # the update did not run (GI000)
+        report.error(
+            "sharded-update-trace",
+            f"sharded ring update fails on a {data}x{samples} mesh: "
+            f"{audit.findings[0].detail}",
+        )
+        return
+    g_shape = (data, padded, padded)
+    out_shape = tuple(audit.facts["out_shapes"][0])
+    out_dtype = audit.facts["out_dtypes"][0]
+    if out_shape != g_shape or out_dtype != "int32":
+        report.error(
+            "sharded-update-shape",
+            f"sharded update maps {g_shape} to {out_shape} {out_dtype}",
+        )
+    else:
+        wire = "bit-packed" if pack else "unpacked"
+        x_width = padded // RING_PACK_MULTIPLE if pack else padded
+        report.shape_checks.append(
+            f"sharded ring update over a {data}x{samples} mesh: "
+            f"({data}, {B}, {x_width}) {wire} uint8 blocks -> G {out_shape} {out_dtype}"
+        )
+    for finding in audit.findings:
+        report.error(f"ir-{finding.rule_id}", finding.detail)
+    report.geometry["ring_bytes_per_flush_jaxpr"] = audit.facts["ring_bytes_jaxpr"]
+    report.geometry["ring_permute_steps"] = audit.facts["permute_executions"]
+    if audit.ok:
+        report.shape_checks.append(
+            f"ring schedule audit over a {data}x{samples} mesh: "
+            f"{audit.facts['permute_executions']} independent shift(s), accumulator "
+            "written in place, recorded ring bytes == ring_traffic_bytes"
+        )
+
+
+def warm_ring_audit() -> None:
+    """Pay a process's first ``meta`` ring audit now: the first ``meta``
+    operations import PyTorch's reference and shape modules, seconds that
+    would otherwise land on the first sharded plan (a served admission)."""
+    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec
+
+    audit_kernel(ring_kernel_spec(1, 2, 64, 8, True, device="meta"), watch=False)
 
 
 def _check_exactness(report: PlanReport, data: int, conf: PcaConf) -> None:
@@ -1352,4 +1423,5 @@ __all__ = [
     "parse_plan_args",
     "predict_job_cost",
     "validate_plan",
+    "warm_ring_audit",
 ]

@@ -1,16 +1,19 @@
 """The graftcheck rule catalogue, as far as the port's checkers report.
 
-The port's copy of ``spark_examples_tpu/check/rules.py`` for its four
-ported source and protocol checkers: the source linter (``check/
-linter.py``, GC rules), the host-memory audit (``check/hostmem.py``, GH
-rules), the lock-order analysis (``check/lockgraph.py``, GL rules) and the
-replica protocol's model checker (``check/proto.py``, GP rules), with the
-shared :class:`Finding` and the escape-hatch grammar. Ids, names and scopes
-are the reference's. The GC rules name JAX pitfalls there; here each reads
-the same pitfall in torch's idiom (a ``torch.compile``d or
+The port's copy of ``spark_examples_tpu/check/rules.py`` for its five
+ported checkers: the source linter (``check/linter.py``, GC rules), the
+IR auditor (``check/ir.py``, GI rules), the host-memory audit
+(``check/hostmem.py``, GH rules), the lock-order analysis
+(``check/lockgraph.py``, GL rules) and the replica protocol's model
+checker (``check/proto.py``, GP rules), with the shared :class:`Finding`
+and the escape-hatch grammar. Ids, names and scopes are the reference's.
+The GC rules name JAX pitfalls there; here each reads the same pitfall in
+torch's idiom (a ``torch.compile``d or
 ``torch.jit.script``ed function where the reference has a jitted one, a
-tensor where it has a ``jnp`` value) and its summary says so. The ``ir``,
-``ranges`` and ``sched`` catalogues come with those checkers.
+tensor where it has a ``jnp`` value) and its summary says so; the GI
+rules read the reference's jaxpr contracts over the port's recorded
+schedule. The ``ranges`` and ``sched`` catalogues come with those
+checkers.
 
 Every GC, GH and GL rule honors the escape hatch::
 
@@ -402,7 +405,78 @@ PROTO_RULES: Dict[str, Rule] = {
 
 
 #: Every rule id the port's checkers can emit, for Finding.rule lookup.
-ALL_RULES: Dict[str, Rule] = {**RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES}
+#: ``graftcheck ir`` rule catalogue (``check/ir.py``): audits of the
+#: RECORDED SCHEDULE of the Gramian updates (``obs/schedule.py``: the
+#: kernels, transfers and stream waits the port's device program issues,
+#: in order) — the reference's jaxpr contracts read over the port's
+#: program, which has no jaxpr. GI findings anchor to a kernel audit name
+#: (line 0); justification happens through the cross-checked GC005 AST
+#: disables (GI002), not per-line escape hatches.
+IR_RULES: Dict[str, Rule] = {
+    rule.id: rule
+    for rule in [
+        Rule(
+            "GI000",
+            "kernel-trace-failure",
+            "The update fails to run under the schedule recorder at the "
+            "audit geometry; none of its contracts can be vouched for.",
+        ),
+        Rule(
+            "GI001",
+            "ring-overlap-broken",
+            "A ring step's next shift is issued after that step's products "
+            "(or sends a tile a product wrote), so the card's transfer "
+            "stream waits for the tensor-core product instead of running "
+            "under it — the overlap the double-buffered ring exists for "
+            "silently vanishes.",
+        ),
+        Rule(
+            "GI002",
+            "accumulator-donation-contract",
+            "An accumulator update is not in place (a product writes "
+            "another buffer, or an accumulator-sized copy is made) and its "
+            "function carries no justified GC005 AST disable — or carries "
+            "a disable although the update is in place: the recorded "
+            "schedule and the AST layer have drifted.",
+        ),
+        Rule(
+            "GI003",
+            "packed-wire-upcast",
+            "A bit-packed uint8 wire tile changes dtype or width through a "
+            "shift, or is read by anything but the designated unpack "
+            "(unpack_rows_t), so the ring/PCIe wire silently loses its "
+            "8-genotypes-per-byte format — 8x the traffic, or wrong math.",
+        ),
+        Rule(
+            "GI004",
+            "f64-in-kernel",
+            "A float64 tensor appears in a Gramian update: some operand "
+            "promoted through a silent dtype rule. f64 runs at a fraction "
+            "of the card's int8/fp32 rate and doubles the bytes; every "
+            "kernel dtype is an explicit int32/int8/uint8 contract.",
+        ),
+        Rule(
+            "GI005",
+            "ring-traffic-mismatch",
+            "The bytes the recorded shifts move (summed over the receiving "
+            "positions) disagree with the audited formula "
+            "parallel/mesh.py:ring_traffic_bytes — the gramian_ring_bytes "
+            "counter and the plan's numbers no longer describe the ring.",
+        ),
+        Rule(
+            "GI006",
+            "ring-permute-count",
+            "A ring pass does not make exactly samples_axis - 1 shifts; an "
+            "extra shift (the old return-to-owner step) wastes one full "
+            "tile circulation per block, a missing one drops a position's "
+            "columns.",
+        ),
+    ]
+}
+
+ALL_RULES: Dict[str, Rule] = {
+    **RULES, **IR_RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES,
+}
 
 
 @dataclass
@@ -493,6 +567,7 @@ __all__ = [
     "Rule",
     "Finding",
     "RULES",
+    "IR_RULES",
     "LOCK_RULES",
     "HOSTMEM_RULES",
     "PROTO_RULES",

@@ -73,6 +73,22 @@
 //   and leaves in 16-byte stores; where a row is wider than a block's
 //   share, each site's segment leaves byte by byte.
 //
+// transpose_rows_t_kernel — the unpacked ring wire's rows: the first n_cols
+//   columns of an int8 Xᵀ (n_pad × ld, sites innermost) as (rows, n_cols)
+//   uint8 rows, row s holding site s's columns, the bytes as they are.
+//   Replaces the cast the reference's device-generation ring ships on its
+//   unpacked wire (spark_examples_tpu/ops/devicegen.py:1082,
+//   hv.astype(operand_dtype), whose hv is already rows); the port generates
+//   Xᵀ, so its rows are a transpose.
+//   Bound: bytes (it reads and writes n_cols × rows bytes). One block of
+//   256 threads a tile of 64 sites × 64 columns staged in shared memory, a
+//   column 68 bytes apart (17 words: the stores' column reads fall on 32
+//   banks). A load takes four sites of one column as one 32-bit word (ld
+//   is a multiple of 128 and Xᵀ 4-byte aligned, so a word never leaves its
+//   row); a warp's stores write 32 consecutive bytes of one output row.
+//   The first version: no vector stores (n_cols is any width, 626 at 2,504
+//   samples over 4 positions, so rows are not 4-byte aligned).
+//
 // Plain C interface, bound with ctypes (ops/_kernels.py). The launcher
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -330,6 +346,38 @@ pack_rows_t_kernel(const int8_t* __restrict__ xt, int ld, int rows, int n_cols, 
   }
 }
 
+constexpr int ROWS_T_TILE = 64;      // sites and columns of a transpose tile
+constexpr int ROWS_T_PITCH = 68;     // staged bytes a column: 17 words
+
+__global__ void __launch_bounds__(256)
+transpose_rows_t_kernel(const int8_t* __restrict__ xt, int ld, int rows, int n_cols,
+                        uint8_t* __restrict__ out) {
+  __shared__ __align__(4) uint8_t tile[ROWS_T_TILE * ROWS_T_PITCH];  // [column][site]
+  const int s0 = blockIdx.x * ROWS_T_TILE, c0 = blockIdx.y * ROWS_T_TILE;
+  const int t = threadIdx.x;
+  const int quad = t % (ROWS_T_TILE / 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = t / (ROWS_T_TILE / 4) + 16 * i;
+    uint32_t word = 0;
+    if (c0 + c < n_cols) {
+      word = *reinterpret_cast<const uint32_t*>(xt + static_cast<int64_t>(c0 + c) * ld + s0 +
+                                                4 * quad);
+    }
+    *reinterpret_cast<uint32_t*>(tile + c * ROWS_T_PITCH + 4 * quad) = word;
+  }
+  __syncthreads();
+  const int c = t % ROWS_T_TILE;
+  if (c0 + c >= n_cols) return;
+#pragma unroll
+  for (int i = 0; i < ROWS_T_TILE / 4; ++i) {
+    const int s = t / ROWS_T_TILE + 4 * i;
+    if (s0 + s < rows) {
+      out[static_cast<int64_t>(s0 + s) * n_cols + c0 + c] = tile[c * ROWS_T_PITCH + s];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -417,6 +465,22 @@ int pack_rows_t_grid(int rows, int n_cols, int* grid) {
   pack_rows_t_shape(rows, n_cols / 8, grid);
   grid[3] = PACK_SITES;
   return 0;
+}
+
+// out (rows, n_cols) uint8 = rows 0..rows-1 of the transposed first n_cols
+// columns of the int8 Xᵀ (n_pad, ld) at `xt` (4-byte aligned; n_pad and
+// ld multiples of 128, n_cols at most n_pad, rows at most ld).
+int transpose_rows_t_launch(const int8_t* xt, int n_pad, int ld, int n_cols, int rows,
+                            uint8_t* out, void* stream) {
+  if (ld % TILE_SITES != 0 || n_pad % TILE_COLS != 0 || n_cols > n_pad || rows > ld ||
+      reinterpret_cast<uintptr_t>(xt) % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows == 0 || n_cols == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((rows + ROWS_T_TILE - 1) / ROWS_T_TILE, (n_cols + ROWS_T_TILE - 1) / ROWS_T_TILE);
+  transpose_rows_t_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(xt, ld, rows,
+                                                                               n_cols, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -24,6 +24,19 @@ clock around it, ending in a synchronise) and its spans::
         --tree build/parent --tree . --rounds 1 --positions 4 -- \
         --references 17:0:81195210 --num-samples 25000 --ingest device \
         --block-size 16384 --mesh-shape 1,4 --similarity-strategy sharded
+
+With ``--admissions N`` the argv (flags, no verb) is a served
+``similarity`` job instead: each process starts a ``PcaService`` with its
+HTTP server on port 0 (over ``--positions`` positions of cuda:0, default
+one), submits the job once and waits for it, then submits it ``N`` times
+back to back through ``ServeClient``, each submit timed to its 202 on the
+host clock, waits for every job to settle done and stops the daemon. A
+run's ``wall_s`` is then its median admission, ``spans_s`` holds the
+process's first admission and its largest::
+
+    python -m spark_examples_tpu_torch.experiments.cli_wall \
+        --tree build/parent --tree . --rounds 3 --admissions 20 -- \
+        --references 17:41196311:41206311 --num-samples 2504 --ingest packed
 """
 
 from __future__ import annotations
@@ -61,12 +74,48 @@ for timed in (False, True):
 print(json.dumps({"wall_s": wall, "spans_s": spans}))
 '''
 
+#: Run in each tree's own process for ``--admissions``: a daemon that
+#: admits the job ``requests`` times after a first one; prints one JSON
+#: object.
+ADMISSIONS_WORKER = r'''
+import json, statistics, sys, tempfile, time
+from spark_examples_tpu_torch.serve.client import ServeClient
+from spark_examples_tpu_torch.serve.daemon import PcaService
+from spark_examples_tpu_torch.serve.http import start_server
 
-def run_positions(tree: Path, argv, positions: int) -> dict:
-    """The pipeline over ``positions`` positions of one card in ``tree``'s
-    own process: the timed run's wall-clock and spans."""
+argv, positions, requests = json.loads(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+with tempfile.TemporaryDirectory() as run_dir:
+    service = PcaService(run_dir=run_dir, small_capacity=2 * requests + 2,
+                         devices=["cuda:0"] * positions).start()
+    server = start_server(service)
+    try:
+        client = ServeClient(server.url)
+        t0 = time.perf_counter()
+        first = client.submit(argv, kind="similarity")["job"]["id"]
+        first_s = time.perf_counter() - t0
+        client.wait(first, timeout=300)
+        latencies, ids = [], []
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            ids.append(client.submit(argv, kind="similarity")["job"]["id"])
+            latencies.append(time.perf_counter() - t0)
+        done = [client.wait(i, timeout=300)["job"]["status"] for i in ids]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop(timeout=120)
+if done.count("done") != requests:
+    sys.exit(f"{done.count('done')} of {requests} admitted jobs settled done")
+print(json.dumps({"wall_s": statistics.median(latencies),
+                  "spans_s": {"first_admission": first_s, "max_admission": max(latencies)}}))
+'''
+
+
+def run_worker(tree: Path, worker: str, *args) -> dict:
+    """``worker`` (:data:`WORKER` or :data:`ADMISSIONS_WORKER`) on ``args``
+    in ``tree``'s own process: its JSON object."""
     proc = subprocess.run(
-        [sys.executable, "-c", WORKER, json.dumps(argv), str(positions)],
+        [sys.executable, "-c", worker, *(str(a) for a in args)],
         cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
         capture_output=True, text=True, timeout=900,
     )
@@ -97,6 +146,8 @@ def main(args=None) -> int:
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--positions", type=int, default=0,
                         help="run the flags through run_pipeline on this many positions of cuda:0")
+    parser.add_argument("--admissions", type=int, default=0,
+                        help="time this many served admissions of the flags a process")
     parser.add_argument("argv", nargs=argparse.REMAINDER)
     ns = parser.parse_args(args)
     argv = ns.argv[1:] if ns.argv[:1] == ["--"] else ns.argv
@@ -109,8 +160,11 @@ def main(args=None) -> int:
         workdir = Path(tmp)
 
         def run(tree):
+            if ns.admissions:
+                return run_worker(tree, ADMISSIONS_WORKER, json.dumps(argv),
+                                  max(ns.positions, 1), ns.admissions)
             if ns.positions:
-                return run_positions(tree, argv, ns.positions)
+                return run_worker(tree, WORKER, json.dumps(argv), ns.positions)
             return run_once(tree, argv, workdir)
 
         for tree in trees:

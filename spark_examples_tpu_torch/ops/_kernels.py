@@ -30,6 +30,12 @@ NVCC_FLAGS = (
 )
 SOURCES = ("depth.cu", "devicegen.cu", "gramian.cu", "ld.cu", "probes.cu")
 
+#: Where the Gramian kernels' wrappers take their plain versions: CPU
+#: tensors, and ``meta`` tensors (shapes and dtypes alone, as ``graftcheck``
+#: evaluates the device program at a run's geometry). A CUDA tensor
+#: launches the kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
@@ -78,6 +84,7 @@ _SIGNATURES = {
         "stacked_unpack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _I32, _P),
         "pack_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _P),  # xt, n_pad, ld, n_cols, rows, out, stream
         "pack_rows_t_grid": (_I32, _I32, _P),  # rows, n_cols, grid (5 ints)
+        "transpose_rows_t_launch": (_P, _I32, _I32, _I32, _I32, _P, _P),  # xt, n_pad, ld, n_cols, rows, out, stream
     },
     "ld.cu": {
         # in, rows, width, pitch, vectors, case, n_cols, lanes, a, t, stream
@@ -178,4 +185,4 @@ def check(status: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: cudaError {status}")
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "build_log", "check", "library"]
+__all__ = ["BUILD_DIR", "PLAIN_DEVICES", "SOURCES", "build", "build_all", "build_log", "check", "library"]

@@ -50,6 +50,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.obs import schedule as _schedule
 from spark_examples_tpu_torch.ops import _kernels
 from spark_examples_tpu_torch.ops.contracts import EXACT_F32_LIMIT, flush_entry_increment
 from spark_examples_tpu_torch.ops.devicegen import (
@@ -167,6 +168,9 @@ def stacked_unpack_rows_t(
     :func:`stacked_unpack_rows_t_plain`; CUDA tensors launch
     ``stacked_unpack_rows_t_kernel`` (``csrc/gramian.cu``), one launch for
     every lane."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(stacked_unpack_rows_t, "unpack", (packed,), (), packed,
+                                num_columns, lanes, packed=True)
     width = _packed_width(num_columns)
     _require(packed, "packed", torch.uint8)
     if packed.ndim != 3 or packed.shape[2] != width or packed.shape[0] < 1:
@@ -176,7 +180,7 @@ def stacked_unpack_rows_t(
         )
     total, rows, _ = packed.shape
     listed, count = _lane_list(lanes, total)
-    if packed.device.type == "cpu":
+    if packed.device.type in _kernels.PLAIN_DEVICES:
         return stacked_unpack_rows_t_plain(packed, num_columns)
     n_pad = _round_up(num_columns, COL_TILE)
     ld = _round_up(max(rows, 1), SITE_TILE)
@@ -240,11 +244,14 @@ def stacked_gram_accumulate(
     the jobs axis). CPU tensors take :func:`stacked_gram_accumulate_plain`;
     CUDA tensors launch ``stacked_gram_accumulate_kernel``
     (``csrc/devicegen.cu``), one launch for every lane."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(stacked_gram_accumulate, "product", (xt,), (G,), G, xt,
+                                lanes, split)
     if G.ndim != 3 or G.shape[1] != G.shape[2] or G.shape[0] < 1:
         raise ValueError(f"G must be (K, n, n), got {tuple(G.shape)}")
     total, n, _ = G.shape
     listed, count = _lane_list(lanes, total)
-    if G.device.type == "cpu":
+    if G.device.type in _kernels.PLAIN_DEVICES:
         stacked_gram_accumulate_plain(G, xt)
         return
     _require(G, "G", torch.int32)

@@ -40,6 +40,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.obs import schedule as _schedule
 from spark_examples_tpu_torch.ops import _kernels
 from spark_examples_tpu_torch.parallel.mesh import run_on, spans_processes
 from spark_examples_tpu_torch.sources.synthetic import (
@@ -433,6 +434,9 @@ def gen_genotypes(
     pallas_gram`` (``tile_hv``) and of ``spark_examples_tpu/ops/devicegen.py:
     _fused_update``. CPU tensors take :func:`gen_genotypes_plain`; CUDA
     tensors launch ``gen_genotypes_kernel`` (``csrc/devicegen.cu``)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(gen_genotypes, "generate", (), (kept, rows), plan,
+                                grid_offset, n_valid, block_sites, kept, rows)
     if not 0 <= int(n_valid) <= int(block_sites):
         raise ValueError(f"n_valid must be in [0, {block_sites}], got {n_valid}")
     if int(grid_offset) < 0:
@@ -517,12 +521,12 @@ def gen_genotypes_grid(
 
 
 def gram_accumulate_plain(G: torch.Tensor, xt: torch.Tensor) -> None:
-    """Plain version of :func:`gram_accumulate`: an int64 matmul on the CPU,
-    a float64 matmul on the card (exact below 2^53; PyTorch has no CUDA
-    integer matmul for these shapes)."""
+    """Plain version of :func:`gram_accumulate`: an int64 matmul on the CPU
+    (and ``meta`` tensors), a float64 matmul on the card (exact below 2^53;
+    PyTorch has no CUDA integer matmul for these shapes)."""
     n = G.shape[0]
     X = xt[:n]
-    wide = torch.int64 if G.device.type == "cpu" else torch.float64
+    wide = torch.float64 if G.is_cuda else torch.int64
     Xw = X.to(wide)
     G += (Xw @ Xw.T).to(G.dtype)
 
@@ -703,7 +707,9 @@ def gram_accumulate(G: torch.Tensor, xt: torch.Tensor, split: Optional[int] = No
     ``spark_examples_tpu/ops/devicegen.py:_fused_update``. CPU tensors take
     :func:`gram_accumulate_plain`; CUDA tensors launch
     ``gram_accumulate_kernel`` (``csrc/devicegen.cu``)."""
-    if G.device.type == "cpu":
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(gram_accumulate, "product", (xt,), (G,), G, xt, split)
+    if G.device.type in _kernels.PLAIN_DEVICES:
         gram_accumulate_plain(G, xt)
         return
     n = G.shape[0]
@@ -755,9 +761,9 @@ gram_accumulate.launches = 0  # type: ignore[attr-defined]
 
 def cross_accumulate_plain(C: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
     """Plain version of :func:`cross_accumulate`: an int64 product on the
-    CPU, float64 on the card (exact below 2^53)."""
+    CPU (and ``meta`` tensors), float64 on the card (exact below 2^53)."""
     m, n = C.shape
-    wide = torch.int64 if C.device.type == "cpu" else torch.float64
+    wide = torch.float64 if C.is_cuda else torch.int64
     C += (a[:m].to(wide) @ b[:n].to(wide).T).to(C.dtype)
 
 
@@ -819,9 +825,11 @@ def cross_accumulate(
     ``cross_accumulate_kernel`` (``csrc/devicegen.cu``) as
     :func:`cross_schedule` lays it out, its items taken from a counter kept
     for the (device, stream)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(cross_accumulate, "product", (a, b), (C,), C, a, b, split)
     if C.ndim != 2:
         raise ValueError(f"C must be 2-D, got {tuple(C.shape)}")
-    if C.device.type == "cpu":
+    if C.device.type in _kernels.PLAIN_DEVICES:
         cross_accumulate_plain(C, a, b)
         return
     m, n = C.shape
@@ -1119,7 +1127,8 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
     Each samples position generates only its own columns of the cohort —
     ``gen_genotypes`` on its cut column tables (:func:`slice_gen_plan`),
     padded to the ring's tile — packs them (``ops/gramian.py:
-    pack_rows_t``, under the packed wire) and ``ops/gramian.py:ring_pass``
+    pack_rows_t``, under the packed wire; ``transpose_rows_t`` into uint8
+    rows under the unpacked one) and ``ops/gramian.py:ring_pass``
     accumulates its row tile, so no position holds the N×N Gramian and no
     host→device data moves. A ``data`` axis adds grid parallelism on top:
     each slice runs its own ring over its own spans (:class:`_GridWalk`).
@@ -1260,7 +1269,7 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
             self.layout.in_flight.mark()
 
     def _ring_block(self, d: int, grid_offset: int, valid: int) -> None:
-        from spark_examples_tpu_torch.ops.gramian import pack_rows_t, ring_pass
+        from spark_examples_tpu_torch.ops.gramian import pack_rows_t, ring_pass, transpose_rows_t
         from spark_examples_tpu_torch.parallel.collectives import fetch, rank_reduce, record
 
         B, n_local = self.block_size, self.n_local
@@ -1290,7 +1299,10 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
                     f[v] = xt[lo:hi].amax(dim=0)
                 flags.append(f)
                 mine.append(xt)
-                own.append(pack_rows_t(xt, n_local, rows=B) if self.pack else xt)
+                # The wire carries the block's rows, (B, n_local / 8) packed or
+                # (B, n_local) uint8: the bytes ``ring_traffic_bytes`` counts.
+                own.append(pack_rows_t(xt, n_local, rows=B) if self.pack
+                           else transpose_rows_t(xt, n_local, rows=B))
                 ready.append(record(position))
         # OR the flags on this process's first position of the ring, then
         # over the ring's processes; the ring's first position counts.
@@ -1303,7 +1315,7 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
             if ring[0].local:
                 self._rows[d] += (union != 0).sum(dim=1)
         ring_pass(ring, own, ready, mine, self.layout.G_local[d], n_local, self.pack,
-                  self.layout.ring_hosts)
+                  self.layout.ring_hosts, max_count=1)
 
     def ingest_counters(self) -> Tuple[np.ndarray, int]:
         """``(per-set variant-row totals, kept-site total)`` in one host

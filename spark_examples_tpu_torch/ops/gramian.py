@@ -60,6 +60,7 @@ from typing import Iterable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.obs import schedule as _schedule
 from spark_examples_tpu_torch.obs.metrics import (
     GRAMIAN_INFLIGHT_DISPATCHES,
     GRAMIAN_RING_BYTES,
@@ -200,6 +201,9 @@ def unpack_rows_t(
     _dense_update`` (``_unpack_bits``) and the cast of
     ``_dense_update_counts``. CPU tensors take :func:`unpack_rows_t_plain`;
     CUDA tensors launch ``unpack_rows_t_kernel`` (``csrc/gramian.cu``)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(unpack_rows_t, "unpack", (block,), (), block, num_columns,
+                                counts, max_count, packed=not counts)
     width = int(num_columns) if counts else _packed_width(num_columns)
     _require(block, "block", torch.uint8)
     if block.ndim != 2 or block.shape[1] != width:
@@ -213,7 +217,7 @@ def unpack_rows_t(
             raise ValueError(
                 f"count {top} does not fit the int8 Xᵀ (at most {MAX_INT8_COUNT})"
             )
-    if block.device.type == "cpu":
+    if block.device.type in _kernels.PLAIN_DEVICES:
         return unpack_rows_t_plain(block, num_columns, counts)
     rows = int(block.shape[0])
     n_pad = _round_up(num_columns, COL_TILE)
@@ -311,6 +315,9 @@ def pack_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) 
     Replaces ``spark_examples_tpu/ops/gramian.py:_pack_bits_device``. CPU
     tensors take :func:`pack_rows_t_plain`; CUDA tensors launch
     ``pack_rows_t_kernel`` (``csrc/gramian.cu``)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(pack_rows_t, "pack", (xt,), (), xt, num_columns, rows,
+                                packed=True)
     _require(xt, "xt", torch.int8)
     num_columns = int(num_columns)
     rows = int(xt.shape[1]) if rows is None else int(rows)
@@ -319,7 +326,7 @@ def pack_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) 
             f"pack_rows_t takes a multiple of 8 columns of an Xᵀ that holds them "
             f"and at most its sites: {num_columns} columns, {rows} rows of {tuple(xt.shape)}"
         )
-    if xt.device.type == "cpu":
+    if xt.device.type in _kernels.PLAIN_DEVICES:
         return pack_rows_t_plain(xt, num_columns, rows)
     n_pad, ld = xt.shape
     if n_pad % COL_TILE or ld % SITE_TILE or xt.data_ptr() % 16:
@@ -337,10 +344,60 @@ def pack_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) 
     return out
 
 
+def transpose_rows_t_plain(
+    xt: torch.Tensor, num_columns: int, rows: Optional[int] = None
+) -> torch.Tensor:
+    """Plain version of :func:`transpose_rows_t`: the transposed slice
+    copied, in PyTorch."""
+    rows = int(xt.shape[1]) if rows is None else int(rows)
+    return xt[:num_columns, :rows].T.contiguous().view(torch.uint8)
+
+
+def transpose_rows_t(xt: torch.Tensor, num_columns: int, rows: Optional[int] = None) -> torch.Tensor:
+    """The first ``num_columns`` columns of an int8 Xᵀ (``(n_pad, ld)``,
+    columns × sites) as the unpacked ring wire's rows: ``(rows,
+    num_columns)`` uint8, row s holding site s's entries as they are, for
+    the first ``rows`` sites (default all ``ld``). :func:`unpack_rows_t`
+    with ``counts`` gives the Xᵀ back.
+
+    Replaces the cast the reference's device-generation ring ships on its
+    unpacked wire (``spark_examples_tpu/ops/devicegen.py:1082``). CPU and
+    ``meta`` tensors take :func:`transpose_rows_t_plain`; CUDA tensors
+    launch ``transpose_rows_t_kernel`` (``csrc/gramian.cu``)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.launch(transpose_rows_t, "pack", (xt,), (), xt, num_columns, rows)
+    _require(xt, "xt", torch.int8)
+    num_columns = int(num_columns)
+    rows = int(xt.shape[1]) if rows is None else int(rows)
+    if xt.ndim != 2 or not 0 <= num_columns <= xt.shape[0] or not 0 <= rows <= xt.shape[1]:
+        raise ValueError(
+            f"transpose_rows_t takes at most the columns and sites of its Xᵀ: "
+            f"{num_columns} columns, {rows} rows of {tuple(xt.shape)}"
+        )
+    if xt.device.type in _kernels.PLAIN_DEVICES:
+        return transpose_rows_t_plain(xt, num_columns, rows)
+    n_pad, ld = xt.shape
+    if n_pad % COL_TILE or ld % SITE_TILE or xt.stride() != (ld, 1) or xt.data_ptr() % 4:
+        raise ValueError(
+            f"xt must be a contiguous ({COL_TILE}k, {SITE_TILE}j) int8 on a 4-byte boundary, "
+            f"got {tuple(xt.shape)}"
+        )
+    out = torch.empty((rows, num_columns), dtype=torch.uint8, device=xt.device)
+    with torch.cuda.device(xt.device):
+        status = _library().transpose_rows_t_launch(
+            xt.data_ptr(), n_pad, ld, num_columns, rows, out.data_ptr(),
+            torch.cuda.current_stream(xt.device).cuda_stream,
+        )
+    _kernels.check(status, "transpose_rows_t")
+    transpose_rows_t.launches += 1
+    return out
+
+
 pack_rows_t.launches = 0  # type: ignore[attr-defined]
+transpose_rows_t.launches = 0  # type: ignore[attr-defined]
 
 #: Every kernel wrapper of this module, for launch accounting.
-KERNELS = (unpack_rows_t, pack_rows_t)
+KERNELS = (unpack_rows_t, pack_rows_t, transpose_rows_t)
 
 
 def reset_launch_counts() -> None:
@@ -761,18 +818,21 @@ def ring_pass(
     n_local: int,
     packed: bool,
     hosts: int = 1,
+    max_count: Optional[int] = None,
 ) -> None:
     """One block's ring over one data slice's samples positions: the
     counterpart of ``spark_examples_tpu/ops/gramian.py:_ring_tiles``
     (``hosts`` 1) and ``_hier_ring_tiles``.
 
     Position p holds ``mine[p]``, its own columns' int8 Xᵀ (the product's A
-    operand), and ``own[p]``, the tile it sends: the same Xᵀ on the
-    unpacked wire, its bit-packed rows on the packed wire (``ready[p]``:
-    the event after which it is whole). At every step each position adds
-    ``Xᵀ_mine · X_owner`` into its row tile's owner columns
-    (``cross_accumulate``), unpacking a received packed tile first
-    (``unpack_rows_t``); its own step uses ``mine[p]`` as both operands.
+    operand), and ``own[p]``, the tile it sends (``ready[p]``: the event
+    after which it is whole): its block's rows, ``(B, n_local / 8)``
+    bit-packed under ``packed`` or ``(B, n_local)`` count-valued uint8
+    (counts at most ``max_count``), which a receiver unpacks
+    (``unpack_rows_t``), so the wire moves the bytes of
+    ``parallel/mesh.py:ring_traffic_bytes``. At every step each position
+    adds ``Xᵀ_mine · X_owner`` into its row tile's owner columns
+    (``cross_accumulate``); its own step uses ``mine[p]`` as both operands.
 
     The samples axis is factored host-major into ``hosts × D``: an outer
     ring over hosts (``hosts - 1`` shifts of the tile a position started
@@ -804,7 +864,7 @@ def ring_pass(
                     cross_accumulate(cols, mine[p], mine[p])
                     continue
                 consume(pos, tiles[p], events[p])
-                b = unpack_rows_t(tiles[p], n_local) if packed else tiles[p]
+                b = unpack_rows_t(tiles[p], n_local, counts=not packed, max_count=max_count)
                 cross_accumulate(cols, mine[p], b)
 
     outer, outer_ready = list(own), list(ready)
@@ -884,6 +944,33 @@ class RingLayout:
         self.device = mesh.home
         self.in_flight = _InFlight(mesh.local)
 
+    def flush(self, shards: Sequence[Optional[Sequence[Optional[torch.Tensor]]]], packed: bool,
+              max_count: Optional[int] = None) -> None:
+        """One flush of the host-fed ring: ring d's positions each ship
+        their shard of ``shards[d]`` (from :func:`ring_shards`; ``None``
+        for a ring with no rows or no position here, and for another
+        process's position), unpack it as their Xᵀ and send it as it is,
+        and :func:`ring_pass` circulates the shards."""
+        for d, ring in enumerate(self.rings):
+            if shards[d] is None:
+                continue
+            own, ready, mine = [], [], []
+            for position, shard in zip(ring, shards[d]):
+                if shard is None:
+                    own.append(None)
+                    ready.append(None)
+                    mine.append(None)
+                    continue
+                with position.run():
+                    if position.cuda:
+                        shard = shard.pin_memory().to(position.device, non_blocking=True)
+                    mine.append(unpack_rows_t(shard, self.n_local, counts=not packed,
+                                              max_count=max_count))
+                    own.append(shard)
+                    ready.append(record(position))
+            ring_pass(ring, own, ready, mine, self.G_local[d], self.n_local, packed,
+                      self.ring_hosts, max_count)
+
     def schedule(self, rows: int, measured: Optional[int] = None) -> dict:
         """The ``schedule`` block of a ring that circulated ``rows`` rows
         (capacity, padding included): the projected bytes, split by link
@@ -947,6 +1034,31 @@ class RingLayout:
         return RowSharded(tiles, self.rings[0], self.columns, self.padded, dtype, self.mesh.shared)
 
 
+def ring_shards(layout: RingLayout, block: np.ndarray, block_size: int,
+                packed: bool) -> List[Optional[List[Optional[torch.Tensor]]]]:
+    """A flush's staged ``(rows, padded)`` uint8 rows as each ring
+    position's host shard: ring d takes rows ``[d·B, (d+1)·B)``, and its
+    position s the columns ``[s·n_local, (s+1)·n_local)``, bit-packed
+    (``np.packbits``, whose byte boundaries fall on the position
+    boundaries) under ``packed``. ``None`` for a ring past the rows or
+    with no position here, and for another process's position."""
+    n_local, B = layout.n_local, int(block_size)
+    width = n_local // 8 if packed else n_local
+    shards: List[Optional[List[Optional[torch.Tensor]]]] = []
+    for d, ring in enumerate(layout.rings):
+        rows = block[d * B : (d + 1) * B]
+        if rows.shape[0] == 0 or not any(p.local for p in ring):
+            shards.append(None)
+            continue
+        host = np.packbits(rows, axis=-1) if packed else rows
+        shards.append([
+            torch.from_numpy(np.ascontiguousarray(host[:, s * width : (s + 1) * width]))
+            if position.local else None
+            for s, position in enumerate(ring)
+        ])
+    return shards
+
+
 def sharded_peak_bytes(n_local: int, padded: int, block_size: int, pack: bool) -> int:
     """Device bytes one position of :class:`ShardedGramianAccumulator`
     holds at peak: its int32 row tile ``(n_local, padded)``, and for each of
@@ -954,12 +1066,13 @@ def sharded_peak_bytes(n_local: int, padded: int, block_size: int, pack: bool) -
     (``block_size`` rows, ``n_local / 8`` bytes packed or ``n_local``
     unpacked), its int8 Xᵀ (``round_up(n_local, COL_TILE) ×
     round_up(block_size, SITE_TILE)``), the received tile and the next one
-    in flight, and the received tile's unpacked Xᵀ on the packed wire.
-    ``graftcheck plan`` reports it as ``ring_peak_live_bytes_per_device``."""
+    in flight, and the received tile's unpacked Xᵀ (:meth:`RingLayout.flush`
+    sends shipped rows on either wire). ``graftcheck plan`` reports it as
+    ``ring_peak_live_bytes_per_device``."""
     rows = int(block_size)
     wire = rows * (int(n_local) // 8 if pack else int(n_local))
     xt = _round_up(int(n_local), COL_TILE) * _round_up(max(rows, 1), SITE_TILE)
-    per_flush = wire + xt + 2 * wire + (xt if pack else 0)
+    per_flush = wire + xt + 2 * wire + xt
     return int(n_local) * int(padded) * 4 + 2 * per_flush
 
 
@@ -1036,38 +1149,14 @@ class ShardedGramianAccumulator(_Staging):
             )
         self._entry_bound += increment
         use_packed = self.pack and max_count <= 1
-        n_local, B = self.n_local, self.block_size
-        width = n_local // 8 if use_packed else n_local
         layout = self.layout
-        for d, ring in enumerate(layout.rings):
-            rows = block[d * B : (d + 1) * B]
-            if rows.shape[0] == 0:
-                break
-            if not any(p.local for p in ring):
-                continue
-            host = np.packbits(rows, axis=-1) if use_packed else rows
-            own, ready, mine = [], [], []
-            for s, position in enumerate(ring):
-                if not position.local:
-                    own.append(None)
-                    ready.append(None)
-                    mine.append(None)
-                    continue
-                shard = torch.from_numpy(np.ascontiguousarray(host[:, s * width : (s + 1) * width]))
-                with position.run():
-                    if position.cuda:
-                        shard = shard.pin_memory().to(position.device, non_blocking=True)
-                    xt = unpack_rows_t(shard, n_local, counts=not use_packed, max_count=max_count)
-                    mine.append(xt)
-                    own.append(shard if use_packed else xt)
-                    ready.append(record(position))
-            ring_pass(ring, own, ready, mine, layout.G_local[d], n_local, use_packed, layout.ring_hosts)
+        layout.flush(ring_shards(layout, block, self.block_size, use_packed), use_packed, max_count)
         self._fill = 0
         self._flushes += 1
         layout.in_flight.mark()
         seconds = time.perf_counter() - flush_start
         nbytes = ring_traffic_bytes(
-            self.data_parallel * B, self.samples_parallel, n_local, use_packed
+            self.data_parallel * self.block_size, self.samples_parallel, self.n_local, use_packed
         )
         self.ring_bytes_total += nbytes
         self.telemetry.record_ring(nbytes, seconds)
@@ -1197,6 +1286,9 @@ __all__ = [
     "reset_launch_counts",
     "resolve_ring_pack",
     "ring_pass",
+    "ring_shards",
+    "transpose_rows_t",
+    "transpose_rows_t_plain",
     "unpack_rows_t",
     "unpack_rows_t_plain",
 ]

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from spark_examples_tpu_torch.obs import schedule as _schedule
 from spark_examples_tpu_torch.parallel.mesh import (
     Position,
     data_group,
@@ -80,6 +81,8 @@ def consume(position: Position, tensor: torch.Tensor, ready: Event) -> None:
     ``tensor`` (on its device), and keep ``tensor``'s memory until that
     stream is done with it (the tensor may have been made on another
     stream)."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        recording.note("consume", "consume", (tensor,), position=position.index)
     if position.cuda:
         if ready is not None:
             position.stream.wait_event(ready)
@@ -184,6 +187,8 @@ def ring_shift(
     receiver's (tagged with the receiving position), the shift's hops
     issued together and waited for before the shift returns; every process
     of the ring runs the same shifts in the same order."""
+    if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
+        return recording.shift(ring_shift, tiles, ready, positions, source)
     dist = _dist() if spans_processes(positions) else None
     out: List[Optional[torch.Tensor]] = [None] * len(positions)
     events: List[Event] = [None] * len(positions)

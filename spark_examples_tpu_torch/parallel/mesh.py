@@ -57,6 +57,8 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple, 
 import numpy as np
 import torch
 
+from spark_examples_tpu_torch.obs import schedule as _schedule
+
 DATA_AXIS = "data"
 SAMPLES_AXIS = "samples"
 #: Outer axis of the hierarchical (two-level) reduction mesh: the samples
@@ -422,12 +424,20 @@ class Position:
     @contextlib.contextmanager
     def run(self) -> Iterator[None]:
         """Make this position's device and compute stream current; on the
-        CPU, nothing."""
-        if not self.cuda:
-            yield
-            return
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            yield
+        CPU, nothing. While a schedule is recorded (``obs/schedule.py``)
+        the calls made here are this position's."""
+        recording = sink() if (sink := _schedule.SINK) is not None else None
+        if recording is not None:
+            recording.enter(self.index)
+        try:
+            if not self.cuda:
+                yield
+                return
+            with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+                yield
+        finally:
+            if recording is not None:
+                recording.leave()
 
     def join(self) -> None:
         """Order the device's current stream after this position's work."""

@@ -717,6 +717,13 @@ class PcaService:
             )
             for spec in specs
         ]
+        if any(worker.spec.device_count >= 2 for worker in self._workers):
+            # A slice of two or more positions admits sharded jobs, whose
+            # plan audits the ring on meta tensors: the process's first
+            # meta audit is paid here, with the other once-per-process costs.
+            from spark_examples_tpu_torch.check.plan import warm_ring_audit
+
+            warm_ring_audit()
         if self.persistent_cache:
             # The warm-geometry ledger primes from (and persists to) the
             # run dir, so warm-vs-cold attribution survives the process. A

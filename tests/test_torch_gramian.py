@@ -53,6 +53,32 @@ def test_unpack_counts_mode_and_its_checks():
         port.unpack_rows_t(torch.from_numpy(counts), 13)
 
 
+@pytest.mark.parametrize("n_pad,sites,columns,rows", [(128, 128, 13, 5), (640, 256, 626, 200),
+                                                      (256, 384, 256, 384), (128, 128, 0, 7)])
+def test_transpose_rows_t_is_the_unpacked_wire(n_pad, sites, columns, rows):
+    """The unpacked ring wire's rows of an Xᵀ's first columns: the
+    transposed bytes as they are, which ``unpack_rows_t`` with ``counts``
+    turns back into the Xᵀ."""
+    rng = np.random.default_rng(n_pad + sites + columns)
+    xt = rng.integers(0, 3, (n_pad, sites)).astype(np.int8)
+    got = port.transpose_rows_t(torch.from_numpy(xt), columns, rows)
+    assert got.dtype == torch.uint8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), xt[:columns, :rows].T.astype(np.uint8))
+    back = port.unpack_rows_t(got, columns, counts=True)
+    np.testing.assert_array_equal(back[:columns, :rows].numpy(), xt[:columns, :rows])
+    assert torch.equal(got, port.transpose_rows_t_plain(torch.from_numpy(xt), columns, rows))
+
+
+def test_transpose_rows_t_refusals():
+    xt = torch.zeros((128, 128), dtype=torch.int8)
+    with pytest.raises(ValueError, match="at most the columns"):
+        port.transpose_rows_t(xt, 129, 8)
+    with pytest.raises(ValueError, match="at most the columns"):
+        port.transpose_rows_t(xt, 8, 129)
+    with pytest.raises(TypeError, match="int8"):
+        port.transpose_rows_t(xt.to(torch.uint8), 8, 8)
+
+
 def test_dense_updates_match_reference_kernels():
     """``dense_update`` / ``dense_update_counts`` add what the reference's
     ``_dense_update`` / ``_dense_update_counts`` add, onto a nonzero G."""

@@ -69,6 +69,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.check.cli",
     "spark_examples_tpu_torch.check.corpus",
     "spark_examples_tpu_torch.check.hostmem",
+    "spark_examples_tpu_torch.check.ir",
     "spark_examples_tpu_torch.check.linter",
     "spark_examples_tpu_torch.check.lockgraph",
     "spark_examples_tpu_torch.check.plan",
@@ -90,6 +91,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.obs.metrics",
     "spark_examples_tpu_torch.obs.recorder",
     "spark_examples_tpu_torch.obs.report",
+    "spark_examples_tpu_torch.obs.schedule",
     "spark_examples_tpu_torch.obs.trace",
     "spark_examples_tpu_torch.ops.contracts",
     "spark_examples_tpu_torch.ops.depth",

@@ -716,6 +716,31 @@ def test_pack_rows_t_equals_plain_and_packbits_on_the_card(n_pad, sites, columns
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,sites,columns,rows", [(640, 1024, 626, 1024), (640, 16384, 626, 16384),
+                                                      (128, 128, 13, 5), (6272, 1152, 6250, 1101),
+                                                      (640, 384, 632, 257), (128, 256, 128, 200)])
+def test_transpose_rows_t_equals_plain_on_the_card(n_pad, sites, columns, rows):
+    """The unpacked wire's rows of an Xᵀ (ragged columns and sites), against
+    the plain version and numpy; the counts unpack gives the columns back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from spark_examples_tpu_torch.ops import gramian
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(sites + columns)
+    xt = torch.from_numpy(rng.integers(0, 3, (n_pad, sites)).astype(np.int8)).to(dev)
+    gramian.reset_launch_counts()
+    got = gramian.transpose_rows_t(xt, columns, rows)
+    assert torch.equal(got, gramian.transpose_rows_t_plain(xt, columns, rows))
+    assert np.array_equal(got.cpu().numpy(), xt[:columns, :rows].cpu().numpy().T.view(np.uint8))
+    assert gramian.transpose_rows_t.launches == 1
+    back = gramian.unpack_rows_t(got, columns, counts=True)
+    assert torch.equal(back[:columns, :rows], xt[:columns, :rows])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pack,schedule,shape", [("on", "flat", (1, 4)), ("off", "flat", (1, 4)),
                                                  ("on", "hier", (1, 4)), ("on", "flat", (2, 2))])
 def test_ring_of_four_positions_on_one_card_equals_the_dense_gramian(pack, schedule, shape, monkeypatch):

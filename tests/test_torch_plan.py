@@ -28,12 +28,13 @@ PKGS = sorted(PACKAGES)
 
 #: Geometry keys whose reference value is read off its traced jaxpr. The
 #: port has no jaxpr: it gives the peak bytes of its own ring buffers
-#: (``ops/gramian.py:sharded_peak_bytes``), and no jaxpr ring bytes (its
-#: ``ring_bytes_per_flush`` is the formula the card's ring counter is held
-#: to, which the reference reports too).
+#: (``ops/gramian.py:sharded_peak_bytes``), and the bytes of its recorded
+#: ring schedule (``check/ir.py``) on a sharded plan only — the reference
+#: audits a ring on any samples axis, the port only where one runs.
 JAXPR_ONLY = {
     "ring_peak_live_bytes_per_device": "the reference's jaxpr liveness; the port's ring buffers",
-    "ring_bytes_per_flush_jaxpr": "the reference's jaxpr ppermute bytes; absent in the port",
+    "ring_bytes_per_flush_jaxpr": "the reference's jaxpr ppermute bytes; the port's recorded "
+                                  "schedule's, on a sharded plan",
 }
 
 
@@ -206,15 +207,35 @@ def test_matrix_covers_every_kind():
 
 def test_plan_geometry_names_the_port_buffers(tmp_path):
     """The port's own values of the jaxpr-only keys: its ring buffers'
-    peak, and no jaxpr ring bytes."""
+    peak, and the recorded ring schedule's bytes, which equal the
+    formula's."""
     from spark_examples_tpu_torch.ops.gramian import sharded_peak_bytes
 
     rc, report, _ = _plan_cli("port", _argv("sharded-1x4-device", tmp_path))
     geometry = report["geometry"]
-    assert rc == 0 and "ring_bytes_per_flush_jaxpr" not in geometry
+    assert rc == 0 and geometry["ring_bytes_per_flush_jaxpr"] == geometry["ring_bytes_per_flush"]
     assert geometry["ring_peak_live_bytes_per_device"] == sharded_peak_bytes(
         geometry["ring_local_columns"], 4 * geometry["ring_local_columns"], 16384, True)
     assert geometry["ring_permute_steps"] == 3
+    assert any(line.startswith("ring schedule audit over a 1x4 mesh: 3 independent shift(s)")
+               for line in report["shape_checks"])
+
+
+def _ring_that_never_runs(*args, **kwargs):
+    """A ``ring_pass`` that issues nothing: no shift, no product."""
+
+
+@pytest.mark.parametrize("name", ["sharded-4x2", "sharded-unpacked", "grm-sharded"])
+def test_a_failing_ring_audit_rejects_the_plan(name, tmp_path, monkeypatch):
+    from spark_examples_tpu_torch.ops import gramian
+
+    assert _plan_cli("port", _argv(name, tmp_path))[0] == 0
+    monkeypatch.setattr(gramian, "ring_pass", _ring_that_never_runs)
+    rc, report, _ = _plan_cli("port", _argv(name, tmp_path))
+    codes = {issue["code"] for issue in report["issues"] if issue["severity"] == "error"}
+    assert rc == 2 and not report["ok"]
+    assert codes == {"ir-GI002", "ir-GI006"}
+    assert report["geometry"]["ring_permute_steps"] == 0
 
 
 class _DeviceWatch(torch.overrides.TorchFunctionMode):
@@ -281,8 +302,10 @@ PORTED_SUBCOMMAND_RUNS = {
                                  "proto", "sanitize", "typecheck"])
 def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_path,
                                                               monkeypatch):
-    """The three subcommands still refused exit 2 naming their ROADMAP step;
-    each ported one runs and exits as the reference's does."""
+    """The two subcommands still refused exit 2 naming their ROADMAP step;
+    each ported one runs and exits as the reference's does. ``ir`` is held
+    to the reference's grammar errors, and its verdicts to the port's own
+    mutant (the reference's audit does not run under this image's JAX)."""
     from spark_examples_tpu.check import typecheck as ref_typecheck
     from spark_examples_tpu.check.cli import main as ref_main
     from spark_examples_tpu.utils import native as ref_native
@@ -290,6 +313,16 @@ def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_p
     from spark_examples_tpu_torch.cli import main
     from spark_examples_tpu_torch.utils import native as port_native
 
+    if sub == "ir":
+        from spark_examples_tpu_torch.ops import gramian
+
+        assert main(["graftcheck", "ir"]) == 0
+        assert main(["graftcheck", "ir", "--mesh", "0,2"]) == ref_main(["ir", "--mesh", "0,2"]) == 2
+        monkeypatch.setattr(gramian, "ring_pass", _ring_that_never_runs)
+        assert main(["graftcheck", "ir", "--mesh", "1,4"]) == 1
+        captured = capsys.readouterr()
+        assert "not yet ported" not in captured.err and "GI006" in captured.out
+        return
     if sub not in PORTED_SUBCOMMAND_RUNS:
         assert main(["graftcheck", sub]) == 2
         err = capsys.readouterr().err
