@@ -1729,6 +1729,17 @@ def phase_trace(torch, kernels):
                 f"{json.dumps({k: geometry[k] for k in keys if k in geometry})}")
             if rc != (0 if report["ok"] else 2):
                 raise AssertionError(f"plan {name}: rc {rc} for ok {report['ok']}")
+    # The plan takes --check-ranges and proves the configured kernels' ranges.
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["graftcheck", "plan", *bench_plan_argv("large-cohort-sharded"),
+                       "--check-ranges"])
+    audit_line = next((line.strip() for line in printed.getvalue().splitlines()
+                       if "range audit (" in line), None)
+    if rc != 0 or audit_line is None:
+        raise AssertionError(f"plan large-cohort-sharded --check-ranges: rc {rc}, "
+                             f"{printed.getvalue()[-2000:]}")
+    log(f"plan large-cohort-sharded --check-ranges: rc 0, {audit_line}")
 
     # The cost model: the measured rates, then chr17's prediction.
     proc = subprocess.run(
@@ -2514,8 +2525,11 @@ def phase_ring_schedule(torch):
     shape — with 3 shifts a position, the shifted bytes equal to the
     ``gramian_ring_bytes`` increment and to ``ring_traffic_bytes``, the
     audit clean, and each block's row tiles equal to the block's Gramian
-    (a float32 product on the card, exact below 2^24)."""
-    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec, trace_kernel
+    (a float32 product on the card, exact below 2^24). ``graftcheck
+    ranges`` over the card's recorded block must prove one partial an
+    entry (``BLOCK``), as over the meta audit's."""
+    from spark_examples_tpu_torch.check.ir import Trace, audit_kernel, ring_kernel_spec, trace_kernel
+    from spark_examples_tpu_torch.check.ranges import audit_range_kernel, ring_range_spec
     from spark_examples_tpu_torch.obs import schedule
     from spark_examples_tpu_torch.obs.metrics import GRAMIAN_RING_BYTES, MetricsRegistry
     from spark_examples_tpu_torch.ops.gramian import ShardedGramianAccumulator, sharded_peak_bytes
@@ -2544,9 +2558,10 @@ def phase_ring_schedule(torch):
         got = torch.cat([t.to(dev) for t in tiles])[:N_SAMPLES, :N_SAMPLES]
         if not torch.equal(got, want):
             raise AssertionError(f"ring schedule: the {label} block's Gramian != XᵀX")
-        results[label] = (sched, registry.value(GRAMIAN_RING_BYTES))
+        keys = {schedule.storage_key(t)[0] for row in acc.layout.G_local for t in row}
+        results[label] = (sched, registry.value(GRAMIAN_RING_BYTES), keys)
         del acc, tiles, got
-    sched, counted = results["recorded"]
+    sched, counted, keys = results["recorded"]
     spec = ring_kernel_spec(1, 4, N_SAMPLES, BLOCK, True, device="meta")
     t0 = time.perf_counter()
     meta = trace_kernel(spec)
@@ -2568,6 +2583,14 @@ def phase_ring_schedule(torch):
         raise AssertionError(f"ring schedule: {calls} shifts, {recorded} bytes recorded, "
                              f"{counted} counted, formula {formula}; audit "
                              f"{[f.format() for f in audit.findings]}")
+    card = Trace(list(sched.ops), [], keys, set(), set(), [])
+    proved = {name: audit_range_kernel(ring_range_spec(1, 4, N_SAMPLES, BLOCK, True, True),
+                                       traced=trace)
+              for name, trace in (("card", card), ("meta", meta))}
+    increments = {name: a.facts.get("entry_increment") for name, a in proved.items()}
+    if any(not a.ok for a in proved.values()) or set(increments.values()) != {BLOCK}:
+        raise AssertionError(f"ring schedule: the range audit proves {increments}: "
+                             f"{[f.format() for a in proved.values() for f in a.findings]}")
     roles = {}
     for op in sched.ops:
         roles[op.role] = roles.get(op.role, 0) + 1
@@ -2578,8 +2601,71 @@ def phase_ring_schedule(torch):
         f"{walls['unrecorded']:.4f} s unrecorded after it ({walls['first']:.4f} s the "
         f"first block, unrecorded); the meta audit {audit_wall:.3f} s, peak live "
         f"{audit.facts['peak_live_bytes']} B a position against sharded_peak_bytes "
-        f"{sharded_peak_bytes(spec.n_local, 4 * spec.n_local, BLOCK, True)} B; Gramian == XᵀX "
-        f"({card_line()})")
+        f"{sharded_peak_bytes(spec.n_local, 4 * spec.n_local, BLOCK, True)} B; Gramian == XᵀX; "
+        f"graftcheck ranges over the card's block and the meta audit's: entry increment "
+        f"{increments['card']:g} == {increments['meta']:g} ({card_line()})")
+
+
+#: ``--check-ranges`` on the host-fed arms, each run with and without the
+#: flag: (label, argv, positions of cuda:0 or ``None`` for the CLI's one
+#: device).
+CHECK_RANGES_RUNS = (
+    ("packed", PACKED_ARGV, None),
+    ("packed ring 1,4", PACKED_ARGV + MESH_FLAGS, 4),
+)
+
+
+def phase_check_ranges(torch, kernels):
+    """``--check-ranges`` on the packed cell and the host-fed packed ring at
+    1,4 (positions of cuda:0), each without and with the flag, every
+    launch count set to zero before each run: the Gramians must be
+    byte-equal; with the flag the manifest's ``gramian_exactness`` must
+    hold ``entry_max`` = the Gramian's largest entry ≤
+    ``static_entry_bound`` and its ``conformance.ranges`` pair must be ok,
+    without it the block is null. Logs the two walls (the flag's cost: one
+    device read a flush) and the products' launches."""
+    from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.obs.manifest import read_manifest, validate_manifest
+    from spark_examples_tpu_torch.pipeline.pca_driver import run_pipeline
+
+    dev = torch.device("cuda", 0)
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    for label, argv, positions in CHECK_RANGES_RUNS:
+        walls, grams, launches, blocks = {}, {}, {}, {}
+        for flag in ("", "--check-ranges"):
+            path = DATA_DIR / f"manifest_check_ranges{flag.replace('-', '_')}.json"
+            conf = PcaConf.parse(argv + ([flag] if flag else []) + ["--metrics-json", str(path)])
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = run_pipeline(conf, devices=[dev] * positions if positions else None)
+            torch.cuda.synchronize()
+            walls[flag] = time.perf_counter() - t0
+            launches[flag] = {k.__name__: k.launches for k in kernels if k.launches}
+            acc = result.driver.accumulator
+            grams[flag] = (torch.cat(list(acc.layout.finalize_tiles().tiles))
+                           if positions else acc.G.clone())
+            doc = read_manifest(str(path))
+            if validate_manifest(doc):
+                raise AssertionError(f"check-ranges {label}: {validate_manifest(doc)}")
+            blocks[flag] = (doc["gramian_exactness"], (doc["conformance"] or {}).get("ranges"))
+            del result, acc
+        exactness, pair = blocks["--check-ranges"]
+        top = int(grams[""].max())
+        if not torch.equal(grams[""], grams["--check-ranges"]):
+            raise AssertionError(f"check-ranges {label}: the Gramian differs with the flag")
+        if (blocks[""] != (None, None) or exactness is None
+                or not exactness["entry_max"] == top <= exactness["static_entry_bound"]
+                or pair is None or pair["ok"] is not True):
+            raise AssertionError(f"check-ranges {label}: {blocks} (largest entry {top})")
+        products = {k: v for k, v in launches["--check-ranges"].items()
+                    if k in ("gram_accumulate", "cross_accumulate", "unpack_rows_t")}
+        log(f"check-ranges {label}: Gramian byte-equal with and without the flag; "
+            f"gramian_exactness {json.dumps(exactness)}, conformance.ranges {json.dumps(pair)}; "
+            f"wall {walls['--check-ranges']:.4f} s with the flag, {walls['']:.4f} s without "
+            f"({walls['--check-ranges'] - walls['']:+.4f} s); launches {json.dumps(products)} "
+            f"(without: {json.dumps(launches[''])}) ({card_line()})")
 
 
 def phase_large_cohort(torch, kernels):
@@ -3255,9 +3341,9 @@ def check_fleet_report(run_dir, traces, done, label, env):
 
 
 #: The checkers phase: each ``graftcheck`` subcommand the port runs over
-#: its own tree, as a process that must exit 0.
+#: its own tree, as a process that must exit 0 (``lint`` runs as ``lint
+#: --json``, which checks more: its files and findings).
 CHECKERS = (
-    ("lint",),
     ("hostmem",),
     ("lockgraph",),
     ("proto", "--replicas", "2", "--jobs", "1", "--crashes", "1", "--stalls", "1"),
@@ -3269,18 +3355,36 @@ CHECKERS = (
 SANITIZER_MODES = ("asan", "ubsan", "tsan")
 
 
-def run_checker(argv, env):
-    """One ``graftcheck`` subcommand as a process that must exit 0; returns
-    its standard output and wall."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+def start_checker(argv, env):
+    """One ``graftcheck`` subcommand started as a process; :func:`finish_checker`
+    waits for it."""
+    proc = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch", "graftcheck", *argv],
-        capture_output=True, text=True, env=env, timeout=300)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    return proc, argv, time.perf_counter()
+
+
+def finish_checker(started):
+    """The process of :func:`start_checker`, which must exit 0 within 300 s
+    of its start; returns its standard output and wall."""
+    proc, argv, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"graftcheck {' '.join(argv)} exited {proc.returncode}: "
-                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-    return proc.stdout, wall
+                             f"{out[-2000:]} {err[-2000:]}")
+    return out, wall
+
+
+def run_checker(argv, env):
+    """One ``graftcheck`` subcommand as a process that must exit 0; returns
+    its standard output and wall."""
+    return finish_checker(start_checker(argv, env))
 
 
 def sanitize_first_walls():
@@ -3338,27 +3442,41 @@ def check_sanitize_lines(out, wall, verdicts):
 
 
 def phase_checkers():
-    """``graftcheck lint``, ``hostmem``, ``lockgraph``, ``proto``,
-    ``typecheck`` and ``sanitize`` over the port's tree, each a process
-    that must exit 0 (``typecheck`` skips there: the card's machine has no
-    ``mypy``); logs each one's wall and last line, and each sanitizer
-    mode's line, which must read OK over the 40 corpus documents (or SKIP
-    where the machine's compiler has no runtime for the mode), beside the
-    mode's uncached build and replay walls. Then ``ir --json``, which must
-    audit its default matrix's 18 kernels with no finding, and ``lint
+    """``graftcheck hostmem``, ``lockgraph``, ``proto``, ``typecheck`` and
+    ``sanitize`` over the port's tree, each a process that must exit 0
+    (``typecheck`` skips there: the card's machine has no ``mypy``); logs
+    each one's wall and last line, and each sanitizer mode's line, which
+    must read OK over the 40 corpus documents (or SKIP where the machine's
+    compiler has no runtime for the mode), beside the mode's uncached
+    build and replay walls. ``ranges --json`` runs beside them from the
+    phase's start (its wall is a concurrent one) and must prove its
+    default matrix's 24 kernels with no finding. Then ``ir --json``, which
+    must audit its default matrix's 18 kernels with no finding, and ``lint
     --json``, whose report must name no finding over every ``.py`` file of
     the package (the linter under this machine's own ``ast``)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    verdicts = sanitize_first_walls()
-    for argv in CHECKERS:
-        out, wall = run_checker(argv, env)
-        if argv == ("sanitize",):
-            check_sanitize_lines(out, wall, verdicts)
-            continue
-        last = (out.strip().splitlines() or [""])[-1]
-        log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
-            f"{last} ({card_line()})")
+    ranges = start_checker(("ranges", "--json"), env)
+    try:
+        verdicts = sanitize_first_walls()
+        for argv in CHECKERS:
+            out, wall = run_checker(argv, env)
+            if argv == ("sanitize",):
+                check_sanitize_lines(out, wall, verdicts)
+                continue
+            last = (out.strip().splitlines() or [""])[-1]
+            log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
+                f"{last} ({card_line()})")
+    finally:
+        out, wall = finish_checker(ranges)
+    report = json.loads(out)
+    if (report["tool"], report["ok"], report["kernel_count"], report["finding_count"]) != (
+            "graftcheck-ranges", True, 24, 0):
+        raise AssertionError(f"graftcheck ranges --json: {out[-2000:]}")
+    increments = {k["kernel"]: k["facts"]["entry_increment"] for k in report["kernels"]}
+    log(f"checkers: graftcheck ranges --json: exit 0 in {wall:.3f} s as a process (beside the "
+        f"other checkers); {report['kernel_count']} kernels, {report['finding_count']} "
+        f"findings, entry increments {json.dumps(increments)} ({card_line()})")
     out, wall = run_checker(("ir", "--json"), env)
     report = json.loads(out)
     if (report["tool"], report["ok"], report["kernel_count"], report["finding_count"]) != (
@@ -3467,6 +3585,8 @@ def main() -> int:
     del chr17_g, packed_g_dev
     torch.cuda.empty_cache()
     phase_ring_schedule(torch)
+    torch.cuda.empty_cache()
+    phase_check_ranges(torch, path_kernels)
     torch.cuda.empty_cache()
     phase_multiprocess()
     phase_large_cohort(torch, path_kernels)

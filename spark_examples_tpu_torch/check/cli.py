@@ -10,6 +10,10 @@ codes propagate:
                   [--num-samples N] [--block-size B]
                                               0 clean / 1 findings /
                                               2 grammar error
+    graftcheck ranges [--json] [--mesh D,S]... [--topology H,D]...
+                  [--num-samples N] [--block-size B]
+                                              0 clean / 1 findings /
+                                              2 grammar error
     graftcheck lockgraph [PATH...] [--json] [--dot FILE]
                                               0 acyclic+clean / 1 findings
     graftcheck hostmem [PATH...] [--json]     0 clean / 1 findings
@@ -35,11 +39,12 @@ default, wherever they are run from (a missing path exits 2);
 compiler: SKIP, exit 0; ``--strict``: 2);
 ``typecheck`` skips with exit 0 where ``mypy`` is not installed;
 ``ir`` records the Gramian updates' schedule on CPU positions
-(``check/ir.py``) and touches no card.
+(``check/ir.py``) and ``ranges`` proves their range and exactness
+contracts over it (``check/ranges.py``); neither touches a card.
 ``--device-memory-bytes`` is the HBM budget of the plan's memory rules
 (default the reference's device-free 16 GiB; an H100's is
-``torch.cuda.mem_get_info()[1]``). The reference's other subcommands
-(``ranges``, ``sched``) exit 2 naming the ROADMAP step that brings them.
+``torch.cuda.mem_get_info()[1]``). The reference's other subcommand
+(``sched``) exits 2 naming the ROADMAP step that brings it.
 """
 
 from __future__ import annotations
@@ -52,8 +57,7 @@ from typing import Optional, Sequence
 #: The reference's subcommands the port does not run yet, each with the
 #: ROADMAP.md §1 step that brings it.
 NOT_PORTED = {
-    "ranges": "3b",
-    "sched": "3c",
+    "sched": "2",
 }
 
 
@@ -96,8 +100,8 @@ def _cmd_lint(argv: Sequence[str]) -> int:
 
 def _parse_audit_args(prog: str, argv: Sequence[str]):
     """The shared ``--json/--mesh/--topology/--num-samples/--block-size``
-    surface of the kernel-audit subcommands (``ir``, and ``ranges`` and
-    ``sched`` when they come) — ONE parser, ONE mesh-pair validation, and
+    surface of the kernel-audit subcommands (``ir``, ``ranges``, and
+    ``sched`` when it comes) — ONE parser, ONE mesh-pair validation, and
     ONE ``--topology hosts,devices_per_host`` spelling, with the
     reference's messages. Returns ``(ns, meshes, topologies)`` or ``None``
     after printing the grammar error."""
@@ -124,8 +128,8 @@ def _parse_audit_args(prog: str, argv: Sequence[str]):
         help=(
             "Declared topology (hosts,devices_per_host — repeatable, e.g. "
             "--topology 2,4) to audit the two-level ring on; the topology "
-            "never has to exist. ir appends the two-level kernels per "
-            "topology."
+            "never has to exist. ir and ranges append the two-level "
+            "kernels per topology."
         ),
     )
     parser.add_argument(
@@ -182,6 +186,24 @@ def _cmd_ir(argv: Sequence[str]) -> int:
     specs = default_specs(
         num_samples=ns.num_samples,
         ragged_samples=ns.num_samples + 36,
+        block_size=ns.block_size,
+        **({"meshes": meshes} if meshes is not None else {}),
+        **({"topologies": topologies} if topologies is not None else {}),
+    )
+    report = run_audit(specs)
+    print(report.to_json() if ns.json else report.format())
+    return 0 if report.ok else 1
+
+
+def _cmd_ranges(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.ranges import default_specs, run_audit
+
+    parsed = _parse_audit_args("graftcheck ranges", argv)
+    if parsed is None:
+        return 2
+    ns, meshes, topologies = parsed
+    specs = default_specs(
+        num_samples=ns.num_samples,
         block_size=ns.block_size,
         **({"meshes": meshes} if meshes is not None else {}),
         **({"topologies": topologies} if topologies is not None else {}),
@@ -470,6 +492,7 @@ def _cmd_typecheck(argv: Sequence[str]) -> int:
 _SUBCOMMANDS = {
     "lint": _cmd_lint,
     "ir": _cmd_ir,
+    "ranges": _cmd_ranges,
     "lockgraph": _cmd_lockgraph,
     "hostmem": _cmd_hostmem,
     "plan": _cmd_plan,

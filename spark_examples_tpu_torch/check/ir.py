@@ -183,29 +183,34 @@ class Trace:
     packed: Set[int]
     outputs: List[Tuple[Tuple[int, ...], str]]
 
-    def timeline(self) -> Iterator[Tuple[Optional[int], List[Tuple[int, int]],
-                                         List[Tuple[int, int]]]]:
-        """The host program in issue order: each recorded op (a kernel is
-        one opaque step, as on the card) and each operation dispatched
-        outside a kernel, as ``(position, reads, results)`` of
-        ``(storage, bytes)``; an op's in-place writes count as reads."""
+    def steps(self) -> Iterator[object]:
+        """The host program in issue order: each recorded :class:`Op` (a
+        kernel is one opaque step, as on the card) and each :class:`Event`
+        dispatched outside a kernel."""
         ops = iter(self.ops)
         pending = next(ops, None)
-
-        def op_entry(op: Op):
-            reads = [(t.storage, t.storage_nbytes) for t in (*op.reads, *op.writes)]
-            return op.position, reads, [(t.storage, t.storage_nbytes) for t in op.results]
-
         for event in self.events:
             while pending is not None and pending.events_before <= event.index:
-                yield op_entry(pending)
+                yield pending
                 pending = next(ops, None)
             if not event.inside:
-                yield (event.position, [(s.storage, s.storage_nbytes) for s in event.reads],
-                       [(s.storage, s.storage_nbytes) for s in event.results])
+                yield event
         while pending is not None:
-            yield op_entry(pending)
+            yield pending
             pending = next(ops, None)
+
+    def timeline(self) -> Iterator[Tuple[Optional[int], List[Tuple[int, int]],
+                                         List[Tuple[int, int]]]]:
+        """:meth:`steps` as ``(position, reads, results)`` of ``(storage,
+        bytes)``; an op's in-place writes count as reads."""
+        for step in self.steps():
+            if isinstance(step, Op):
+                reads = [(t.storage, t.storage_nbytes) for t in (*step.reads, *step.writes)]
+                yield (step.position, reads,
+                       [(t.storage, t.storage_nbytes) for t in step.results])
+            else:
+                yield (step.position, [(s.storage, s.storage_nbytes) for s in step.reads],
+                       [(s.storage, s.storage_nbytes) for s in step.results])
 
 
 def record_update(update: Update, watch: bool = True) -> Trace:
@@ -664,15 +669,26 @@ def _tiles_output(layout) -> Callable[[], List[Tuple[Tuple[int, ...], torch.dtyp
     return outputs
 
 
-def dense_kernel_spec(data: int, num_samples: int, block_size: int) -> KernelSpec:
+def _operand(shape: Tuple[int, ...], device: str, values: Callable[[], np.ndarray]) -> torch.Tensor:
+    """A uint8 operand: ``values()`` on the CPU, or a ``meta`` tensor of
+    ``shape``."""
+    if device == "meta":
+        return torch.empty(shape, dtype=torch.uint8, device="meta")
+    return torch.from_numpy(values())
+
+
+def dense_kernel_spec(data: int, num_samples: int, block_size: int,
+                      device: str = "cpu") -> KernelSpec:
     """The dense packed update, ``ops/gramian.py:dense_update`` on each data
-    slice's ``(N, N)`` int32 Gramian — host blocks arrive bit-packed."""
+    slice's ``(N, N)`` int32 Gramian — host blocks arrive bit-packed — on
+    ``device`` (``cpu``, or ``meta`` at a plan's geometry)."""
 
     def build() -> Update:
         from spark_examples_tpu_torch.ops.gramian import dense_update
 
-        G = torch.zeros((data, num_samples, num_samples), dtype=torch.int32)
-        X = torch.from_numpy(np.packbits(_bits((data, block_size, num_samples)), axis=-1))
+        G = torch.zeros((data, num_samples, num_samples), dtype=torch.int32, device=device)
+        X = _operand((data, block_size, -(-num_samples // 8)), device,
+                     lambda: np.packbits(_bits((data, block_size, num_samples)), axis=-1))
 
         def run():
             for d in range(data):
@@ -715,20 +731,26 @@ def stacked_kernel_spec(jobs: int, num_samples: int, block_size: int) -> KernelS
     )
 
 
-def counts_kernel_spec(data: int, num_samples: int, block_size: int) -> KernelSpec:
+#: The largest count of the audit's count-valued rows (twice a bit).
+_COUNTS_MAX = 2
+
+
+def counts_kernel_spec(data: int, num_samples: int, block_size: int,
+                       device: str = "cpu") -> KernelSpec:
     """The count-valued (same-set-join) dense update, ``ops/gramian.py:
     dense_update_counts`` — unpacked by necessity, audited for the
-    accumulator contract and dtype hygiene."""
+    accumulator contract and dtype hygiene — on ``device``."""
 
     def build() -> Update:
         from spark_examples_tpu_torch.ops.gramian import dense_update_counts
 
-        G = torch.zeros((data, num_samples, num_samples), dtype=torch.int32)
-        X = torch.from_numpy(2 * _bits((data, block_size, num_samples)))
+        G = torch.zeros((data, num_samples, num_samples), dtype=torch.int32, device=device)
+        X = _operand((data, block_size, num_samples), device,
+                     lambda: _COUNTS_MAX * _bits((data, block_size, num_samples)))
 
         def run():
             for d in range(data):
-                dense_update_counts(G[d], X[d], max_count=2)
+                dense_update_counts(G[d], X[d], max_count=_COUNTS_MAX)
 
         return Update(run, (G,))
 
@@ -741,11 +763,12 @@ def counts_kernel_spec(data: int, num_samples: int, block_size: int) -> KernelSp
 
 
 def _ring_build(data: int, hosts: int, per_host: int, num_samples: int, block_size: int,
-                pack: bool, device: str) -> Callable[[], Update]:
+                pack: bool, device: str, counts: bool = False) -> Callable[[], Update]:
     """One flush of the host-fed ring (``ops/gramian.py:RingLayout.flush``,
     which ``ShardedGramianAccumulator`` runs) over ``data × hosts·per_host``
     positions on ``device``: seeded shards cut by ``ring_shards`` on the
-    CPU, or ``meta`` shards of their shapes."""
+    CPU, or ``meta`` shards of their shapes. ``counts`` ships count-valued
+    rows on the unpacked wire (a same-set join's flush)."""
 
     def build() -> Update:
         from spark_examples_tpu_torch.ops.gramian import RingLayout, ring_shards
@@ -760,9 +783,11 @@ def _ring_build(data: int, hosts: int, per_host: int, num_samples: int, block_si
         else:
             rows = np.zeros((data * block_size, layout.padded), dtype=np.uint8)
             rows[:, :num_samples] = _bits((data * block_size, num_samples))
+            if counts:
+                rows *= _COUNTS_MAX
             shards = ring_shards(layout, rows, block_size, pack)
         return Update(
-            lambda: layout.flush(shards, pack, max_count=1),
+            lambda: layout.flush(shards, pack, max_count=_COUNTS_MAX if counts else 1),
             [t for tiles in layout.G_local for t in tiles],
             [t for ring in shards for t in ring] if pack else (),
             _tiles_output(layout),
@@ -796,14 +821,17 @@ def ring_kernel_spec(
     block_size: int,
     pack: bool,
     device: str = "cpu",
+    counts: bool = False,
 ) -> KernelSpec:
     """The sharded ring-exchange update over a ``data x samples`` mesh of
     ``device`` positions — ``RingLayout.flush``, the flush the runtime's
-    ``ShardedGramianAccumulator`` runs (``ring_pass``, flat)."""
+    ``ShardedGramianAccumulator`` runs (``ring_pass``, flat). ``counts``
+    flushes count-valued rows, which ride the unpacked wire."""
+    pack = pack and not counts
     wire = "on" if pack else "off"
     return _ring_spec(
         f"ring[data={data},samples={samples},N={num_samples},B={block_size},pack={wire}]",
-        _ring_build(data, 1, samples, num_samples, block_size, pack, device),
+        _ring_build(data, 1, samples, num_samples, block_size, pack, device, counts),
         data, samples, num_samples, data * block_size, pack, 1,
         DonationSite(_module_file("gramian"), "ring_pass", "ops/gramian.py"),
     )

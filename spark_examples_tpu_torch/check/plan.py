@@ -23,8 +23,11 @@ the same validator on every request:
   positions at the configured geometry, its findings plan rejections
   (``ir-GIxxx``), its recorded bytes beside ``parallel/mesh.py:
   ring_traffic_bytes`` (the formula the ring's byte counter is held to on
-  the card); its peak bytes are those of the port's ring buffers, and
-  exactness is closed-form arithmetic over ``ops/contracts.py``.
+  the card); its peak bytes are those of the port's ring buffers;
+- exactness is proven by ``graftcheck ranges`` (``check/ranges.py``) over
+  the schedules the dense and ring checks record (the configured kernels,
+  as the reference audits them): its findings are plan rejections
+  (``ranges-GRxxx``).
 
 The HBM budget is a parameter (``device_bytes``, the plan CLI's
 ``--device-memory-bytes``); its default is the reference's device-free
@@ -324,26 +327,28 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _eval_dense_update(report: PlanReport, data: int, conf: PcaConf) -> None:
-    """Run the dense update's plain versions on ``meta`` tensors: ingest
-    block (B, ceil(N/8)) uint8 → int8 Xᵀ → G (N, N) int32 a data slice,
-    and the count-valued block (B, N) uint8 of a same-set join; then the
-    data axis's sum. The wrappers (``unpack_rows_t``, ``gram_accumulate``)
-    take the same shapes and launch the kernels on the card."""
-    from spark_examples_tpu_torch.ops.devicegen import gram_accumulate_plain
-    from spark_examples_tpu_torch.ops.gramian import (
-        data_axis_sum,
-        unpack_rows_t_plain,
+def _eval_dense_update(report: PlanReport, data: int, conf: PcaConf):
+    """Record the dense update of one data slice on ``meta`` tensors
+    through the kernel wrappers (``check/ir.py``'s dense and counts
+    updates at this geometry, the schedule alone; every slice runs the
+    same update into its own partial): ingest block (B, ceil(N/8)) uint8
+    → int8 Xᵀ → G (N, N) int32, and the count-valued block (B, N) uint8
+    of a same-set join; then the data axis's sum. On the card the
+    wrappers (``unpack_rows_t``, ``gram_accumulate``) take the same
+    shapes. Returns the two recorded schedules, which the range audit
+    reads, or ``None`` after a failure."""
+    from spark_examples_tpu_torch.check.ir import (
+        counts_kernel_spec,
+        dense_kernel_spec,
+        trace_kernel,
     )
+    from spark_examples_tpu_torch.ops.gramian import data_axis_sum
 
     N = int(conf.num_samples)
     B = int(conf.block_size)
     try:
-        G = _meta((N, N), torch.int32)
-        xt = unpack_rows_t_plain(_meta((B, -(-N // 8)), torch.uint8), N)
-        gram_accumulate_plain(G, xt)
-        xt_c = unpack_rows_t_plain(_meta((B, N), torch.uint8), N, counts=True)
-        gram_accumulate_plain(G, xt_c)
+        traces = tuple(trace_kernel(spec(1, N, B, device="meta"), watch=False)
+                       for spec in (dense_kernel_spec, counts_kernel_spec))
         final = data_axis_sum([_meta((N, N), torch.int32) for _ in range(data)])
     except Exception as e:  # noqa: BLE001 — the evaluation failure is the finding
         report.error(
@@ -351,7 +356,9 @@ def _eval_dense_update(report: PlanReport, data: int, conf: PcaConf) -> None:
             f"dense Gramian update fails on ({B}, {N}) blocks: "
             f"{type(e).__name__}: {e}",
         )
-        return
+        return None
+    xt, xt_c = (next(op for op in trace.ops if op.role == "unpack").results[0]
+                for trace in traces)
     if xt.shape[0] < N or xt.shape[1] < B or xt_c.shape != xt.shape:
         report.error(
             "counts-update-shape",
@@ -373,6 +380,7 @@ def _eval_dense_update(report: PlanReport, data: int, conf: PcaConf) -> None:
             f"finalize sum over data axis: {data} x {(N, N)} -> "
             f"{tuple(final.shape)} {str(final.dtype).replace('torch.', '')}"
         )
+    return traces
 
 
 def _eval_stacked_update(
@@ -440,7 +448,9 @@ def _eval_sharded_update(
     sharded_peak_bytes``) and the HBM feasibility check against
     ``device_bytes``; then, under ``--similarity-strategy sharded``, the
     ring's audit (:func:`_audit_sharded_ring`: its shifts a flush and its
-    recorded bytes), else one ring step on ``meta`` tensors."""
+    recorded bytes), else one ring step on ``meta`` tensors. Returns the
+    sharded ring's recorded schedule (``None`` where none was recorded),
+    which the range audit reads."""
     from spark_examples_tpu_torch.ops.devicegen import (
         COL_TILE,
         cross_accumulate_plain,
@@ -513,11 +523,11 @@ def _eval_sharded_update(
         )
 
     if conf.similarity_strategy == "sharded":
-        _audit_sharded_ring(report, data, samples, N, B, pack, padded)
+        trace = _audit_sharded_ring(report, data, samples, N, B, pack, padded)
         report.geometry["ring_peak_live_bytes_per_device"] = sharded_peak_bytes(
             n_local, padded, B, pack
         )
-        return
+        return trace
     # No ring runs on a dense strategy's samples axis: one ring step of one
     # position, its row tile's owner columns taking Xᵀ_mine · X_owner
     # (``ops/gramian.py:ring_pass``), the received tile unpacked first.
@@ -536,7 +546,7 @@ def _eval_sharded_update(
             f"sharded ring step fails on a {data}x{samples} mesh: "
             f"{type(e).__name__}: {e}",
         )
-        return
+        return None
     n_pad = -(-n_local // COL_TILE) * COL_TILE
     if tuple(mine.shape[:1]) != (n_pad,) or tuple(G_tile.shape) != (n_local, padded):
         report.error(
@@ -544,7 +554,7 @@ def _eval_sharded_update(
             f"sharded update maps a ({B}, {width}) tile to Xᵀ "
             f"{tuple(mine.shape)} and G tile {tuple(G_tile.shape)}",
         )
-        return
+        return None
     wire = "bit-packed" if pack else "unpacked"
     report.shape_checks.append(
         f"sharded ring step over a {data}x{samples} mesh: ({B}, {width}) "
@@ -556,11 +566,12 @@ def _eval_sharded_update(
     report.geometry["ring_peak_live_bytes_per_device"] = sharded_peak_bytes(
         n_local, padded, B, pack
     )
+    return None
 
 
 def _audit_sharded_ring(
     report: PlanReport, data: int, samples: int, N: int, B: int, pack: bool, padded: int
-) -> None:
+):
     """The configured ring through ``graftcheck ir`` (``check/ir.py``):
     one flush of the runtime's ``RingLayout.flush`` recorded over
     ``data x samples`` positions of ``meta`` tensors at this geometry, the
@@ -571,18 +582,23 @@ def _audit_sharded_ring(
     ship without its contracts; the schedule's shift count and bytes land
     in the report (``ring_permute_steps``, ``ring_bytes_per_flush_jaxpr``:
     the reference's key, here the recorded schedule's bytes, which must
-    equal ``ring_bytes_per_flush``)."""
-    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec
+    equal ``ring_bytes_per_flush``). Returns the recorded schedule (the
+    range audit reads it: one recording an admission), or ``None`` when
+    the update did not run."""
+    from spark_examples_tpu_torch.check.ir import audit_kernel, ring_kernel_spec, trace_kernel
     from spark_examples_tpu_torch.parallel.mesh import RING_PACK_MULTIPLE
 
-    audit = audit_kernel(ring_kernel_spec(data, samples, N, B, pack, device="meta"), watch=False)
-    if "out_shapes" not in audit.facts:  # the update did not run (GI000)
+    spec = ring_kernel_spec(data, samples, N, B, pack, device="meta")
+    try:
+        trace = trace_kernel(spec, watch=False)
+    except Exception as e:  # noqa: BLE001 — any failure to run is the finding (GI000)
         report.error(
             "sharded-update-trace",
-            f"sharded ring update fails on a {data}x{samples} mesh: "
-            f"{audit.findings[0].detail}",
+            f"sharded ring update fails on a {data}x{samples} mesh: update failed to run "
+            f"under the schedule recorder: {type(e).__name__}: {e}",
         )
-        return
+        return None
+    audit = audit_kernel(spec, traced=trace)
     g_shape = (data, padded, padded)
     out_shape = tuple(audit.facts["out_shapes"][0])
     out_dtype = audit.facts["out_dtypes"][0]
@@ -608,6 +624,7 @@ def _audit_sharded_ring(
             f"{audit.facts['permute_executions']} independent shift(s), accumulator "
             "written in place, recorded ring bytes == ring_traffic_bytes"
         )
+    return trace
 
 
 def warm_ring_audit() -> None:
@@ -619,45 +636,73 @@ def warm_ring_audit() -> None:
     audit_kernel(ring_kernel_spec(1, 2, 64, 8, True, device="meta"), watch=False)
 
 
-def _check_exactness(report: PlanReport, data: int, conf: PcaConf) -> None:
-    """Range/exactness facts of the CONFIGURED kernels, in closed form from
-    ``ops/contracts.py``. Every product of the port takes int8 operands
-    (membership bits, or join counts up to ``COUNT_ROW.hi``) and
-    accumulates int32 from its first flush: a dispatch adds at most
-    ``flush_entry_increment(block_size, operand bound)`` to an entry, which
-    must stay in int32's exact window (GR001), and the accumulators'
-    runtime projection over ``data × block_size`` rows covers it.
-    ``gramian_entry_bound`` (the declared static site count × max_count²,
-    when the synthetic grid makes the site count statically known) past
-    int32's window rejects the plan; ``exactness_headroom_sites`` is the
-    largest site count provable exact on each dtype."""
+def _check_exactness(report: PlanReport, data: int, samples: int, conf: PcaConf,
+                     dense_traces=None, ring_trace=None) -> None:
+    """Range/exactness proof of the CONFIGURED kernels (``graftcheck
+    ranges``, ``check/ranges.py``, over exactly the geometry the run
+    would build), as the reference's plan audits them: the dense update,
+    and the count-valued one when set ids repeat; on a samples axis the
+    ring, and the count-valued (unpacked) ring when set ids repeat. The
+    audits read the schedules this plan already recorded
+    (``dense_traces`` of :func:`_eval_dense_update`, one data slice's,
+    ``ring_trace`` of
+    :func:`_audit_sharded_ring`; the count-valued ring shares the unpacked
+    ring's schedule), recording only what no check recorded. Each finding
+    is a ``ranges-GRxxx`` rejection. Then the geometry-level facts:
+    ``gramian_entry_bound`` (the declared static site count ×
+    max_count², when the synthetic grid makes the site count statically
+    known), which past int32's window rejects the plan, and
+    ``exactness_headroom_sites``, the largest site count provable exact on
+    each dtype."""
+    from spark_examples_tpu_torch.check.ranges import (
+        audit_range_kernel,
+        counts_range_spec,
+        dense_range_spec,
+        ring_range_spec,
+    )
     from spark_examples_tpu_torch.ops.contracts import (
-        COUNT_ROW,
         exact_int_window,
         exactness_headroom_sites,
         flush_entry_increment,
     )
+    from spark_examples_tpu_torch.ops.gramian import resolve_ring_pack
 
-    B = int(conf.block_size)
+    N, B = int(conf.num_samples), int(conf.block_size)
+    exact = bool(getattr(conf, "exact_similarity", False))
+    pack = resolve_ring_pack(getattr(conf, "ring_pack_bits", "auto"))
     ids = list(conf.variant_set_id)
     max_count = max((ids.count(i) for i in set(ids)), default=1)
-    int32_window = exact_int_window(np.int32) or 0
-    # Count-valued rows (duplicate set ids) are bounded by the declared
-    # join ceiling; membership bits by 1.
-    operand = COUNT_ROW.hi if max_count > 1 else 1
-    partial = flush_entry_increment(B, operand)
-    if partial > int32_window:
-        report.error(
-            "ranges-GR001",
-            f"per-dispatch partial can reach {partial} (contraction {B} x "
-            f"operand bound {operand}²), past int32's exact window "
-            f"({int32_window})",
-        )
-    else:
+    dense_trace, counts_trace = dense_traces or (None, None)
+
+    audits = []
+    if conf.similarity_strategy != "sharded":
+        audits.append(audit_range_kernel(dense_range_spec(data, N, B, device="meta"),
+                                         traced=dense_trace, watch=False))
+        if max_count > 1:
+            # Duplicate set ids take the count-valued (same-set-join) update.
+            audits.append(audit_range_kernel(counts_range_spec(data, N, B, device="meta"),
+                                             traced=counts_trace, watch=False))
+    if samples >= 2:
+        audits.append(audit_range_kernel(
+            ring_range_spec(data, samples, N, B, pack, exact, device="meta"),
+            traced=ring_trace, watch=False))
+        if max_count > 1:
+            # Count-valued flushes ride the unpacked ring whatever
+            # --ring-pack-bits says: prove that path under the count contract.
+            audits.append(audit_range_kernel(
+                ring_range_spec(data, samples, N, B, False, exact, counts=True, device="meta"),
+                traced=ring_trace if not pack else None, watch=False))
+    partial = 0.0
+    for audit in audits:
+        for finding in audit.findings:
+            report.error(f"ranges-{finding.rule_id}", finding.detail)
+        partial = max(partial, float(audit.facts.get("dot_partial_bound", 0)))
+    if audits and all(a.ok for a in audits):
+        increment = max(float(a.facts["entry_increment"]) for a in audits)
         report.shape_checks.append(
-            f"range bound: per-dispatch partial <= {partial} exact in "
-            f"int32, runtime projection {flush_entry_increment(data * B, operand)} "
-            "per flush conservative"
+            f"range audit ({len(audits)} kernel(s)): per-dispatch partial <= {partial:g} "
+            f"exact, entry increment <= {increment:g}/flush, flush projection proven "
+            "conservative (GR005)"
         )
     report.geometry["exactness_headroom_sites"] = {
         "float32": exactness_headroom_sites(np.float32, max_count),
@@ -670,6 +715,7 @@ def _check_exactness(report: PlanReport, data: int, conf: PcaConf) -> None:
         return
     entry_bound = flush_entry_increment(static_rows, max_count)
     report.geometry["gramian_entry_bound"] = entry_bound
+    int32_window = exact_int_window(np.int32) or 0
     if entry_bound > int32_window:
         report.error(
             "exactness-window",
@@ -1252,8 +1298,9 @@ def validate_plan(
     # per-site kernels instead.
     gramian_like = analysis in ("pca", "grm")
     if conf.pca_backend == "gpu" and gramian_like:
+        dense_traces = ring_trace = None
         if report.ok:
-            _eval_dense_update(report, data, conf)
+            dense_traces = _eval_dense_update(report, data, conf)
         if report.ok and conf.fused_jobs is not None:
             if conf.fused_jobs < 1:
                 report.error(
@@ -1263,10 +1310,10 @@ def validate_plan(
             else:
                 _eval_stacked_update(report, conf.fused_jobs, conf)
         if report.ok and (sharded or samples >= 2):
-            _eval_sharded_update(report, data, samples, conf, device_bytes)
-        # ------------------------------------------ range/exactness facts
+            ring_trace = _eval_sharded_update(report, data, samples, conf, device_bytes)
+        # ---------------------------------------- range/exactness proof
         if report.ok:
-            _check_exactness(report, data, conf)
+            _check_exactness(report, data, samples, conf, dense_traces, ring_trace)
     if conf.pca_backend == "gpu" and not gramian_like and report.ok:
         _eval_analysis_kernels(report, conf, analysis, data, samples)
 

@@ -474,8 +474,71 @@ IR_RULES: Dict[str, Rule] = {
     ]
 }
 
+#: ``graftcheck ranges`` rule catalogue (``check/ranges.py``): the
+#: reference's ids, names and text. The port proves them over the recorded
+#: schedule (``obs/schedule.py``), where a product op stands for the
+#: reference's ``dot_general`` and a cast between kernels for its
+#: ``convert_element_type``; GR findings anchor to a kernel audit name
+#: (line 0).
+RANGES_RULES: Dict[str, Rule] = {
+    rule.id: rule
+    for rule in [
+        Rule(
+            "GR000",
+            "kernel-range-trace-failure",
+            "The kernel fails to trace to a jaxpr under the audit "
+            "geometry; none of its range/exactness contracts can be "
+            "vouched for.",
+        ),
+        Rule(
+            "GR001",
+            "int32-accumulator-overflow",
+            "The int32 accumulator can overflow for the declared max "
+            "geometry: declared rows x max_count² exceeds int32's 2^31-1 "
+            "window, and the ladder has no wider in-accumulator rung — "
+            "shrink the geometry contract or split the accumulation.",
+        ),
+        Rule(
+            "GR002",
+            "f32-partial-past-exact-window",
+            "A per-dispatch f32 partial (a dot_general's output interval, "
+            "derived from the declared input contracts) can exceed the "
+            "2^24 exact-integer window BEFORE the accumulator conversion "
+            "point ever sees it — the bf16/f32 path's exactness claim is "
+            "false for this geometry.",
+        ),
+        Rule(
+            "GR003",
+            "lossy-narrowing-cast",
+            "A convert_element_type whose inferred operand range is wider "
+            "than the destination dtype's exact-integer window: integer "
+            "values would round or wrap, silently corrupting the count "
+            "semantics the dtype ladder promises to preserve.",
+        ),
+        Rule(
+            "GR004",
+            "uncontracted-dot-input",
+            "A kernel input with no declared range contract "
+            "(ops/contracts.py) reaches a dot_general: the prover has no "
+            "interval to propagate, so no exactness claim about this "
+            "kernel's partials or accumulator can be made at all.",
+        ),
+        Rule(
+            "GR005",
+            "conversion-trigger-not-conservative",
+            "The runtime conversion trigger's projected per-flush "
+            "increment (ops/contracts.py:flush_entry_increment, fed to "
+            "_maybe_switch_accumulator) is SMALLER than the per-dispatch "
+            "entry increment proven from the traced jaxpr — the f32→int32 "
+            "conversion could fire after an entry already left the exact "
+            "window.",
+        ),
+    ]
+}
+
+
 ALL_RULES: Dict[str, Rule] = {
-    **RULES, **IR_RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES,
+    **RULES, **IR_RULES, **RANGES_RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES,
 }
 
 
@@ -568,6 +631,7 @@ __all__ = [
     "Finding",
     "RULES",
     "IR_RULES",
+    "RANGES_RULES",
     "LOCK_RULES",
     "HOSTMEM_RULES",
     "PROTO_RULES",

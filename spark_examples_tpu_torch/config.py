@@ -24,10 +24,12 @@ dense and sharded strategies on a mesh
 (``--mesh-shape``, ``--num-reduce-partitions``, ``--similarity-strategy``,
 ``--ring-pack-bits``, ``--reduce-schedule``), across several processes
 (``--coordinator-address``, ``--num-processes``, ``--process-id``:
-:meth:`GenomicsConf.init_distributed`); :class:`GrmConf` adds the ``grm`` verb's
+:meth:`GenomicsConf.init_distributed`), and the host-fed accumulators'
+range sampling (``--check-ranges``); :class:`GrmConf` adds the ``grm`` verb's
 ``--grm-out``, :class:`LdConf` the ``ld-prune`` verb's ``--ld-*`` flags and
 :class:`AssocConf` the ``assoc-scan`` verb's ``--phenotypes`` and
-``--assoc-*``; the analyses take the mesh's flags too. A flag that belongs to any other path raises
+``--assoc-*``; the analyses take the mesh's flags too. The one combination
+the port does not run, Gramian checkpoints across processes, raises
 :class:`NotImplementedError` naming the flag (:func:`check_ported`), so it
 is never silently ignored.
 """
@@ -182,7 +184,15 @@ def build_pca_parser(
                    "work per group (ops/devicegen.py:auto_blocks_per_dispatch).")
     p.add_argument("--ring-pack-bits", choices=["auto", "on", "off"], default="auto")
     p.add_argument("--reduce-schedule", choices=["auto", "flat", "hier"], default="auto")
-    p.add_argument("--check-ranges", action="store_true")
+    p.add_argument("--check-ranges", action="store_true",
+                   help="DEBUG: sample the max |accumulator entry| after every "
+                   "Gramian flush (one device read a flush) into the "
+                   "gramian_entry_max gauge, next to the statically projected "
+                   "gramian_static_entry_bound; the run manifest records the pair "
+                   "(gramian_exactness, the ranges conformance pair) — the "
+                   "runtime half of `graftcheck ranges`. Host-fed accumulators "
+                   "only (packed/wire ingest); the device-generation path has no "
+                   "host flush to sample.")
     p.add_argument("--exact-similarity", action="store_true",
                    help="Integer Gramian accumulation; device generation is "
                    "always exact (int8 x int8 -> int32).")
@@ -376,28 +386,10 @@ class PcaConf(GenomicsConf):
         return contigs
 
 
-#: Flags of paths the port does not run yet: (field, flag, value that leaves
-#: the flag unused). Any other value raises.
-_UNPORTED = (
-    ("check_ranges", "--check-ranges", False),
-)
-
-
 def check_ported(conf: PcaConf) -> None:
-    """Raise :class:`NotImplementedError` for a flag whose path the port
-    does not run yet: ``--check-ranges``; and, in
-    a run of several processes, the Gramian checkpoints (every process
-    would write the one directory)."""
-    for name, flag, unused in _UNPORTED:
-        value = getattr(conf, name)
-        if value != unused:
-            raise NotImplementedError(
-                f"{flag} {value!r}: this path is not ported to PyTorch yet "
-                "(the port runs the synthetic, file and REST sources' device, "
-                "packed, streamed and wire ingest, dense and sharded "
-                "strategies on a mesh of one or several processes, and the "
-                "analyses on the mesh)"
-            )
+    """Raise :class:`NotImplementedError` for the one combination the port
+    does not run: the Gramian checkpoints in a run of several processes
+    (every process would write the one directory)."""
     if (conf.num_processes or 1) > 1 and (conf.gramian_checkpoint_dir or conf.resume_from):
         flag = "--gramian-checkpoint-dir" if conf.gramian_checkpoint_dir else "--resume-from"
         raise NotImplementedError(

@@ -31,9 +31,12 @@ RSS of this process, the bound the run registered
 (``check/hostmem.py:conf_host_peak_bytes``) and, beside the reference's
 two fields, the runtime baseline inside that bound
 (``runtime_baseline_bytes``: measured at set-up on the card, the
-reference's constant on the CPU). ``conformance`` holds the ``hostmem``
-pair the driver's epilogue records (peak RSS against that bound); its
-``sched`` and ``ranges`` entries are null, their flags being unported.
+reference's constant on the CPU). ``conformance`` holds the pairs the
+driver's epilogue records: ``hostmem`` (peak RSS against that bound),
+``sched`` when the sharded ring ran, and ``ranges`` under
+``--check-ranges``. ``gramian_exactness`` is the ``--check-ranges``
+block, ``{entry_max, static_entry_bound}`` from the host-fed
+accumulators' sampled gauges, null without the flag.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ import time
 from typing import Dict, List, Mapping, Optional
 
 from spark_examples_tpu_torch.obs.metrics import (
+    GRAMIAN_ENTRY_MAX,
+    GRAMIAN_STATIC_ENTRY_BOUND,
     HOST_BASELINE_RSS_BYTES,
     HOST_RUNTIME_BASELINE_BYTES,
     HOST_STATIC_BOUND_BYTES,
@@ -103,6 +108,23 @@ def _host_memory_block(registry=None) -> Dict:
     }
 
 
+def _gramian_exactness_block(registry) -> Optional[Dict]:
+    """The ``gramian_exactness`` block (``--check-ranges``): the measured
+    max |accumulator entry| beside the statically projected bound — present
+    only when the sampling ran (the gauges exist), so manifests of other
+    runs are unchanged."""
+    if registry is None:
+        return None
+    entry_max = registry.value(GRAMIAN_ENTRY_MAX)
+    if entry_max is None or entry_max != entry_max:
+        return None
+    bound = registry.value(GRAMIAN_STATIC_ENTRY_BOUND)
+    return {
+        "entry_max": int(entry_max),
+        "static_entry_bound": int(bound) if bound is not None and bound == bound else None,
+    }
+
+
 def build_manifest(
     config: Optional[Mapping] = None,
     spans: Optional[List[Dict]] = None,
@@ -110,6 +132,7 @@ def build_manifest(
     io_stats: Optional[Dict] = None,
     overlap: Optional[Dict] = None,
     host_memory: Optional[Dict] = None,
+    gramian_exactness: Optional[Dict] = None,
     conformance: Optional[Dict] = None,
     resume: Optional[Dict] = None,
     analysis: Optional[Dict] = None,
@@ -131,7 +154,7 @@ def build_manifest(
         "host_memory": (
             host_memory if host_memory is not None else _host_memory_block()
         ),
-        "gramian_exactness": None,
+        "gramian_exactness": gramian_exactness,
         "resume": resume,
         "analysis": analysis,
         "schedule": schedule,
@@ -198,6 +221,7 @@ def build_run_manifest(conf=None, spans=None, registry=None, io_stats=None,
         multihost=multihost,
         overlap=overlap,
         host_memory=_host_memory_block(registry),
+        gramian_exactness=_gramian_exactness_block(registry),
         conformance=conformance_block(registry) if registry is not None else None,
         resume=resume,
         analysis=analysis,

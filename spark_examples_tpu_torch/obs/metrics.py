@@ -84,6 +84,10 @@ GRAMIAN_CHECKPOINT_SAVES = "gramian_checkpoint_saves_total"
 #: (``parallel/mesh.py:ring_traffic_bytes``), and host seconds per flush.
 GRAMIAN_RING_BYTES = "gramian_ring_bytes"
 GRAMIAN_RING_FLUSH_SECONDS = "gramian_ring_flush_seconds"
+#: ``--check-ranges`` (the host-fed accumulators' ``_flush``): the measured
+#: max |Gramian entry| and the statically projected bound beside it.
+GRAMIAN_ENTRY_MAX = "gramian_entry_max"
+GRAMIAN_STATIC_ENTRY_BOUND = "gramian_static_entry_bound"
 #: Per-site analyses (``analyses/``): sites tested and kept.
 ANALYSIS_SITES_TESTED = "analysis_sites_tested"
 ANALYSIS_SITES_KEPT = "analysis_sites_kept"
@@ -158,6 +162,17 @@ _WELL_KNOWN_GAUGE_HELP = {
         "Runtime baseline of the host-memory bound: the process's peak RSS "
         "at driver set-up, after the CUDA context and libraries (the "
         "reference's constant on the CPU)."
+    ),
+    GRAMIAN_ENTRY_MAX: (
+        "Measured max |Gramian accumulator entry| across flushes "
+        "(--check-ranges debug sampling; must stay <= "
+        "gramian_static_entry_bound)."
+    ),
+    GRAMIAN_STATIC_ENTRY_BOUND: (
+        "Statically-projected per-entry accumulator bound "
+        "(ops/contracts.py:flush_entry_increment accumulated over flushes "
+        "— the conversion trigger's own projection, proven conservative "
+        "by graftcheck ranges GR005)."
     ),
     GRAMIAN_CHECKPOINT_SITES: (
         "Ingest cursor (rows of the deterministic stream) covered by the "
@@ -852,9 +867,11 @@ __all__ = [
     "DEVICEGEN_SITES_CAPACITY",
     "GRAMIAN_CHECKPOINT_SAVES",
     "GRAMIAN_CHECKPOINT_SITES",
+    "GRAMIAN_ENTRY_MAX",
     "GRAMIAN_INFLIGHT_DISPATCHES",
     "GRAMIAN_RING_BYTES",
     "GRAMIAN_RING_FLUSH_SECONDS",
+    "GRAMIAN_STATIC_ENTRY_BOUND",
     "Gauge",
     "HOST_BASELINE_RSS_BYTES",
     "HOST_PEAK_RSS_BYTES",

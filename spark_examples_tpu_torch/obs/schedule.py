@@ -22,10 +22,12 @@ each kernel wrapper and each ring transfer it calls notes one
 - ``consume``: ``parallel/collectives.py:consume``, a position's compute
   stream taking a received tile.
 
-Each operand and result is a :class:`Tile`: dtype, shape, and the identity
-of its storage. ``position`` is the mesh index of the position whose work
-it is (``Position.run`` sets it; a shift's is its receiver's, whose
-transfer stream it runs on). A wrapper's own body runs with :attr:`Schedule.inside`
+Each operand and result is a :class:`Tile`: dtype, shape, the identity
+of its storage, and where the view lies in it (offset and strides, in
+elements: which columns of a row tile a ring step's product writes).
+``position`` is the mesh index of the position whose work it is
+(``Position.run`` sets it; a shift's is its receiver's, whose transfer
+stream it runs on). A wrapper's own body runs with :attr:`Schedule.inside`
 raised, so the plain versions' PyTorch ops (on the CPU and ``meta``
 tensors) read as that one kernel. While no thread records, :data:`SINK`
 is ``None`` and the hot path pays one global read a launch; other
@@ -53,6 +55,8 @@ class Tile:
     storage: int  #: identity of the storage (shared by every view of it)
     nbytes: int  #: bytes of the elements this tensor spans
     storage_nbytes: int  #: bytes of the whole storage
+    offset: int = 0  #: the view's first element in its storage
+    strides: Tuple[int, ...] = ()  #: the view's strides, in elements
 
 
 def storage_key(tensor) -> Tuple[int, int]:
@@ -71,6 +75,8 @@ def tile(tensor) -> Tile:
         key,
         int(tensor.numel()) * tensor.element_size(),
         size,
+        int(tensor.storage_offset()),
+        tuple(int(s) for s in tensor.stride()),
     )
 
 
@@ -93,10 +99,14 @@ class Op:
     ring: Tuple[int, ...] = ()  #: a shift's positions, in ring order
     packed: bool = False  #: reads (unpack) or makes (pack) a bit-packed tile
     events_before: int = 0  #: dispatched operations before this op's own
+    #: The sites of the result that may be nonzero (an unpack's rows, a
+    #: generated block's sites; the rest is the tiling's zero padding).
+    support: Optional[int] = None
 
     def signature(self) -> tuple:
         """What a card's run and the device-free audit must agree on: the
-        call, its position, and each tile's dtype and shape."""
+        call, its position, and each tile's dtype and shape (not where a
+        view lies, nor the support)."""
         return (self.name, self.role, self.position, _shapes(self.reads),
                 _shapes(self.writes), _shapes(self.results))
 
@@ -138,7 +148,8 @@ class Schedule:
 
     def note(self, name: str, role: str, reads=(), writes=(), results=(),
              position: Optional[int] = None, ring: Tuple[int, ...] = (),
-             packed: bool = False, call: Optional[int] = None) -> Op:
+             packed: bool = False, call: Optional[int] = None,
+             support: Optional[int] = None) -> Op:
         if call is None:
             call = self._calls
             self._calls += 1
@@ -151,18 +162,20 @@ class Schedule:
             tuple(tile(t) for t in results),
             self.position if position is None else int(position),
             call, tuple(ring), bool(packed), self.events,
+            None if support is None else int(support),
         )
         self.ops.append(op)
         return op
 
     def launch(self, fn: Callable, role: str, reads: Sequence, writes: Sequence,
-               *args, packed: bool = False, **kwargs):
+               *args, packed: bool = False, support: Optional[int] = None, **kwargs):
         """Run the wrapper ``fn`` on ``args`` (its body unrecorded) and note
         it: ``reads`` and in-place ``writes`` among its operands, its
-        returned tensor as the result."""
+        returned tensor as the result (``support``: its sites that may be
+        nonzero)."""
         result = self._run(fn, args, kwargs)
         self.note(fn.__name__, role, reads, writes, () if result is None else (result,),
-                  packed=packed)
+                  packed=packed, support=support)
         return result
 
     def shift(self, fn: Callable, tiles, ready, positions, source):

@@ -170,7 +170,8 @@ def stacked_unpack_rows_t(
     every lane."""
     if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
         return recording.launch(stacked_unpack_rows_t, "unpack", (packed,), (), packed,
-                                num_columns, lanes, packed=True)
+                                num_columns, lanes, packed=True,
+                                support=int(packed.shape[1]))
     width = _packed_width(num_columns)
     _require(packed, "packed", torch.uint8)
     if packed.ndim != 3 or packed.shape[2] != width or packed.shape[0] < 1:

@@ -1,10 +1,10 @@
 """Numeric range and exactness contracts of the Gramian accumulation.
 
-A JAX-free copy of the part of ``spark_examples_tpu/ops/contracts.py`` the
-port's dense Gramian uses: the declared range of count-valued join rows,
-the exact-integer window of each dtype, and the one flush projection
-formula, :func:`flush_entry_increment`, which the accumulator checks before
-every flush.
+A JAX-free copy of ``spark_examples_tpu/ops/contracts.py``: the declared
+range of each operand class (:data:`CONTRACTS`, which ``graftcheck ranges``
+seeds its intervals from), the exact-integer window of each dtype, and the
+one flush projection formula, :func:`flush_entry_increment`, which the
+accumulator checks before every flush.
 
 The port accumulates int8 × int8 → int32 from the first flush, so the
 window that matters is int32's: the projection guards it.
@@ -13,7 +13,7 @@ window that matters is int32's: the projection guards it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -31,6 +31,18 @@ class RangeContract:
     integral: bool = True
 
 
+#: VCF/synthetic genotype allele-dosage values (0 = ref, 1 = het, 2 = hom
+#: alt): the widest per-site value the parse and generation layers stage.
+GENOTYPE = RangeContract(
+    "genotype", 0, 2, "diploid allele dosage (0/1/2) from parse/devicegen"
+)
+
+#: The Gramian's row operand on every default path: the per-(variant,
+#: sample) has-variation membership bit (``VariantsPca.scala:65-69``).
+HAS_VARIATION = RangeContract(
+    "has_variation", 0, 1, "per-sample has-variation membership bit"
+)
+
 #: Count-valued rows (same-set joins): a callset column appearing k times
 #: per variant contributes k — the reference pair loop's multiplicity
 #: (``VariantsPca.scala:224-229``). The declared ceiling is a set joined
@@ -43,6 +55,22 @@ COUNT_ROW = RangeContract(
     SAME_SET_JOIN_MAX_COUNT,
     "count-valued join row (duplicate-id multiplicity, declared ceiling)",
 )
+
+#: Allele frequencies, the one real-valued (non-integral) contract.
+ALLELE_FREQUENCY = RangeContract(
+    "allele_frequency", 0, 1, "per-site allele frequency", integral=False
+)
+
+#: A bit-packed ring or staging wire byte (8 has-variation bits,
+#: ``np.packbits``).
+PACKED_BYTE = RangeContract(
+    "packed_byte", 0, 255, "bit-packed wire byte (8 has-variation bits)"
+)
+
+CONTRACTS: Dict[str, RangeContract] = {
+    c.name: c
+    for c in (GENOTYPE, HAS_VARIATION, COUNT_ROW, ALLELE_FREQUENCY, PACKED_BYTE)
+}
 
 #: Mantissa-driven exact-integer windows of the float dtypes: every
 #: integer of magnitude <= the window is exactly representable.
@@ -108,13 +136,32 @@ def exactness_headroom_sites(dtype, max_count: int = 1) -> int:
 #: read (``check/hostmem.py``).
 DECLARED_MAX_SITES = 40_000_000
 
+#: Site-grid scalars: dispatch offsets, valid-site counts and per-set row
+#: counters, all bounded by the declared production geometry. The contract
+#: of the generation kernel's scalar operands (``ops/devicegen.py:
+#: gen_genotypes``): without it every generated genotype, a function of
+#: its site's position, would be unbounded to the range prover.
+SITE_INDEX = RangeContract(
+    "site_index",
+    0,
+    DECLARED_MAX_SITES,
+    "site-grid offset / site count (declared geometry ceiling)",
+)
+CONTRACTS[SITE_INDEX.name] = SITE_INDEX
+
 
 __all__ = [
+    "ALLELE_FREQUENCY",
+    "CONTRACTS",
     "COUNT_ROW",
     "DECLARED_MAX_SITES",
     "EXACT_F32_LIMIT",
+    "GENOTYPE",
+    "HAS_VARIATION",
+    "PACKED_BYTE",
     "RangeContract",
     "SAME_SET_JOIN_MAX_COUNT",
+    "SITE_INDEX",
     "exact_int_window",
     "exactness_headroom_sites",
     "flush_entry_increment",

@@ -436,7 +436,8 @@ def gen_genotypes(
     tensors launch ``gen_genotypes_kernel`` (``csrc/devicegen.cu``)."""
     if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
         return recording.launch(gen_genotypes, "generate", (), (kept, rows), plan,
-                                grid_offset, n_valid, block_sites, kept, rows)
+                                grid_offset, n_valid, block_sites, kept, rows,
+                                support=int(block_sites))
     if not 0 <= int(n_valid) <= int(block_sites):
         raise ValueError(f"n_valid must be in [0, {block_sites}], got {n_valid}")
     if int(grid_offset) < 0:

@@ -62,9 +62,11 @@ import torch
 
 from spark_examples_tpu_torch.obs import schedule as _schedule
 from spark_examples_tpu_torch.obs.metrics import (
+    GRAMIAN_ENTRY_MAX,
     GRAMIAN_INFLIGHT_DISPATCHES,
     GRAMIAN_RING_BYTES,
     GRAMIAN_RING_FLUSH_SECONDS,
+    GRAMIAN_STATIC_ENTRY_BOUND,
     well_known_counter,
     well_known_gauge,
 )
@@ -203,7 +205,8 @@ def unpack_rows_t(
     CUDA tensors launch ``unpack_rows_t_kernel`` (``csrc/gramian.cu``)."""
     if (sink := _schedule.SINK) is not None and (recording := sink()) is not None:
         return recording.launch(unpack_rows_t, "unpack", (block,), (), block, num_columns,
-                                counts, max_count, packed=not counts)
+                                counts, max_count, packed=not counts,
+                                support=int(block.shape[0]))
     width = int(num_columns) if counts else _packed_width(num_columns)
     _require(block, "block", torch.uint8)
     if block.ndim != 2 or block.shape[1] != width:
@@ -498,11 +501,14 @@ class _AccumulatorTelemetry:
     ``gramian_ring_bytes`` counter and ``gramian_ring_flush_seconds``
     histogram. At finalize the accumulated host-side flush time attaches to
     the open span tree as one ``dispatch`` span, and the drain of the card
-    runs under ``reduce-flush``."""
+    runs under ``reduce-flush``. Under ``--check-ranges``,
+    :meth:`record_entry_sample` keeps ``entry_max_seen``."""
 
     def __init__(self, registry, spans, ring: bool = False):
         self.spans = spans
         self.flush_seconds_total = 0.0
+        self.entry_max_seen = 0
+        self._registry = registry
         self._flushes = self._rows = self._seconds = self._inflight = None
         self._ring_bytes = self._ring_seconds = None
         if registry is not None and ring:
@@ -538,6 +544,26 @@ class _AccumulatorTelemetry:
         if self._ring_bytes is not None:
             self._ring_bytes.inc(nbytes)
             self._ring_seconds.observe(seconds)
+
+    def record_entry_sample(self, tiles: Sequence[Optional[torch.Tensor]],
+                            entry_bound: int) -> None:
+        """``--check-ranges``: the max |entry| of the live accumulator
+        (``tiles``: the partials or row tiles this process holds, ``None``
+        for another's, each device's current stream ordered after their
+        work) beside the static bound the flushes projected
+        (``ops/contracts.py:flush_entry_increment`` summed) — the runtime
+        half of ``graftcheck ranges``. The pair lands in the
+        ``gramian_entry_max`` / ``gramian_static_entry_bound`` gauges and
+        from there in the run manifest."""
+        held = [t for t in tiles if t is not None]
+        if held:
+            home = held[0].device
+            peak = torch.stack([t.abs().amax().to(home) for t in held]).amax()
+            sample = int(peak)  # graftcheck: disable=GC001 -- deliberate per-flush device read: --check-ranges is an opt-in DEBUG mode whose whole point is sampling the live accumulator (off by default, documented in the flag help)
+            self.entry_max_seen = max(self.entry_max_seen, sample)
+        if self._registry is not None:
+            well_known_gauge(self._registry, GRAMIAN_ENTRY_MAX).set(self.entry_max_seen)
+            well_known_gauge(self._registry, GRAMIAN_STATIC_ENTRY_BOUND).set(entry_bound)
 
     def finalize_span(self, sync):
         if self.spans is None:
@@ -596,7 +622,9 @@ class GramianAccumulator(_Staging):
     ago, so host packing of block k+1 overlaps the card's work on block k.
     On the card every shipped block is first copied into fresh pinned
     memory and then sent asynchronously, so the reused staging buffer is
-    never the source of a copy in flight.
+    never the source of a copy in flight. ``check_ranges`` samples the max
+    |entry| after every flush (``--check-ranges``: one device read a
+    flush).
     """
 
     def __init__(
@@ -608,8 +636,10 @@ class GramianAccumulator(_Staging):
         registry=None,
         spans=None,
         mesh: Optional[Mesh] = None,
+        check_ranges: bool = False,
     ):
         self.mesh = mesh
+        self.check_ranges = bool(check_ranges)
         self._slices: List[Optional[Position]] = (
             [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
         )
@@ -706,6 +736,9 @@ class GramianAccumulator(_Staging):
                 if len(self._in_flight) > self.pipeline_depth:
                     for event in self._in_flight.pop(0):
                         event.synchronize()  # graftcheck: disable=GC007 -- this IS the bounded in-flight window the rule recommends: waits only for the flush issued pipeline_depth flushes ago (one event a mesh position), never the flush just launched
+        if self.check_ranges:
+            self._join()
+            self.telemetry.record_entry_sample(self._parts, self._entry_bound)
         self.telemetry.record_flush(
             flush_rows, time.perf_counter() - flush_start, len(self._in_flight)
         )
@@ -1093,7 +1126,8 @@ class ShardedGramianAccumulator(_Staging):
     flush: the whole mesh's, hops between processes included. Entries are
     exact int32, as the dense accumulator's. On a mesh that spans
     processes every process stages the same rows and works its own
-    positions.
+    positions. ``check_ranges`` samples the max |entry| of this process's
+    row tiles after every flush (``--check-ranges``).
     """
 
     def __init__(
@@ -1106,7 +1140,9 @@ class ShardedGramianAccumulator(_Staging):
         pack_bits: str = "auto",
         reduce_schedule: str = "auto",
         hier_hosts: Optional[int] = None,
+        check_ranges: bool = False,
     ):
+        self.check_ranges = bool(check_ranges)
         self.num_samples = int(num_samples)
         self.layout = layout = RingLayout(mesh, self.num_samples, pack_bits, reduce_schedule, hier_hosts)
         self.mesh, self.pack, self.padded, self.n_local = mesh, layout.pack, layout.padded, layout.n_local
@@ -1154,6 +1190,10 @@ class ShardedGramianAccumulator(_Staging):
         self._fill = 0
         self._flushes += 1
         layout.in_flight.mark()
+        if self.check_ranges:
+            tiles = [t for row in layout.G_local for t in row]
+            layout.mesh.join(tiles)
+            self.telemetry.record_entry_sample(tiles, self._entry_bound)
         seconds = time.perf_counter() - flush_start
         nbytes = ring_traffic_bytes(
             self.data_parallel * self.block_size, self.samples_parallel, self.n_local, use_packed

@@ -88,7 +88,9 @@ from spark_examples_tpu_torch.obs.metrics import (
     COMPILE_CACHE_GEOMETRY_MISSES,
     DEVICEGEN_DISPATCHES,
     DEVICEGEN_SITES_CAPACITY,
+    GRAMIAN_ENTRY_MAX,
     GRAMIAN_RING_BYTES,
+    GRAMIAN_STATIC_ENTRY_BOUND,
     HOST_BASELINE_RSS_BYTES,
     HOST_PEAK_RSS_BYTES,
     HOST_STATIC_BOUND_BYTES,
@@ -555,6 +557,7 @@ class VariantsPcaDriver:
                 registry=self.registry, spans=self.spans,
                 pack_bits=self.conf.ring_pack_bits,
                 reduce_schedule=self.conf.reduce_schedule,
+                check_ranges=self.conf.check_ranges,
             )
         else:
             acc = GramianAccumulator(
@@ -565,6 +568,7 @@ class VariantsPcaDriver:
                 registry=self.registry,
                 spans=self.spans,
                 mesh=self._ingest_mesh(),
+                check_ranges=self.conf.check_ranges,
             )
         self.accumulator = acc
         return acc
@@ -1271,11 +1275,12 @@ def _sync_scalar(similarity: Similarity) -> None:
 def _register_prover_conformance(driver: VariantsPcaDriver) -> None:
     """The run's conformance pairs (the manifest's ``conformance`` block),
     as the reference's epilogue records them: ``hostmem``, the peak RSS
-    measured against the bound the driver registered at set-up, and, when
-    the sharded ring ran, ``sched``, its accounted ring bytes against the
-    schedule's projection. The ``ranges`` pair belongs to
-    ``--check-ranges``, which the port does not take yet. Telemetry never
-    takes down a completed run."""
+    measured against the bound the driver registered at set-up; when the
+    sharded ring ran, ``sched``, its accounted ring bytes against the
+    schedule's projection; and under ``--check-ranges``, ``ranges``, the
+    sampled max |Gramian entry| against the projection ``graftcheck
+    ranges`` proves conservative (GR005). Telemetry never takes down a
+    completed run."""
     registry = driver.registry
     try:
         measured = registry.value(HOST_PEAK_RSS_BYTES)
@@ -1289,6 +1294,13 @@ def _register_prover_conformance(driver: VariantsPcaDriver) -> None:
         if sched is not None:
             record_prover_conformance(
                 registry, "sched", sched["measured_ring_bytes"], sched["predicted_ring_bytes"]
+            )
+        entry_max = registry.value(GRAMIAN_ENTRY_MAX)
+        if entry_max is not None and entry_max == entry_max:
+            bound = registry.value(GRAMIAN_STATIC_ENTRY_BOUND)
+            record_prover_conformance(
+                registry, "ranges", entry_max,
+                bound if bound is not None and bound == bound else None,
             )
     except Exception:
         pass

@@ -274,8 +274,8 @@ def test_preflight_refuses_what_the_reference_refuses(case):
 
 
 def test_preflight_refuses_check_ranges_as_the_reference_does():
-    """``--check-ranges`` (a flag the port's parser refuses, set here on the
-    conf) refuses in both packages."""
+    """``--check-ranges`` (per-accumulator telemetry, set here on the
+    conf) refuses a fused group in both packages."""
     ref, port = _ref_conf(TINY), _port_conf(TINY)
     ref.check_ranges = port.check_ranges = True
     with pytest.raises(ref_batched.FusedIneligible, match="check-ranges") as want:

@@ -74,6 +74,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.check.lockgraph",
     "spark_examples_tpu_torch.check.plan",
     "spark_examples_tpu_torch.check.proto",
+    "spark_examples_tpu_torch.check.ranges",
     "spark_examples_tpu_torch.check.rules",
     "spark_examples_tpu_torch.check.sanitize",
     "spark_examples_tpu_torch.check.typecheck",
@@ -204,16 +205,22 @@ def test_cli_unported_verbs_exit_2(verb, capsys):
     "flags, named",
     [
         (["--num-processes", "2", "--resume-from", "ck"], "--resume-from"),
-        (["--coordinator-address", "h:1", "--check-ranges"], "--check-ranges"),
+        (["--coordinator-address", "h:1", "--check-ranges"], None),
         (["--num-processes", "2", "--gramian-checkpoint-dir", "ck"], "--gramian-checkpoint-dir"),
-        (["--check-ranges"], "--check-ranges"),
-        (["--trace-dir", "t", "--check-ranges"], "--check-ranges"),
-        (["--mesh-shape", "1,2", "--check-ranges"], "--check-ranges"),
+        (["--check-ranges"], None),
+        (["--trace-dir", "t", "--check-ranges"], None),
+        (["--mesh-shape", "1,2", "--check-ranges"], None),
     ],
 )
 def test_unported_flags_raise_naming_the_flag(flags, named):
+    """Gramian checkpoints across processes raise naming the flag; the
+    ``--check-ranges`` cases parse, the flag being ported (``named``
+    ``None``)."""
     from spark_examples_tpu_torch.config import PcaConf
 
+    if named is None:
+        assert PcaConf.parse(flags + ["--device", "cpu"]).check_ranges is True
+        return
     with pytest.raises(NotImplementedError, match=re.escape(named)):
         PcaConf.parse(flags + ["--device", "cpu"])
 

@@ -225,6 +225,21 @@ def _ring_that_never_runs(*args, **kwargs):
     """A ``ring_pass`` that issues nothing: no shift, no product."""
 
 
+def _ring_on_own_columns(positions, own, ready, mine, G_local, n_local, packed, hosts=1,
+                         max_count=None):
+    """A ``ring_pass`` whose every step adds into the position's own
+    columns: the owner index never moves, so one entry takes a partial a
+    step, not a pass (GR005)."""
+    from spark_examples_tpu_torch.ops.devicegen import cross_accumulate
+
+    for _ in range(len(positions)):
+        for p, pos in enumerate(positions):
+            if pos.local:
+                with pos.run():
+                    cross_accumulate(G_local[p][:, p * n_local : (p + 1) * n_local],
+                                     mine[p], mine[p])
+
+
 @pytest.mark.parametrize("name", ["sharded-4x2", "sharded-unpacked", "grm-sharded"])
 def test_a_failing_ring_audit_rejects_the_plan(name, tmp_path, monkeypatch):
     from spark_examples_tpu_torch.ops import gramian
@@ -323,6 +338,17 @@ def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_p
         captured = capsys.readouterr()
         assert "not yet ported" not in captured.err and "GI006" in captured.out
         return
+    if sub == "ranges":
+        from spark_examples_tpu_torch.ops import gramian
+
+        assert main(["graftcheck", "ranges"]) == 0
+        assert main(["graftcheck", "ranges", "--mesh", "0,2"]) == ref_main(
+            ["ranges", "--mesh", "0,2"]) == 2
+        monkeypatch.setattr(gramian, "ring_pass", _ring_on_own_columns)
+        assert main(["graftcheck", "ranges", "--mesh", "1,4"]) == 1
+        captured = capsys.readouterr()
+        assert "not yet ported" not in captured.err and "GR005" in captured.out
+        return
     if sub not in PORTED_SUBCOMMAND_RUNS:
         assert main(["graftcheck", sub]) == 2
         err = capsys.readouterr().err
@@ -366,9 +392,19 @@ def test_device_memory_budget_changes_the_memory_rules(capsys):
     assert large == 5 * small or large == 5 * small + 1
 
 
-def test_check_ranges_is_still_refused():
-    rc, _, _ = _plan_cli("port", ["--check-ranges"])
-    assert rc == 2
+@pytest.mark.parametrize("extra", [[], ["--mesh-shape", "1,4", "--similarity-strategy", "sharded",
+                                   "--plan-devices", "4", "--variant-set-id", "a,a"]])
+def test_check_ranges_is_still_refused(extra, reference_jax_shims):
+    """No longer refused: ``--check-ranges`` (the host-fed accumulators'
+    range sampling) parses, and the plan accepts it as the reference's
+    does, with the range audit's line among its checks."""
+    argv = ["--check-ranges", "--num-samples", "64", *extra]
+    (ref_rc, ref, _), (rc, report, _) = (_plan_cli(pkg, argv) for pkg in PKGS)
+    assert rc == ref_rc == 0 and report["ok"] is ref["ok"] is True
+    assert report["geometry"]["exactness_headroom_sites"] == ref["geometry"]["exactness_headroom_sites"]
+    kernels = 2 if extra else 1
+    assert any(line.startswith(f"range audit ({kernels} kernel(s)): per-dispatch partial <= ")
+               for line in report["shape_checks"])
 
 
 # ------------------------------------------------------------ cost model
