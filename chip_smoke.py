@@ -153,7 +153,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    each exported span beside the manifest's stage seconds; the recorder's
    cost (chr17 with and without ``--trace-dir``, median of three each);
    ``graftcheck plan --json`` over ``bench.py``'s configurations at the
-   reference's 16 GiB budget and at the card's memory; the cost model's
+   reference's 16 GiB budget and at the card's memory, and over its chr17
+   configuration on a declared 2x4 fleet with a generous
+   ``--sched-budget-seconds`` (proven, exit 0) and a tiny one (a
+   ``sched-GS005`` rejection); the cost model's
    rates (``experiments/cost_rates.py`` in a process of its own: a
    never-built geometry's first-run penalty and, apart, a fresh process's
    first-run cost) and chr17's prediction beside its measured wall,
@@ -173,11 +176,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    journaled job for each that life settled (a starting daemon compacts
    earlier lives' settled jobs out of the journal), each under its
    submit's trace id, and one calibration sample for each done job of the
-   phase so far; then the checkers: ``graftcheck lint``, ``hostmem``,
-   ``lockgraph``, ``proto`` (2 replicas, 1 job, 1 crash, 1 stall),
-   ``typecheck`` and ``sanitize`` over the port's tree, each a process
-   that exits 0; ``ir --json`` as one process, which must audit the 18
-   kernels of its default matrix with 0 findings; ``sanitize`` must read OK over the 40 corpus documents
+   phase so far; then the checkers, all started together as processes
+   that must exit 0: ``hostmem``, ``lockgraph``, ``proto`` (2 replicas,
+   1 job, 1 crash, 1 stall), ``typecheck`` and ``sanitize`` over the
+   port's tree; ``ir --json``, which must audit the 18 kernels of its
+   default matrix with 0 findings; ``ranges --json`` (24 kernels);
+   ``sched --json``, which must prove its default matrix's 16 subjects,
+   the 32x8 fleet among them, with 0 findings; ``sanitize`` must read OK over the 40 corpus documents
    (or SKIP where the machine's g++ has no runtime for the mode) in asan,
    ubsan and tsan, each mode's harness first built and replayed in this
    process with its uncached walls logged; ``lint --json`` must name 0
@@ -223,6 +228,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -417,8 +423,13 @@ KLOTHO_WIDE = 2_000
 PC_TOLERANCE = 1e-4
 
 
+#: The script's start on the host clock; :func:`log` prefixes each line
+#: with the seconds since, so a run's log shows where its time went.
+STARTED = time.perf_counter()
+
+
 def log(*parts) -> None:
-    print(*parts, flush=True)
+    print(f"[{time.perf_counter() - STARTED:7.1f} s]", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -1729,6 +1740,25 @@ def phase_trace(torch, kernels):
                 f"{json.dumps({k: geometry[k] for k in keys if k in geometry})}")
             if rc != (0 if report["ok"] else 2):
                 raise AssertionError(f"plan {name}: rc {rc} for ok {report['ok']}")
+    # The schedule proof: chr17 on a declared 2x4 fleet (its device ring,
+    # two-level, recorded device-free at the configuration's width) within a
+    # generous budget, then past a tiny one.
+    for budget, want in (("3600", []), ("1e-9", ["sched-GS005"])):
+        argv = ["graftcheck", "plan", *bench_plan_argv("chr17"), "--topology", "2,4",
+                "--sched-budget-seconds", budget, "--json"]
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        report = json.loads(printed.getvalue())
+        errors = [i["code"] for i in report["issues"] if i["severity"] == "error"]
+        geometry = {k: v for k, v in report["geometry"].items() if k.startswith("sched_")}
+        if rc != (2 if want else 0) or errors != want or geometry.get("sched_kernel") != "devicegen":
+            raise AssertionError(f"plan chr17 --topology 2,4 --sched-budget-seconds {budget}: "
+                                 f"rc {rc}, {printed.getvalue()[-2000:]}")
+        log(f"plan chr17 --topology 2,4 --sched-budget-seconds {budget}: rc {rc}, errors "
+            f"{errors}, {json.dumps(geometry)}, {wall:.3f} s")
     # The plan takes --check-ranges and proves the configured kernels' ranges.
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
@@ -2604,6 +2634,117 @@ def phase_ring_schedule(torch):
         f"{sharded_peak_bytes(spec.n_local, 4 * spec.n_local, BLOCK, True)} B; Gramian == XᵀX; "
         f"graftcheck ranges over the card's block and the meta audit's: entry increment "
         f"{increments['card']:g} == {increments['meta']:g} ({card_line()})")
+    ring_schedule_hier(torch)
+
+
+#: The blocks of the device-generation ring's one recorded dispatch.
+HIER_DISPATCH_BLOCKS = 2
+
+
+def ring_schedule_hier(torch, dev=None):
+    """The two-level rings at chr17's width on four positions of cuda:0
+    (``1,4``, ``SPARK_EXAMPLES_TPU_HIER_HOSTS=2``: a declared 2x2 fleet,
+    packed wire), recorded: one block of the host-fed ring (its Gramian
+    == XᵀX) and one dispatch of the device-generation ring
+    (``HIER_DISPATCH_BLOCKS`` blocks of 16,384 sites; its row tiles byte-
+    equal to the flat ring's over the same dispatch, unrecorded). Each
+    recording's shift calls, placed on their link class by their hops'
+    senders (``check/sched.py:extract_schedule``), must split ICI and DCN
+    bytes and steps exactly as ``graftcheck sched``'s device-free
+    recording of the same subject (``audit_schedule(Topology(2, 2),
+    "hier", ...)``: ``meta`` positions for the host-fed ring, CPU ones for
+    the generation ring), which must be clean; the host-fed ring's ops
+    must be the device-free ones op for op."""
+    from spark_examples_tpu_torch.check.ir import Trace, trace_kernel
+    from spark_examples_tpu_torch.check.sched import (
+        audit_schedule,
+        extract_schedule,
+        schedule_kernel_spec,
+    )
+    from spark_examples_tpu_torch.obs import schedule
+    from spark_examples_tpu_torch.ops.devicegen import DeviceGenRingGramianAccumulator
+    from spark_examples_tpu_torch.ops.gramian import ShardedGramianAccumulator
+    from spark_examples_tpu_torch.parallel.mesh import HIER_HOSTS_ENV, Topology, make_mesh
+    from spark_examples_tpu_torch.sources.synthetic import SyntheticGenomicsSource
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    topo = Topology(2, 2)
+    rows = (np.random.default_rng(27).random((BLOCK, N_SAMPLES)) < 0.05).astype(np.uint8)
+    x = torch.from_numpy(rows).to(dev, torch.float32)
+    want = (x.T @ x).to(torch.int32)
+    del x
+    source = SyntheticGenomicsSource(num_samples=N_SAMPLES)
+
+    def device_ring(reduce_schedule):
+        return DeviceGenRingGramianAccumulator(
+            N_SAMPLES, (source.genotype_stream_key("chip-smoke"),), source.populations,
+            source.site_key, source.variant_spacing, source.ref_block_fraction,
+            make_mesh({"data": 1, "samples": 4}, [dev] * 4), block_size=BLOCK,
+            blocks_per_dispatch=HIER_DISPATCH_BLOCKS, n_pops=source.n_pops, pack_bits="on",
+            reduce_schedule=reduce_schedule)
+
+    span = HIER_DISPATCH_BLOCKS * BLOCK
+    os.environ[HIER_HOSTS_ENV] = "2"
+    try:
+        acc = ShardedGramianAccumulator(N_SAMPLES, make_mesh({"data": 1, "samples": 4}, [dev] * 4),
+                                        block_size=BLOCK, pack_bits="on", reduce_schedule="hier")
+        with schedule.recording() as host_fed:
+            acc.add_rows(rows)
+        sync()
+        got = torch.cat([t.to(dev) for t in acc.layout.finalize_tiles().tiles])
+        if acc.layout.ring_hosts != 2 or not torch.equal(got[:N_SAMPLES, :N_SAMPLES], want):
+            raise AssertionError("ring schedule (hier): the block's Gramian != XᵀX")
+        host_keys = {schedule.storage_key(t)[0] for row in acc.layout.G_local for t in row}
+        del acc, got
+        hier = device_ring("hier")
+        with schedule.recording() as generated:
+            hier.add_grid(0, span)
+        sync()
+        gen_keys = {schedule.storage_key(t)[0] for row in hier.layout.G_local for t in row}
+        hier_tiles = hier.layout.finalize_tiles().tiles
+    finally:
+        os.environ.pop(HIER_HOSTS_ENV, None)
+    flat = device_ring("flat")
+    flat.add_grid(0, span)
+    sync()
+    flat_tiles = flat.layout.finalize_tiles().tiles
+    if hier.layout.ring_hosts != 2 or not all(
+            torch.equal(a.to(dev), b.to(dev)) for a, b in zip(hier_tiles, flat_tiles)):
+        raise AssertionError("ring schedule (hier): the generation ring's tiles != the flat ring's")
+    del hier, flat, hier_tiles, flat_tiles
+    for label, sched, keys, kernel, blocks, device in (
+        ("host-fed", host_fed, host_keys, "gramian", 1, "meta"),
+        ("device-generation", generated, gen_keys, "devicegen", HIER_DISPATCH_BLOCKS, "cpu"),
+    ):
+        spec = schedule_kernel_spec(topo, "hier", N_SAMPLES, BLOCK, kernel=kernel,
+                                    blocks_per_dispatch=blocks, device=device)
+        card = extract_schedule(Trace(list(sched.ops), [], keys, set(), set(), []), spec, topo,
+                                "hier")
+        t0 = time.perf_counter()
+        if kernel == "gramian":
+            free = trace_kernel(spec, watch=False)
+            audit = audit_schedule(topo, "hier", N_SAMPLES, BLOCK, device=device, traced=free)
+            card_ops = [op.signature() for op in sched.ops]
+            if card_ops != [op.signature() for op in free.ops]:
+                raise AssertionError(f"ring schedule (hier): the card's {len(card_ops)} ops are "
+                                     f"not the device-free recording's {len(free.ops)}")
+        else:
+            audit = audit_schedule(topo, "hier", N_SAMPLES, BLOCK, kernel=kernel)
+        wall = time.perf_counter() - t0
+        on_card = {"ici_bytes": card.mesh_bytes()["ici"], "dcn_bytes": card.mesh_bytes()["dcn"],
+                   "ici_steps": card.step_counts()["ici"], "dcn_steps": card.step_counts()["dcn"]}
+        free_facts = {k: audit.facts[k] for k in on_card}
+        if on_card != free_facts or not audit.ok or card.overlap_holes():
+            raise AssertionError(f"ring schedule (hier, {label}): the card's split {on_card}, "
+                                 f"the device-free audit's {free_facts}; "
+                                 f"{[f.format() for f in audit.findings]}")
+        log(f"ring schedule (hier 2x2, {label}, {N_SAMPLES} samples x {blocks} x {BLOCK} rows, "
+            f"packed): recorded on the card, {len(sched.ops)} ops, each shift call placed by "
+            f"its hops' senders: {json.dumps(on_card)} == graftcheck sched's device-free "
+            f"recording ({audit.facts['formula_ici_bytes']} / "
+            f"{audit.facts['formula_dcn_bytes']} B by the formula), every step overlapped; the "
+            f"device-free audit {wall:.3f} s, clean ({card_line()})")
 
 
 #: ``--check-ranges`` on the host-fed arms, each run with and without the
@@ -3356,29 +3497,36 @@ SANITIZER_MODES = ("asan", "ubsan", "tsan")
 
 
 def start_checker(argv, env):
-    """One ``graftcheck`` subcommand started as a process; :func:`finish_checker`
-    waits for it."""
+    """One ``graftcheck`` subcommand started as a process, its output read
+    by a thread of its own (which notes when the process ended);
+    :func:`finish_checker` waits for it."""
     proc = subprocess.Popen(
         [sys.executable, "-m", "spark_examples_tpu_torch", "graftcheck", *argv],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    return proc, argv, time.perf_counter()
+    done: dict = {}
+
+    def read():
+        done["out"], done["err"] = proc.communicate()
+        done["ended"] = time.perf_counter()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    return proc, argv, time.perf_counter(), reader, done
 
 
 def finish_checker(started):
     """The process of :func:`start_checker`, which must exit 0 within 300 s
-    of its start; returns its standard output and wall."""
-    proc, argv, t0 = started
-    try:
-        out, err = proc.communicate(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    wall = time.perf_counter() - t0
+    of its start; returns its standard output and wall (start to exit)."""
+    proc, argv, t0, reader, done = started
+    reader.join(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+    if reader.is_alive():
+        proc.kill()
+        reader.join()
+        raise AssertionError(f"graftcheck {' '.join(argv)} did not exit within 300 s")
     if proc.returncode != 0:
         raise AssertionError(f"graftcheck {' '.join(argv)} exited {proc.returncode}: "
-                             f"{out[-2000:]} {err[-2000:]}")
-    return out, wall
+                             f"{done['out'][-2000:]} {done['err'][-2000:]}")
+    return done["out"], done["ended"] - t0
 
 
 def run_checker(argv, env):
@@ -3442,33 +3590,58 @@ def check_sanitize_lines(out, wall, verdicts):
 
 
 def phase_checkers():
-    """``graftcheck hostmem``, ``lockgraph``, ``proto``, ``typecheck`` and
-    ``sanitize`` over the port's tree, each a process that must exit 0
-    (``typecheck`` skips there: the card's machine has no ``mypy``); logs
-    each one's wall and last line, and each sanitizer mode's line, which
-    must read OK over the 40 corpus documents (or SKIP where the machine's
-    compiler has no runtime for the mode), beside the mode's uncached
-    build and replay walls. ``ranges --json`` runs beside them from the
-    phase's start (its wall is a concurrent one) and must prove its
-    default matrix's 24 kernels with no finding. Then ``ir --json``, which
-    must audit its default matrix's 18 kernels with no finding, and ``lint
-    --json``, whose report must name no finding over every ``.py`` file of
-    the package (the linter under this machine's own ``ast``)."""
+    """Every ``graftcheck`` checker over the port's tree as a process that
+    must exit 0, all started at the phase's start (``sanitize`` after its
+    modes' in-process builds), so each logged wall is a concurrent one:
+    ``hostmem``, ``lockgraph``, ``proto``, ``typecheck`` (it skips there:
+    the card's machine has no ``mypy``) and ``sanitize``, each with its
+    last line, and each sanitizer mode's line, which must read OK over the
+    40 corpus documents (or SKIP where the machine's compiler has no
+    runtime for the mode), beside the mode's uncached build and replay
+    walls; ``sched --json``, which must prove its 16 subjects with no
+    finding and every multi-host comparison below the flat ring; ``ranges
+    --json``, which must prove its default matrix's 24 kernels with no
+    finding; ``ir --json``, which must audit its default matrix's 18
+    kernels with no finding; and ``lint --json``, whose report must name
+    no finding over every ``.py`` file of the package (the linter under
+    this machine's own ``ast``)."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
-    ranges = start_checker(("ranges", "--json"), env)
+    reports = (("sched", "--json"), ("ranges", "--json"), ("ir", "--json"), ("lint", "--json"))
+    running = {argv: start_checker(argv, env)
+               for argv in (*reports, *(a for a in CHECKERS if a != ("sanitize",)))}
+    results = {}
     try:
         verdicts = sanitize_first_walls()
-        for argv in CHECKERS:
-            out, wall = run_checker(argv, env)
-            if argv == ("sanitize",):
-                check_sanitize_lines(out, wall, verdicts)
-                continue
-            last = (out.strip().splitlines() or [""])[-1]
-            log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process; "
-                f"{last} ({card_line()})")
+        running[("sanitize",)] = start_checker(("sanitize",), env)
+        for argv in list(running):
+            results[argv] = finish_checker(running.pop(argv))
     finally:
-        out, wall = finish_checker(ranges)
+        for proc, *_ in running.values():  # a checker failed: stop the others
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for argv in CHECKERS:
+        out, wall = results[argv]
+        if argv == ("sanitize",):
+            check_sanitize_lines(out, wall, verdicts)
+            continue
+        last = (out.strip().splitlines() or [""])[-1]
+        log(f"checkers: graftcheck {' '.join(argv)}: exit 0 in {wall:.3f} s as a process (beside "
+            f"the other checkers); {last} ({card_line()})")
+    out, wall = results[("sched", "--json")]
+    report = json.loads(out)
+    if (report["tool"], report["ok"], report["subject_count"], report["finding_count"]) != (
+            "graftcheck-sched", True, 16, 0) or not all(
+            c["hier_strictly_below"] for c in report["comparisons"]):
+        raise AssertionError(f"graftcheck sched --json: {out[-2000:]}")
+    split = {s["subject"]: [s["facts"][k] for k in ("ici_bytes", "ici_steps", "dcn_bytes",
+                                                     "dcn_steps")]
+             for s in report["subjects"] if s["facts"]["topology"] == "32x8"}
+    log(f"checkers: graftcheck sched --json: exit 0 in {wall:.3f} s as a process (beside the "
+        f"other checkers); {report['subject_count']} subjects, {report['finding_count']} "
+        f"findings, 32x8 [ici B, ici steps, dcn B, dcn steps] {json.dumps(split)} ({card_line()})")
+    out, wall = results[("ranges", "--json")]
     report = json.loads(out)
     if (report["tool"], report["ok"], report["kernel_count"], report["finding_count"]) != (
             "graftcheck-ranges", True, 24, 0):
@@ -3477,24 +3650,25 @@ def phase_checkers():
     log(f"checkers: graftcheck ranges --json: exit 0 in {wall:.3f} s as a process (beside the "
         f"other checkers); {report['kernel_count']} kernels, {report['finding_count']} "
         f"findings, entry increments {json.dumps(increments)} ({card_line()})")
-    out, wall = run_checker(("ir", "--json"), env)
+    out, wall = results[("ir", "--json")]
     report = json.loads(out)
     if (report["tool"], report["ok"], report["kernel_count"], report["finding_count"]) != (
             "graftcheck-ir", True, 18, 0):
         raise AssertionError(f"graftcheck ir --json: {out[-2000:]}")
     peaks = {k["kernel"]: k["facts"]["peak_live_bytes"] for k in report["kernels"]}
-    log(f"checkers: graftcheck ir --json: exit 0 in {wall:.3f} s as a process; "
-        f"{report['kernel_count']} kernels, {report['finding_count']} findings, peak live bytes "
-        f"{json.dumps(peaks)} ({card_line()})")
-    out, wall = run_checker(("lint", "--json"), env)
+    log(f"checkers: graftcheck ir --json: exit 0 in {wall:.3f} s as a process (beside the "
+        f"other checkers); {report['kernel_count']} kernels, {report['finding_count']} "
+        f"findings, peak live bytes {json.dumps(peaks)} ({card_line()})")
+    out, wall = results[("lint", "--json")]
     report = json.loads(out)
     files = sum(1 for path in (root / "spark_examples_tpu_torch").rglob("*.py")
                 if "__pycache__" not in path.parts)
     if (report["tool"], report["finding_count"], report["checked_files"]) != (
             "graftcheck", 0, files):
         raise AssertionError(f"graftcheck lint --json: {out[-2000:]} (package files: {files})")
-    log(f"checkers: graftcheck lint --json: exit 0 in {wall:.3f} s as a process; "
-        f"{report['checked_files']} files, {report['finding_count']} findings ({card_line()})")
+    log(f"checkers: graftcheck lint --json: exit 0 in {wall:.3f} s as a process (beside the "
+        f"other checkers); {report['checked_files']} files, {report['finding_count']} findings "
+        f"({card_line()})")
 
 
 def main() -> int:

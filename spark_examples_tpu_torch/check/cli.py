@@ -14,11 +14,16 @@ codes propagate:
                   [--num-samples N] [--block-size B]
                                               0 clean / 1 findings /
                                               2 grammar error
+    graftcheck sched [--json] [--topology H,D]... [--num-samples N]
+                  [--block-size B] [--reduce-schedule auto|flat|hier]
+                  [--sched-budget-seconds S]  0 proven / 1 findings /
+                                              2 grammar error
     graftcheck lockgraph [PATH...] [--json] [--dot FILE]
                                               0 acyclic+clean / 1 findings
     graftcheck hostmem [PATH...] [--json]     0 clean / 1 findings
     graftcheck plan [--analysis pca|grm|ld|assoc] <verb flags>
-                  [--plan-devices N]
+                  [--plan-devices N] [--topology H,D]
+                  [--sched-budget-seconds S]
                   [--host-mem-budget BYTES]
                   [--device-memory-bytes BYTES] [--json]
                                               0 plan OK / 2 rejected
@@ -39,12 +44,13 @@ default, wherever they are run from (a missing path exits 2);
 compiler: SKIP, exit 0; ``--strict``: 2);
 ``typecheck`` skips with exit 0 where ``mypy`` is not installed;
 ``ir`` records the Gramian updates' schedule on CPU positions
-(``check/ir.py``) and ``ranges`` proves their range and exactness
-contracts over it (``check/ranges.py``); neither touches a card.
-``--device-memory-bytes`` is the HBM budget of the plan's memory rules
-(default the reference's device-free 16 GiB; an H100's is
-``torch.cuda.mem_get_info()[1]``). The reference's other subcommand
-(``sched``) exits 2 naming the ROADMAP step that brings it.
+(``check/ir.py``), ``ranges`` proves their range and exactness
+contracts over it (``check/ranges.py``) and ``sched`` proves the rings'
+collective schedule on declared topologies, each hop on its link class
+(``check/sched.py``); none touches a card. ``--device-memory-bytes`` is
+the HBM budget of the plan's memory rules (default the reference's
+device-free 16 GiB; an H100's is ``torch.cuda.mem_get_info()[1]``). Every
+subcommand of the reference runs.
 """
 
 from __future__ import annotations
@@ -55,10 +61,8 @@ import sys
 from typing import Optional, Sequence
 
 #: The reference's subcommands the port does not run yet, each with the
-#: ROADMAP.md §1 step that brings it.
-NOT_PORTED = {
-    "sched": "2",
-}
+#: ROADMAP.md §1 step that brings it (none since the schedule prover).
+NOT_PORTED: dict = {}
 
 
 def _default_lint_root() -> str:
@@ -98,13 +102,14 @@ def _cmd_lint(argv: Sequence[str]) -> int:
     return 1 if findings else 0
 
 
-def _parse_audit_args(prog: str, argv: Sequence[str]):
+def _parse_audit_args(prog: str, argv: Sequence[str], extra=None):
     """The shared ``--json/--mesh/--topology/--num-samples/--block-size``
-    surface of the kernel-audit subcommands (``ir``, ``ranges``, and
-    ``sched`` when it comes) — ONE parser, ONE mesh-pair validation, and
-    ONE ``--topology hosts,devices_per_host`` spelling, with the
-    reference's messages. Returns ``(ns, meshes, topologies)`` or ``None``
-    after printing the grammar error."""
+    surface of the kernel-audit subcommands (``ir``, ``ranges``,
+    ``sched``) — ONE parser, ONE mesh-pair validation, and ONE
+    ``--topology hosts,devices_per_host`` spelling, with the reference's
+    messages. ``extra`` (a callback receiving the parser) registers a
+    subcommand's own flags. Returns ``(ns, meshes, topologies)`` or
+    ``None`` after printing the grammar error."""
     parser = argparse.ArgumentParser(prog=prog)
     parser.add_argument(
         "--json", action="store_true", help="Emit the machine-readable report."
@@ -129,7 +134,8 @@ def _parse_audit_args(prog: str, argv: Sequence[str]):
             "Declared topology (hosts,devices_per_host — repeatable, e.g. "
             "--topology 2,4) to audit the two-level ring on; the topology "
             "never has to exist. ir and ranges append the two-level "
-            "kernels per topology."
+            "kernels per topology; sched proves its schedule matrix on "
+            "these topologies (default: 1,2 1,4 2,4 4,8 32,8)."
         ),
     )
     parser.add_argument(
@@ -144,6 +150,8 @@ def _parse_audit_args(prog: str, argv: Sequence[str]):
         default=8,
         help="Variant block size for the audit geometry (default 8).",
     )
+    if extra is not None:
+        extra(parser)
     ns = parser.parse_args(list(argv))
     meshes = None
     if ns.mesh:
@@ -213,6 +221,68 @@ def _cmd_ranges(argv: Sequence[str]) -> int:
     return 0 if report.ok else 1
 
 
+def _cmd_sched(argv: Sequence[str]) -> int:
+    from spark_examples_tpu_torch.check.sched import run_audit
+
+    def extra(parser):
+        parser.add_argument(
+            "--reduce-schedule",
+            choices=["auto", "flat", "hier"],
+            default="auto",
+            help=(
+                "Which schedule selection to prove per topology (the "
+                "runtime flag's resolution rule; auto = hier iff hosts "
+                "> 1). Forcing flat on a multi-host topology demonstrates "
+                "GS001."
+            ),
+        )
+        parser.add_argument(
+            "--sched-budget-seconds",
+            type=float,
+            default=None,
+            metavar="S",
+            help=(
+                "Declared critical-path budget per flush: a topology "
+                "whose predicted schedule-limited time exceeds it is a "
+                "GS005 finding."
+            ),
+        )
+
+    parsed = _parse_audit_args("graftcheck sched", argv, extra=extra)
+    if parsed is None:
+        return 2
+    ns, meshes, topologies = parsed
+    if meshes is not None:
+        # A silently-ignored flag would let the user believe they
+        # constrained the audit matrix; sched audits topologies, not
+        # data x samples meshes.
+        print(
+            "graftcheck sched: --mesh does not apply here — the schedule "
+            "matrix is selected with --topology hosts,devices_per_host",
+            file=sys.stderr,
+        )
+        return 2
+    if ns.sched_budget_seconds is not None and ns.sched_budget_seconds <= 0:
+        # Same positivity contract graftcheck plan enforces for the flag:
+        # a non-positive budget is a usage error, not a GS005 finding on
+        # every topology.
+        print(
+            f"graftcheck sched: --sched-budget-seconds must be positive, "
+            f"got {ns.sched_budget_seconds}",
+            file=sys.stderr,
+        )
+        return 2
+    report = run_audit(
+        topologies=topologies,
+        num_samples=ns.num_samples,
+        block_size=ns.block_size,
+        reduce_schedule=ns.reduce_schedule,
+        budget_seconds=ns.sched_budget_seconds,
+    )
+    print(report.to_json() if ns.json else report.format())
+    return 0 if report.ok else 1
+
+
 def _cmd_plan(argv: Sequence[str]) -> int:
     from spark_examples_tpu_torch.check.plan import (
         _RaisingParser,
@@ -243,9 +313,6 @@ def _cmd_plan(argv: Sequence[str]) -> int:
         # plan rejections in their own right (e.g. --blocks-per-dispatch 0).
         print(f"  ERROR [flag-contract] {e}")
         print("plan REJECTED")
-        return 2
-    except NotImplementedError as e:
-        print(f"graftcheck plan: {e}", file=sys.stderr)
         return 2
     report = validate_plan(
         conf,
@@ -493,6 +560,7 @@ _SUBCOMMANDS = {
     "lint": _cmd_lint,
     "ir": _cmd_ir,
     "ranges": _cmd_ranges,
+    "sched": _cmd_sched,
     "lockgraph": _cmd_lockgraph,
     "hostmem": _cmd_hostmem,
     "plan": _cmd_plan,

@@ -182,11 +182,15 @@ class Trace:
     accumulator_shapes: Set[Tuple[Tuple[int, ...], str]]
     packed: Set[int]
     outputs: List[Tuple[Tuple[int, ...], str]]
+    _serialized: Optional[Tuple[Set[int], Set[int]]] = field(default=None, repr=False)
 
     def steps(self) -> Iterator[object]:
         """The host program in issue order: each recorded :class:`Op` (a
         kernel is one opaque step, as on the card) and each :class:`Event`
         dispatched outside a kernel."""
+        if not self.events:
+            yield from self.ops
+            return
         ops = iter(self.ops)
         pending = next(ops, None)
         for event in self.events:
@@ -199,24 +203,21 @@ class Trace:
             yield pending
             pending = next(ops, None)
 
-    def timeline(self) -> Iterator[Tuple[Optional[int], List[Tuple[int, int]],
-                                         List[Tuple[int, int]]]]:
-        """:meth:`steps` as ``(position, reads, results)`` of ``(storage,
-        bytes)``; an op's in-place writes count as reads."""
-        for step in self.steps():
-            if isinstance(step, Op):
-                reads = [(t.storage, t.storage_nbytes) for t in (*step.reads, *step.writes)]
-                yield (step.position, reads,
-                       [(t.storage, t.storage_nbytes) for t in step.results])
-            else:
-                yield (step.position, [(s.storage, s.storage_nbytes) for s in step.reads],
-                       [(s.storage, s.storage_nbytes) for s in step.results])
+    def serialized_hops(self) -> Tuple[Set[int], Set[int]]:
+        """:func:`serialized_hops` of the ops, computed once (the ring
+        audit and the schedule prover both read it)."""
+        if self._serialized is None:
+            self._serialized = serialized_hops(self.ops)
+        return self._serialized
 
 
 def record_update(update: Update, watch: bool = True) -> Trace:
     """Run ``update`` under the schedule recorder and (``watch``) the
-    dispatch watch; without it the trace has no events."""
-    with _schedule.recording() as schedule:
+    dispatch watch. Without it the trace has no events and the schedule
+    is recorded alone (``obs/schedule.py:recording(shapes_only=True)``:
+    each kernel body on CPU or ``meta`` positions runs once a launch
+    layout; the ops noted are a full recording's)."""
+    with _schedule.recording(shapes_only=not watch) as schedule:
         if watch:
             with _Watch(schedule) as watching:
                 update.run()
@@ -245,7 +246,7 @@ def record_update(update: Update, watch: bool = True) -> Trace:
 
 def peak_live_bytes(trace: Trace, per_position: bool = False) -> int:
     """Peak of simultaneously live storage bytes over the update's host
-    program (:meth:`Trace.timeline`). A storage is live from the step that
+    program (:meth:`Trace.steps`). A storage is live from the step that
     makes it (from the start, for one the update was handed) to its last
     use; the accumulators to the end. ``per_position`` takes the peak of
     each position's storages (a storage belongs to the position of the
@@ -255,18 +256,26 @@ def peak_live_bytes(trace: Trace, per_position: bool = False) -> int:
     last: Dict[int, int] = {}
     size: Dict[int, int] = {}
     where: Dict[int, Optional[int]] = {}
+    unplaced: Set[int] = set()  # storages touched so far at no position
     steps = 0
-    for t, (position, reads, results) in enumerate(trace.timeline()):
+    for t, step in enumerate(trace.steps()):
         steps = t + 1
-        for key, nbytes in reads:
-            first.setdefault(key, -1)
-        for key, nbytes in results:
-            first.setdefault(key, t)
-        for key, nbytes in (*reads, *results):
-            size.setdefault(key, nbytes)
-            if where.get(key) is None:
-                where[key] = position
-            last[key] = t
+        position = step.position
+        # An op's in-place writes count as reads.
+        reads = step.reads + step.writes if isinstance(step, Op) else step.reads
+        for born, stored in ((-1, reads), (t, step.results)):
+            for x in stored:
+                key = x.storage
+                last[key] = t
+                if key not in size:
+                    size[key] = x.storage_nbytes
+                    first[key] = born
+                    where[key] = position
+                    if position is None:
+                        unplaced.add(key)
+                elif position is not None and key in unplaced:
+                    where[key] = position
+                    unplaced.discard(key)
     for key in trace.accumulators:
         if key in last:
             last[key] = steps
@@ -284,7 +293,8 @@ def peak_live_bytes(trace: Trace, per_position: bool = False) -> int:
         live = 0
         for t in sorted(delta):
             live += delta[t]
-            peak = max(peak, live)
+            if live > peak:
+                peak = live
     return peak
 
 
@@ -440,21 +450,38 @@ def _roots(ops: Sequence[Op]) -> Dict[int, int]:
     return root
 
 
-def overlap_findings(ops: Sequence[Op]) -> List[str]:
+def serialized_hops(ops: Sequence[Op]) -> Tuple[Set[int], Set[int]]:
+    """The shift hops (their op indices) issued after a product that reads
+    the tile they send, and those that send a buffer an earlier product
+    wrote: one pass in issue order, keeping the roots every product so far
+    read and the storages it wrote."""
+    root = _roots(ops)
+    read: Set[int] = set()
+    wrote: Set[int] = set()
+    late: Set[int] = set()
+    written: Set[int] = set()
+    for op in ops:
+        if op.role == "product":
+            for t in op.reads:
+                read.add(root.get(t.storage, t.storage))
+            for t in op.writes:
+                wrote.add(t.storage)
+        elif op.role == "shift" and op.reads:
+            sent = op.reads[0].storage
+            if root.get(sent, sent) in read:
+                late.add(op.index)
+            if sent in wrote:
+                written.add(op.index)
+    return late, written
+
+
+def overlap_findings(ops: Sequence[Op],
+                     hops: Optional[Tuple[Set[int], Set[int]]] = None) -> List[str]:
     """The GI001 messages of a schedule: shifts issued after a product that
     reads the tile they send, and shifts that send a buffer an earlier
-    product wrote (each kind once, with its count)."""
-    root = _roots(ops)
-    top = lambda key: root.get(key, key)  # noqa: E731
-    products = [op for op in ops if op.role == "product"]
-    late = written = 0
-    for shift in (op for op in ops if op.role == "shift" and op.reads):
-        sent = shift.reads[0].storage
-        before = [p for p in products if p.index < shift.index]
-        if any(top(t.storage) == top(sent) for p in before for t in p.reads):
-            late += 1
-        if any(t.storage == sent for p in before for t in p.writes):
-            written += 1
+    product wrote (each kind once, with its count; ``hops``: the ops'
+    :func:`serialized_hops`, where the caller has them)."""
+    late, written = map(len, serialized_hops(ops) if hops is None else hops)
     messages = []
     if late:
         messages.append(
@@ -522,7 +549,7 @@ def _audit_ring(spec: KernelSpec, trace: Trace, packed: Set[int], audit: KernelA
                 f"invariant says n_local/{RING_PACK_MULTIPLE} = {width}",
             )
 
-    serialized = overlap_findings(trace.ops)
+    serialized = overlap_findings(trace.ops, trace.serialized_hops())
     for message in serialized:
         _emit(audit, "GI001", message)
     audit.facts["ring_overlap_independent"] = bool(shifts) and not serialized
@@ -557,13 +584,18 @@ def _packed_storages(trace: Trace) -> Set[int]:
     return packed
 
 
-def _audit_dtypes(trace: Trace, packed: Set[int], audit: KernelAudit) -> None:
-    f64 = {e.name for e in trace.events for s in e.results if s.dtype == "float64"}
-    f64 |= {op.name for op in trace.ops
-            for t in (*op.reads, *op.writes, *op.results) if t.dtype == "float64"}
-    audit.facts["f64_free"] = not f64
+def _audit_dtypes(trace: Trace, packed: Set[int], audit: KernelAudit, f64: bool = True) -> None:
+    """GI003 over the packed wire and (``f64``) GI004."""
     if f64:
-        _emit(audit, "GI004", "float64 values produced by: " + ", ".join(sorted(f64)))
+        wide = {e.name for e in trace.events for s in e.results if s.dtype == "float64"}
+        for op in trace.ops:
+            for tiles in (op.reads, op.writes, op.results):
+                for t in tiles:
+                    if t.dtype == "float64":
+                        wide.add(op.name)
+        audit.facts["f64_free"] = not wide
+        if wide:
+            _emit(audit, "GI004", "float64 values produced by: " + ", ".join(sorted(wide)))
 
     violations: Set[str] = set()
     for op in trace.ops:
@@ -603,8 +635,12 @@ def trace_kernel(spec: KernelSpec, watch: bool = True) -> Trace:
     return record_update(spec.build(), watch)
 
 
+#: The rules whose verdicts depend on the geometry (``geometry_only``).
+GEOMETRY_RULES = ("GI001", "GI003", "GI005", "GI006")
+
+
 def audit_kernel(spec: KernelSpec, traced: Optional[Trace] = None,
-                 watch: bool = True) -> KernelAudit:
+                 watch: bool = True, geometry_only: bool = False) -> KernelAudit:
     """Record one spec's update (or take a caller's ``traced``
     :class:`Trace`) and run every audit over its schedule. Without
     ``watch`` the schedule is recorded alone, so what reads dispatched
@@ -612,7 +648,9 @@ def audit_kernel(spec: KernelSpec, traced: Optional[Trace] = None,
     outside a kernel, and their share of ``peak_live_bytes``) sees none:
     those do not depend on the geometry and ``graftcheck ir`` watches
     them over the shipped matrix; the plan, which audits the configured
-    geometry on every admission, records the schedule alone."""
+    geometry on every admission, records the schedule alone.
+    ``geometry_only`` runs :data:`GEOMETRY_RULES` alone (the schedule
+    prover's topologies), leaving out GI002 and GI004."""
     audit = KernelAudit(spec.name)
     if traced is None:
         try:
@@ -624,8 +662,9 @@ def audit_kernel(spec: KernelSpec, traced: Optional[Trace] = None,
     audit.facts["out_shapes"] = [list(shape) for shape, _ in traced.outputs]
     audit.facts["out_dtypes"] = [dtype for _, dtype in traced.outputs]
     packed = _packed_storages(traced)
-    _audit_donation(spec, traced, audit)
-    _audit_dtypes(traced, packed, audit)
+    if not geometry_only:
+        _audit_donation(spec, traced, audit)
+    _audit_dtypes(traced, packed, audit, f64=not geometry_only)
     if spec.ring:
         _audit_ring(spec, traced, packed, audit)
     audit.facts["peak_live_bytes"] = peak_live_bytes(
@@ -1038,6 +1077,7 @@ __all__ = [
     "DEFAULT_MESHES",
     "DonationSite",
     "Event",
+    "GEOMETRY_RULES",
     "IrReport",
     "KernelAudit",
     "KernelSpec",
@@ -1056,6 +1096,7 @@ __all__ = [
     "record_update",
     "ring_kernel_spec",
     "run_audit",
+    "serialized_hops",
     "stacked_kernel_spec",
     "trace_kernel",
 ]

@@ -45,9 +45,14 @@ catalogue, zero drift), and runs the per-site kernels' plain versions
 configuration is an exit-2 reject before any ingest, exactly like a
 doomed PCA one.
 
-The reference's schedule proof (``--topology``, ``--sched-budget-seconds``,
-``check/sched.py``) walks jaxprs and is not ported: both flags raise
-:class:`NotImplementedError`.
+A declared ``--topology hosts,devices_per_host`` is proven by ``graftcheck
+sched`` (``check/sched.py``): the ring the run would build on that fleet
+is recorded at the configured geometry (``meta`` positions for the
+host-fed ring, CPU ones for the device-generation ring, each kernel body
+once a launch layout), each hop placed on its link class, and its
+findings are plan rejections (``sched-GSxxx``, ``sched-GIxxx``);
+``--sched-budget-seconds`` holds the predicted critical path over the
+statically known site count to a budget (GS005).
 
 Exit contract (``check/cli.py``): 0 = plan OK (warnings allowed),
 2 = plan rejected with at least one error.
@@ -160,11 +165,10 @@ def parse_plan_args(argv: Sequence[str]):
     remaining flags parse through that verb's REAL parser) plus the
     plan-only ``--plan-devices`` and ``--host-mem-budget``. Returns the
     reference's tuple ``(conf, plan_devices, json_out, host_mem_budget,
-    analysis, topology, sched_budget_seconds)``, the last two always
-    ``None``: ``--topology`` and ``--sched-budget-seconds`` raise
-    :class:`NotImplementedError`. Flag errors raise ``ValueError``
-    (argparse's SystemExit is converted so the caller reports them as
-    plan rejections, not a CLI crash)."""
+    analysis, topology, sched_budget_seconds)``, ``topology`` a parsed
+    :class:`~spark_examples_tpu_torch.parallel.mesh.Topology` or ``None``.
+    Flag errors raise ``ValueError`` (argparse's SystemExit is converted
+    so the caller reports them as plan rejections, not a CLI crash)."""
     argv = list(argv)
     analysis = "pca"
     for index, arg in enumerate(argv):
@@ -227,8 +231,13 @@ def parse_plan_args(argv: Sequence[str]):
         default=None,
         metavar="H,D",
         help=(
-            "The reference's declared pod topology for its schedule "
-            "proof; not ported (raises NotImplementedError)."
+            "Declared fleet topology (hosts,devices_per_host — e.g. 32,8) "
+            "to prove the reduction schedule against: the ring the run "
+            "would build is recorded and simulated per link class "
+            "(check/sched.py) — per-level traffic, overlap, liveness, and "
+            "the GS rules, for a fleet that need not exist. The samples "
+            "axis it implies is hosts x devices_per_host; an explicit "
+            "--mesh-shape must agree."
         ),
     )
     parser.add_argument(
@@ -237,8 +246,10 @@ def parse_plan_args(argv: Sequence[str]):
         default=None,
         metavar="S",
         help=(
-            "The reference's schedule-limited budget (needs --topology); "
-            "not ported (raises NotImplementedError)."
+            "Declared schedule-limited wall-clock budget for the whole "
+            "run's statically-known site count: a topology whose "
+            "predicted critical path exceeds it is a GS005 rejection "
+            "(exit 2). Needs --topology."
         ),
     )
     parser.add_argument(
@@ -246,31 +257,20 @@ def parse_plan_args(argv: Sequence[str]):
     )
     ns = parser.parse_args(argv)
     conf = conf_cls._from_namespace(ns)
-    _refuse_schedule_proof(ns.topology, ns.sched_budget_seconds)
+    topology = None
+    if ns.topology is not None:
+        from spark_examples_tpu_torch.parallel.mesh import parse_topology
+
+        topology = parse_topology(ns.topology)  # ValueError -> rejection
     return (
         conf,
         ns.plan_devices,
         ns.json,
         ns.host_mem_budget,
         analysis,
-        None,
-        None,
+        topology,
+        ns.sched_budget_seconds,
     )
-
-
-def _refuse_schedule_proof(topology, sched_budget_seconds) -> None:
-    """The schedule proof walks the reference's jaxprs (``check/sched.py``)
-    and has no counterpart in the port yet."""
-    for flag, value in (
-        ("--topology", topology),
-        ("--sched-budget-seconds", sched_budget_seconds),
-    ):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} {value!r}: the schedule proof (check/sched.py) is "
-                "not ported to PyTorch yet (ROADMAP.md §1, the graftcheck "
-                "step)"
-            )
 
 
 def _resolve_mesh_axes(
@@ -754,6 +754,112 @@ def _static_site_rows(conf: PcaConf) -> Optional[int]:
         return None
 
 
+def _check_schedule(
+    report: PlanReport,
+    conf: PcaConf,
+    topology,
+    data: int,
+    samples: int,
+    sched_budget_seconds: Optional[float],
+    plan_devices: Optional[int] = None,
+) -> None:
+    """The collective-schedule proof for a DECLARED topology
+    (``check/sched.py`` over the configured ring's geometry): resolve the
+    schedule ``--reduce-schedule`` would build on that topology, record
+    and simulate it, and turn GS/GI findings into plan rejections — a
+    multi-host run is schedule-proven before the fleet exists.
+    ``--sched-budget-seconds`` projects the critical path over the
+    statically-known site count (GS005); a budget over an unknowable site
+    count is itself a rejection (the flag asks for a proof the
+    configuration cannot give — the ``--host-mem-budget`` rule)."""
+    from spark_examples_tpu_torch.check.sched import audit_schedule
+    from spark_examples_tpu_torch.ops.gramian import resolve_ring_pack
+    from spark_examples_tpu_torch.parallel.mesh import resolve_reduce_schedule
+
+    if conf.mesh_shape and samples != topology.devices:
+        # An explicit mesh must span the declared fleet's samples axis —
+        # including the data-only (samples=1) spelling, which pins a run
+        # that dispatches no ring at all; only the default-mesh case
+        # (no --mesh-shape) lets the topology imply the schedule mesh.
+        report.error(
+            "topology-mesh-mismatch",
+            f"--topology {topology.describe()} implies a samples axis of "
+            f"{topology.devices} but --mesh-shape {conf.mesh_shape} "
+            f"declares {samples}; the schedule would not span the "
+            "declared pod",
+        )
+        return
+    if plan_devices is not None and plan_devices != topology.devices:
+        # One report must describe ONE fleet: the mesh/HBM/host-mem facts
+        # are computed against --plan-devices while the schedule proof
+        # spans the topology — a disagreement proves a plan no single
+        # run can execute.
+        report.error(
+            "topology-devices-mismatch",
+            f"--topology {topology.describe()} declares "
+            f"{topology.devices} devices but --plan-devices declares "
+            f"{plan_devices}; the geometry facts and the schedule proof "
+            "would describe different pods",
+        )
+        return
+    schedule = resolve_reduce_schedule(
+        getattr(conf, "reduce_schedule", "auto"), topology.hosts
+    )
+    static_rows = _static_site_rows(conf)
+    if sched_budget_seconds is not None and sched_budget_seconds <= 0:
+        report.error(
+            "sched-budget-seconds",
+            f"--sched-budget-seconds must be positive, got "
+            f"{sched_budget_seconds}",
+        )
+        return
+    if sched_budget_seconds is not None and static_rows is None:
+        report.error(
+            "sched-budget-unprovable",
+            "--sched-budget-seconds needs a statically-known site count "
+            "to project the schedule over (synthetic source with explicit "
+            "--references); this configuration's total rows are only "
+            "known at run time, so no critical-path proof exists",
+        )
+        return
+    # Prove the ring the run would actually dispatch: device ingest rides
+    # the fused generation ring, not the host-fed Gramian ring.
+    kernel = "devicegen" if conf.ingest == "device" else "gramian"
+    audit = audit_schedule(
+        topology,
+        schedule,
+        num_samples=int(conf.num_samples),
+        block_size=int(conf.block_size),
+        data=data if conf.mesh_shape and samples == topology.devices else 1,
+        pack=resolve_ring_pack(getattr(conf, "ring_pack_bits", "auto")),
+        rows=static_rows,
+        budget_seconds=sched_budget_seconds,
+        selected=True,
+        kernel=kernel,
+        device="meta" if kernel == "gramian" else "cpu",
+    )
+    for finding in audit.findings:
+        report.error(f"sched-{finding.rule_id}", finding.detail)
+    report.geometry["sched_topology"] = topology.describe()
+    report.geometry["sched_schedule"] = schedule
+    report.geometry["sched_kernel"] = audit.facts.get("kernel")
+    report.geometry["sched_ici_bytes"] = audit.facts.get("ici_bytes")
+    report.geometry["sched_dcn_bytes"] = audit.facts.get("dcn_bytes")
+    report.geometry["sched_rows"] = audit.facts.get("sim_rows")
+    report.geometry["sched_critical_path_seconds"] = audit.facts.get(
+        "critical_path_seconds"
+    )
+    if audit.ok:
+        report.shape_checks.append(
+            f"schedule audit on {topology.describe()}: {schedule} "
+            f"schedule, ici {audit.facts.get('ici_bytes')} B / dcn "
+            f"{audit.facts.get('dcn_bytes')} B per flush == formula, "
+            "overlap clean, predicted critical path "
+            f"{audit.facts.get('critical_path_seconds'):.3g} s over "
+            f"{audit.facts.get('sim_rows')} rows"
+        )
+
+
 def _check_artifact_parent(
     report: PlanReport, code: str, flag: str, path: Optional[str]
 ) -> None:
@@ -1041,8 +1147,9 @@ def validate_plan(
     arithmetic plus the kernels' plain versions on ``meta`` tensors — no
     device is queried. ``device_bytes`` is the HBM budget every memory
     rule applies (default the reference's device-free 16 GiB,
-    ``ops/gramian.py:_DEFAULT_DEVICE_BYTES``); ``topology`` and
-    ``sched_budget_seconds`` raise :class:`NotImplementedError`.
+    ``ops/gramian.py:_DEFAULT_DEVICE_BYTES``); ``topology`` (a
+    :class:`~spark_examples_tpu_torch.parallel.mesh.Topology`) adds the
+    schedule proof, ``sched_budget_seconds`` its critical-path budget.
     ``analysis`` selects the validated workload: ``pca`` (the default —
     also the ``similarity`` served kind) keeps every Gramian proof;
     ``grm`` adds the analyses' shared admission gate on top of them (its
@@ -1055,7 +1162,6 @@ def validate_plan(
             f"analysis {analysis!r} is not one of "
             + "|".join(sorted(ANALYSIS_SURFACES))
         )
-    _refuse_schedule_proof(topology, sched_budget_seconds)
     from spark_examples_tpu_torch.ops.gramian import _DEFAULT_DEVICE_BYTES
 
     if device_bytes is None:
@@ -1132,6 +1238,12 @@ def validate_plan(
         resolve_reduce_schedule(getattr(conf, "reduce_schedule", "auto"), 1)
     except ValueError as e:
         report.error("reduce-schedule", str(e))
+    if sched_budget_seconds is not None and topology is None:
+        report.error(
+            "sched-budget-seconds",
+            "--sched-budget-seconds needs --topology: a critical-path "
+            "budget is a claim about a specific pod's link bandwidths",
+        )
 
     # Robustness flags (pipeline/checkpoint.py + utils/faults.py): a
     # checkpointed whole-genome run that only discovers its resume flags
@@ -1267,9 +1379,12 @@ def validate_plan(
         from spark_examples_tpu_torch.parallel.mesh import HIER_HOSTS_ENV
 
         hier_hosts = None
-        env = os.environ.get(HIER_HOSTS_ENV, "")
-        if env.isdigit():
-            hier_hosts = int(env)
+        if topology is not None:
+            hier_hosts = int(topology.hosts)
+        else:
+            env = os.environ.get(HIER_HOSTS_ENV, "")
+            if env.isdigit():
+                hier_hosts = int(env)
         if hier_hosts is not None and hier_hosts > 1 and samples % hier_hosts:
             report.error(
                 "hier-hosts-samples-axis",
@@ -1316,6 +1431,57 @@ def validate_plan(
             _check_exactness(report, data, samples, conf, dense_traces, ring_trace)
     if conf.pca_backend == "gpu" and not gramian_like and report.ok:
         _eval_analysis_kernels(report, conf, analysis, data, samples)
+
+    # ----------------------------------------- schedule proof (if declared)
+    if topology is not None and report.ok:
+        if (
+            conf.pca_backend == "gpu"
+            and gramian_like
+            and conf.similarity_strategy != "dense"
+        ):
+            _check_schedule(
+                report,
+                conf,
+                topology,
+                data,
+                samples,
+                sched_budget_seconds,
+                plan_devices,
+            )
+        else:
+            # No collective reduction exists to prove: the host backend
+            # and the per-site analyses dispatch no ring, and an EXPLICIT
+            # dense strategy pins the replicated accumulator even across
+            # hosts (auto would resolve sharded there, so auto still
+            # proves).
+            why = (
+                "--pca-backend host"
+                if conf.pca_backend != "gpu"
+                else (
+                    f"--analysis {analysis}"
+                    if not gramian_like
+                    else "--similarity-strategy dense"
+                )
+            )
+            if sched_budget_seconds is not None:
+                # A declared budget the configuration cannot prove is a
+                # rejection, never a silent pass (the --host-mem-budget
+                # rule).
+                report.error(
+                    "sched-budget-unprovable",
+                    "--sched-budget-seconds declares a schedule-limited "
+                    "budget, but this configuration dispatches no "
+                    f"collective reduction to prove ({why} has no ring "
+                    "schedule); drop the budget or validate a ring-"
+                    "bearing gpu configuration",
+                )
+            else:
+                report.warn(
+                    "sched-not-applicable",
+                    f"--topology {topology.describe()} declared, but "
+                    f"this configuration dispatches no collective "
+                    f"reduction ({why}) — no schedule facts to prove",
+                )
 
     # --------------------------------------------------- memory feasibility
     from spark_examples_tpu_torch.ops.gramian import (
@@ -1398,8 +1564,8 @@ def predict_job_cost(
     ``geometry`` short-circuits re-validation: serve admission already
     ran :func:`validate_plan` and passes ``report.geometry`` straight in
     (one validation per job, not two). Without it, this validates the
-    plan itself (``topology`` raises :class:`NotImplementedError`, as
-    :func:`validate_plan` does). The prediction is always produced, even
+    plan itself (``topology`` adds the schedule simulator's critical-path
+    term). The prediction is always produced, even
     for a plan with findings — a cost estimate is telemetry, not a gate;
     admission rejects on the findings separately. The rates are
     ``obs/costmodel.py``'s, measured on the card."""

@@ -537,8 +537,71 @@ RANGES_RULES: Dict[str, Rule] = {
 }
 
 
+#: ``graftcheck sched`` rule catalogue (``check/sched.py``): schedule-level
+#: audits of the collective reduction on a DECLARED topology
+#: (``parallel/mesh.py:Topology`` — hosts x devices_per_host + per-link
+#: rates, proven against before the fleet exists), with the reference's ids
+#: and names. The schedule is the RECORDED one (``obs/schedule.py``: every
+#: shift call with its hops' bytes and the link each hop rides, and whether
+#: it is issued free of the products) of the runtime's own rings, simulated
+#: per link class. GS findings anchor to a schedule subject name (line 0),
+#: like the GI rules.
+SCHED_RULES: Dict[str, Rule] = {
+    rule.id: rule
+    for rule in [
+        Rule(
+            "GS001",
+            "flat-ring-on-dcn",
+            "A flat ring is SELECTED on a multi-host topology: its single "
+            "ring wraps across every host, so each of its steps has a hop "
+            "on the slow inter-host link and the whole circulation is "
+            "gated on it — past the hierarchical schedule's proven DCN "
+            "bound. Use --reduce-schedule hier (or auto) when the samples "
+            "axis spans hosts.",
+        ),
+        Rule(
+            "GS002",
+            "schedule-formula-mismatch",
+            "The per-level traffic simulated from the recorded schedule "
+            "disagrees with the audited closed forms "
+            "(parallel/mesh.py:ring_traffic_bytes / "
+            "hierarchical_traffic_bytes) — telemetry, the manifest's "
+            "schedule block, and the plan validator no longer describe "
+            "the schedule the ring executes.",
+        ),
+        Rule(
+            "GS003",
+            "overlap-hole",
+            "A link-bound schedule step is not issued free of the products "
+            "in the recorded schedule (a hop sent after a product that "
+            "reads its tile, or sending a buffer a product wrote): the "
+            "transfer adds to the critical path instead of hiding behind "
+            "the tensor cores — the schedule-level generalization of "
+            "GI001, applied to BOTH levels of the hierarchical ring.",
+        ),
+        Rule(
+            "GS004",
+            "schedule-liveness-past-hbm",
+            "The schedule's static per-device peak liveness (a sweep over "
+            "each position's storage lifetimes in the recorded schedule) "
+            "exceeds the HBM fraction budget — the schedule cannot run at "
+            "this geometry regardless of its traffic profile.",
+        ),
+        Rule(
+            "GS005",
+            "critical-path-past-budget",
+            "The predicted schedule-limited critical path (per-level link "
+            "time over the declared topology's rates, overlap-aware) "
+            "exceeds the declared --sched-budget-seconds — the plan "
+            "cannot be proven to fit its time budget on this topology.",
+        ),
+    ]
+}
+
+
 ALL_RULES: Dict[str, Rule] = {
-    **RULES, **IR_RULES, **RANGES_RULES, **LOCK_RULES, **HOSTMEM_RULES, **PROTO_RULES,
+    **RULES, **IR_RULES, **RANGES_RULES, **SCHED_RULES, **LOCK_RULES, **HOSTMEM_RULES,
+    **PROTO_RULES,
 }
 
 
@@ -632,6 +695,7 @@ __all__ = [
     "RULES",
     "IR_RULES",
     "RANGES_RULES",
+    "SCHED_RULES",
     "LOCK_RULES",
     "HOSTMEM_RULES",
     "PROTO_RULES",

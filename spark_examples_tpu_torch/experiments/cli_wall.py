@@ -12,7 +12,13 @@ process's wall-clock (host clock around the process, its start and
 ``import torch`` included) and the manifest's top-level spans. One untimed
 run per tree first builds its kernels; then each round runs the trees in
 order and in reverse (A B B A). Prints the card line, one JSON line per
-run and one with each tree's medians. Runs on a CUDA card only.
+run and one with each tree's medians. Runs on a CUDA card only, except
+a ``graftcheck`` argv: the checkers are device-free, so it runs on any
+host (the card line then reads ``no card``), without a manifest — the
+process's wall alone, which must exit 0::
+
+    python -m spark_examples_tpu_torch.experiments.cli_wall \
+        --tree . --rounds 2 -- graftcheck sched --json
 
 With ``--positions N`` the argv (flags, no verb) runs through
 ``run_pipeline(conf, devices=[cuda:0] * N)`` instead, a mesh of N
@@ -44,6 +50,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,18 +132,21 @@ def run_worker(tree: Path, worker: str, *args) -> dict:
 
 
 def run_once(tree: Path, argv, workdir: Path) -> dict:
-    """One CLI process in ``tree``: its wall-clock and top-level spans."""
-    manifest = workdir / f"m-{time.monotonic_ns()}.json"
+    """One CLI process in ``tree``: its wall-clock and top-level spans
+    (none for ``graftcheck``, which writes no manifest)."""
+    manifest = None if argv[:1] == ["graftcheck"] else workdir / f"m-{time.monotonic_ns()}.json"
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "spark_examples_tpu_torch", *argv, "--metrics-json", str(manifest)],
+        [sys.executable, "-m", "spark_examples_tpu_torch", *argv,
+         *(() if manifest is None else ("--metrics-json", str(manifest)))],
         cwd=tree, env=dict(os.environ, PYTHONPATH=str(tree)),
         capture_output=True, text=True, timeout=600,
     )
     wall = time.perf_counter() - t0
     if proc.returncode:
         raise RuntimeError(f"{tree}: rc {proc.returncode}: {proc.stderr[-2000:]}")
-    spans = {s["name"]: s["seconds"] for s in json.loads(manifest.read_text())["spans"]}
+    spans = ({} if manifest is None else
+             {s["name"]: s["seconds"] for s in json.loads(manifest.read_text())["spans"]})
     return {"tree": str(tree), "wall_s": wall, "spans_s": spans}
 
 
@@ -152,8 +162,12 @@ def main(args=None) -> int:
     ns = parser.parse_args(args)
     argv = ns.argv[1:] if ns.argv[:1] == ["--"] else ns.argv
     trees = [t.resolve() for t in ns.tree]
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    if argv[:1] == ["graftcheck"] and shutil.which("nvidia-smi") is None:
+        card = "no card"
+    else:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
     runs = {str(t): [] for t in trees}
     with tempfile.TemporaryDirectory() as tmp:

@@ -95,14 +95,29 @@ def ring_traffic_bytes(rows: int, samples_parallel: int, n_local: int, packed: b
     return int(rows) * int(samples_parallel) * (int(samples_parallel) - 1) * width
 
 
+#: The link rates a :class:`Topology` declares by default: an H100 fleet's
+#: published datasheet figures, not measurements (a single card measures
+#: neither link). Intra-host, per device and direction: NVLink 4 on the
+#: H100 SXM5, 900 GB/s a GPU both ways. Inter-host, one link shared by a
+#: host's devices: an 8-GPU HGX/DGX H100 host's fabric, 8 x 400 Gb/s NDR.
+#: The card the port is measured on reports itself as "NVIDIA H100 80GB
+#: HBM3, 700.00 W" (nvidia-smi --query-gpu=name,power.limit).
+DEFAULT_ICI_BYTES_PER_S = 450 * 10**9
+DEFAULT_DCN_BYTES_PER_S = 400 * 10**9
+
+
 @dataclass(frozen=True)
 class Topology:
     """A fleet the schedule is planned against: ``hosts`` machines x
-    ``devices_per_host`` devices. Declarative: it is never queried from a
-    runtime. (The reference's link bandwidths, a TPU's, are not carried.)"""
+    ``devices_per_host`` devices, intra-host links at ``ici_bytes_per_s``
+    a device, one ``dcn_bytes_per_s`` inter-host link shared by a host's
+    devices (the reference's names and meaning; an H100 fleet's rates by
+    default). Declarative: it is never queried from a runtime."""
 
     hosts: int
     devices_per_host: int
+    ici_bytes_per_s: int = DEFAULT_ICI_BYTES_PER_S
+    dcn_bytes_per_s: int = DEFAULT_DCN_BYTES_PER_S
 
     def __post_init__(self) -> None:
         if self.hosts < 1 or self.devices_per_host < 1:
@@ -110,6 +125,8 @@ class Topology:
                 f"topology needs hosts >= 1 and devices_per_host >= 1, got "
                 f"{self.hosts}x{self.devices_per_host}"
             )
+        if self.ici_bytes_per_s <= 0 or self.dcn_bytes_per_s <= 0:
+            raise ValueError("topology link bandwidths must be positive")
 
     @property
     def devices(self) -> int:
@@ -950,6 +967,8 @@ def plan_executor_slices(
 
 __all__ = [
     "DATA_AXIS",
+    "DEFAULT_DCN_BYTES_PER_S",
+    "DEFAULT_ICI_BYTES_PER_S",
     "ExecutorSlice",
     "SLICE_LARGE",
     "SLICE_SMALL",

@@ -77,6 +77,7 @@ EXPECTED_MODULES = (
     "spark_examples_tpu_torch.check.ranges",
     "spark_examples_tpu_torch.check.rules",
     "spark_examples_tpu_torch.check.sanitize",
+    "spark_examples_tpu_torch.check.sched",
     "spark_examples_tpu_torch.check.typecheck",
     "spark_examples_tpu_torch.experiments.cli_wall",
     "spark_examples_tpu_torch.experiments.cost_rates",

@@ -287,16 +287,30 @@ def test_plan_touches_no_device(name, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--topology", "2,4"], ["--sched-budget-seconds", "5"]])
-def test_schedule_proof_flags_are_refused(flags):
+def test_schedule_proof_flags_are_refused(flags, reference_jax_shims):
+    """No longer refused: ``--topology`` and ``--sched-budget-seconds``
+    parse, and the plan proves the schedule (or rejects a budget without a
+    topology) as the reference's does — its exit code, its issue codes and
+    its schedule facts, the critical path aside (the port's links are an
+    H100 fleet's, the reference's a TPU pod's)."""
     from spark_examples_tpu_torch.check.plan import parse_plan_args, validate_plan
     from spark_examples_tpu_torch.config import PcaConf
+    from spark_examples_tpu_torch.parallel.mesh import Topology
 
-    with pytest.raises(NotImplementedError, match=flags[0]):
-        parse_plan_args(flags)
-    rc, _, _ = _plan_cli("port", flags)
-    assert rc == 2
-    with pytest.raises(NotImplementedError):
-        validate_plan(PcaConf(), topology=object())
+    topology, budget = parse_plan_args(flags)[5:]
+    assert topology == (Topology(2, 4) if flags[0] == "--topology" else None)
+    assert budget == (5.0 if flags[0] == "--sched-budget-seconds" else None)
+    argv = ["--num-samples", "64", "--references", "1:0:400000", *flags]
+    (ref_rc, ref, _), (rc, port, _) = (_plan_cli(pkg, argv) for pkg in PKGS)
+    assert rc == ref_rc == (0 if topology else 2)
+    codes = lambda r: sorted((i["code"], i["severity"]) for i in r["issues"])
+    assert codes(port) == codes(ref)
+    sched = {k for k in set(ref["geometry"]) | set(port["geometry"]) if k.startswith("sched_")}
+    assert bool(sched) == bool(topology)
+    for key in sorted(sched - {"sched_critical_path_seconds"}):
+        assert port["geometry"].get(key) == ref["geometry"].get(key), key
+    report = validate_plan(PcaConf(num_samples=64), topology=Topology(2, 4))
+    assert report.ok and report.geometry["sched_schedule"] == "hier"
 
 
 #: The subcommands ported since, each with runs whose exit codes the
@@ -316,11 +330,13 @@ PORTED_SUBCOMMAND_RUNS = {
 @pytest.mark.parametrize("sub", ["lint", "ir", "ranges", "sched", "lockgraph", "hostmem",
                                  "proto", "sanitize", "typecheck"])
 def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_path,
-                                                              monkeypatch):
-    """The two subcommands still refused exit 2 naming their ROADMAP step;
-    each ported one runs and exits as the reference's does. ``ir`` is held
-    to the reference's grammar errors, and its verdicts to the port's own
-    mutant (the reference's audit does not run under this image's JAX)."""
+                                                              monkeypatch, request):
+    """Every subcommand is ported: each runs and exits as the reference's
+    does (a refused one would exit 2 naming its ROADMAP step). ``ir`` is
+    held to the reference's grammar errors, and its verdicts to the port's
+    own mutant (the reference's audit does not run under this image's
+    JAX); ``sched`` to the reference's exit codes and its GS001 on a flat
+    ring forced across hosts (under the JAX shims)."""
     from spark_examples_tpu.check import typecheck as ref_typecheck
     from spark_examples_tpu.check.cli import main as ref_main
     from spark_examples_tpu.utils import native as ref_native
@@ -348,6 +364,22 @@ def test_other_graftcheck_subcommands_name_their_roadmap_step(sub, capsys, tmp_p
         assert main(["graftcheck", "ranges", "--mesh", "1,4"]) == 1
         captured = capsys.readouterr()
         assert "not yet ported" not in captured.err and "GR005" in captured.out
+        return
+    if sub == "sched":
+        assert main(["graftcheck", "sched", "--topology", "2,4"]) == 0
+        assert main(["graftcheck", "sched", "--mesh", "1,2"]) == ref_main(
+            ["sched", "--mesh", "1,2"]) == 2
+        capsys.readouterr()
+        request.getfixturevalue("reference_jax_shims")
+        argv = ["sched", "--reduce-schedule", "flat", "--topology", "2,4"]
+        assert main(["graftcheck", *argv]) == 1
+        port = capsys.readouterr()
+        assert ref_main(argv) == 1
+        ref = capsys.readouterr()
+        assert "not yet ported" not in port.err
+        for out in (port.out, ref.out):
+            assert out.count(": GS001 [flat-ring-on-dcn]") == 2 and out.count(": G") == 2
+            assert out.endswith("graftcheck sched: 2 schedule(s), 2 finding(s)\n")
         return
     if sub not in PORTED_SUBCOMMAND_RUNS:
         assert main(["graftcheck", sub]) == 2
