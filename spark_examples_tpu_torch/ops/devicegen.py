@@ -30,6 +30,7 @@ set-local sample index and population, so one kernel covers them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -892,6 +893,10 @@ def reset_launch_counts() -> None:
         kernel.launches = 0  # type: ignore[attr-defined]
 
 
+def _no_span(name: str):
+    return contextlib.nullcontext()
+
+
 class _GridWalk:
     """The site-grid walk both device-generation accumulators share: groups
     of ``blocks_per_dispatch`` blocks, then the remainder in tail groups of
@@ -900,11 +905,15 @@ class _GridWalk:
     counts as one dispatch of ``data`` groups' capacity, idle slices
     included — the reference's ``_GridDispatchAccumulator`` accounting.
     Subclasses give ``_blocks(d, grid_offset, n_valid, blocks)``: slice
-    d's work for one group."""
+    d's work for one group. With ``spans`` (a
+    :class:`~spark_examples_tpu_torch.obs.spans.SpanRecorder`) each round
+    is a ``dispatch`` span, so a profiler trace names the launch gaps by
+    round."""
 
     data_parallel = 1
 
-    def _init_walk(self, block_size: int, blocks_per_dispatch: int) -> None:
+    def _init_walk(self, block_size: int, blocks_per_dispatch: int, spans=None) -> None:
+        self.spans = spans
         self.block_size = int(block_size)
         self.blocks_per_dispatch = int(blocks_per_dispatch)
         self.sites_per_dispatch = self.block_size * self.blocks_per_dispatch
@@ -921,12 +930,14 @@ class _GridWalk:
     def _round_robin(self, starts: Sequence[int], last_index: int, blocks: int) -> None:
         cap = blocks * self.block_size
         D = self.data_parallel
+        span = self.spans.span if self.spans is not None else _no_span
         for i in range(0, len(starts), D):
             valid = 0
-            for d, start in enumerate(starts[i : i + D]):
-                n_valid = min(cap, last_index - start)
-                self._blocks(d, start, n_valid, blocks)
-                valid += n_valid
+            with span("dispatch"):
+                for d, start in enumerate(starts[i : i + D]):
+                    n_valid = min(cap, last_index - start)
+                    self._blocks(d, start, n_valid, blocks)
+                    valid += n_valid
             self.dispatches += 1
             self.sites_capacity += cap * D
             self.sites_valid += valid
@@ -996,7 +1007,8 @@ class DeviceGenGramianAccumulator(_GridWalk):
     (:func:`~spark_examples_tpu_torch.ops.gramian.data_axis_sum`, int64
     past one). On a mesh that spans processes every process walks the same
     grid and generates its own slices' spans; the sums run across
-    processes.
+    processes. ``spans`` records each dispatch round as a ``dispatch`` span
+    (:class:`_GridWalk`).
     """
 
     def __init__(
@@ -1015,6 +1027,7 @@ class DeviceGenGramianAccumulator(_GridWalk):
         pops_per_set: Optional[Sequence[np.ndarray]] = None,
         device: DeviceLike = None,
         mesh=None,
+        spans=None,
     ):
         self.mesh = mesh
         self._slices = [ring[0] for ring in mesh.data_slices()] if mesh is not None else [None]
@@ -1038,7 +1051,7 @@ class DeviceGenGramianAccumulator(_GridWalk):
             self.set_sizes = None
             per_set = [np.asarray(pops)] * self.n_sets
         self.total_columns = sum(len(p) for p in per_set)
-        self._init_walk(block_size, blocks_per_dispatch)
+        self._init_walk(block_size, blocks_per_dispatch, spans)
         n_pops = int(n_pops) if n_pops is not None else int(np.max(pops)) + 1
         C = self.total_columns
         # One plan, Gramian and counters a data slice (``None`` for another
@@ -1151,6 +1164,8 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
     in ``ring_pass``, and its per-set flags are ORed first over the
     ring's positions in each process, then over the ring's processes (a
     max over the ring's group) before the ring's first position counts.
+    ``spans`` records each dispatch round as a ``dispatch`` span
+    (:class:`_GridWalk`).
     """
 
     def __init__(
@@ -1171,6 +1186,7 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
         pack_bits: str = "auto",
         reduce_schedule: str = "auto",
         hier_hosts: Optional[int] = None,
+        spans=None,
     ):
         from spark_examples_tpu_torch.ops.gramian import RingLayout
         from spark_examples_tpu_torch.parallel.mesh import SAMPLES_AXIS
@@ -1202,7 +1218,7 @@ class DeviceGenRingGramianAccumulator(_GridWalk):
         self.samples_parallel, self.data_parallel = layout.samples_parallel, layout.data_parallel
         self.reduce_schedule, self.hier_hosts = layout.reduce_schedule, layout.hier_hosts
         self.device = layout.device
-        self._init_walk(block_size, blocks_per_dispatch)
+        self._init_walk(block_size, blocks_per_dispatch, spans)
         n_pops = int(n_pops) if n_pops is not None else int(np.concatenate(per_set).max()) + 1
         col_set = np.concatenate([np.full(len(p), s) for s, p in enumerate(per_set)])
         self._plans, self._ranges, self._kept, self._rows, self._scratch = [], [], [], [], []

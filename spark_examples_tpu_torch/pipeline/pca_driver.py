@@ -216,7 +216,9 @@ class VariantsPcaDriver:
     """Reusable driver (``VariantsPca.scala:89-336``). Its meshes resolve
     over ``devices`` (the reference's argument: a caller may name a device
     several times) or, by default, every card (``--device cuda``) or CPU
-    positions (``--device cpu``); without a mesh it runs on ``device``."""
+    positions (``--device cpu``); without a mesh it runs on ``device``.
+    ``spans`` is the run's span recorder (:func:`run_pipeline` hands over
+    the one its ``setup`` span is open in); a private one otherwise."""
 
     def __init__(
         self,
@@ -225,6 +227,7 @@ class VariantsPcaDriver:
         device: DeviceLike = None,
         devices: Optional[Sequence[DeviceLike]] = None,
         shard_ingest: bool = True,
+        spans: Optional[SpanRecorder] = None,
     ):
         self.conf = conf
         #: Whether a dense run of several processes may split its ingest
@@ -233,9 +236,12 @@ class VariantsPcaDriver:
         self.shard_ingest = shard_ingest
         self.devices = [torch.device(d) for d in devices] if devices is not None else None
         self.device = resolve_device(self.devices[0] if self.devices else device)
+        #: Waits for the card's queued work (``None`` on the CPU): the
+        #: stages and their synchronised children end with it.
+        self.sync = synchronizer(self.device)
         self.source = source if source is not None else make_source(conf)
         self.registry = MetricsRegistry()
-        self.spans = SpanRecorder()
+        self.spans = spans if spans is not None else SpanRecorder()
         #: The packed arm's prefetch overlap accounting (the manifest's
         #: ``overlap`` block); ``None`` on the other arms.
         self.overlap: Optional[Dict] = None
@@ -273,9 +279,10 @@ class VariantsPcaDriver:
                         "accumulated."
                     )
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
-        callsets = self.source.search_callsets(conf.variant_set_id)
-        self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
-        self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
+        with self.spans.span("callsets"):
+            callsets = self.source.search_callsets(conf.variant_set_id)
+            self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
+            self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
         print(f"Matrix size: {len(self.indexes)}.")
         # After callset discovery: the bound needs the real cohort width
         # (file sources carry theirs in the data, not the flag).
@@ -654,92 +661,103 @@ class VariantsPcaDriver:
         or, sharded, as the ring where each samples position generates its
         own columns. Multi-set cohorts (shared site grid) are per-set column
         blocks of one matrix, so the reference's join and merge
-        (``VariantsPca.scala:155-188``) need no join machinery here."""
+        (``VariantsPca.scala:155-188``) need no join machinery here. Spans:
+        ``plan`` (the accumulator: generation tables, zeroed Gramian and
+        counters), ``walk`` (the dispatch groups, each a ``dispatch``) and
+        ``counters`` (the I/O accounting and the counters' fetch, which
+        waits for the card)."""
         source, conf = self.source, self.conf
         sets = conf.variant_set_id
-        blocks_per_dispatch = (
-            conf.blocks_per_dispatch
-            if conf.blocks_per_dispatch is not None
-            else auto_blocks_per_dispatch(len(self.indexes), conf.block_size)
-        )
-        sizes = [source.num_samples_for(v) for v in sets]
-        asymmetric = any(s != source.num_samples for s in sizes)
-        common = dict(
-            pops=source.populations,
-            site_key=source.site_key,
-            spacing=source.variant_spacing,
-            ref_block_fraction=source.ref_block_fraction,
-            min_af_micro=af_filter_micro(conf.min_allele_frequency),
-            block_size=conf.block_size,
-            blocks_per_dispatch=blocks_per_dispatch,
-            n_pops=source.n_pops,
-        )
-        mesh = self._make_mesh()
-        use_ring = self._resolve_sharded(mesh)
-        if not use_ring:
-            # Dense across processes: host-sharded ingest, each process
-            # generating its contig partition on its own positions.
-            contigs = self._host_contigs(contigs)
-            mesh = self._ingest_mesh()
-        if use_ring:
-            # Each samples position generates its own column block and the
-            # tiles ring-exchange: no host traffic, no position holding N×N.
-            multi = len(sets) > 1
-            common["pops"] = source.populations if multi else source.populations_for(sets[0])
-            acc = DeviceGenRingGramianAccumulator(
-                num_samples=source.num_samples if multi else sizes[0],
-                vs_key=[source.genotype_stream_key(v) for v in sets],
-                mesh=mesh,
-                set_sizes=sizes if multi else None,
-                pops_per_set=[source.populations_for(v) for v in sets] if multi else None,
-                pack_bits=conf.ring_pack_bits,
-                reduce_schedule=conf.reduce_schedule,
-                **common,
+        with self.spans.span("plan"):
+            blocks_per_dispatch = (
+                conf.blocks_per_dispatch
+                if conf.blocks_per_dispatch is not None
+                else auto_blocks_per_dispatch(len(self.indexes), conf.block_size)
             )
-        else:
-            acc = DeviceGenGramianAccumulator(
-                num_samples=source.num_samples,
-                vs_keys=[source.genotype_stream_key(v) for v in sets],
-                set_sizes=sizes if asymmetric else None,
-                pops_per_set=[source.populations_for(v) for v in sets] if asymmetric else None,
-                device=self.device,
-                mesh=mesh,
-                **common,
+            sizes = [source.num_samples_for(v) for v in sets]
+            asymmetric = any(s != source.num_samples for s in sizes)
+            common = dict(
+                pops=source.populations,
+                site_key=source.site_key,
+                spacing=source.variant_spacing,
+                ref_block_fraction=source.ref_block_fraction,
+                min_af_micro=af_filter_micro(conf.min_allele_frequency),
+                block_size=conf.block_size,
+                blocks_per_dispatch=blocks_per_dispatch,
+                n_pops=source.n_pops,
             )
-        partitioner = VariantsPartitioner(contigs, conf.bases_per_partition)
-        partitions = [p for v in sets for p in partitioner.get_partitions(v)]
-        well_known_gauge(self.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
-        sites_gauge = well_known_gauge(self.registry, INGEST_SITES_SCANNED)
-        # The ring's traffic, by the formula over the dispatched capacity,
-        # published per contig so the heartbeat's segment is live.
-        ring_counter = well_known_counter(self.registry, GRAMIAN_RING_BYTES) if use_ring else None
+            mesh = self._make_mesh()
+            use_ring = self._resolve_sharded(mesh)
+            if not use_ring:
+                # Dense across processes: host-sharded ingest, each process
+                # generating its contig partition on its own positions.
+                contigs = self._host_contigs(contigs)
+                mesh = self._ingest_mesh()
+            if use_ring:
+                # Each samples position generates its own column block and the
+                # tiles ring-exchange: no host traffic, no position holding N×N.
+                multi = len(sets) > 1
+                common["pops"] = source.populations if multi else source.populations_for(sets[0])
+                acc = DeviceGenRingGramianAccumulator(
+                    num_samples=source.num_samples if multi else sizes[0],
+                    vs_key=[source.genotype_stream_key(v) for v in sets],
+                    mesh=mesh,
+                    set_sizes=sizes if multi else None,
+                    pops_per_set=[source.populations_for(v) for v in sets] if multi else None,
+                    pack_bits=conf.ring_pack_bits,
+                    reduce_schedule=conf.reduce_schedule,
+                    spans=self.spans,
+                    **common,
+                )
+            else:
+                acc = DeviceGenGramianAccumulator(
+                    num_samples=source.num_samples,
+                    vs_keys=[source.genotype_stream_key(v) for v in sets],
+                    set_sizes=sizes if asymmetric else None,
+                    pops_per_set=[source.populations_for(v) for v in sets] if asymmetric else None,
+                    device=self.device,
+                    mesh=mesh,
+                    spans=self.spans,
+                    **common,
+                )
+            partitioner = VariantsPartitioner(contigs, conf.bases_per_partition)
+            partitions = [p for v in sets for p in partitioner.get_partitions(v)]
+            well_known_gauge(self.registry, INGEST_PARTITIONS_PLANNED).set(len(partitions))
+            sites_gauge = well_known_gauge(self.registry, INGEST_SITES_SCANNED)
+            # The ring's traffic, by the formula over the dispatched capacity,
+            # published per contig so the heartbeat's segment is live.
+            ring_counter = (
+                well_known_counter(self.registry, GRAMIAN_RING_BYTES) if use_ring else None
+            )
         scanned = published = 0
-        for contig in contigs:
-            k0, k1 = source.site_grid_range(contig)
-            if k1 > k0:
-                acc.add_grid(k0, k1)
-            scanned += k1 - k0
-            sites_gauge.set(scanned)
-            if ring_counter is not None:
-                ring_counter.inc(acc.ring_bytes_total - published)
-                published = acc.ring_bytes_total
-        # Wire-equivalent accounting: per shard, per variant set
-        # (``SyntheticGenomicsSource.page_requests``).
-        for partition in partitions:
-            self.io_stats.add_partition(partition.range)
-            self.io_stats.add_requests(
-                source.page_requests(partition.contig, conf.bases_per_partition)
-            )
-        well_known_gauge(self.registry, DEVICEGEN_DISPATCHES).set(acc.dispatches)
-        well_known_gauge(self.registry, DEVICEGEN_SITES_CAPACITY).set(acc.sites_capacity)
-        self.accumulator = acc
-        # The synchronous counter fetch ends the ingest stage with its work.
-        per_set, _kept = acc.ingest_counters()
-        self.io_stats.add_variants(int(per_set.sum()))
-        if use_ring:
-            self.sched_block = acc.schedule_block()
-            return acc.finalize_sharded()
-        return self._merge_host_partials(acc.finalize_device())
+        with self.spans.span("walk"):
+            for contig in contigs:
+                k0, k1 = source.site_grid_range(contig)
+                if k1 > k0:
+                    acc.add_grid(k0, k1)
+                scanned += k1 - k0
+                sites_gauge.set(scanned)
+                if ring_counter is not None:
+                    ring_counter.inc(acc.ring_bytes_total - published)
+                    published = acc.ring_bytes_total
+        with self.spans.span("counters"):
+            # Wire-equivalent accounting: per shard, per variant set
+            # (``SyntheticGenomicsSource.page_requests``).
+            for partition in partitions:
+                self.io_stats.add_partition(partition.range)
+                self.io_stats.add_requests(
+                    source.page_requests(partition.contig, conf.bases_per_partition)
+                )
+            well_known_gauge(self.registry, DEVICEGEN_DISPATCHES).set(acc.dispatches)
+            well_known_gauge(self.registry, DEVICEGEN_SITES_CAPACITY).set(acc.sites_capacity)
+            self.accumulator = acc
+            # The synchronous counter fetch ends the ingest stage with its work.
+            per_set, _kept = acc.ingest_counters()
+            self.io_stats.add_variants(int(per_set.sum()))
+            if use_ring:
+                self.sched_block = acc.schedule_block()
+                return acc.finalize_sharded()
+            return self._merge_host_partials(acc.finalize_device())
 
     def _host_similarity(self, calls: Iterable[List[int]]) -> np.ndarray:
         """Literal host replication of ``getSimilarityMatrix``
@@ -756,7 +774,10 @@ class VariantsPcaDriver:
     # ------------------------------------------------------------------- pca
 
     def compute_pca(self, similarity: Similarity) -> List[Tuple[str, List[float]]]:
-        """Center and eigendecompose (``VariantsPca.scala:238-271``)."""
+        """Center and eigendecompose (``VariantsPca.scala:238-271``). On the
+        device the centring (``center``) and the eigensolve (``eigh``) each
+        end with the driver's ``sync``; ``rows`` takes the nonzero-row
+        count, the components' fetch and the per-sample list."""
         n = len(self.indexes)
         if self.conf.pca_backend == "host":
             if isinstance(similarity, torch.Tensor):
@@ -765,39 +786,44 @@ class VariantsPcaDriver:
             nonzero = int((S.sum(axis=1) > 0).sum())
             print(f"Non zero rows in matrix: {nonzero} / {n}.")
             components, _ = mllib_reference_pca(self._host_center(S), self.conf.num_pc)
-        elif isinstance(similarity, RowSharded):
+            return self._component_rows(components)
+        if isinstance(similarity, RowSharded):
             # The sharded strategy end to end: the padded Gramian stays row
             # tiles through the centring and the eigensolve.
-            with self.spans.span("center"):
+            with self.spans.span("center", sync=self.sync):
                 centered = gower_center_sharded(similarity, n)
-            with self.spans.span("eigh"):
+            with self.spans.span("eigh", sync=self.sync):
                 device_components, _ = principal_components_subspace_sharded(
                     centered, self.conf.num_pc
                 )
-            nz = torch.zeros((), dtype=torch.int64, device=device_components.device)
-            for tile in similarity.tiles:
-                if tile is not None:
-                    nz += (tile != 0).any(dim=1).sum().to(nz.device)
-            if similarity.shared:
-                nz = rank_reduce(nz)
-            # One host copy for the components and the nonzero-row count.
-            flat = packed_host_fetch([device_components, nz])
-            components = flat[:-1].reshape(-1, self.conf.num_pc)[:n].astype(np.float64)
-            print(f"Non zero rows in matrix: {int(flat[-1])} / {n}.")
-        else:
-            with self.spans.span("center"):
-                centered = gower_center(similarity)
-            with self.spans.span("eigh"):
-                device_components, _ = principal_components_subspace(
-                    centered, self.conf.num_pc
-                )
+            with self.spans.span("rows"):
+                nz = torch.zeros((), dtype=torch.int64, device=device_components.device)
+                for tile in similarity.tiles:
+                    if tile is not None:
+                        nz += (tile != 0).any(dim=1).sum().to(nz.device)
+                if similarity.shared:
+                    nz = rank_reduce(nz)
+                # One host copy for the components and the nonzero-row count.
+                flat = packed_host_fetch([device_components, nz])
+                components = flat[:-1].reshape(-1, self.conf.num_pc)[:n].astype(np.float64)
+                print(f"Non zero rows in matrix: {int(flat[-1])} / {n}.")
+                return self._component_rows(components)
+        with self.spans.span("center", sync=self.sync):
+            centered = gower_center(similarity)
+        with self.spans.span("eigh", sync=self.sync):
+            device_components, _ = principal_components_subspace(centered, self.conf.num_pc)
+        with self.spans.span("rows"):
             # any() rather than sum() > 0: int32 row sums overflow at
             # whole-genome scale.
             nonzero = int((similarity != 0).any(dim=1).sum())
             print(f"Non zero rows in matrix: {nonzero} / {n}.")
             components = device_components.cpu().numpy().astype(np.float64)  # graftcheck: disable=GC001 -- one fetch of the top components at the end of the run (the emitted result), not a per-block sync
+            return self._component_rows(components)
+
+    def _component_rows(self, components: np.ndarray) -> List[Tuple[str, List[float]]]:
+        """``(callset id, its components)`` a sample, in column order."""
         reverse = {i: cs_id for cs_id, i in self.indexes.items()}
-        return [(reverse[i], [float(c) for c in components[i]]) for i in range(n)]
+        return [(reverse[i], [float(c) for c in components[i]]) for i in range(len(self.indexes))]
 
     @staticmethod
     def _host_center(similarity: np.ndarray) -> np.ndarray:
@@ -1108,10 +1134,14 @@ def run_pipeline(
 ) -> PipelineResult:
     """The analysis, CLI-free: config in, result out, in the reference's
     order (``spark_examples_tpu/pipeline/pca_driver.py:run_pipeline``): the
-    fault plan is configured, the heartbeat starts, the stages run under
-    ``--profile-dir``'s device trace, the rows and the stats print, then the
-    stage report and the manifest, built last so it snapshots what the
-    epilogue printed. Runs on ``device`` (default ``conf.device``); raises
+    fault plan is configured, the driver is built, the heartbeat starts,
+    the stages run, the rows and the stats print, then the stage report and
+    the manifest, built last so it snapshots what the epilogue printed. The
+    driver's spans have four roots, each a range of ``--profile-dir``'s
+    device trace: ``setup`` (the source, the ingest's resolution, the
+    driver), ``ingest+similarity``, ``center+pca`` and ``epilogue`` (the
+    geometry ledger, the conformance pairs, the rows, the stats, the stage
+    report). Runs on ``device`` (default ``conf.device``); raises
     when a CUDA device is asked for and none is present. ``source``
     replaces the one ``--source`` names (a REST source with its own
     transport, say). ``devices`` are the positions the run's mesh resolves
@@ -1132,68 +1162,74 @@ def run_pipeline(
         # Parse the environment's plan now: a typo'd site fails here, not
         # at the first checkpoint of a whole-genome run.
         faults.active()
-    if source is None:
-        source = make_source(conf)
-    use_device, use_packed = resolve_ingest(conf, source)
-    driver = VariantsPcaDriver(
-        conf, source, device=conf.device if device is None else device, devices=devices
-    )
-    _export_compile_cache_gauges(driver.registry)
-    times = StageTimes(recorder=driver.spans)
-    heartbeat = None
-    if conf.heartbeat_seconds > 0:
-        heartbeat = Heartbeat(conf.heartbeat_seconds, driver.registry).start()
-    recorder = None
-    if conf.trace_dir:
-        # The crash-durable stage timeline (obs/recorder.py): one segment a
-        # process, named by its index, so the segments of a run of several
-        # processes merge into one Chrome trace (`trace export --run-dir`)
-        # with a trace process a host. A kill-point flushes it first.
-        recorder = FlightRecorder(conf.trace_dir, f"host{process_index()}")
-        recorder.begin("run", tid="pipeline")
-        faults.add_flush_hook(recorder.flush)
-    # Every arm's stage ends with the card synchronised, and its recorded
-    # end follows the synchronise.
-    sync = synchronizer(driver.device)
-    try:
-        with device_trace(conf.profile_dir):
-            if recorder is not None:
-                recorder.begin("ingest+similarity", tid="pipeline")
-            with times.stage("ingest+similarity", sync=sync):
+    # The run's spans, roots in order: setup, the two stages, epilogue.
+    # Each is a range of --profile-dir's trace, which covers all four.
+    spans = SpanRecorder()
+    with device_trace(conf.profile_dir):
+        with spans.span("setup"):
+            if source is None:
+                source = make_source(conf)
+            use_device, use_packed = resolve_ingest(conf, source)
+            driver = VariantsPcaDriver(
+                conf, source, device=conf.device if device is None else device,
+                devices=devices, spans=spans,
+            )
+            _export_compile_cache_gauges(driver.registry)
+        heartbeat = None
+        if conf.heartbeat_seconds > 0:
+            heartbeat = Heartbeat(conf.heartbeat_seconds, driver.registry).start()
+        recorder = None
+        if conf.trace_dir:
+            # The crash-durable stage timeline (obs/recorder.py): one segment
+            # a process, named by its index, so the segments of a run of
+            # several processes merge into one Chrome trace (`trace export
+            # --run-dir`) with a trace process a host. A kill-point flushes
+            # it first.
+            recorder = FlightRecorder(conf.trace_dir, f"host{process_index()}")
+            recorder.begin("run", tid="pipeline")
+            faults.add_flush_hook(recorder.flush)
+        # Every arm's stage ends with the card synchronised, and its
+        # recorded end follows the synchronise.
+        times = StageTimes(recorder=spans, flight=recorder)
+        try:
+            with times.stage("ingest+similarity", sync=driver.sync):
                 similarity = _similarity_stage(conf, driver, use_device, use_packed)
-            if recorder is not None:
-                recorder.end("ingest+similarity", tid="pipeline")
-                if (driver._ingest_hosts or 1) > 1:
-                    recorder.record(
-                        "host_sharded_ingest", tid="pipeline", hosts=int(driver._ingest_hosts)
-                    )
+            if recorder is not None and (driver._ingest_hosts or 1) > 1:
+                recorder.record(
+                    "host_sharded_ingest", tid="pipeline", hosts=int(driver._ingest_hosts)
+                )
             summary = result = None
             if similarity_only:
                 summary = _summarize_similarity(similarity, len(driver.indexes))
             else:
-                if recorder is not None:
-                    recorder.begin("center+pca", tid="pipeline")
-                with times.stage("center+pca", sync=sync):
+                with times.stage("center+pca", sync=driver.sync):
                     result = driver.compute_pca(similarity)
-                if recorder is not None:
-                    recorder.end("center+pca", tid="pipeline")
-    finally:
-        # A failed run gets its last heartbeat, then silence.
-        if heartbeat is not None:
-            heartbeat.stop()
-        if recorder is not None:
-            # Whatever happened above, the events so far reach the segment
-            # (an open "run" span exports as a truncated span).
-            faults.remove_flush_hook(recorder.flush)
-            recorder.flush()
-    # Only a run whose kernels all ran warms its geometry; recorded before
-    # the manifest so the run's own hit or miss is in it.
-    record_geometry(compile_fingerprint(conf, kind="similarity" if similarity_only else "pca"))
-    _register_prover_conformance(driver)
-    lines = driver.emit_result(result) if result is not None else []
-    driver.report_io_stats()
+        finally:
+            # A failed run gets its last heartbeat, then silence.
+            if heartbeat is not None:
+                heartbeat.stop()
+            if recorder is not None:
+                # Whatever happened above, the events so far reach the
+                # segment (an open "run" span exports as a truncated span).
+                faults.remove_flush_hook(recorder.flush)
+                recorder.flush()
+        # Closed before the manifest is built, so the manifest holds no open
+        # span.
+        with spans.span("epilogue"):
+            # Only a run whose kernels all ran warms its geometry; recorded
+            # before the manifest so the run's own hit or miss is in it.
+            record_geometry(
+                compile_fingerprint(conf, kind="similarity" if similarity_only else "pca")
+            )
+            _register_prover_conformance(driver)
+            lines = []
+            if result is not None:
+                with spans.span("emit"):
+                    lines = driver.emit_result(result)
+            driver.report_io_stats()
+            if conf.profile_dir:
+                print(str(times))
     if conf.profile_dir:
-        print(str(times))
         print(f"Device trace written to {conf.profile_dir}.")
     manifest = manifest_path = None
     if conf.metrics_json or process_count() > 1:

@@ -3,9 +3,11 @@
 The port's copy of ``spark_examples_tpu/utils/tracing.py``:
 
 - :class:`StageTimes` — coarse per-stage wall-clock accounting for the
-  driver, recorded as spans of the run's :class:`SpanRecorder`, so the
-  printed "Stage timings" report and the manifest's span tree are views of
-  one measurement;
+  driver, recorded as spans of the run's :class:`SpanRecorder` (each span
+  a profiler range of its own, ``obs/spans.py``) and, with a flight
+  recorder, as its ``begin``/``end`` pair, so the printed "Stage timings"
+  report, the manifest's span tree, the device trace and the crash-durable
+  timeline are views of one measurement;
 - :func:`device_trace` — a ``torch.profiler`` trace of the host's and the
   card's activity (every CUDA kernel with its start and duration), written
   as a Chrome trace into the directory. It stands where the reference's
@@ -23,8 +25,7 @@ import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from torch.profiler import record_function
-
+from spark_examples_tpu_torch.obs.recorder import FlightRecorder
 from spark_examples_tpu_torch.obs.spans import SpanRecorder
 
 
@@ -33,29 +34,38 @@ class StageTimes:
 
     ``recorder`` shares the run's :class:`SpanRecorder` (stages nest under
     whatever span is open, and deeper phases nest under the stages); a
-    private recorder is created otherwise. ``stages`` keeps the
-    ``[(name, seconds)]`` list the printed report reads.
+    private recorder is created otherwise. ``flight``, the run's
+    :class:`FlightRecorder` under ``--trace-dir``, gets each stage's
+    ``begin`` and, once the stage has ended with its work, its ``end``
+    (thread ``pipeline``); a stage that raises leaves its ``begin`` open,
+    which the export marks truncated. ``stages`` keeps the ``[(name,
+    seconds)]`` list the printed report reads.
     """
 
-    def __init__(self, recorder: Optional[SpanRecorder] = None) -> None:
+    def __init__(
+        self, recorder: Optional[SpanRecorder] = None, flight: Optional[FlightRecorder] = None
+    ) -> None:
         self.recorder = recorder if recorder is not None else SpanRecorder()
+        self.flight = flight
         self.stages: List[Tuple[str, float]] = []
 
     @contextlib.contextmanager
     def stage(self, name: str, sync: Optional[Callable[[], object]] = None):
         """Time a stage; ``sync`` (if given) is called before closing the
-        measurement, so the stage ends with the card's work. Under
-        :func:`device_trace` the stage is also a named range of the trace
-        (``record_function``), the window its device busy share is read
-        over."""
+        measurement, so the stage ends with the card's work. The stage's
+        span is a named range of any profiler trace (:func:`device_trace`),
+        the window its device busy share is read over."""
+        if self.flight is not None:
+            self.flight.begin(name, tid="pipeline")
         span = None
         try:
-            # The trace range encloses the span, so it ends after the sync.
-            with record_function(name), self.recorder.span(name, sync=sync) as span:
+            with self.recorder.span(name, sync=sync) as span:
                 yield self
         finally:
             if span is not None and span.seconds is not None:
                 self.stages.append((name, span.seconds))
+        if self.flight is not None:
+            self.flight.end(name, tid="pipeline")
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self.stages)
