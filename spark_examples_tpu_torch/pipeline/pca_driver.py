@@ -279,10 +279,15 @@ class VariantsPcaDriver:
                         "accumulated."
                     )
         # Driver-side callset fetch → (indexes, names) (``VariantsPca.scala:97-109``).
+        # A repeated id keeps its last index; ``_column_ids`` is every id in
+        # column order, the rows' labels.
         with self.spans.span("callsets"):
             callsets = self.source.search_callsets(conf.variant_set_id)
-            self.indexes: Dict[str, int] = {cs["id"]: i for i, cs in enumerate(callsets)}
-            self.names: Dict[str, str] = {cs["id"]: cs["name"] for cs in callsets}
+            self._column_ids: List[str] = [cs["id"] for cs in callsets]
+            self.indexes: Dict[str, int] = dict(zip(self._column_ids, range(len(callsets))))
+            self.names: Dict[str, str] = dict(
+                zip(self._column_ids, [cs["name"] for cs in callsets])
+            )
         print(f"Matrix size: {len(self.indexes)}.")
         # After callset discovery: the bound needs the real cohort width
         # (file sources carry theirs in the data, not the flag).
@@ -821,9 +826,10 @@ class VariantsPcaDriver:
             return self._component_rows(components)
 
     def _component_rows(self, components: np.ndarray) -> List[Tuple[str, List[float]]]:
-        """``(callset id, its components)`` a sample, in column order."""
-        reverse = {i: cs_id for cs_id, i in self.indexes.items()}
-        return [(reverse[i], [float(c) for c in components[i]]) for i in range(len(self.indexes))]
+        """``(callset id, its components)`` a sample, in column order: one
+        row of ``components`` a callset (a repeated id, which collapses two
+        columns into one, fails here)."""
+        return list(zip(self._column_ids, components.tolist(), strict=True))
 
     @staticmethod
     def _host_center(similarity: np.ndarray) -> np.ndarray:
@@ -839,22 +845,20 @@ class VariantsPcaDriver:
         ``name<TAB>dataset<TAB>pc...`` sorted by name on the console; the
         saved file keeps the reference's column order ``name, pcs...,
         dataset`` under ``<output-path>-pca.tsv/part-00000``."""
-        rows = []
-        for callset_id, pcs in result:
-            rows.append((self.names[callset_id], callset_id.split("-")[0], pcs))
-        rows.sort(key=lambda r: r[0])
-        lines = []
-        for name, dataset, pcs in rows:
-            pc_text = "\t".join(str(c) for c in pcs)
-            lines.append(f"{name}\t{dataset}\t{pc_text}")
-            print(lines[-1])
+        unsorted = [self.names[callset_id] for callset_id, _ in result]
+        # Stable: equal names keep the result's order.
+        order = sorted(range(len(unsorted)), key=unsorted.__getitem__)
+        names = [unsorted[i] for i in order]
+        datasets = [result[i][0].split("-")[0] for i in order]
+        pc_texts = ["\t".join(map(str, result[i][1])) for i in order]
+        lines = [f"{n}\t{d}\t{p}" for n, d, p in zip(names, datasets, pc_texts)]
+        if lines:
+            print("\n".join(lines))
         if self.conf.output_path:
             out_dir = self.conf.output_path + "-pca.tsv"
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "part-00000"), "w") as f:
-                for name, dataset, pcs in rows:
-                    pc_text = "\t".join(str(c) for c in pcs)
-                    f.write(f"{name}\t{pc_text}\t{dataset}\n")
+                f.write("".join(f"{n}\t{p}\t{d}\n" for n, d, p in zip(names, datasets, pc_texts)))
         return lines
 
     def report_io_stats(self) -> None:

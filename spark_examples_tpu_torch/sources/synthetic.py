@@ -257,6 +257,8 @@ class SyntheticGenomicsSource(GenomicsSource):
         }
         # Contiguous population blocks: sample s → pop s*n_pops//N.
         self._pops = self._pops_for_size(self.num_samples)
+        # Variant set id → its key: a Python murmur3 a set, not a sample.
+        self._vs_keys: Dict[str, np.uint64] = {}
 
     def _pops_for_size(self, n: int) -> np.ndarray:
         return (np.arange(n, dtype=np.int64) * self.n_pops) // max(1, n)
@@ -274,8 +276,12 @@ class SyntheticGenomicsSource(GenomicsSource):
     # ------------------------------------------------------------------ keys
 
     def _vs_key(self, variant_set_id: str) -> np.uint64:
-        with np.errstate(over="ignore"):
-            return _mix(_U64(self.seed) ^ _string_key(variant_set_id))
+        key = self._vs_keys.get(variant_set_id)
+        if key is None:
+            with np.errstate(over="ignore"):
+                key = _mix(_U64(self.seed) ^ _string_key(variant_set_id))
+            self._vs_keys[variant_set_id] = key
+        return key
 
     def _rgs_key(self, read_group_set_id: str) -> np.uint64:
         with np.errstate(over="ignore"):
@@ -289,25 +295,31 @@ class SyntheticGenomicsSource(GenomicsSource):
         (``VariantsPca.scala:275``)."""
         return f"{variant_set_id}-{i}"
 
+    def _name_tag(self, variant_set_id: str) -> int:
+        """The two digits every callset name of the set carries."""
+        return int(self._vs_key(variant_set_id) % _U64(90))
+
     def callset_name(self, variant_set_id: str, i: int) -> str:
-        tag = int(self._vs_key(variant_set_id) % _U64(90))
-        return f"S{tag:02d}N{i:05d}"
+        return f"S{self._name_tag(variant_set_id):02d}N{i:05d}"
 
     def search_callsets(self, variant_set_ids: Sequence[str]) -> List[Dict]:
         """Callsets across the requested variant sets. Duplicate variant-set
         ids contribute their callsets once, as the real SearchCallSets API
         (a search over a *set* of variant sets) would
-        (``VariantsPca.scala:97-105``)."""
-        out = []
+        (``VariantsPca.scala:97-105``). Ids and names are spelt as
+        :meth:`callset_id` and :meth:`callset_name` spell them, with the
+        name's tag taken once a set."""
+        out: List[Dict] = []
         seen = set()
         for vsid in variant_set_ids:
             if vsid in seen:
                 continue
             seen.add(vsid)
-            for i in range(self.num_samples_for(vsid)):
-                out.append(
-                    {"id": self.callset_id(vsid, i), "name": self.callset_name(vsid, i)}
-                )
+            tag = self._name_tag(vsid)
+            out += [
+                {"id": f"{vsid}-{i}", "name": f"S{tag:02d}N{i:05d}"}
+                for i in range(self.num_samples_for(vsid))
+            ]
         return out
 
     def get_contigs(

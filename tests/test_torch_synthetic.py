@@ -28,6 +28,51 @@ def test_callsets_keys_and_populations(seed):
     np.testing.assert_array_equal(port.populations, ref.populations)
 
 
+@pytest.mark.parametrize("seed", [5, 3_000_000_601])
+@pytest.mark.parametrize(
+    "num_samples, sets, cohort_sizes",
+    [
+        (1, SETS, None),
+        (2_504, SETS, None),
+        (15_708, SETS[:1], None),
+        (24, SETS + SETS[:1] + SETS, {"vs-a": 7}),
+    ],
+    ids=["one", "1kg", "gnomad2", "repeated-override"],
+)
+def test_callset_ids_and_names_in_bulk(seed, num_samples, sets, cohort_sizes):
+    """The ids and names built a set at a time are the reference's, built a
+    sample at a time: every cohort size, two sets with different name tags,
+    a repeated set id (its callsets once) and a cohort-size override; asked
+    twice, the port answers the same (its keys are kept per set)."""
+    ref, port = _pair(seed, num_samples=num_samples, cohort_sizes=cohort_sizes)
+    want = ref.search_callsets(sets)
+    assert port.search_callsets(sets) == want
+    assert port.search_callsets(sets) == want
+    assert len(want) == sum(port.num_samples_for(vs) for vs in dict.fromkeys(sets))
+    assert len({cs["name"][:3] for cs in want}) == len(set(sets))
+    for vs in dict.fromkeys(sets):
+        for i in (0, port.num_samples_for(vs) - 1):
+            assert port.callset_id(vs, i) == ref.callset_id(vs, i)
+            assert port.callset_name(vs, i) == ref.callset_name(vs, i)
+
+
+@pytest.mark.parametrize("seed", [5, 3_000_000_601])
+def test_variant_json_records(seed):
+    """Whole wire records, ``callSetName`` of every call included, at a
+    variant site and at a reference block, for two sets (one overridden)."""
+    ref, port = _pair(seed, num_samples=40, cohort_sizes={"vs-a": 9})
+    positions = port._site_positions(41_196_311, 41_198_311)
+    blocks = port._site_fields("vs-a", positions)[0]
+    picked = [int(positions[~blocks][0]), int(positions[blocks][0])]
+    for vs in SETS:
+        for pos in picked:
+            got = port.variant_json(vs, "17", pos)
+            assert got == ref.variant_json(vs, "17", pos)
+            assert [c["callSetName"] for c in got["calls"]] == [
+                ref.callset_name(vs, i) for i in range(ref.num_samples_for(vs))
+            ]
+
+
 @pytest.mark.parametrize("seed", [5, 42])
 @pytest.mark.parametrize("contig", CONTIGS)
 def test_grid_ranges_and_page_accounting(seed, contig):
