@@ -8,7 +8,7 @@ job's data seed, and it works everything out again from them:
   thresholds over four contiguous populations), in plain int64 tensor
   arithmetic (u64 values held as the int64 with the same bits, products
   wrapping mod 2^64, logical shifts masked);
-- the Gramian ``G = Xᵀ X`` of the has-variation rows, exact;
+- the Gramian ``G = Xᵀ X`` of the has-variation rows, exact, in int32;
 - the Gower centring in float64 and the top components of the centred
   matrix by float64 subspace iteration, run until its own residual is
   below ``REFERENCE_TOL``;
@@ -18,6 +18,18 @@ job's data seed, and it works everything out again from them:
 the program's place: centring in float32 and the eigensolve's products in
 TF32 (float32 inputs rounded to a 10-bit mantissa, float32 sums), the step
 that the program's explicit ``allow_tf32 = False`` guards against.
+
+The judge and the control hold no (N, N) tensor but the int32 Gramian,
+so a judge holds two (the program's and its own, 8 N² bytes) and scratch
+of a few GiB: any cohort whose Gramian one card holds twice over can be
+judged (:func:`gower_center`, whole, is the definition tests hold
+:class:`Centred` to).
+The Gramian is built a chunk of sites at a time (``SCRATCH_BYTES`` of
+bfloat16 rows, each generated in sub-blocks of ``BLOCK_ELEMENTS``) and a
+row block at a time (``SCRATCH_BYTES`` of float32 sums); the centred
+matrix B is never formed: :class:`Centred` applies it to a few vectors
+from float64 row blocks of ``SCRATCH_BYTES``, built from the int32 G
+when they are needed.
 
 The site streams do not depend on the contig's name, only on the position
 ``k · spacing``, so contigs that share grid indices share rows. The
@@ -58,8 +70,13 @@ _FMIX_C2 = 0xC2B2AE35
 #: The reference eigensolve's own residual, as a share of |λ₁|, below which
 #: its components count as converged.
 REFERENCE_TOL = 1e-11
-#: Elements (sites × samples) of one generated block.
-BLOCK_ELEMENTS = 1 << 27
+#: Elements (sites × samples) of one generated sub-block: each int64
+#: temporary of :meth:`Cohort.has_variation` is 512 MiB.
+BLOCK_ELEMENTS = 1 << 26
+#: Bytes of the largest scratch tensor of the blocked Gramian and centring:
+#: a chunk of bfloat16 rows, a row block of float32 sums, of their int32
+#: copy or of float64 B.
+SCRATCH_BYTES = 1 << 30
 
 
 def i64(value: int) -> int:
@@ -233,10 +250,6 @@ class Cohort:
         return (d1 < t) | (d2 < t)
 
 
-def _block_sites(num_samples: int) -> int:
-    return max(1024, BLOCK_ELEMENTS // max(1, num_samples))
-
-
 def kept_sites(cohort: Cohort, device) -> int:
     """Sites the product needs: every contig's kept (not reference-block)
     grid sites."""
@@ -252,42 +265,121 @@ def kept_sites(cohort: Cohort, device) -> int:
     return int(total)
 
 
-def _count_product(x: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """``Xᵀ diag(w) X`` of a {0,1} block, exact, as float64. On the card the
+def _product(left: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``leftᵀ x`` of {0,1} rows (``left`` weighted), exact. On the card the
     operands are bfloat16 (0, 1 and the weights ≤ 256 are exact) with
-    float32 sums, exact below 2^24 (a block's sums stay below
-    ``weight · block sites``); on the CPU float64."""
+    float32 sums, exact below 2^24; on the CPU float64."""
     if x.is_cuda:
-        xb = x.to(torch.bfloat16)
-        xw = xb * weights.to(torch.bfloat16)[:, None]
-        return torch.mm(xw.T, xb, out_dtype=torch.float32).double()
-    xd = x.double()
-    return (xd * weights.double()[:, None]).T @ xd
+        return torch.mm(left.T, x, out_dtype=torch.float32)
+    return left.T @ x
 
 
 def reference_gramian(cohort: Cohort, device) -> torch.Tensor:
-    """The job's exact Gramian, float64 (N, N)."""
+    """The job's exact Gramian, int32 (N, N). Each chunk of grid sites is
+    generated once, into ``SCRATCH_BYTES`` of rows, and its weighted
+    product is added a row block of G at a time."""
     n = cohort.num_samples
     lo, weights = cohort.grid_weights(device)
-    if int(weights.max()) > 256:
+    most = int(weights.max())
+    if most > 256:
         raise ValueError("more than 256 contigs share a grid index")
+    # The largest entry is on the diagonal, at most the weighted site count.
+    if int(weights.sum()) >= 1 << 31:
+        raise ValueError("the Gramian's entries may pass 2^31: int32 cannot hold them")
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float64
+    # A chunk's float32 sums stay below ``most · chunk`` < 2^24.
+    chunk = max(1, min(SCRATCH_BYTES // (2 * n), (1 << 24) // (most + 1)))
+    sub = max(1, BLOCK_ELEMENTS // n)
+    rows = max(1, SCRATCH_BYTES // (4 * n))
     pops = cohort.populations(device)
-    G = torch.zeros((n, n), dtype=torch.float64, device=device)
-    step = _block_sites(n)
-    if step * int(weights.max()) >= 1 << 24:
-        step = (1 << 24) // (int(weights.max()) + 1)
-    for off in range(0, weights.numel(), step):
-        w = weights[off : off + step]
-        positions = torch.arange(lo + off, lo + off + w.numel(), dtype=torch.int64,
-                                 device=device) * cohort.spacing
-        G += _count_product(cohort.has_variation(positions, pops), w)
+    G = torch.zeros((n, n), dtype=torch.int32, device=device)
+    for off in range(0, weights.numel(), chunk):
+        w = weights[off : off + chunk].to(dtype)
+        X = torch.empty((w.numel(), n), dtype=dtype, device=device)
+        for a in range(0, w.numel(), sub):
+            b = min(a + sub, w.numel())
+            positions = torch.arange(lo + off + a, lo + off + b, dtype=torch.int64,
+                                     device=device) * cohort.spacing
+            X[a:b] = cohort.has_variation(positions, pops)
+        for r in range(0, n, rows):
+            G[r : r + rows] += _product(X[:, r : r + rows] * w[:, None], X).to(torch.int32)
+        del X
     return G
 
 
-def gower_center(G: torch.Tensor, dtype: torch.dtype = torch.float64) -> torch.Tensor:
-    """``B = G − rowMean − colMean + matrixMean`` in ``dtype``."""
-    S = G.to(dtype)
+def gower_center(G: torch.Tensor) -> torch.Tensor:
+    """``B = G − rowMean − colMean + matrixMean`` in float64, whole: the
+    definition that :class:`Centred` applies a row block at a time."""
+    S = G.to(torch.float64)
     return S - S.mean(dim=1, keepdim=True) - S.mean(dim=0, keepdim=True) + S.mean()
+
+
+def _mean_of_total(total: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``total / n²`` rounded as torch's ``mean`` of an (n, n) tensor rounds
+    it on this device: the mean of an (n, n) view whose one nonzero entry
+    is ``total``, so that the sum is exact in any order."""
+    w = torch.zeros(2 * n - 1, dtype=dtype, device=total.device)
+    w[-1] = total.to(dtype)
+    return w.as_strided((n, n), (1, 1)).mean()
+
+
+class Centred:
+    """``gower_center(G)`` as an operator on the symmetric int32 G: ``B @ V``
+    from float64 row blocks of B, each built when it is needed and bit-equal
+    to ``gower_center``'s rows while G's sums stay below 2^53.
+
+    The row means are torch's float64 means of each row block (an integer
+    sum is exact in any order, and each rounds once as the whole matrix's
+    would); by symmetry they are the column means too; the matrix mean
+    comes from the int64 total. Each block is ``G − rowMean − colMean +
+    mean`` in that elementwise order.
+    """
+
+    dtype = torch.float64
+
+    def __init__(self, G: torch.Tensor):
+        n = int(G.shape[0])
+        self.G = G
+        self.shape = (n, n)
+        self.device = G.device
+        rows = max(1, SCRATCH_BYTES // (8 * n))
+        self.spans = [(r, min(r + rows, n)) for r in range(0, n, rows)]
+        self.row_mean = torch.cat([G[a:b].to(self.dtype).mean(dim=1) for a, b in self.spans])
+        total = sum(G[a:b].sum(dtype=torch.int64) for a, b in self.spans)
+        self.mean = _mean_of_total(total, n, self.dtype)
+
+    def block(self, a: int, b: int) -> torch.Tensor:
+        """Rows ``a:b`` of B."""
+        S = self.G[a:b].to(self.dtype)
+        S -= self.row_mean[a:b, None]
+        S -= self.row_mean[None, :]
+        S += self.mean
+        return S
+
+    def __matmul__(self, V: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.block(a, b) @ V for a, b in self.spans])
+
+
+class ControlCentred(Centred):
+    """The control's B: ``gower_center`` in float32 (row and column means
+    float32 reductions apart), symmetrised as ``(B + Bᵀ) / 2``, applied with
+    TF32 products."""
+
+    dtype = torch.float32
+
+    def __init__(self, G: torch.Tensor):
+        super().__init__(G)
+        self.col_mean = torch.cat([G[:, a:b].to(self.dtype).mean(dim=0) for a, b in self.spans])
+
+    def block(self, a: int, b: int) -> torch.Tensor:
+        S = self.G[a:b].to(self.dtype)
+        B = S - self.row_mean[a:b, None] - self.col_mean[None, :] + self.mean
+        # Bᵀ's rows a:b, with G symmetric.
+        Bt = S - self.row_mean[None, :] - self.col_mean[a:b, None] + self.mean
+        return (B + Bt) * 0.5
+
+    def __matmul__(self, V: torch.Tensor) -> torch.Tensor:
+        return torch.cat([tf32(self.block(a, b)) @ tf32(V) for a, b in self.spans])
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -297,22 +389,25 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _subspace(B: torch.Tensor, num_pc: int, k: int, iterations: int, matmul):
+def _subspace(B, num_pc: int, k: int, iterations: int, matmul):
+    """Subspace iteration on B (a tensor or a :class:`Centred`); ``matmul``
+    takes the (N, k) and (k, k) products."""
     generator = torch.Generator(device=B.device).manual_seed(0)
     V = torch.randn((B.shape[0], k), generator=generator, dtype=B.dtype, device=B.device)
     V, _ = torch.linalg.qr(V)
     for _ in range(iterations):
-        V, _ = torch.linalg.qr(matmul(B, V))
-    W = matmul(B, V)
+        V, _ = torch.linalg.qr(B @ V)
+    W = B @ V
     T = matmul(V.T, W)
     evals, Wk = torch.linalg.eigh((T + T.T) * 0.5)
     order = torch.argsort(-evals.abs(), stable=True)[:num_pc]
     return matmul(V, Wk[:, order]), evals[order]
 
 
-def top_components(B: torch.Tensor, num_pc: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's top-|λ| eigenpairs of B (float64), iterated until
-    each pair's residual is below ``REFERENCE_TOL · |λ₁|``."""
+def top_components(B, num_pc: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's top-|λ| eigenpairs of B (a float64 tensor or a
+    :class:`Centred`), iterated until each pair's residual is below
+    ``REFERENCE_TOL · |λ₁|``."""
     k = min(B.shape[0], num_pc + 14)
     for iterations in (40, 120, 400):
         V, evals = _subspace(B, num_pc, k, iterations, torch.matmul)
@@ -346,17 +441,18 @@ def control_job(cohort: Cohort, num_pc: int, device) -> JobOutput:
     centring in float32, the eigensolve's products in TF32, the program's
     iteration (80 steps of a ``num_pc + 8`` subspace)."""
     G = reference_gramian(cohort, device)
-    B = gower_center(G, torch.float32)
-    B = (B + B.T) * 0.5
-    k = min(B.shape[0], num_pc + 8)
-    V, _ = _subspace(B, num_pc, k, 80, lambda a, b: tf32(a) @ tf32(b))
+    k = min(cohort.num_samples, num_pc + 8)
+    V, _ = _subspace(ControlCentred(G), num_pc, k, 80, lambda a, b: tf32(a) @ tf32(b))
     return JobOutput(format_rows(cohort, V), G)
 
 
 __all__ = [
+    "Centred",
     "Cohort",
+    "ControlCentred",
     "JobOutput",
     "REFERENCE_TOL",
+    "SCRATCH_BYTES",
     "control_job",
     "format_rows",
     "gower_center",

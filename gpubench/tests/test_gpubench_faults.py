@@ -101,7 +101,8 @@ def test_a_job_that_raises(run_tiny, monkeypatch):
         return compute(self, similarity)
 
     monkeypatch.setattr(pca_driver.VariantsPcaDriver, "compute_pca", every_other)
-    rc, result, err = run_tiny(seed=38)
+    # A window long enough that a job completes after the first, which raises.
+    rc, result, err = run_tiny(seed=38, seconds=1.0)
     assert rc == 0 and result["correct"] is False
     assert result["failed"] == result["checks"]["failed_jobs"]["value"] > 0
     assert "RuntimeError: planted" in err

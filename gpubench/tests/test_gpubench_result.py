@@ -33,5 +33,6 @@ def test_trace_run_reports_per_layer_metrics(run_tiny):
     # On the CPU the trace holds no device operation: only the span
     # readers find something to read.
     assert set(result["metrics"]) == {
-        "driver.job_overhead_ms", "ingest.similarity_ms", "pca.center_pca_ms"}
+        "driver.job_overhead_ms", "ingest.similarity_ms", "pca.center_pca_ms",
+        "driver.setup_ms", "driver.epilogue_ms"}
     assert "breakdown" not in result

@@ -17,6 +17,10 @@ Numbers compared, each against its configuration's limit:
   in a cohort of four equal populations is close;
 - ``failed_jobs``: jobs in the window that raised or emitted another
   number of rows than the cohort has samples (limit 0).
+
+The judge holds nothing (N, N) but the reference's int32 Gramian beside
+the program's: the Gramians compare a row block at a time, integer to
+integer, and B is the reference's :class:`Centred` operator.
 """
 
 from __future__ import annotations
@@ -26,7 +30,14 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from gpubench.reference import Cohort, JobOutput, gower_center, reference_gramian, top_components
+from gpubench.reference import (
+    SCRATCH_BYTES,
+    Centred,
+    Cohort,
+    JobOutput,
+    reference_gramian,
+    top_components,
+)
 
 #: The numbers compared, in the order they print.
 NUMBERS = ("failed_jobs", "rows_wrong", "gramian_mismatch", "pc_error")
@@ -57,8 +68,21 @@ def read_rows(cohort: Cohort, lines: List[str], num_pc: int) -> Tuple[int, torch
     return wrong + cohort.num_samples - len(seen), V
 
 
-def pc_error_parts(B: torch.Tensor, evals: torch.Tensor, V: torch.Tensor) -> Dict[str, float]:
-    """The four shares of ``pc_error`` for components V against B."""
+def gramian_mismatch(got: torch.Tensor, G: torch.Tensor) -> int:
+    """Entries of the program's Gramian ``got`` that differ from the
+    reference's G, compared a row block at a time on G's device; every
+    entry where the shapes differ."""
+    if tuple(got.shape) != tuple(G.shape):
+        return G.numel()
+    n = G.shape[0]
+    rows = max(1, SCRATCH_BYTES // (4 * n))
+    return sum(int((got[r : r + rows].to(G.device) != G[r : r + rows]).sum())
+               for r in range(0, n, rows))
+
+
+def pc_error_parts(B, evals: torch.Tensor, V: torch.Tensor) -> Dict[str, float]:
+    """The four shares of ``pc_error`` for components V against B (a
+    tensor or a :class:`Centred`)."""
     lam1 = float(evals.abs().max())
     norms = V.norm(dim=0)
     BV = B @ V
@@ -81,13 +105,8 @@ def judge(cohort: Cohort, output: JobOutput, num_pc: int, device) -> Dict[str, o
     ``pc_error`` and, for the record, ``pc_error``'s parts."""
     wrong, V = read_rows(cohort, output.lines, num_pc)
     G = reference_gramian(cohort, device)
-    got = output.gramian
-    if tuple(got.shape) != tuple(G.shape):
-        mismatch = G.numel()
-    else:
-        mismatch = int((got.to(device=device, dtype=torch.float64) != G).sum())
-    B = gower_center(G)
-    del G
+    mismatch = gramian_mismatch(output.gramian, G)
+    B = Centred(G)
     _, evals = top_components(B, num_pc)
     parts = pc_error_parts(B, evals, V.to(device))
     return {
@@ -120,4 +139,13 @@ def worst(readings: List[Dict[str, object]]) -> Dict[str, object]:
     return out
 
 
-__all__ = ["NUMBERS", "checks", "judge", "passes", "pc_error_parts", "read_rows", "worst"]
+__all__ = [
+    "NUMBERS",
+    "checks",
+    "gramian_mismatch",
+    "judge",
+    "passes",
+    "pc_error_parts",
+    "read_rows",
+    "worst",
+]
